@@ -1,0 +1,98 @@
+"""Fixed-record binary token caches (numpy only).
+
+The port's own reader and writer for the format of ``ance_tpu/data/cache.py``
+(itself the reference's ``EmbeddingCache`` layout), so either package reads
+the other's caches:
+
+  * ``<base>``        concatenated records, each a 4-byte big-endian length
+                      followed by ``embedding_size`` items of ``dtype``
+  * ``<base>_meta``   JSON ``{"type": "int32", "total_number": N,
+                      "embedding_size": L}``
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Sequence
+
+import numpy as np
+
+
+class TokenCache:
+    """Batched reader over a token cache through a read-only ``np.memmap``;
+    a context manager, with ``len()`` and ``batch(keys)``."""
+
+    def __init__(self, base_path: str | os.PathLike):
+        self.base_path = str(base_path)
+        with open(self.base_path + "_meta", "r") as f:
+            meta = json.load(f)
+        self.dtype = np.dtype(meta["type"])
+        self.total_number = int(meta["total_number"])
+        self.embedding_size = int(meta["embedding_size"])
+        self.record_size = self.embedding_size * self.dtype.itemsize + 4
+        self._raw: np.memmap | None = None
+
+    def open(self) -> "TokenCache":
+        self._raw = np.memmap(self.base_path, dtype=np.uint8, mode="r",
+                              shape=(self.total_number * self.record_size,))
+        return self
+
+    def close(self) -> None:
+        self._raw = None
+
+    def __enter__(self) -> "TokenCache":
+        return self.open()
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()
+
+    def __len__(self) -> int:
+        return self.total_number
+
+    def batch(self, keys: Sequence[int] | np.ndarray
+              ) -> tuple[np.ndarray, np.ndarray]:
+        """Gather records → (lengths [B] int64, tokens [B, L])."""
+        if self._raw is None:
+            self.open()
+        keys = np.asarray(keys, dtype=np.int64)
+        recs = self._raw.reshape(self.total_number, self.record_size)[keys]
+        lengths = recs[:, :4].copy().view(">u4")[:, 0].astype(np.int64)
+        tokens = np.frombuffer(recs[:, 4:].tobytes(), dtype=self.dtype)
+        return lengths, tokens.reshape(len(keys), self.embedding_size)
+
+
+class TokenCacheWriter:
+    """Streams records into a cache file and writes its meta JSON on
+    close; a context manager."""
+
+    def __init__(self, base_path: str | os.PathLike, embedding_size: int,
+                 dtype: str = "int32"):
+        self.base_path = str(base_path)
+        self.embedding_size = int(embedding_size)
+        self.dtype = np.dtype(dtype)
+        self._f = open(self.base_path, "wb")
+        self._count = 0
+
+    def write(self, length: int, tokens: np.ndarray | Sequence[int]) -> int:
+        """Append one record; returns its offset."""
+        tokens = np.asarray(tokens, dtype=self.dtype)
+        if tokens.shape != (self.embedding_size,):
+            raise ValueError(f"record must have shape ({self.embedding_size},)"
+                             f", got {tokens.shape}")
+        self._f.write(int(length).to_bytes(4, "big"))
+        self._f.write(tokens.tobytes())
+        self._count += 1
+        return self._count - 1
+
+    def close(self) -> None:
+        self._f.close()
+        with open(self.base_path + "_meta", "w") as f:
+            json.dump({"type": self.dtype.name, "total_number": self._count,
+                       "embedding_size": self.embedding_size}, f)
+
+    def __enter__(self) -> "TokenCacheWriter":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()

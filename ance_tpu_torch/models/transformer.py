@@ -1,0 +1,265 @@
+"""Post-LN transformer encoder (RoBERTa/BERT family) as torch modules.
+
+Counterpart of ``ance_tpu/models/transformer.py``. Same function, same
+config fields; parameters stay fp32 and each projection runs in the
+config's compute ``dtype`` (bf16 on the card), with the embedding sum and
+the residual LayerNorms in fp32, as in the JAX package.
+
+Submodule names follow the HF BERT/RoBERTa state dict, not the flax tree,
+so a reference or HF ``pytorch_model.bin`` loads with ``load_state_dict``
+as it is. The flax ``Mlp`` is split the HF way: :class:`Intermediate`
+(Dense + gelu) and :class:`Output` (Dense + residual LayerNorm).
+
+Eval only: ``remat``, ``layerdrop_rate > 0`` and ``quant_noise_p > 0``
+are training features and raise here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ance_tpu_torch.ops.attention import multi_head_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    vocab_size: int = 50265
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 514
+    type_vocab_size: int = 1
+    pad_token_id: int = 1
+    layer_norm_eps: float = 1e-5
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    initializer_range: float = 0.02
+    position_style: str = "roberta"   # "roberta" | "bert"
+    dtype: torch.dtype = torch.float32  # compute dtype
+    attention_impl: str = "auto"      # see ops.attention.multi_head_attention
+    use_type_embeddings: bool = True
+    embed_zero_pad: bool = False
+    remat: bool = False
+    fp32_layernorm: bool = True
+    fused_qkv: bool = False
+    layerdrop_rate: float = 0.0
+    quant_noise_p: float = 0.0
+    quant_noise_block: int = 8
+    # None = AUTO: tanh gelu iff the compute dtype is bf16 (the JAX rule,
+    # ance_tpu/models/transformer.py:226-228), so both packages compute
+    # the same function; re-choosing it on the H100 is open (PERF.md)
+    gelu_approx: Optional[bool] = None
+
+    def __post_init__(self):
+        for name, bad in (("remat", self.remat),
+                          ("layerdrop_rate", self.layerdrop_rate > 0.0),
+                          ("quant_noise_p", self.quant_noise_p > 0.0)):
+            if bad:
+                raise NotImplementedError(
+                    f"{name} is a training feature; the torch port is "
+                    "eval-only until the train step lands (ROADMAP Queue 1)")
+
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+def roberta_position_ids(input_ids: torch.Tensor,
+                         pad_token_id: int) -> torch.Tensor:
+    """Cumulative count of non-pad tokens, offset by the pad id (HF
+    ``create_position_ids_from_input_ids``)."""
+    mask = (input_ids != pad_token_id).to(torch.int64)
+    return torch.cumsum(mask, dim=1) * mask + pad_token_id
+
+
+def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype):
+    """flax ``nn.Dense(dtype=...)``: input, kernel and bias in ``dtype``."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, cfg: EncoderConfig):
+    """Residual LayerNorm: fp32 in and out-cast to the compute dtype, or
+    entirely in the compute dtype when ``fp32_layernorm`` is off."""
+    if cfg.fp32_layernorm:
+        return ln(x.to(torch.float32)).to(cfg.dtype)
+    return F.layer_norm(x, ln.normalized_shape, ln.weight.to(cfg.dtype),
+                        ln.bias.to(cfg.dtype), ln.eps)
+
+
+class _Holder(nn.Module):
+    """Plain container, so parameter names match the HF key paths."""
+
+    def __init__(self, **modules: nn.Module):
+        super().__init__()
+        for name, m in modules.items():
+            self.add_module(name, m)
+
+
+class Embeddings(nn.Module):
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
+                                                cfg.hidden_size)
+        if cfg.use_type_embeddings:
+            self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size,
+                                                      cfg.hidden_size)
+        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None):
+        cfg = self.cfg
+        if position_ids is None:
+            if cfg.position_style == "roberta":
+                position_ids = roberta_position_ids(input_ids,
+                                                    cfg.pad_token_id)
+            else:
+                position_ids = torch.arange(input_ids.shape[1],
+                                            device=input_ids.device)[None]
+        x = self.word_embeddings(input_ids) + \
+            self.position_embeddings(position_ids)
+        if cfg.use_type_embeddings:
+            if token_type_ids is None:
+                token_type_ids = torch.zeros_like(input_ids)
+            x = x + self.token_type_embeddings(token_type_ids)
+        x = self.LayerNorm(x)  # fp32, then cast (transformer.py:134-138)
+        if cfg.embed_zero_pad:
+            x = x * (input_ids != cfg.pad_token_id)[:, :, None].to(x.dtype)
+        return x.to(cfg.dtype)
+
+
+class SelfAttention(nn.Module):
+    """Q/K/V projections (``self.*``), attention and the output projection
+    (``output.dense``). ``output.LayerNorm`` is applied by the layer."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        H = cfg.hidden_size
+        self.self = _Holder(query=nn.Linear(H, H), key=nn.Linear(H, H),
+                            value=nn.Linear(H, H))
+        self.output = _Holder(dense=nn.Linear(H, H),
+                              LayerNorm=nn.LayerNorm(H,
+                                                     eps=cfg.layer_norm_eps))
+
+    def forward(self, x, attention_mask):
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, D = cfg.num_heads, cfg.head_dim()
+        p = self.self
+        if cfg.fused_qkv:
+            # one [H, 3H] GEMM: the activations are read once, not three times
+            w = torch.cat([p.query.weight, p.key.weight, p.value.weight])
+            b = torch.cat([p.query.bias, p.key.bias, p.value.bias])
+            qkv = F.linear(x.to(cfg.dtype), w.to(cfg.dtype), b.to(cfg.dtype))
+            q, k, v = (y.reshape(B, S, H, D) for y in qkv.chunk(3, dim=-1))
+        else:
+            q, k, v = (_dense(x, lin, cfg.dtype).reshape(B, S, H, D)
+                       for lin in (p.query, p.key, p.value))
+        ctx = multi_head_attention(q, k, v, attention_mask,
+                                   impl=cfg.attention_impl)
+        return _dense(ctx.reshape(B, S, cfg.hidden_size), self.output.dense,
+                      cfg.dtype)
+
+
+def gelu_approximate(cfg: EncoderConfig) -> bool:
+    """The AUTO rule: tanh gelu iff the compute dtype is bf16."""
+    if cfg.gelu_approx is None:
+        return cfg.dtype == torch.bfloat16
+    return cfg.gelu_approx
+
+
+class Intermediate(nn.Module):
+    """First half of the JAX ``Mlp``: Dense(H → I) + gelu."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+
+    def forward(self, x):
+        h = _dense(x, self.dense, self.cfg.dtype)
+        return F.gelu(h, approximate="tanh" if gelu_approximate(self.cfg)
+                      else "none")
+
+
+class Output(nn.Module):
+    """Second half of the JAX ``Mlp`` (Dense(I → H)) and the layer's
+    output LayerNorm."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+
+    def forward(self, h):
+        return _dense(h, self.dense, self.cfg.dtype)
+
+
+class EncoderLayer(nn.Module):
+    """Post-LN block: x = LN(x + attn(x)); x = LN(x + mlp(x))."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.attention = SelfAttention(cfg)
+        self.intermediate = Intermediate(cfg)
+        self.output = Output(cfg)
+
+    def forward(self, x, attention_mask):
+        attn = self.attention(x, attention_mask)
+        x = _layer_norm(x + attn, self.attention.output.LayerNorm, self.cfg)
+        mlp = self.output(self.intermediate(x))
+        return _layer_norm(x + mlp, self.output.LayerNorm, self.cfg)
+
+
+class TransformerEncoder(nn.Module):
+    """Token ids → contextual hidden states [B, S, hidden]."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.config = cfg
+        self.embeddings = Embeddings(cfg)
+        self.encoder = _Holder(layer=nn.ModuleList(
+            EncoderLayer(cfg) for _ in range(cfg.num_layers)))
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None):
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        x = self.embeddings(input_ids, token_type_ids)
+        for layer in self.encoder.layer:
+            x = layer(x, attention_mask)
+        return x
+
+
+def pool(hidden: torch.Tensor, attention_mask: torch.Tensor,
+         use_mean: bool) -> torch.Tensor:
+    """CLS-token or masked-mean pooling."""
+    if not use_mean:
+        return hidden[:, 0]
+    mask = attention_mask.to(hidden.dtype)[:, :, None]
+    return (hidden * mask).sum(1) / attention_mask.to(hidden.dtype).sum(
+        1, keepdim=True)
+
+
+def init_weights(module: nn.Module, cfg: EncoderConfig,
+                 generator: torch.Generator) -> None:
+    """Seeded init with the JAX package's scheme: N(0, initializer_range)
+    for every kernel and embedding table, zero biases, unit LayerNorm."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Linear, nn.Embedding)):
+                m.weight.copy_(torch.randn(m.weight.shape,
+                                           generator=generator)
+                               * cfg.initializer_range)
+                if isinstance(m, nn.Linear):
+                    m.bias.zero_()
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()

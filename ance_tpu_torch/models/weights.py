@@ -1,0 +1,110 @@
+"""Weights in and out of the torch port.
+
+* :func:`state_dict_from_flax` maps a (numpy) flax ``RobertaDot`` parameter
+  tree onto this package's state dict — the reference ``RobertaDot_NLL_LN``
+  key names, flax ``[in, out]`` kernels transposed to torch ``[out, in]``.
+  It is written here because ``ance_tpu.models`` imports jax on import;
+  the tests hold it against ``ance_tpu.models.hf_export``.
+* :func:`load_pretrained` loads an HF-layout checkpoint directory (a
+  reference ANCE checkpoint, or one ``ance_tpu`` exported) into a model.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+# Keys a reference RobertaDot_NLL_LN checkpoint carries that the dot model
+# never reads: the sequence-classification head, the BERT-style pooler that
+# transformers 2.x RobertaModel always built, and the position-id buffer
+# newer transformers save. Everything else must match exactly.
+_UNUSED_PREFIXES = ("classifier.", "roberta.pooler.",
+                    "roberta.embeddings.position_ids")
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def _dense(sd: dict, prefix: str, p: Mapping) -> None:
+    sd[prefix + ".weight"] = _t(np.asarray(p["kernel"], np.float32).T)
+    sd[prefix + ".bias"] = _t(p["bias"])
+
+
+def _layer_norm(sd: dict, prefix: str, p: Mapping) -> None:
+    sd[prefix + ".weight"] = _t(p["scale"])
+    sd[prefix + ".bias"] = _t(p["bias"])
+
+
+def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """flax RobertaDot params (``{"encoder": ..., "embedding_head": ...,
+    "norm": ...}``, numpy or array leaves) → port state dict."""
+    sd: dict[str, torch.Tensor] = {}
+    enc = params["encoder"]
+    emb = enc["embeddings"]
+    for name in ("word_embeddings", "position_embeddings",
+                 "token_type_embeddings"):
+        if name in emb:
+            sd[f"roberta.embeddings.{name}.weight"] = _t(
+                emb[name]["embedding"])
+    _layer_norm(sd, "roberta.embeddings.LayerNorm", emb["layer_norm"])
+    i = 0
+    while f"layer_{i}" in enc:
+        layer, lp = enc[f"layer_{i}"], f"roberta.encoder.layer.{i}."
+        attn = layer["attention"]
+        for name in ("query", "key", "value"):
+            _dense(sd, lp + f"attention.self.{name}", attn[name])
+        _dense(sd, lp + "attention.output.dense", attn["out"])
+        _layer_norm(sd, lp + "attention.output.LayerNorm",
+                    layer["attention_layer_norm"])
+        _dense(sd, lp + "intermediate.dense", layer["mlp"]["intermediate"])
+        _dense(sd, lp + "output.dense", layer["mlp"]["output"])
+        _layer_norm(sd, lp + "output.LayerNorm", layer["output_layer_norm"])
+        i += 1
+    if i == 0:
+        raise KeyError("no layer_0 in encoder params — wrong tree?")
+    _dense(sd, "embeddingHead", params["embedding_head"])
+    _layer_norm(sd, "norm", params["norm"])
+    return sd
+
+
+def checkpoint_file(model_dir: str) -> str:
+    """The directory's single torch checkpoint: ``pytorch_model.bin`` when
+    present, else the only ``*.bin``/``*.pt`` besides ``training_args.bin``
+    (the file rules of ``ance_tpu/models/hf_loader.py:246-268``)."""
+    preferred = os.path.join(model_dir, "pytorch_model.bin")
+    if os.path.exists(preferred):
+        return preferred
+    cands = sorted(f for f in os.listdir(model_dir)
+                   if f.endswith((".bin", ".pt")) and f != "training_args.bin")
+    if not cands:
+        raise FileNotFoundError(f"no torch checkpoint in {model_dir}")
+    if len(cands) > 1:
+        raise FileNotFoundError(
+            f"ambiguous checkpoint dir {model_dir}: {cands}; expected a "
+            "single pytorch_model.bin/.pt (sharded checkpoints are not "
+            "supported — consolidate first)")
+    return os.path.join(model_dir, cands[0])
+
+
+def load_pretrained(model: nn.Module, model_dir: str) -> str:
+    """Strictly load ``model_dir``'s checkpoint into ``model`` (host-side
+    ``weights_only`` load; the caller moves the model afterwards).
+
+    A checkpoint without the projection head (plain ``roberta-base``)
+    keeps the model's seeded head, as the reference's ``from_pretrained``
+    keeps a fresh one. Returns the file loaded."""
+    path = checkpoint_file(model_dir)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = {k: v for k, v in sd.items() if not k.startswith(_UNUSED_PREFIXES)}
+    if "embeddingHead.weight" not in sd:
+        own = model.state_dict()
+        for k in ("embeddingHead.weight", "embeddingHead.bias",
+                  "norm.weight", "norm.bias"):
+            sd[k] = own[k]
+    model.load_state_dict(sd, strict=True)
+    return path

@@ -1,0 +1,115 @@
+"""Online retrieval: query encoder + device-resident index behind one call.
+
+Counterpart of ``ance_tpu/serve.py``. ``LoopRetriever`` (serving from a
+running pipelined training loop) waits for that loop's port (ROADMAP
+Queue 1 #5).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ance_tpu_torch.index.flat import FlatIPIndex
+
+
+def dedup_first_hit(scores: np.ndarray, rows: np.ndarray,
+                    embedding2id: np.ndarray, k: int
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """Multi-vector rows → unique passage ids, first (highest-scoring) hit
+    per passage, padded with −1 / −inf. ``rows`` is [B, depth] in
+    descending score order; −1 rows are empty slots."""
+    B, depth = rows.shape
+    pids = np.where(rows >= 0, embedding2id[np.maximum(rows, 0)], -1)
+    # stable sort by pid: the first of each equal-pid run is the best hit
+    order = np.argsort(pids, axis=1, kind="stable")
+    sorted_pids = np.take_along_axis(pids, order, axis=1)
+    first = np.ones_like(sorted_pids, dtype=bool)
+    first[:, 1:] = sorted_pids[:, 1:] != sorted_pids[:, :-1]
+    keep_sorted = first & (sorted_pids >= 0)
+    keep = np.zeros_like(keep_sorted)
+    np.put_along_axis(keep, order, keep_sorted, axis=1)  # back in col order
+    rank = np.cumsum(keep, axis=1) - 1
+    sel = keep & (rank < k)
+    b_idx, _ = np.nonzero(sel)
+    out_ids = np.full((B, k), -1, np.int64)
+    out_scores = np.full((B, k), -np.inf, np.float32)
+    out_ids[b_idx, rank[sel]] = pids[sel]
+    out_scores[b_idx, rank[sel]] = scores[sel]
+    return out_scores, out_ids
+
+
+def encode_padded(tokenizer, text: str, max_len: int
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """One text → (ids [max_len] int32, mask [max_len] int32), truncated
+    and padded with the tokenizer's pad id (as ``ance_tpu.data.process_fn``
+    does)."""
+    ids = tokenizer.encode(text.strip(), add_special_tokens=True,
+                           max_length=max_len)
+    if hasattr(ids, "ids"):
+        ids = ids.ids
+    ids = list(ids)[:max_len]
+    out = np.full(max_len, tokenizer.pad_token_id, np.int32)
+    out[:len(ids)] = ids
+    mask = np.zeros(max_len, np.int32)
+    mask[:len(ids)] = 1
+    return out, mask
+
+
+def bucket_pow2(n: int, cap: int) -> int:
+    """Next power of two ≥ n, capped: bounds the set of distinct batch
+    widths and search depths a client can make the server run."""
+    b = 1 << (max(int(n), 1) - 1).bit_length()
+    return min(b, cap)
+
+
+class Retriever:
+    """Query texts or tokens → (scores, passage ids).
+
+    ``encode_fn(ids, mask) → [B, D]`` is the query tower
+    (:func:`ance_tpu_torch.train.encode.make_encode_fn`); ``embedding2id``
+    maps index rows to passage ids (None: the row is the id)."""
+
+    def __init__(self, encode_fn: Callable, index: FlatIPIndex,
+                 embedding2id: Optional[np.ndarray] = None,
+                 tokenizer=None, max_query_length: int = 64):
+        self.encode_fn = encode_fn
+        self.index = index
+        self.embedding2id = embedding2id
+        self.tokenizer = tokenizer
+        self.max_query_length = max_query_length
+
+    def tokenize_queries(self, texts: Sequence[str]
+                         ) -> tuple[np.ndarray, np.ndarray]:
+        """Host-side tokenization (callers run it outside device locks)."""
+        if self.tokenizer is None:
+            raise ValueError("no tokenizer configured; pass token arrays")
+        ids, masks = zip(*(encode_padded(self.tokenizer, t,
+                                         self.max_query_length)
+                           for t in texts))
+        return np.stack(ids), np.stack(masks)
+
+    def embed_queries(self, ids, mask) -> torch.Tensor:
+        return self.encode_fn(ids, mask)
+
+    def search_tokens(self, ids, mask, k: int
+                      ) -> tuple[np.ndarray, np.ndarray]:
+        """Token batch → (scores [B, k], passage ids [B, k]) as numpy.
+        The depth is bucketed to a power of two (a deeper exact top-k cut
+        to k is the top-k); multi-vector rows dedup to unique pids."""
+        q = self.embed_queries(ids, mask)
+        depth = k if self.embedding2id is None else min(
+            self.index.ntotal, 4 * k)  # overfetch for multi-vector dedup
+        depth = bucket_pow2(depth, self.index.ntotal)
+        scores, rows = self.index.search(q, depth)
+        scores, rows = scores.cpu().numpy(), rows.cpu().numpy()
+        if self.embedding2id is None:
+            return scores[:, :k], rows[:, :k]
+        return dedup_first_hit(scores, rows, self.embedding2id, k)
+
+    def search(self, queries: Sequence[str], k: int = 10
+               ) -> tuple[np.ndarray, np.ndarray]:
+        ids, mask = self.tokenize_queries(queries)
+        return self.search_tokens(ids, mask, k)

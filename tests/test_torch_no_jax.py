@@ -1,0 +1,62 @@
+"""The torch port never imports jax, nor any module of the JAX package.
+Checked in a fresh interpreter, because this test process already has jax
+(tests/conftest.py imports it)."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent("""
+    import importlib, json, pkgutil, sys, tempfile
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    import ance_tpu_torch
+    mods = [m.name for m in pkgutil.walk_packages(ance_tpu_torch.__path__,
+                                                  "ance_tpu_torch.")]
+    for name in mods:
+        importlib.import_module(name)
+    assert "jax" not in sys.modules, "import pulled in jax"
+
+    from ance_tpu_torch.data.cache import TokenCacheWriter
+    from ance_tpu_torch.cli import main
+    from ance_tpu_torch.models.registry import get_model_spec
+    tiny = {"num_layers": 1, "hidden_size": 16, "num_heads": 2,
+            "intermediate_size": 32, "vocab_size": 50,
+            "max_position_embeddings": 20}
+    d = tempfile.mkdtemp()
+    rs = np.random.RandomState(0)
+    for name, n, seq in (("passages", 40, 12), ("dev-query", 5, 6)):
+        with TokenCacheWriter(f"{d}/{name}", seq) as w:
+            for _ in range(n):
+                toks = np.ones(seq, np.int32)
+                toks[0] = 0
+                toks[1:seq - 1] = rs.randint(3, 50, seq - 2)
+                w.write(seq - 1, toks)
+    model = get_model_spec("rdot_nll").build(config_overrides=tiny)
+    torch.save(model.state_dict(), f"{d}/pytorch_model.bin")
+    main(["serve", "--device", "cpu", "--model_name_or_path", d,
+          "--encoder_overrides", json.dumps(tiny), "--data_dir", d,
+          "--query_cache", f"{d}/dev-query", "--topk", "3",
+          "--max_seq_length", "12", "--max_query_length", "6",
+          "--output", f"{d}/rank.tsv"])
+    assert len(open(f"{d}/rank.tsv").read().splitlines()) == 15
+    assert "jax" not in sys.modules, "serving pulled in jax"
+    assert "flax" not in sys.modules
+    old = sorted(m for m in sys.modules
+                 if m == "ance_tpu" or m.startswith("ance_tpu."))
+    assert not old, f"the port imported the JAX package: {old}"
+    print("modules", len(mods))
+""")
+
+
+def test_port_never_imports_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    n = int(proc.stdout.split("modules")[-1])
+    assert n >= 15  # every module of the package was imported
