@@ -193,9 +193,12 @@ def cmd_serve(args):
                              "--emb_id_prefix")
         e2id = e2id.astype(np.int64)
     else:
-        bfn = make_encode_fn(model, RobertaDot.body_emb, device)
+        body = RobertaDot.body_emb_multichunk if spec.multichunk \
+            else RobertaDot.body_emb
+        bfn = make_encode_fn(model, body, device)
         with TokenCache(args.data_dir + "/passages") as pc:
-            emb, e2id = encode_cache(bfn, pc, args.per_device_eval_batch_size)
+            emb, e2id = encode_cache(bfn, pc, args.per_device_eval_batch_size,
+                                     multichunk=spec.multichunk)
 
     # embedding rows carry cache OFFSETS; the scorer needs real passage ids
     off2pid = _offset2id_lookup(args.data_dir, "pid2offset")
@@ -368,7 +371,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda[:N] (default) or cpu (CPU tests only)")
     p.add_argument("--model_type", default="rdot_nll",
-                   help="registry key (rdot_nll is the one ported)")
+                   help="registry key (rdot_nll | rdot_nll_multi_chunk)")
     p.add_argument("--model_name_or_path", default=None,
                    help="HF-layout checkpoint dir (pytorch_model.bin) / "
                         "tokenizer source")
@@ -378,8 +381,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bf16 encoder compute and a bf16 index")
     p.add_argument("--attention", default="auto",
                    choices=["auto", "xla", "xla_bf16", "fused", "flash"],
-                   help="auto: xla (bf16 softmax under --bf16) below seq "
-                        "256; the fused/flash kernels are not ported yet")
+                   help="auto: on a CUDA device xla (bf16 softmax under "
+                        "--bf16) below seq 256, the fused kernel for 256-1024, "
+                        "the flash kernel beyond; on the CPU always xla")
     p.add_argument("--encoder_overrides", default=None,
                    help="JSON overriding encoder-config fields, e.g. "
                         "'{\"num_layers\": 2, \"hidden_size\": 64}'")

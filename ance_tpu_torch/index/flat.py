@@ -84,10 +84,12 @@ def quantize_dims_int8(emb: torch.Tensor
 
 def merge_topk(scores: torch.Tensor, ids: torch.Tensor, k: int
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Merge candidate sets: [..., S, Q, k] → final [Q, k]."""
+    """Merge candidate sets: [..., S, Q, k] → final [Q, k]; equal scores
+    keep the earlier candidate (lower shard, then lower rank), as
+    ``lax.top_k`` does."""
     s = scores.movedim(-3, -2).reshape(scores.shape[-2], -1)
     i = ids.movedim(-3, -2).reshape(ids.shape[-2], -1)
-    top_s, pos = torch.topk(s, k, dim=1)
+    top_s, pos = topk_lower_id_first(s, k)
     return top_s, torch.gather(i, 1, pos)
 
 

@@ -1,8 +1,8 @@
 """Dual-encoder models (counterpart of ``ance_tpu/models/dot_models.py``).
 
-Only :class:`RobertaDot` (``rdot_nll``) is ported; MaxP
-(``body_emb_multichunk``) waits for the fused attention kernel and DPR's
-``BiEncoder`` for its own slice (ROADMAP Queue 1).
+:class:`RobertaDot` serves both ``rdot_nll`` (FirstP) and
+``rdot_nll_multi_chunk`` (MaxP, :meth:`RobertaDot.body_emb_multichunk`).
+DPR's ``BiEncoder`` waits for its own slice (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -19,13 +19,15 @@ class RobertaDot(nn.Module):
     Dense(out_dim) → LayerNorm, the head in fp32.
 
     Attribute names are the reference ``RobertaDot_NLL_LN`` state-dict
-    prefixes (``roberta.*``, ``embeddingHead``, ``norm``)."""
+    prefixes (``roberta.*``, ``embeddingHead``, ``norm``). ``base_len`` is
+    the MaxP chunk length."""
 
     def __init__(self, config: EncoderConfig, use_mean: bool = False,
-                 out_dim: int = 768):
+                 out_dim: int = 768, base_len: int = 512):
         super().__init__()
         self.config = config
         self.use_mean = use_mean
+        self.base_len = base_len
         self.roberta = TransformerEncoder(config)
         self.embeddingHead = nn.Linear(config.hidden_size, out_dim)
         self.norm = nn.LayerNorm(out_dim, eps=1e-5)
@@ -40,6 +42,22 @@ class RobertaDot(nn.Module):
 
     def body_emb(self, input_ids, attention_mask):
         return self._embed(input_ids, attention_mask)
+
+    def body_emb_multichunk(self, input_ids, attention_mask):
+        """MaxP: [B, C·base_len] → per-chunk embeddings [B, C, out_dim].
+        The chunks are independent encoder passes folded into the batch
+        ([B·C, base_len]); each is pooled at its first token (CLS), as the
+        reference MaxP model always does."""
+        B, full_len = input_ids.shape
+        if full_len % self.base_len:
+            raise ValueError(f"MaxP body length {full_len} is not a multiple "
+                             f"of the chunk length {self.base_len}")
+        C = full_len // self.base_len
+        ids = input_ids.reshape(B * C, self.base_len)
+        mask = attention_mask.reshape(B * C, self.base_len)
+        hidden = self.roberta(ids, mask)
+        emb = self.norm(self.embeddingHead(hidden[:, 0].to(torch.float32)))
+        return emb.reshape(B, C, -1)
 
     def forward(self, input_ids, attention_mask):
         return self._embed(input_ids, attention_mask)

@@ -1,6 +1,8 @@
 """Model registry (counterpart of ``ance_tpu/models/registry.py``).
 
-Only ``rdot_nll`` is ported. The other JAX keys name a later ROADMAP item.
+``rdot_nll`` (FirstP) and ``rdot_nll_multi_chunk`` (MaxP: the same
+RobertaDot, bodies encoded as 512-token chunks) are ported. The other JAX
+keys name a later ROADMAP item.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ class ModelSpec:
     name: str
     build: Callable[..., RobertaDot]   # (dtype, attention_impl, ...) → module
     tokenizer_name: str
+    multichunk: bool = False           # MaxP body encoding
 
 
 def _rdot(dtype=torch.float32, attention_impl="auto", config_overrides=None,
@@ -33,13 +36,17 @@ def _rdot(dtype=torch.float32, attention_impl="auto", config_overrides=None,
 
 
 REGISTRY: dict[str, ModelSpec] = {
+    # reference models.py:300-303
     "rdot_nll": ModelSpec(name="rdot_nll", build=_rdot,
                           tokenizer_name="roberta-base"),
+    # reference models.py:304-307 (MaxP, seq 2048 = 4 × 512 chunks); the
+    # same parameters as rdot_nll
+    "rdot_nll_multi_chunk": ModelSpec(
+        name="rdot_nll_multi_chunk", build=_rdot,
+        tokenizer_name="roberta-base", multichunk=True),
 }
 
 _NOT_YET = {
-    "rdot_nll_multi_chunk": "MaxP (ROADMAP Queue 1 #7, with Queue 2 "
-                            "kernels #2 and #3)",
     "dpr": "DPR (ROADMAP Queue 1 #8)",
     "seeddot_nll": "SEED (ROADMAP Queue 1 #9)",
 }

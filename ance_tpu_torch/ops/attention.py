@@ -1,11 +1,23 @@
-"""Multi-head attention, the plain (non-kernel) path.
+"""Multi-head attention: the plain path and the dispatch to the kernels.
 
-Counterpart of ``ance_tpu/ops/attention.py``. Only the einsum path is
-ported: at the FirstP lengths (passages 128, queries 64) the JAX package's
-``auto`` takes XLA too. The Pallas kernels behind ``fused`` (256 ≤ S ≤ 1024)
-and ``flash`` (S > 1024) are ROADMAP Queue 2 items #2-#4; until they exist
-here those selections raise rather than run the plain path where the JAX
-package ran a kernel.
+Counterpart of ``ance_tpu/ops/attention.py``. Implementations:
+
+  * ``xla``      — einsum + fp32 softmax (the reference semantics);
+  * ``xla_bf16`` — einsum + bf16 softmax;
+  * ``fused``    — whole-sequence attention, :mod:`.fused_attention` (the
+                   hand-written kernel on a CUDA tensor, its plain version
+                   on a CPU tensor);
+  * ``flash``    — blocked online-softmax attention, :mod:`.flash_attention`
+                   (likewise);
+  * ``auto``     — on a CUDA tensor: the einsum path below S = 256 (bf16
+                   softmax for bf16 inputs), ``fused`` for 256 ≤ S ≤ 1024,
+                   ``flash`` above; on a CPU tensor always the einsum path,
+                   as the JAX package does off the TPU.
+
+The 256 / 1024 thresholds are the JAX package's, measured on a TPU; they
+are kept so both packages choose alike, and re-choosing them on the H100
+is open (PERF.md). A failed kernel build or launch raises: nothing falls
+back to the plain path.
 
 Layout follows the JAX package: q/k/v are [B, S, H, D].
 """
@@ -18,9 +30,9 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e9  # additive mask bias; a fully masked row softmaxes uniform
-
-_KERNEL_TODO = ("is a Pallas kernel in ance_tpu and not yet ported "
-                "(ROADMAP Queue 2 #2 fused / #4 flash)")
+FUSED_MIN_SEQ, FUSED_MAX_SEQ = 256, 1024  # auto: fused in [256, 1024]
+KERNEL_HEAD_DIM = 64  # every supported encoder: RoBERTa/BERT base and large
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def mask_to_bias(attention_mask: torch.Tensor,
@@ -48,19 +60,75 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
 
+def kernel_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    attention_mask: Optional[torch.Tensor], *, name: str,
+                    max_seq: Optional[int] = None,
+                    align16: bool = False) -> tuple[torch.Tensor, tuple]:
+    """Check what an attention kernel takes and raise on anything else.
+    Returns (the fp32 key bias [B, S], contiguous; the shared (batch, seq,
+    head) strides of q, k and v in elements).
+
+    The kernels take q, k, v of one shape [B, S, H, D] and one dtype
+    (float32 or bfloat16) on one CUDA device, with D = KERNEL_HEAD_DIM,
+    one set of strides and unit stride along D; ``align16`` also asks for
+    16-byte-aligned rows (the bf16 cp.async loads)."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: need q, k, v of one shape [B, S, H, D], "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"{name}: takes float32 or bfloat16 q, k, v of one "
+                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.device.type != "cuda" or k.device != q.device \
+            or v.device != q.device:
+        raise ValueError(f"{name}: the kernel runs on one CUDA device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    B, S, H, D = q.shape
+    if D != KERNEL_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {D} is not {KERNEL_HEAD_DIM}")
+    if S < 1 or (max_seq is not None and S > max_seq):
+        raise ValueError(f"{name}: sequence length {S} outside "
+                         f"[1, {max_seq}]")
+    if k.stride() != q.stride() or v.stride() != q.stride() \
+            or q.stride(3) != 1:
+        raise ValueError(f"{name}: q, k, v need one set of strides with unit "
+                         f"stride along D, got {q.stride()}, {k.stride()}, "
+                         f"{v.stride()}")
+    strides = (q.stride(0), q.stride(1), q.stride(2))
+    if align16:
+        vec = 16 // q.element_size()
+        if any(s % vec for s in strides) or D % vec or any(
+                t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError(f"{name}: {q.dtype} operands need 16-byte-"
+                             f"aligned rows (strides {strides})")
+    if attention_mask is None:
+        bias = torch.zeros((B, S), dtype=torch.float32, device=q.device)
+    else:
+        if tuple(attention_mask.shape) != (B, S):
+            raise ValueError(f"{name}: attention mask {tuple(attention_mask.shape)}"
+                             f" is not [B, S] = {(B, S)}")
+        bias = ((1.0 - attention_mask.to(q.device, torch.float32))
+                * NEG_INF).contiguous()
+    return bias, strides
+
+
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          attention_mask: Optional[torch.Tensor] = None,
                          *, impl: str = "xla") -> torch.Tensor:
-    """``xla`` (fp32 softmax), ``xla_bf16`` (bf16 softmax) or ``auto``
-    (S < 256 → xla, or xla_bf16 for bf16 inputs)."""
+    """Dispatch over the implementations in the module docstring."""
     if impl == "auto":
-        if q.shape[1] >= 256:
-            raise NotImplementedError(
-                f"attention at S={q.shape[1]} (auto → fused/flash) "
-                + _KERNEL_TODO)
-        impl = "xla_bf16" if q.dtype == torch.bfloat16 else "xla"
-    if impl in ("fused", "flash"):
-        raise NotImplementedError(f"attention impl {impl!r} " + _KERNEL_TODO)
+        S = q.shape[1]
+        if q.device.type != "cuda" or S < FUSED_MIN_SEQ:
+            impl = "xla_bf16" if q.dtype == torch.bfloat16 else "xla"
+        else:
+            impl = "fused" if S <= FUSED_MAX_SEQ else "flash"
+    if impl == "fused":
+        from ance_tpu_torch.ops.fused_attention import fused_attention
+        return fused_attention(q, k, v, attention_mask)
+    if impl == "flash":
+        from ance_tpu_torch.ops.flash_attention import flash_attention
+        return flash_attention(q, k, v, attention_mask)
     if impl not in ("xla", "xla_bf16"):
         raise ValueError(f"unknown attention impl {impl!r}")
     bias = None if attention_mask is None else mask_to_bias(attention_mask)

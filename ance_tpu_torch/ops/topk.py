@@ -7,7 +7,8 @@ Counterpart of ``ance_tpu/ops/topk.py``, in three phases:
       a CUDA tensor this launches the hand-written Hopper kernel
       (``csrc/blockmax.cu``); on a CPU tensor it is the plain version
       :func:`blockmax_scores_reference`.
-  phase 2 — ``torch.topk`` over the block maxima picks k candidate blocks.
+  phase 2 — :func:`top_blocks_lower_id_first` picks the k candidate blocks
+      with the largest maxima, equal maxima lower block first.
   phase 3 — gather the candidate rows per query, rescore them exactly,
       final top-k (in query tiles, to bound memory).
 
@@ -173,6 +174,26 @@ def topk_lower_id_first(scores: torch.Tensor, k: int
     return torch.gather(scores, 1, pos), pos
 
 
+def top_blocks_lower_id_first(bm: torch.Tensor, k: int) -> torch.Tensor:
+    """Phase 2: the k largest block maxima per row, equal maxima taken
+    lower block index first (``lax.top_k``'s order), returned as block ids
+    in ascending order [Q, k].
+
+    Without sorting the [Q, N/BS] row: ``torch.topk`` gives the k-th value
+    t (its tie order is irrelevant), every block above t is kept, and the
+    lowest-index blocks equal to t fill the remaining places. Under MaxP
+    every all-padding chunk encodes to the same row, so blocks tie at the
+    k-th maximum by the thousand."""
+    kth = torch.topk(bm, k, dim=1).values[:, -1:]                 # [Q, 1]
+    above = bm > kth
+    tied = bm == kth
+    room = k - above.sum(1, keepdim=True, dtype=torch.int32)
+    take = above | (tied & (torch.cumsum(tied, 1, dtype=torch.int32)
+                            <= room))
+    # exactly k per row; nonzero lists them row by row, columns ascending
+    return take.nonzero()[:, 1].reshape(bm.shape[0], k)
+
+
 def rescore(queries: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """Exact inner products in fp64, rounded once to fp32: queries [..., D]
     × rows [..., C, D] → [..., C] (or [Q, D] × [N, D] → [Q, N])."""
@@ -226,8 +247,7 @@ def topk_blockmax(queries: torch.Tensor, corpus: torch.Tensor, *, k: int,
     bm.masked_fill_((block_ids * block_size >= valid_rows)[None, :], neg)
 
     k_blocks = min(k + 1, n_blocks)  # one spare block (module docstring)
-    top_blocks = torch.topk(bm, k_blocks, dim=1, sorted=False).indices
-    top_blocks = torch.sort(top_blocks, dim=1).values  # rows ascending
+    top_blocks = top_blocks_lower_id_first(bm, k_blocks)  # rows ascending
     del bm
 
     offsets = torch.arange(block_size, device=corpus.device)

@@ -3,8 +3,9 @@
 Counterpart of ``ance_tpu/train/encode.py``: iterate a token cache in
 fixed-size batches, run the frozen encoder, collect the embeddings on the
 host (:func:`encode_cache`) or keep them on the device for the index
-(:func:`encode_cache_to_device`). Multi-vector (MaxP) bodies and the mesh
-wait for later PRs (ROADMAP Queue 1).
+(:func:`encode_cache_to_device`). Multi-vector (MaxP) documents flatten
+their chunk embeddings to one row each, the document id repeated per
+chunk. The mesh waits for a later PR (ROADMAP Queue 1 #11).
 """
 
 from __future__ import annotations
@@ -56,34 +57,49 @@ def make_encode_fn(model: torch.nn.Module, method: Callable,
     return encode
 
 
+def _rows(out: torch.Tensor, keys: np.ndarray, multichunk: bool
+          ) -> tuple[torch.Tensor, np.ndarray]:
+    """One batch's real rows: [B, D] as they are, or MaxP [B, C, D]
+    flattened to [B·C, D] with each id repeated C times."""
+    out = out[:len(keys)]
+    if not multichunk:
+        return out, keys
+    C = out.shape[1]
+    return out.reshape(len(keys) * C, -1), np.repeat(keys, C)
+
+
 def encode_cache_to_device(encode_fn: Callable, cache: TokenCache,
-                           batch_size: int = 128, start: int = 0,
-                           stop: Optional[int] = None
+                           batch_size: int = 128, multichunk: bool = False,
+                           start: int = 0, stop: Optional[int] = None
                            ) -> tuple[torch.Tensor, np.ndarray]:
     """Encode records [start, stop) keeping the embeddings on the device.
-    Returns (embeddings [M, D], embedding2id [M] int64)."""
+    Returns (embeddings [M, D], embedding2id [M] int64); with
+    ``multichunk`` the encoder gives [B, C, D] and M counts chunks."""
     parts, id_parts = [], []
     for keys, ids, mask in iter_cache_batches(cache, batch_size, start, stop):
-        parts.append(encode_fn(ids, mask)[:len(keys)])
-        id_parts.append(keys)
+        rows, row_ids = _rows(encode_fn(ids, mask), keys, multichunk)
+        parts.append(rows)
+        id_parts.append(row_ids)
     return torch.cat(parts), np.concatenate(id_parts).astype(np.int64)
 
 
 def encode_cache(encode_fn: Callable, cache: TokenCache,
-                 batch_size: int = 128, start: int = 0,
-                 stop: Optional[int] = None, flush_every: int = 16
-                 ) -> tuple[np.ndarray, np.ndarray]:
+                 batch_size: int = 128, multichunk: bool = False,
+                 start: int = 0, stop: Optional[int] = None,
+                 flush_every: int = 16) -> tuple[np.ndarray, np.ndarray]:
     """Encode records [start, stop) → (embeddings [M, D] fp32 numpy,
-    embedding2id [M] int64). Up to ``flush_every`` batches stay in flight
-    on the device before they are copied to the host, so host-side cache
-    reads overlap device compute."""
+    embedding2id [M] int64); ``multichunk`` as in
+    :func:`encode_cache_to_device`. Up to ``flush_every`` batches stay in
+    flight on the device before they are copied to the host, so host-side
+    cache reads overlap device compute."""
     emb_parts, id_parts = [], []
     pending: list[tuple[torch.Tensor, np.ndarray]] = []
 
     def flush():
         for out, keys in pending:
-            emb_parts.append(out[:len(keys)].to(torch.float32).cpu().numpy())
-            id_parts.append(keys)
+            rows, row_ids = _rows(out, keys, multichunk)
+            emb_parts.append(rows.to(torch.float32).cpu().numpy())
+            id_parts.append(row_ids)
         pending.clear()
 
     for keys, ids, mask in iter_cache_batches(cache, batch_size, start, stop):

@@ -101,9 +101,26 @@ def test_fully_masked_row_gives_uniform_attention():
 @pytest.mark.parametrize("impl,S", [("fused", 16), ("flash", 16),
                                     ("auto", 256)])
 def test_kernel_attention_paths_raise(impl, S):
-    x = torch.zeros(1, S, 2, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        multi_head_attention(x, x, x, impl=impl)
+    """The kernel selections once raised here; on a CPU tensor they now run
+    the plain versions (``auto`` the einsum path, as JAX off the TPU), each
+    bit for bit, and launch no kernel."""
+    from ance_tpu_torch.ops.attention import mask_to_bias, xla_attention
+    from ance_tpu_torch.ops.flash_attention import (flash_attention,
+                                                    flash_attention_reference)
+    from ance_tpu_torch.ops.fused_attention import (fused_attention,
+                                                    fused_attention_reference)
+    rs = np.random.RandomState(S)
+    q, k, v = (torch.as_tensor(rs.randn(1, S, 2, 8).astype(np.float32))
+               for _ in range(3))
+    mask = torch.ones(1, S, dtype=torch.int64)
+    mask[0, S // 2:] = 0
+    plain = {"fused": fused_attention_reference,
+             "flash": flash_attention_reference,
+             "auto": lambda *a: xla_attention(*a[:3], mask_to_bias(a[3]))}
+    launches = (fused_attention.launches, flash_attention.launches)
+    got = multi_head_attention(q, k, v, mask, impl=impl)
+    assert torch.equal(got, plain[impl](q, k, v, mask))
+    assert (fused_attention.launches, flash_attention.launches) == launches
 
 
 def test_state_dict_from_flax_equals_hf_export():

@@ -10,7 +10,7 @@ import textwrap
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
-    import importlib, json, pkgutil, sys, tempfile
+    import importlib, json, os, pkgutil, sys, tempfile
     import numpy as np
     import torch
     torch.set_num_threads(1)
@@ -44,6 +44,27 @@ SCRIPT = textwrap.dedent("""
           "--max_seq_length", "12", "--max_query_length", "6",
           "--output", f"{d}/rank.tsv"])
     assert len(open(f"{d}/rank.tsv").read().splitlines()) == 15
+
+    # MaxP: documents of two 512-token chunks, one embedding row per chunk
+    maxp = dict(tiny, max_position_embeddings=514)
+    m = f"{d}/maxp"
+    os.mkdir(m)
+    with TokenCacheWriter(f"{m}/passages", 1024) as w:
+        for n in (100, 700, 1024):
+            toks = np.ones(1024, np.int32)
+            toks[0] = 0
+            toks[1:n] = rs.randint(3, 50, n - 1)
+            w.write(n, toks)
+    model = get_model_spec("rdot_nll_multi_chunk").build(
+        config_overrides=maxp)
+    torch.save(model.state_dict(), f"{m}/pytorch_model.bin")
+    main(["serve", "--device", "cpu", "--model_type", "rdot_nll_multi_chunk",
+          "--model_name_or_path", m, "--encoder_overrides", json.dumps(maxp),
+          "--data_dir", m, "--query_cache", f"{d}/dev-query", "--topk", "3",
+          "--max_query_length", "6", "--output", f"{m}/rank.tsv",
+          "--save_index", f"{m}/index"])
+    assert len(open(f"{m}/rank.tsv").read().splitlines()) == 15
+    assert np.load(f"{m}/index.ids.npy").tolist() == [0, 0, 1, 1, 2, 2]
     assert "jax" not in sys.modules, "serving pulled in jax"
     assert "flax" not in sys.modules
     old = sorted(m for m in sys.modules
