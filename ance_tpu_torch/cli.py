@@ -1,13 +1,17 @@
-"""Command line of the torch port: ``python -m ance_tpu_torch.cli serve``.
+"""Command line of the torch port: ``python -m ance_tpu_torch.cli
+{serve,train}``.
 
-Counterpart of ``ance_tpu/cli.py``'s ``serve`` subcommand, with the same
-flags plus ``--device`` (default ``cuda``; asking for CUDA where none
-exists exits, it never carries on on the CPU). The other subcommands wait
-for later PRs (ROADMAP Queue 1 #6).
+Counterpart of ``ance_tpu/cli.py``'s ``serve`` and ``train`` subcommands,
+with the same flags plus ``--device`` (default ``cuda``; asking for CUDA
+where none exists exits, it never carries on on the CPU). The other
+subcommands wait for later PRs (ROADMAP Queue 1 #6).
 
-Batch mode writes ``qid\\tpid\\trank[\\tscore]`` lines in real id space, as
-the JAX CLI does; ``--http HOST:PORT`` serves the JSON API of
-:mod:`ance_tpu_torch.serve_http` instead.
+``serve`` batch mode writes ``qid\\tpid\\trank[\\tscore]`` lines in real id
+space, as the JAX CLI does; ``--http HOST:PORT`` serves the JSON API of
+:mod:`ance_tpu_torch.serve_http` instead. ``train`` is the ANCE trainer
+job: it polls ``--ann_dir`` for ann data and writes ``checkpoint-<step>``
+directories to ``--output_dir``, then prints one JSON line of its
+per-step losses, gradient norms and step times.
 """
 
 from __future__ import annotations
@@ -108,13 +112,18 @@ def _has_native_checkpoint(model_dir: str) -> bool:
             or any(f.startswith("checkpoint-") for f in os.listdir(model_dir)))
 
 
-def _build_model(args, device):
-    """Registry model at the requested dtype, weights from an HF-layout
-    directory when one is given (else seeded random, with a warning),
-    moved to ``device``. Returns (spec, model, params_source)."""
+def _build_model(args, device, seed: int = 0, warn_random: bool = True):
+    """Registry model at the requested dtype (seeded init), moved to
+    ``device``. Weights come from the newest complete port checkpoint under
+    ``--training_dir`` / ``--init_model_dir`` where the command has them,
+    else from an HF-layout ``--model_name_or_path`` directory (or the
+    newest complete checkpoint of a training directory there, as the JAX
+    CLI warm-starts), else stay random (serve warns). Returns (spec,
+    model, params_source)."""
     import torch
     from ance_tpu_torch.models.registry import get_model_spec
     from ance_tpu_torch.models.weights import load_pretrained
+    from ance_tpu_torch.train import checkpoint as ckpt
     try:
         spec = get_model_spec(args.model_type)
     except KeyError as e:
@@ -123,9 +132,22 @@ def _build_model(args, device):
         if args.encoder_overrides else None
     model = spec.build(dtype=torch.bfloat16 if args.bf16 else torch.float32,
                        attention_impl=args.attention,
-                       config_overrides=overrides)
+                       config_overrides=overrides, seed=seed)
+    path, _ = ckpt.get_latest_checkpoint(
+        getattr(args, "training_dir", None),
+        getattr(args, "init_model_dir", None))
     src = args.model_name_or_path
-    if src and os.path.isdir(src) and _has_torch_checkpoint(src):
+    if not (path and ckpt.is_complete(path)) and src and os.path.isdir(src) \
+            and not _has_torch_checkpoint(src):
+        path, _ = ckpt.get_latest_checkpoint(src)  # a training directory
+    if path and ckpt.is_complete(path):
+        if not os.path.exists(os.path.join(path, ckpt.MODEL_FILE)):
+            raise SystemExit(f"{path} holds no {ckpt.MODEL_FILE}: a native "
+                             "(msgpack/orbax) checkpoint, which the torch "
+                             "port does not read — export it with `ance "
+                             "export-hf`")
+        params_source = load_pretrained(model, path)
+    elif src and os.path.isdir(src) and _has_torch_checkpoint(src):
         params_source = load_pretrained(model, src)
     elif src and os.path.isdir(src) and _has_native_checkpoint(src):
         raise SystemExit(f"{src} holds a native (msgpack/orbax) checkpoint; "
@@ -134,10 +156,11 @@ def _build_model(args, device):
                          "(native checkpoints: ROADMAP Queue 1 #4)")
     else:
         params_source = "<random-init>"
-        print("WARNING: serve found no torch checkpoint under "
-              "--model_name_or_path — serving RANDOM encoder weights; "
-              "rankings will be garbage unless this is a smoke test",
-              file=sys.stderr)
+        if warn_random:
+            print("WARNING: serve found no torch checkpoint under "
+                  "--training_dir/--init_model_dir/--model_name_or_path — "
+                  "serving RANDOM encoder weights; rankings will be garbage "
+                  "unless this is a smoke test", file=sys.stderr)
     return spec, model.to(device), params_source
 
 
@@ -150,11 +173,6 @@ def cmd_serve(args):
     from ance_tpu_torch.train.encode import encode_cache, make_encode_fn
     from ance_tpu_torch.utils.device import resolve_device
 
-    if args.training_dir or args.init_model_dir:
-        raise SystemExit("--training_dir/--init_model_dir load native "
-                         "checkpoints, which the torch port does not read yet "
-                         "(ROADMAP Queue 1 #4); pass an HF-layout directory "
-                         "as --model_name_or_path")
     if args.index == "ivf":
         raise SystemExit("--index ivf is not yet ported to torch (ROADMAP "
                          "Queue 1 #10); use --index flat")
@@ -363,11 +381,95 @@ def _rank_query_tsv(args, retriever, out, B) -> int:
     return len(rows)
 
 
-def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(prog="ance_tpu_torch")
-    sub = parser.add_subparsers(dest="command", required=True)
-    p = sub.add_parser("serve", help="batch retrieval serving: encoder + "
-                                     "exact index → qid\\tpid\\trank rankings")
+def _make_training(args, model, spec):
+    """(state, train step) for ``train``, as ``ance_tpu/cli.py``'s
+    ``_make_training`` builds them on one device."""
+    from ance_tpu_torch.optim.schedules import warmup_cosine, warmup_linear
+    from ance_tpu_torch.train.trainer import (init_train_state,
+                                              make_optimizer,
+                                              make_train_step,
+                                              triplet_loss_fn)
+    if args.rewarmup_per_dataset:
+        # the reference's default scheduler (a fresh warmup per ann-data
+        # file, run_ann.py:210-215); ours is its --single_warmup
+        if args.single_warmup:
+            raise SystemExit("--single_warmup and --rewarmup_per_dataset "
+                             "are mutually exclusive")
+        if args.lr_style != "linear":
+            raise SystemExit("--rewarmup_per_dataset implies the linear "
+                             "schedule (the reference rebuilds "
+                             "get_linear_schedule_with_warmup)")
+        opt = make_optimizer(model, args.optimizer, args.learning_rate,
+                             eps=args.adam_epsilon,
+                             weight_decay=args.weight_decay,
+                             max_grad_norm=args.max_grad_norm,
+                             rewarmup=(args.warmup_steps, args.max_steps))
+    else:
+        sched_fn = warmup_cosine if args.lr_style == "cosine" \
+            else warmup_linear
+        opt = make_optimizer(model, args.optimizer,
+                             sched_fn(args.learning_rate, args.warmup_steps,
+                                      args.max_steps),
+                             eps=args.adam_epsilon,
+                             weight_decay=args.weight_decay,
+                             max_grad_norm=args.max_grad_norm)
+    step = make_train_step(
+        triplet_loss_fn(multichunk=spec.multichunk,
+                        fused_body=args.fused_body),
+        accum_steps=args.gradient_accumulation_steps)
+    return init_train_state(model, opt), step
+
+
+def cmd_train(args):
+    """The ANCE trainer job (``ance train``, the reference's run_ann.py):
+    poll ``--ann_dir``, train, checkpoint into ``--output_dir``."""
+    import time
+
+    import torch
+    from ance_tpu_torch.data.cache import TokenCache
+    from ance_tpu_torch.train.ance_loop import AnceCycleConfig, run_trainer_job
+    from ance_tpu_torch.utils.device import resolve_device
+
+    if args.num_epoch > 0:
+        raise SystemExit("--num_epoch is the DPR trainer's fixed-epoch mode; "
+                         "DPR is not ported to torch yet (ROADMAP Queue 1 #8)")
+    if not args.ann_dir:
+        raise SystemExit("--ann_dir is required unless --num_epoch > 0")
+    device = resolve_device(args.device)
+    spec, model, params_source = _build_model(args, device, seed=args.seed,
+                                              warn_random=False)
+    state, step = _make_training(args, model, spec)
+    history = {"loss": [], "grad_norm": [], "step_ms": []}
+    last = [time.perf_counter()]
+
+    def on_step(n, metrics):
+        # reading the loss waits for the step, as the JAX job's per-step
+        # read of its step counter does
+        history["loss"].append(float(metrics["loss"]))
+        history["grad_norm"].append(float(metrics["grad_norm"]))
+        now = time.perf_counter()
+        history["step_ms"].append((now - last[0]) * 1000.0)
+        last[0] = now
+
+    cycle_cfg = AnceCycleConfig(batch_size=args.per_device_train_batch_size,
+                                shuffle_seed=args.seed,
+                                feed_workers=args.feed_workers)
+    with TokenCache(args.data_dir + "/train-query") as qc, \
+            TokenCache(args.data_dir + "/passages") as pc:
+        state = run_trainer_job(
+            cycle_cfg, state=state, train_step=step,
+            generator=torch.Generator().manual_seed(args.seed),
+            query_cache=qc, passage_cache=pc, ann_dir=args.ann_dir,
+            training_dir=args.output_dir, max_steps=args.max_steps,
+            save_every=args.save_steps,
+            rewarmup_per_dataset=args.rewarmup_per_dataset, on_step=on_step)
+    print(json.dumps({"steps": state.step, "params": params_source,
+                      "checkpoint": os.path.join(
+                          args.output_dir, f"checkpoint-{state.step}"),
+                      **history}))
+
+
+def _add_common_model_flags(p):
     p.add_argument("--device", default="cuda",
                    help="cuda[:N] (default) or cpu (CPU tests only)")
     p.add_argument("--model_type", default="rdot_nll",
@@ -378,19 +480,76 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_seq_length", type=int, default=128)
     p.add_argument("--max_query_length", type=int, default=64)
     p.add_argument("--bf16", action="store_true",
-                   help="bf16 encoder compute and a bf16 index")
+                   help="bf16 encoder compute (and, for serve, a bf16 index)")
     p.add_argument("--attention", default="auto",
                    choices=["auto", "xla", "xla_bf16", "fused", "flash"],
                    help="auto: on a CUDA device xla (bf16 softmax under "
                         "--bf16) below seq 256, the fused kernel for 256-1024, "
-                        "the flash kernel beyond; on the CPU always xla")
+                        "the flash kernel beyond; on the CPU always xla. "
+                        "Attention dropout > 0 in training takes xla")
     p.add_argument("--encoder_overrides", default=None,
                    help="JSON overriding encoder-config fields, e.g. "
-                        "'{\"num_layers\": 2, \"hidden_size\": 64}'")
+                        "'{\"num_layers\": 2, \"hidden_size\": 64}' or "
+                        "'{\"attention_dropout\": 0.0}' (MaxP training "
+                        "through the fused kernels)")
+
+
+def _add_train_flags(p):
+    p.add_argument("--optimizer", default="lamb", choices=["lamb", "adamw"])
+    p.add_argument("--learning_rate", type=float, default=1e-4)
+    p.add_argument("--adam_epsilon", type=float, default=1e-8)
+    p.add_argument("--weight_decay", type=float, default=0.0)
+    p.add_argument("--max_grad_norm", type=float, default=1.0)
+    p.add_argument("--warmup_steps", type=int, default=1000)
+    p.add_argument("--max_steps", type=int, default=100000)
+    p.add_argument("--rewarmup_per_dataset", action="store_true",
+                   help="reset the LR warmup at every ann-data swap with "
+                        "the new file's size as decay horizon — the "
+                        "reference's default scheduler (run_ann.py:210-215)")
+    p.add_argument("--single_warmup", action="store_true",
+                   help="one global schedule for the whole run (reference "
+                        "--single_warmup); already the default, rejected "
+                        "with --rewarmup_per_dataset")
+    p.add_argument("--lr_style", default="linear", choices=["linear", "cosine"])
+    p.add_argument("--per_device_train_batch_size", type=int, default=32)
+    p.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--feed_workers", type=int, default=8,
+                   help="gather threads for the triple feed (order-identical "
+                        "to serial; 0 = serial gathers)")
+    p.add_argument("--fused_body", action="store_true",
+                   help="encode pos+neg as ONE [2B, S] pass (equal without "
+                        "dropout; wider GEMMs)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="ance_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("train", help="ANCE trainer (polls ann_dir)")
+    _add_common_model_flags(p)
+    _add_train_flags(p)
+    p.add_argument("--data_dir", required=True,
+                   help="token caches: {data_dir}/train-query and "
+                        "{data_dir}/passages")
+    p.add_argument("--ann_dir", default=None,
+                   help="where ann_training_data_<n> / ann_ndcg_<n> appear")
+    p.add_argument("--output_dir", required=True,
+                   help="checkpoint-<step>/ directories go here")
+    p.add_argument("--save_steps", type=int, default=10000)
+    p.add_argument("--num_epoch", type=int, default=0,
+                   help="the DPR trainer's fixed-epoch mode: not ported "
+                        "(exits)")
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("serve", help="batch retrieval serving: encoder + "
+                                     "exact index → qid\\tpid\\trank rankings")
+    _add_common_model_flags(p)
     p.add_argument("--training_dir", default=None,
-                   help="native checkpoints: not ported (exits)")
+                   help="serve the newest complete checkpoint-<step> "
+                        "(pytorch_model.bin) under this directory")
     p.add_argument("--init_model_dir", default=None,
-                   help="native checkpoints: not ported (exits)")
+                   help="checkpoint directory used when --training_dir "
+                        "holds no complete checkpoint")
     p.add_argument("--data_dir", default=None,
                    help="token-cache dir; encodes {data_dir}/passages when "
                         "no --emb_prefix is given")

@@ -20,7 +20,8 @@ class RobertaDot(nn.Module):
 
     Attribute names are the reference ``RobertaDot_NLL_LN`` state-dict
     prefixes (``roberta.*``, ``embeddingHead``, ``norm``). ``base_len`` is
-    the MaxP chunk length."""
+    the MaxP chunk length. Each method takes an optional ``generator``
+    for the encoder's dropout in ``train()`` mode."""
 
     def __init__(self, config: EncoderConfig, use_mean: bool = False,
                  out_dim: int = 768, base_len: int = 512):
@@ -32,18 +33,18 @@ class RobertaDot(nn.Module):
         self.embeddingHead = nn.Linear(config.hidden_size, out_dim)
         self.norm = nn.LayerNorm(out_dim, eps=1e-5)
 
-    def _embed(self, input_ids, attention_mask):
-        hidden = self.roberta(input_ids, attention_mask)
+    def _embed(self, input_ids, attention_mask, generator=None):
+        hidden = self.roberta(input_ids, attention_mask, generator=generator)
         pooled = pool(hidden, attention_mask, self.use_mean)
         return self.norm(self.embeddingHead(pooled.to(torch.float32)))
 
-    def query_emb(self, input_ids, attention_mask):
-        return self._embed(input_ids, attention_mask)
+    def query_emb(self, input_ids, attention_mask, generator=None):
+        return self._embed(input_ids, attention_mask, generator)
 
-    def body_emb(self, input_ids, attention_mask):
-        return self._embed(input_ids, attention_mask)
+    def body_emb(self, input_ids, attention_mask, generator=None):
+        return self._embed(input_ids, attention_mask, generator)
 
-    def body_emb_multichunk(self, input_ids, attention_mask):
+    def body_emb_multichunk(self, input_ids, attention_mask, generator=None):
         """MaxP: [B, C·base_len] → per-chunk embeddings [B, C, out_dim].
         The chunks are independent encoder passes folded into the batch
         ([B·C, base_len]); each is pooled at its first token (CLS), as the
@@ -55,9 +56,9 @@ class RobertaDot(nn.Module):
         C = full_len // self.base_len
         ids = input_ids.reshape(B * C, self.base_len)
         mask = attention_mask.reshape(B * C, self.base_len)
-        hidden = self.roberta(ids, mask)
+        hidden = self.roberta(ids, mask, generator=generator)
         emb = self.norm(self.embeddingHead(hidden[:, 0].to(torch.float32)))
         return emb.reshape(B, C, -1)
 
-    def forward(self, input_ids, attention_mask):
-        return self._embed(input_ids, attention_mask)
+    def forward(self, input_ids, attention_mask, generator=None):
+        return self._embed(input_ids, attention_mask, generator)

@@ -1,0 +1,50 @@
+"""Retrieval losses (counterpart of ``ance_tpu/models/losses.py``).
+
+* :func:`nll_triplet_loss` — the reference NLL head (FirstP).
+* :func:`multichunk_scores` / :func:`nll_multichunk_loss` — NLL_MultiChunk
+  (MaxP): the max over chunk dot products, empty chunks biased by −9999.
+
+All in fp32 whatever the encoder's compute dtype. The JAX losses pin their
+matmuls to HIGHEST precision; here TF32 is off at package import, so fp32
+products are full fp32 on the card too. The DPR and SEED losses wait for
+their slices (ROADMAP Queue 1 #8, #9).
+"""
+
+from __future__ import annotations
+
+import torch
+
+EMPTY_CHUNK_BIAS = -9999.0  # reference models.py:109
+
+
+def nll_triplet_loss(q_embs: torch.Tensor, pos_embs: torch.Tensor,
+                     neg_embs: torch.Tensor) -> torch.Tensor:
+    """Mean over the batch of −log softmax([q·pos, q·neg])[0]."""
+    q = q_embs.to(torch.float32)
+    s_pos = (q * pos_embs.to(torch.float32)).sum(-1)
+    s_neg = (q * neg_embs.to(torch.float32)).sum(-1)
+    logits = torch.stack([s_pos, s_neg], dim=1)          # [B, 2]
+    return -torch.log_softmax(logits, dim=1)[:, 0].mean()
+
+
+def multichunk_scores(q_embs: torch.Tensor, chunk_embs: torch.Tensor,
+                      attention_mask: torch.Tensor) -> torch.Tensor:
+    """MaxP score [B]: the max over chunk dot products, a chunk whose first
+    token is padding biased by −9999. ``chunk_embs`` [B, C, D];
+    ``attention_mask`` [B, C·L]. ``amax`` shares the gradient among tied
+    chunks, as ``jnp.max`` does."""
+    B, C, _ = chunk_embs.shape
+    alive = attention_mask.reshape(B, C, -1)[:, :, 0]
+    bias = (1.0 - alive.to(torch.float32)) * EMPTY_CHUNK_BIAS
+    scores = torch.einsum("bd,bcd->bc", q_embs.to(torch.float32),
+                          chunk_embs.to(torch.float32))
+    return torch.amax(scores + bias, dim=-1)
+
+
+def nll_multichunk_loss(q_embs: torch.Tensor, pos_chunk_embs: torch.Tensor,
+                        pos_mask: torch.Tensor, neg_chunk_embs: torch.Tensor,
+                        neg_mask: torch.Tensor) -> torch.Tensor:
+    logits = torch.stack(
+        [multichunk_scores(q_embs, pos_chunk_embs, pos_mask),
+         multichunk_scores(q_embs, neg_chunk_embs, neg_mask)], dim=1)
+    return -torch.log_softmax(logits, dim=1)[:, 0].mean()

@@ -10,8 +10,14 @@ so a reference or HF ``pytorch_model.bin`` loads with ``load_state_dict``
 as it is. The flax ``Mlp`` is split the HF way: :class:`Intermediate`
 (Dense + gelu) and :class:`Output` (Dense + residual LayerNorm).
 
-Eval only: ``remat``, ``layerdrop_rate > 0`` and ``quant_noise_p > 0``
-are training features and raise here.
+Training: a module in ``train()`` mode applies the JAX package's dropout
+(embedding output, attention probabilities, attention output and MLP
+output; ``ance_tpu/models/transformer.py:135, 198-203, 212, 231``) with
+uniforms drawn from the ``torch.Generator`` its caller passes, and
+``remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``). In ``eval()`` mode nothing is dropped.
+LayerDrop and Quant-Noise (``layerdrop_rate``, ``quant_noise_p``) belong
+to SEED, dormant in every shipped config, and raise until its slice.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ance_tpu_torch.ops.attention import multi_head_attention
 
@@ -57,13 +64,13 @@ class EncoderConfig:
     gelu_approx: Optional[bool] = None
 
     def __post_init__(self):
-        for name, bad in (("remat", self.remat),
-                          ("layerdrop_rate", self.layerdrop_rate > 0.0),
+        for name, bad in (("layerdrop_rate", self.layerdrop_rate > 0.0),
                           ("quant_noise_p", self.quant_noise_p > 0.0)):
             if bad:
                 raise NotImplementedError(
-                    f"{name} is a training feature; the torch port is "
-                    "eval-only until the train step lands (ROADMAP Queue 1)")
+                    f"{name} is a SEED training feature (dormant in every "
+                    "shipped config) and is not ported yet (ROADMAP Queue 1 "
+                    "#9, SEED)")
 
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
@@ -75,6 +82,18 @@ def roberta_position_ids(input_ids: torch.Tensor,
     ``create_position_ids_from_input_ids``)."""
     mask = (input_ids != pad_token_id).to(torch.int64)
     return torch.cumsum(mask, dim=1) * mask + pad_token_id
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (flax ``nn.Dropout``): keep with probability
+    1 − rate, kept entries divided by 1 − rate. ``generator=None`` (eval)
+    or rate 0 is the identity."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype):
@@ -112,7 +131,8 @@ class Embeddings(nn.Module):
                                                       cfg.hidden_size)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def forward(self, input_ids, token_type_ids=None, position_ids=None):
+    def forward(self, input_ids, token_type_ids=None, position_ids=None,
+                generator=None):
         cfg = self.cfg
         if position_ids is None:
             if cfg.position_style == "roberta":
@@ -128,6 +148,7 @@ class Embeddings(nn.Module):
                 token_type_ids = torch.zeros_like(input_ids)
             x = x + self.token_type_embeddings(token_type_ids)
         x = self.LayerNorm(x)  # fp32, then cast (transformer.py:134-138)
+        x = dropout(x, cfg.hidden_dropout, generator)
         if cfg.embed_zero_pad:
             x = x * (input_ids != cfg.pad_token_id)[:, :, None].to(x.dtype)
         return x.to(cfg.dtype)
@@ -147,7 +168,7 @@ class SelfAttention(nn.Module):
                               LayerNorm=nn.LayerNorm(H,
                                                      eps=cfg.layer_norm_eps))
 
-    def forward(self, x, attention_mask):
+    def forward(self, x, attention_mask, generator=None):
         cfg = self.cfg
         B, S, _ = x.shape
         H, D = cfg.num_heads, cfg.head_dim()
@@ -161,10 +182,13 @@ class SelfAttention(nn.Module):
         else:
             q, k, v = (_dense(x, lin, cfg.dtype).reshape(B, S, H, D)
                        for lin in (p.query, p.key, p.value))
-        ctx = multi_head_attention(q, k, v, attention_mask,
-                                   impl=cfg.attention_impl)
-        return _dense(ctx.reshape(B, S, cfg.hidden_size), self.output.dense,
-                      cfg.dtype)
+        ctx = multi_head_attention(
+            q, k, v, attention_mask, impl=cfg.attention_impl,
+            dropout_rate=0.0 if generator is None else cfg.attention_dropout,
+            generator=generator)
+        out = _dense(ctx.reshape(B, S, cfg.hidden_size), self.output.dense,
+                     cfg.dtype)
+        return dropout(out, cfg.hidden_dropout, generator)
 
 
 def gelu_approximate(cfg: EncoderConfig) -> bool:
@@ -198,8 +222,9 @@ class Output(nn.Module):
         self.dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def forward(self, h):
-        return _dense(h, self.dense, self.cfg.dtype)
+    def forward(self, h, generator=None):
+        return dropout(_dense(h, self.dense, self.cfg.dtype),
+                       self.cfg.hidden_dropout, generator)
 
 
 class EncoderLayer(nn.Module):
@@ -212,15 +237,17 @@ class EncoderLayer(nn.Module):
         self.intermediate = Intermediate(cfg)
         self.output = Output(cfg)
 
-    def forward(self, x, attention_mask):
-        attn = self.attention(x, attention_mask)
+    def forward(self, x, attention_mask, generator=None):
+        attn = self.attention(x, attention_mask, generator)
         x = _layer_norm(x + attn, self.attention.output.LayerNorm, self.cfg)
-        mlp = self.output(self.intermediate(x))
+        mlp = self.output(self.intermediate(x), generator)
         return _layer_norm(x + mlp, self.output.LayerNorm, self.cfg)
 
 
 class TransformerEncoder(nn.Module):
-    """Token ids → contextual hidden states [B, S, hidden]."""
+    """Token ids → contextual hidden states [B, S, hidden]. In ``train()``
+    mode ``generator`` (on the input's device) feeds the dropout; in
+    ``eval()`` mode it is ignored."""
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
@@ -229,13 +256,42 @@ class TransformerEncoder(nn.Module):
         self.encoder = _Holder(layer=nn.ModuleList(
             EncoderLayer(cfg) for _ in range(cfg.num_layers)))
 
-    def forward(self, input_ids, attention_mask=None, token_type_ids=None):
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                generator=None):
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
-        x = self.embeddings(input_ids, token_type_ids)
+        if not self.training:
+            generator = None
+        x = self.embeddings(input_ids, token_type_ids, generator=generator)
         for layer in self.encoder.layer:
-            x = layer(x, attention_mask)
+            if self.config.remat and self.training:
+                x = _remat(layer, x, attention_mask, generator)
+            else:
+                x = layer(x, attention_mask, generator)
         return x
+
+
+def _remat(layer: nn.Module, x: torch.Tensor, attention_mask: torch.Tensor,
+           generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One layer under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward. The recompute must draw the same dropout
+    masks, so the layer runs on a copy of the generator's state, and the
+    caller's generator then moves on to where the copy ended."""
+    if generator is None:
+        return checkpoint(layer, x, attention_mask, None, use_reentrant=False)
+    start = generator.get_state()
+    end = []
+
+    def run(x):
+        g = torch.Generator(device=generator.device)
+        g.set_state(start)
+        y = layer(x, attention_mask, g)
+        end[:] = [g.get_state()]
+        return y
+
+    y = checkpoint(run, x, use_reentrant=False)
+    generator.set_state(end[0])
+    return y
 
 
 def pool(hidden: torch.Tensor, attention_mask: torch.Tensor,

@@ -14,6 +14,14 @@ Counterpart of ``ance_tpu/ops/attention.py``. Implementations:
                    ``flash`` above; on a CPU tensor always the einsum path,
                    as the JAX package does off the TPU.
 
+Training-time attention dropout (``dropout_rate`` > 0, inverted dropout on
+the softmax weights, drawn from a ``torch.Generator``) exists on the einsum
+path only: the kernels never hold the probabilities to drop from, so a
+nonzero rate sends ``fused``, ``flash`` and ``auto`` to the einsum path
+(``ance_tpu/ops/attention.py:102-103``). At rate 0 ``auto`` keeps its
+thresholds, so a MaxP train step at S = 512 runs the fused kernel and its
+backward.
+
 The 256 / 1024 thresholds are the JAX package's, measured on a TPU; they
 are kept so both packages choose alike, and re-choosing them on the H100
 is open (PERF.md). A failed kernel build or launch raises: nothing falls
@@ -44,10 +52,14 @@ def mask_to_bias(attention_mask: torch.Tensor,
 
 def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: Optional[torch.Tensor] = None,
-                  softmax_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                  softmax_dtype: torch.dtype = torch.float32,
+                  dropout_rate: float = 0.0,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
     """Scaled dot-product attention with the softmax in ``softmax_dtype``;
     probabilities are cast to the input dtype before the PV product.
-    Returns [B, S, H, D]."""
+    ``dropout_rate`` > 0 drops probability entries (kept ones scaled by
+    1/(1 − rate)) with uniforms from ``generator``. Returns [B, S, H, D]."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     # bf16 × bf16 products are exact in fp32, so upcasting the operands is
     # the bf16-in / fp32-accumulate product of the JAX einsum
@@ -57,6 +69,13 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bias is not None:
         logits = logits + bias.to(softmax_dtype)
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    if dropout_rate > 0.0:
+        if generator is None:
+            raise ValueError("attention dropout needs a generator")
+        keep = torch.rand(weights.shape, generator=generator,
+                          device=weights.device) < 1.0 - dropout_rate
+        weights = torch.where(keep, weights / (1.0 - dropout_rate),
+                              torch.zeros_like(weights))
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
 
@@ -115,8 +134,12 @@ def kernel_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          attention_mask: Optional[torch.Tensor] = None,
-                         *, impl: str = "xla") -> torch.Tensor:
+                         *, impl: str = "xla", dropout_rate: float = 0.0,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
     """Dispatch over the implementations in the module docstring."""
+    if dropout_rate > 0.0 and impl in ("fused", "flash", "auto"):
+        impl = "xla_bf16" if q.dtype == torch.bfloat16 else "xla"
     if impl == "auto":
         S = q.shape[1]
         if q.device.type != "cuda" or S < FUSED_MIN_SEQ:
@@ -133,4 +156,5 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"unknown attention impl {impl!r}")
     bias = None if attention_mask is None else mask_to_bias(attention_mask)
     softmax_dtype = torch.bfloat16 if impl == "xla_bf16" else torch.float32
-    return xla_attention(q, k, v, bias, softmax_dtype=softmax_dtype)
+    return xla_attention(q, k, v, bias, softmax_dtype=softmax_dtype,
+                         dropout_rate=dropout_rate, generator=generator)

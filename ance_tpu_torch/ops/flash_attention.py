@@ -14,8 +14,13 @@ is therefore attention wholly in fp32, cast to the input dtype at the end;
 the online softmax differs from it by rounding only.
 
 The JAX kernel's ``block_q`` / ``block_k`` (256) and its rule that S be a
-multiple of them are TPU tiling and are not carried over. Its backward is
-XLA recompute in the JAX package; the port is eval-only (ROADMAP Queue 1).
+multiple of them are TPU tiling and are not carried over.
+
+The gradient (:class:`FlashAttention`) is what the JAX ``custom_vjp``
+gives: not a Pallas kernel but the VJP of ``xla_attention`` with an fp32
+softmax, recomputed from the saved q, k, v and mask
+(``ance_tpu/ops/flash_attention.py:137-149``). So here the backward is
+autograd through that plain version — ordinary torch ops, no kernel.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from typing import Optional
 import torch
 
 from ance_tpu_torch.ops.attention import (KERNEL_DTYPES, kernel_operands,
-                                          mask_to_bias)
+                                          mask_to_bias, xla_attention)
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -45,16 +50,15 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                         v.to(torch.float32)).to(q.dtype)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    attention_mask: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
-    """q/k/v [B, S, H, D], attention_mask [B, S] {0,1} or None →
-    [B, S, H, D] in the input dtype.
-
-    A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    (``flash_attention.launches`` counts the launches) or raises: it takes
-    float32 or bfloat16, D = 64, any S ≥ 1, q/k/v sharing one set of
-    strides with unit stride along D."""
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor,
+                            attention_mask: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """The forward alone (no autograd). A CPU tensor takes the plain
+    version. A CUDA tensor launches the kernel (``flash_attention.launches``
+    counts the launches) or raises: it takes float32 or bfloat16, D = 64,
+    any S ≥ 1, q/k/v sharing one set of strides with unit stride along
+    D."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, attention_mask)
     bias, (sb, ss, sh) = kernel_operands(q, k, v, attention_mask,
@@ -73,6 +77,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"error {err} (B={B} S={S} H={H} D={D})")
     flash_attention.launches += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash forward; its backward is the VJP of the fp32-softmax
+    einsum attention, as in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, attention_mask):
+        ctx.save_for_backward(q, k, v, attention_mask)
+        return flash_attention_forward(q, k, v, attention_mask)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, attention_mask = ctx.saved_tensors
+        bias = None if attention_mask is None \
+            else mask_to_bias(attention_mask)
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = xla_attention(*qkv, bias, softmax_dtype=torch.float32)
+            dq, dk, dv = torch.autograd.grad(out, qkv, do)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    attention_mask: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """q/k/v [B, S, H, D], attention_mask [B, S] {0,1} or None →
+    [B, S, H, D] in the input dtype, differentiable in q, k and v
+    (:class:`FlashAttention`)."""
+    return FlashAttention.apply(q, k, v, attention_mask)
 
 
 flash_attention.launches = 0

@@ -1,18 +1,28 @@
-"""Fused whole-sequence attention forward.
+"""Fused whole-sequence attention, forward and backward.
 
-Counterpart of ``ance_tpu/ops/fused_attention.py`` (the forward,
-``_fused_kernel`` via ``_fused_forward``). On a CUDA tensor
-:func:`fused_attention` launches the hand-written Hopper kernel
-``csrc/fused_attention.cu``: a block keeps one query tile's whole fp32
-score row in shared memory, so the max and the sum are exact and the
+Counterpart of ``ance_tpu/ops/fused_attention.py``: the forward
+(``_fused_kernel`` via ``_fused_forward``), the backward
+(``_fused_bwd_kernel`` via ``_fused_backward``) and the ``custom_vjp``
+that joins them, here the ``torch.autograd.Function``
+:class:`FusedAttention`. Like the JAX ``_fwd`` it saves only q, k, v and
+the mask; the backward recomputes the scores.
+
+On a CUDA tensor both directions launch the hand-written Hopper kernels of
+``csrc/fused_attention.cu``. The forward keeps one query tile's whole fp32
+score rows in shared memory, so the max and the sum are exact and the
 [B, H, S, S] scores never reach device memory; bf16 products run on the
-tensor cores. On a CPU tensor it runs the plain version
-:func:`fused_attention_reference`, which is the same function:
-``xla_attention`` with an fp32 softmax — scale, then add the bias, in
-fp32; p rounded to the input dtype before the PV product.
+tensor cores. The backward is two kernels: a rows pass (p and dp rows of a
+query tile, ds, dq and each row's softmax max, sum and rowsum(dp ⊙ p)) and
+a keys pass (64 keys of a head against every query tile, dk and dv
+accumulated in registers), so no atomics and a deterministic result.
 
-The backward (``_fused_bwd_kernel``) belongs to training and is not here
-(ROADMAP Queue 2 #3).
+On a CPU tensor each direction runs its plain version:
+:func:`fused_attention_reference` (``xla_attention`` with an fp32 softmax:
+scale, then add the bias, in fp32; p rounded to the input dtype before PV)
+and :func:`fused_attention_backward_reference` (the same recompute and the
+two casts of ``_fused_bwd_kernel``: p to the input dtype for dv, ds·scale
+to the input dtype for dq and dk). The JAX ``ANCE_FUSED_XLA_BWD`` switch
+is a TPU fallback and has no counterpart.
 """
 
 from __future__ import annotations
@@ -30,27 +40,58 @@ from ance_tpu_torch.ops.attention import (KERNEL_DTYPES, kernel_operands,
 # per block (bf16 needs about 96·S + 21 KB of the 227 KB); ``auto`` sends
 # S > 1024 to flash
 MAX_SEQ = 2048
+# the backward's rows pass also holds the fp32 dp rows: about 160·S + 23 KB
+MAX_SEQ_BACKWARD = 1024
 
 
 def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor,
                               attention_mask: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
-    """The plain version: einsum attention with an fp32 softmax."""
+    """The plain forward: einsum attention with an fp32 softmax."""
     bias = None if attention_mask is None else mask_to_bias(attention_mask)
     return xla_attention(q, k, v, bias, softmax_dtype=torch.float32)
 
 
-def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    attention_mask: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
-    """q/k/v [B, S, H, D], attention_mask [B, S] {0,1} or None →
-    [B, S, H, D] in the input dtype.
+def fused_attention_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        attention_mask: Optional[torch.Tensor], do: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward, ``_fused_bwd_kernel`` step for step: recompute
+    s and p in fp32; dv = pbᵀ·do with pb = p in the input dtype; dp =
+    do·vᵀ; ds = p ⊙ (dp − rowsum(dp ⊙ p)); dq = dsb·k, dk = dsbᵀ·q with
+    dsb = ds·scale in the input dtype. Products of input-dtype operands
+    are taken in fp32 (exact for bf16 × bf16) and the results cast to the
+    input dtype. Returns (dq, dk, dv), each [B, S, H, D]."""
+    f32 = torch.float32
+    scale = torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=f32)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), k.to(f32)) * scale
+    if attention_mask is not None:
+        s = s + mask_to_bias(attention_mask)
+    p = torch.softmax(s, dim=-1)
+    pb = p.to(v.dtype).to(f32)
+    dv = torch.einsum("bhqk,bqhd->bkhd", pb, do.to(f32))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.to(f32), v.to(f32))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dsb = (ds * scale).to(q.dtype).to(f32)
+    dq = torch.einsum("bhqk,bkhd->bqhd", dsb, k.to(f32))
+    dk = torch.einsum("bhqk,bqhd->bkhd", dsb, q.to(f32))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
-    A CPU tensor takes the plain version. A CUDA tensor launches the kernel
-    (``fused_attention.launches`` counts the launches) or raises: it takes
-    float32 or bfloat16, D = 64, S ≤ MAX_SEQ, q/k/v sharing one set of
-    strides with unit stride along D (bf16: 16-byte-aligned rows)."""
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def fused_attention_forward(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor,
+                            attention_mask: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """The forward alone (no autograd): the plain version on a CPU tensor;
+    on a CUDA tensor the kernel (``fused_attention.launches`` counts its
+    launches) or a raise. It takes float32 or bfloat16, D = 64,
+    S ≤ MAX_SEQ, q/k/v sharing one set of strides with unit stride along D
+    (bf16: 16-byte-aligned rows)."""
     if q.device.type == "cpu":
         return fused_attention_reference(q, k, v, attention_mask)
     bias, (sb, ss, sh) = kernel_operands(
@@ -60,11 +101,10 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lib = _kernel_library()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fused_attention_launch(
             KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr(), out.data_ptr(), B, S, H, D, sb, ss, sh,
-            1.0 / math.sqrt(D), stream)
+            1.0 / math.sqrt(D), _stream(q.device))
     if err != 0:
         raise RuntimeError(f"fused attention kernel launch failed: CUDA "
                            f"error {err} (B={B} S={S} H={H} D={D})")
@@ -72,17 +112,90 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def fused_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor,
+                             attention_mask: Optional[torch.Tensor],
+                             do: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv) for the output gradient ``do``: the plain version on a
+    CPU tensor; on a CUDA tensor the backward kernels
+    (``fused_attention_backward.launches`` counts the calls, each one
+    rows pass and one keys pass) or a raise. It takes what the forward
+    takes with S ≤ MAX_SEQ_BACKWARD, and ``do`` of q's shape and dtype."""
+    if q.device.type == "cpu":
+        return fused_attention_backward_reference(q, k, v, attention_mask,
+                                                  do)
+    bias, (sb, ss, sh) = kernel_operands(
+        q, k, v, attention_mask, name="fused_attention_backward",
+        max_seq=MAX_SEQ_BACKWARD, align16=q.dtype == torch.bfloat16)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"fused_attention_backward: do must match q, got "
+                         f"{tuple(do.shape)} {do.dtype} {do.device}")
+    vec = 16 // do.element_size()
+    if do.stride(3) != 1 or do.data_ptr() % 16 or any(
+            s % vec for s in do.stride()[:3]):
+        do = do.contiguous()  # the kernels read 16-byte row pieces
+    B, S, H, D = q.shape
+    dq, dk, dv = (torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    stats = torch.empty(3 * B * H * S, dtype=torch.float32, device=q.device)
+    lib = _kernel_library()
+    with torch.cuda.device(q.device):
+        err = lib.fused_attention_backward_launch(
+            KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            bias.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), stats.data_ptr(), B, S, H, D, sb, ss, sh,
+            *do.stride()[:3], 1.0 / math.sqrt(D), _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"fused attention backward kernel launch failed: "
+                           f"CUDA error {err} (B={B} S={S} H={H} D={D})")
+    fused_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+class FusedAttention(torch.autograd.Function):
+    """The fused forward with its backward; saves q, k, v and the mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, attention_mask):
+        ctx.save_for_backward(q, k, v, attention_mask)
+        return fused_attention_forward(q, k, v, attention_mask)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, attention_mask = ctx.saved_tensors
+        dq, dk, dv = fused_attention_backward(q, k, v, attention_mask, do)
+        return dq, dk, dv, None
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    attention_mask: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """q/k/v [B, S, H, D], attention_mask [B, S] {0,1} or None →
+    [B, S, H, D] in the input dtype, differentiable in q, k and v
+    (:class:`FusedAttention`). ``fused_attention.launches`` counts the
+    forward kernel's launches."""
+    return FusedAttention.apply(q, k, v, attention_mask)
+
+
 fused_attention.launches = 0
+fused_attention_backward.launches = 0
 
 
 def _kernel_library() -> ctypes.CDLL:
     from ance_tpu_torch.ops._build import load_library
     lib = load_library("fused_attention")
-    fn = lib.fused_attention_launch
     # every pointer and the stream as c_void_p: an undeclared argument is
     # passed as a 32-bit int and the pointer is cut
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+    fwd = lib.fused_attention_launch
+    fwd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
         ctypes.c_int] * 4 + [ctypes.c_longlong] * 3 + [
         ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fwd.restype = ctypes.c_int
+    bwd = lib.fused_attention_backward_launch
+    bwd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [
+        ctypes.c_int] * 4 + [ctypes.c_longlong] * 6 + [
+        ctypes.c_float, ctypes.c_void_p]
+    bwd.restype = ctypes.c_int
     return lib

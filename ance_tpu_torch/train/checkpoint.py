@@ -1,0 +1,130 @@
+"""Checkpoints and their completeness signal (counterpart of
+``ance_tpu/train/checkpoint.py``), with the same directory protocol:
+
+    <dir>/checkpoint-<step>/
+        pytorch_model.bin    the model's state dict, HF key names
+        optimizer.pt         optimizer and schedule state (optional)
+        meta.json            {"step": N, ...extra}
+        DONE                 completeness marker, written LAST
+
+The parameters are an HF-layout ``pytorch_model.bin``, the reference's own
+checkpoint file: ``models/weights.py::load_pretrained`` loads it strictly,
+the JAX package's torch reader (``hf_loader.load_torch_state_dict``) reads
+it as it is, and nothing needs converting for export. The directory is
+written under a temporary name and renamed into place before DONE, so a
+reader that waits for DONE never sees a partial checkpoint.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import tempfile
+from typing import Optional
+
+import torch
+
+DONE_MARKER = "DONE"
+MODEL_FILE = "pytorch_model.bin"
+OPTIMIZER_FILE = "optimizer.pt"
+
+
+def checkpoint_no(path: str) -> int:
+    """Trailing integer of a checkpoint dirname
+    (reference utils/util.py:224-226)."""
+    nums = re.findall(r"\d+", os.path.basename(os.path.normpath(path)))
+    return int(nums[-1]) if nums else 0
+
+
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def save_checkpoint(directory: str, step: int, model: torch.nn.Module,
+                    optimizer_state: Optional[dict] = None,
+                    extra: Optional[dict] = None) -> str:
+    """Write ``checkpoint-<step>``: a temporary directory renamed into
+    place, then DONE. Tensors are saved from host copies."""
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, f"checkpoint-{step}")
+    tmp = tempfile.mkdtemp(dir=directory, prefix=f".ckpt-{step}-")
+    try:
+        torch.save(_to_cpu(model.state_dict()), os.path.join(tmp, MODEL_FILE))
+        if optimizer_state is not None:
+            torch.save(_to_cpu(optimizer_state),
+                       os.path.join(tmp, OPTIMIZER_FILE))
+        meta = {"step": int(step)}
+        meta.update(extra or {})
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    with open(os.path.join(final, DONE_MARKER), "w") as f:
+        f.write(str(step))
+    return final
+
+
+def is_complete(ckpt_dir: str) -> bool:
+    return os.path.exists(os.path.join(ckpt_dir, DONE_MARKER))
+
+
+def get_latest_checkpoint(training_dir: str,
+                          init_model_dir: Optional[str] = None
+                          ) -> tuple[Optional[str], int]:
+    """Newest COMPLETE checkpoint dir and its step, else
+    (init_model_dir, 0) (reference run_ann_data_gen.py:55-71)."""
+    if not training_dir or not os.path.isdir(training_dir):
+        return init_model_dir, 0
+    best_step, best_path = -1, None
+    for name in next(os.walk(training_dir))[1]:
+        path = os.path.join(training_dir, name)
+        if not is_complete(path):
+            continue
+        step = checkpoint_no(name)
+        if step > best_step:
+            best_step, best_path = step, path
+    if best_path is None:
+        return init_model_dir, 0
+    return best_path, best_step
+
+
+def load_checkpoint(ckpt_dir: str, model: torch.nn.Module
+                    ) -> tuple[Optional[dict], dict]:
+    """Load the parameters strictly into ``model`` (in place, onto its
+    device). Returns (the optimizer state or None, meta)."""
+    sd = torch.load(os.path.join(ckpt_dir, MODEL_FILE), map_location="cpu",
+                    weights_only=True)
+    model.load_state_dict(sd, strict=True)
+    opt_path = os.path.join(ckpt_dir, OPTIMIZER_FILE)
+    opt_state = torch.load(opt_path, map_location="cpu", weights_only=True) \
+        if os.path.exists(opt_path) else None
+    with open(os.path.join(ckpt_dir, "meta.json")) as f:
+        meta = json.load(f)
+    return opt_state, meta
+
+
+def resume_train_state(training_dir: str, state):
+    """Restore the newest complete checkpoint into a ``TrainState``: the
+    parameters, and the optimizer (moments, step count, schedule anchor)
+    when saved. Returns (state, resumed step); (state, 0) when there is
+    nothing complete."""
+    path, step = get_latest_checkpoint(training_dir)
+    if path is None or not is_complete(path):
+        return state, 0
+    opt_state, _ = load_checkpoint(path, state.model)
+    if opt_state is not None:
+        state.optimizer.load_state_dict(opt_state)
+    state.step = step
+    return state, step

@@ -23,11 +23,33 @@ nvcc each, all at once) and then:
     documents of seq 2048 (16,384 chunk rows of 512): the ``serve`` CLI,
     an in-process encode through the fused kernel (and a slice of it
     through the flash kernel and the plain path), and the HTTP server,
-    every answer held against a scan.
+    every answer held against a scan;
+  * attention backward: kernel #3 (the fused backward) against its plain
+    version at the MaxP training shape (64 chunk rows of S = 512) and at
+    S = 256 / 1024 / a ragged 300, bf16 and fp32, and the autograd
+    ``Function`` (both kernels) against autograd through the plain
+    forward; timed beside the backward of
+    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick the
+    port never calls);
+  * train: ``python -m ance_tpu_torch.cli train`` (in process, as
+    ``cli.main``) at full RoBERTa-base width, FirstP (batch 32, query seq
+    64, passage seq 128, dropout 0.1, 20 steps) and MaxP (8 documents of
+    seq 2048 per batch, attention dropout 0 so the fused kernels and their
+    backward run: launches == 12 layers x 2 chunked passes x steps), each
+    writing a checkpoint that loads strictly;
+  * step parity: 3 steps, dropout off, two layers at full width (init std
+    0.05, so no loss saturates): fp32 on the card against the port's CPU
+    path, and bf16 (the kernels) against fp32 on the card by loss, update
+    cosine and first-step gradient cosines, MaxP's also against a control
+    that runs bf16 through the plain einsum attention.
 
 Any failed check raises, so the exit code is non-zero and no result line
-is printed. The last two lines are a JSON object of per-kernel results and
-``{"ok": true, "device": {...}}``.
+is printed. The last two lines are a JSON object of per-kernel results
+(each with its launches on the main path, its error against the plain
+version, its time, the plain version's, a library call's where one
+computes the same function, and the bound: the larger of the bytes it
+must move over 3.35 TB/s and its operations over the H100's dense peak for
+their type) and ``{"ok": true, "device": {...}}``.
 
 Exits non-zero at once where CUDA is unavailable or the package is not
 beside this file.
@@ -63,6 +85,13 @@ KERNELS = ("blockmax", "fused_attention", "flash_attention")
 # another order than cuBLAS's: the drift stays well under 2e-3
 FLOAT_ATOL = 2e-3
 N_ORACLE = 256  # queries per search held against a plain torch.topk
+# H100 SXM: HBM bytes/s and dense peaks by operation type (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+TRAIN_QUERIES, TRAIN_PASSAGES = 1024, 8192
+TRAIN_BATCH, TRAIN_STEPS = 32, 20
+MAXP_TRAIN_DOCS, MAXP_TRAIN_BATCH, MAXP_TRAIN_STEPS = 256, 8, 5
+TIMED_FROM = 3  # step times are medians over the steps after these
 
 
 def check(ok: bool, what: str) -> None:
@@ -92,6 +121,16 @@ def cuda_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(bytes_moved: float, ops: float, op_type: str) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it): the larger of the
+    bytes over the HBM rate and the operations over the peak for their
+    type."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[op_type]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def phase_device():
@@ -206,9 +245,18 @@ def phase_kernel():
             ms = cuda_ms(lambda: blockmax_scores(qq, cc,
                                                  chunk_rows=CHUNK_ROWS))
             plain_ms = cuda_ms(lambda: blockmax_scores_reference(qq, cc))
+            # read q and c once, write the [Q, N/16] maxima; 2QND products
+            # at the rate of the type they run in (fp32 queries: CUDA cores)
+            nq, nc = qq.shape[0], cc.shape[0]
+            b_ms, b_by = bound(
+                nq * DIM * qq.element_size() + nc * DIM * cc.element_size()
+                + nq * (nc // 16) * 4, 2.0 * nq * nc * DIM,
+                {"f32": "f32", "bf16": "bf16",
+                 "int8": "int8"}[dtypes.split("x")[0]])
             cases.append({"dtypes": dtypes, "shape": shape,
-                          "Q": qq.shape[0], "N": cc.shape[0], "D": DIM,
-                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                          "Q": nq, "N": nc, "D": DIM,
+                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": b_by})
             print(f"kernel {dtypes:10s} {shape:6s} Q={qq.shape[0]:5d} "
                   f"N={cc.shape[0]}: max|err| {err:.3g}  kernel {ms:.3f} ms  "
                   f"plain {plain_ms:.3f} ms", flush=True)
@@ -295,8 +343,42 @@ def phase_ties():
     return out
 
 
-def _bf16_ulps(x: float, n: int) -> float:
-    return n * 2.0 ** (math.floor(math.log2(x)) - 7)
+def _bf16_ulp(x):
+    """One bf16 ulp (8 significant bits) of each |x|; 0 where x is 0."""
+    import torch
+    x = x.float().abs()
+    _, e = torch.frexp(x)
+    return torch.where(x > 0, torch.ldexp(torch.ones_like(x), e - 8),
+                       torch.zeros_like(x))
+
+
+BF16_SLICE_TOL = "2 bf16 ulps of |plain| + 2 of its (row, head) slice's max"
+
+
+def bf16_slice_excess(got, want) -> tuple[int, float, float]:
+    """A bf16 attention output or gradient [B, S, H, D] against its plain
+    version: (elements beyond BF16_SLICE_TOL, max |err|, the largest error
+    in ulps of its slice's max). Slices differ in scale by ~100x: a row of
+    1-3 valid keys sums its dk and dv over every query, so a bound from the
+    whole tensor's max would pass a kernel that zeroed the ordinary rows.
+    The two can differ by one rounding of the output and of a bf16 p or ds,
+    each a fraction of an ulp of the slice."""
+    import torch
+    w = want.float()
+    err = (got.float() - w).abs()
+    slice_ulp = _bf16_ulp(w.abs().amax(dim=(1, 3), keepdim=True))
+    n_bad = int((err > 2 * _bf16_ulp(w) + 2 * slice_ulp).sum())
+    in_ulps = torch.where(err > 0, err / slice_ulp, torch.zeros_like(err))
+    return n_bad, err.max().item(), in_ulps.max().item()
+
+
+def slice_rel_err(got, want) -> float:
+    """The largest over (batch row, head) slices of ||got − want|| /
+    ||want|| for [B, S, H, D] tensors (||got − want|| where want is 0)."""
+    import torch
+    d = (got.float() - want.float()).pow(2).sum(dim=(1, 3)).sqrt()
+    n = want.float().pow(2).sum(dim=(1, 3)).sqrt()
+    return torch.where(n > 0, d / n, d).max().item()
 
 
 def _attention_inputs(B, S, dtype, seed, H=12, D=64):
@@ -318,7 +400,8 @@ def phase_attention():
     fused kernel beside the einsum path ``auto`` takes below S = 256
     (bf16 softmax) and the flash kernel, to re-choose the crossovers."""
     import torch
-    from ance_tpu_torch.ops.attention import multi_head_attention
+    import torch.nn.functional as F
+    from ance_tpu_torch.ops.attention import mask_to_bias, multi_head_attention
     from ance_tpu_torch.ops.flash_attention import (flash_attention,
                                                     flash_attention_reference)
     from ance_tpu_torch.ops.fused_attention import (fused_attention,
@@ -345,22 +428,42 @@ def phase_attention():
         check(got.shape == q.shape and got.dtype == dtype
               and bool(torch.isfinite(got).all()),
               f"{name} {dtype} B={B} S={S}: output not finite {tuple(q.shape)}")
-        err = (got.float() - want).abs().max().item()
         # fp32: the two sum in other orders and exp differs by an ulp or
         # two; bf16: either can round a value (fused: a probability) to
-        # the neighbouring bf16, so 2 ulps of the largest output
-        tol = 1e-4 if dtype == f32 else _bf16_ulps(want.abs().max().item(), 2)
-        check(err <= tol, f"{name} {dtype} B={B} S={S}: max |kernel - "
-              f"plain| {err} > {tol}")
+        # the neighbouring bf16, held per (row, head) slice
+        if dtype == f32:
+            err, tol, ulps = (got - want).abs().max().item(), 1e-4, None
+            check(err <= tol, f"{name} fp32 B={B} S={S}: max |kernel - "
+                  f"plain| {err} > {tol}")
+        else:
+            n_bad, err, ulps = bf16_slice_excess(got, want)
+            tol = BF16_SLICE_TOL
+            check(n_bad == 0, f"{name} bf16 B={B} S={S}: {n_bad} elements "
+                  f"beyond {tol} (worst {ulps} slice ulps)")
         del got, want
         ms = cuda_ms(lambda: kernel(q, k, v, mask))
         plain_ms = cuda_ms(lambda: plain(q, k, v, mask))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        bias4 = mask_to_bias(mask, dtype)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=bias4))
         dt = "bf16" if dtype == bf16 else "f32"
+        # q, k, v in and out once, the int64 mask; 4·S²·D per head, in
+        # bf16 on the tensor cores (fused bf16) or in fp32 (flash: k, v
+        # and p are fp32 in its function)
+        b_ms, b_by = bound(
+            4 * q.numel() * q.element_size() + mask.numel() * 8,
+            4.0 * B * 12 * S * S * 64,
+            "bf16" if dtype == bf16 and name == "fused_attention" else "f32")
         cases.append({"name": name, "dtype": dt, "B": B, "S": S, "H": 12,
                       "D": 64, "max_abs_err": err, "tolerance": tol,
-                      "ms": ms, "plain_ms": plain_ms})
+                      "err_slice_ulps": ulps, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": b_ms,
+                      "bound_by": b_by})
         print(f"{name} {dt:4s} B={B:3d} S={S:4d}: max|err| {err:.3g} "
-              f"(tol {tol:.3g})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms",
+              f"({'fp32 tol 1e-4' if ulps is None else f'{ulps:.3g} slice ulps'})"
+              f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
+              f"  sdpa {library_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})",
               flush=True)
         del q, k, v, mask
         torch.cuda.empty_cache()
@@ -380,6 +483,144 @@ def phase_attention():
         del q, k, v, mask
         torch.cuda.empty_cache()
     return cases, crossover
+
+
+def phase_attention_backward():
+    """Kernel #3 (the fused backward) against its plain version at the MaxP
+    training shape (64 chunk rows of S = 512, H = 12, D = 64; row 0 all
+    padding, the rest ragged) and at S = 256, 1024 and a ragged 300, bf16
+    and fp32, timed beside the backward of SDPA with the same additive
+    bias; then the autograd ``Function`` (forward and backward kernels)
+    against autograd through the plain forward."""
+    import torch
+    import torch.nn.functional as F
+    from ance_tpu_torch.ops.attention import mask_to_bias
+    from ance_tpu_torch.ops.fused_attention import (
+        fused_attention, fused_attention_backward,
+        fused_attention_backward_reference, fused_attention_reference)
+
+    torch.manual_seed(0)  # the output gradients
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = [(bf16, 64, 512), (bf16, 64, 256), (bf16, 16, 1024),
+              (bf16, 16, 300), (f32, 64, 512), (f32, 64, 256),
+              (f32, 16, 1024), (f32, 16, 300)]
+    cases = []
+    for i, (dtype, B, S) in enumerate(shapes):
+        q, k, v, mask = _attention_inputs(B, S, dtype, seed=100 + i)
+        do = torch.randn_like(q, dtype=f32).to(dtype)
+        got = fused_attention_backward(q, k, v, mask, do)
+        want = fused_attention_backward_reference(q, k, v, mask, do)
+        torch.cuda.synchronize()
+        err, ulps = 0.0, 0.0
+        tol = 1e-5 if dtype == f32 else BF16_SLICE_TOL
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            check(g.shape == q.shape and g.dtype == dtype
+                  and bool(torch.isfinite(g).all()),
+                  f"backward {name} {dtype} B={B} S={S}: not finite")
+            # fp32: sums in other orders; bf16: a p or ds one rounding
+            # step apart, held per (row, head) slice
+            if dtype == f32:
+                e = (g - w).abs().max().item()
+                check(e <= tol, f"backward {name} fp32 B={B} S={S}: max "
+                      f"|kernel - plain| {e} > {tol}")
+            else:
+                n_bad, e, u = bf16_slice_excess(g, w)
+                check(n_bad == 0, f"backward {name} bf16 B={B} S={S}: "
+                      f"{n_bad} elements beyond {tol} (worst {u} slice ulps)")
+                ulps = max(ulps, u)
+            err = max(err, e)
+        control = None
+        if dtype == bf16 and (B, S) == (64, 512):
+            # the bound's power: copies of dk and dv with their longest row
+            # zeroed, or off by 10%, must fail it; beside each, whether a
+            # bound from the whole gradient's largest value (2 ulps of it)
+            # would pass the copy
+            row = int(mask.sum(1).argmax())
+            control = {"row": row, "row_len": int(mask[row].sum())}
+            for name, g, w in (("dk", got[1], want[1]), ("dv", got[2], want[2])):
+                whole = 2 * _bf16_ulp(w.float().abs().max()).item()
+                for damage, factor in (("zeroed", 0.0), ("x0.9", 0.9)):
+                    broken = g.clone()
+                    broken[row] *= factor
+                    n_bad, e, _ = bf16_slice_excess(broken, w)
+                    check(n_bad > 0, f"control: {name} with row {row} "
+                          f"{damage} passes the bound")
+                    control[f"{name} {damage}"] = {
+                        "elements_beyond": n_bad, "max_abs_err": e,
+                        "whole_tensor_bound": whole,
+                        "whole_tensor_bound_passes": e <= whole}
+                    print(f"control: {name} with row {row} ({control['row_len']}"
+                          f" keys) {damage}: {n_bad} elements beyond the "
+                          f"bound, max |err| {e:.3g}; the whole-tensor bound "
+                          f"{whole:.3g} would {'pass' if e <= whole else 'fail'}"
+                          " it", flush=True)
+        del got, want
+        ms = cuda_ms(lambda: fused_attention_backward(q, k, v, mask, do))
+        plain_ms = cuda_ms(
+            lambda: fused_attention_backward_reference(q, k, v, mask, do))
+        leaves = [t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask_to_bias(mask, dtype))
+        grad_out = do.transpose(1, 2)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, leaves, grad_out, retain_graph=True))
+        del out, leaves
+        # q, k, v, do in and dq, dk, dv out once, the int64 mask; the
+        # recomputed s and the four gradient products: 10·S²·D a head
+        b_ms, b_by = bound(7 * q.numel() * q.element_size() + mask.numel() * 8,
+                           10.0 * B * 12 * S * S * 64,
+                           "bf16" if dtype == bf16 else "f32")
+        dt = "bf16" if dtype == bf16 else "f32"
+        cases.append({"dtype": dt, "B": B, "S": S, "H": 12, "D": 64,
+                      "max_abs_err": err, "tolerance": tol,
+                      "err_slice_ulps": ulps if dtype == bf16 else None,
+                      "control": control, "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": b_ms, "bound_by": b_by})
+        print(f"fused backward {dt:4s} B={B:3d} S={S:4d}: max|err| {err:.3g}"
+              f" ({f'{ulps:.3g} slice ulps' if dtype == bf16 else 'fp32 tol 1e-5'})"
+              f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
+              f"  sdpa backward {library_ms:.3f} ms  bound {b_ms:.3f} ms "
+              f"({b_by})", flush=True)
+        del q, k, v, mask, do
+        torch.cuda.empty_cache()
+
+    # the Function: kernel forward + kernel backward through autograd
+    functions = []
+    for dtype in (f32, bf16):
+        q, k, v, mask = _attention_inputs(64, 512, dtype, seed=200)
+        do = torch.randn_like(q, dtype=f32).to(dtype)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        f0, b0 = fused_attention.launches, fused_attention_backward.launches
+        got = torch.autograd.grad(fused_attention(*leaves, mask), leaves, do)
+        check((fused_attention.launches, fused_attention_backward.launches)
+              == (f0 + 1, b0 + 1), "the Function did not launch both kernels")
+        want = torch.autograd.grad(fused_attention_reference(*leaves, mask),
+                                   leaves, do)
+        torch.cuda.synchronize()
+        errs = [(g.float() - w.float()).abs().max().item()
+                for g, w in zip(got, want)]
+        rel = max(slice_rel_err(g, w) for g, w in zip(got, want))
+        # fp32: the kernel's delta = rowsum(dp ⊙ p) against autograd's
+        # softmax backward, same function; bf16: autograd's chain rounds dp
+        # to bf16 (2^-9 relative) where the kernel keeps it fp32 and rounds
+        # ds, so each (row, head) slice within 1e-2 of its norm
+        if dtype == f32:
+            check(max(errs) <= 1e-5, f"Function fp32 grads differ by {errs}")
+        else:
+            check(rel <= 1e-2, f"Function bf16 grads: a (row, head) slice "
+                  f"off by {rel} of its norm")
+        functions.append({"dtype": "bf16" if dtype == bf16 else "f32",
+                          "max_abs_err": max(errs),
+                          "max_slice_rel_err": rel})
+        print(f"fused Function {functions[-1]['dtype']:4s} B=64 S=512: "
+              f"grads vs autograd of the plain forward: max|err| "
+              f"{max(errs):.3g}, worst (row, head) slice {rel:.3g} of its "
+              f"norm", flush=True)
+        del q, k, v, mask, do, leaves, got, want
+        torch.cuda.empty_cache()
+    return cases, functions
 
 
 def _write_cache(path: Path, n: int, seq: int, min_len: int, rs) -> None:
@@ -778,6 +1019,349 @@ def phase_maxp(work: Path):
             "peak_mem_gib": peak / 2**30, "cli_s": cli_s}
 
 
+def _write_ann(ann: Path, n_queries: int, n_passages: int, rs,
+               negatives: int = 4) -> None:
+    """An ``ann_training_data_0`` of one line per query (a random positive
+    and ``negatives`` random negatives), then its ready signal."""
+    ann.mkdir()
+    with open(ann / "ann_training_data_0", "w") as f:
+        for q in range(n_queries):
+            pids = rs.choice(n_passages, negatives + 1, replace=False)
+            f.write(f"{q}\t{pids[0]}\t{','.join(map(str, pids[1:]))}\n")
+    (ann / "ann_ndcg_0").write_text(json.dumps({"ndcg": 0.0}))
+
+
+def _train_cli(argv: list[str]) -> dict:
+    """``python -m ance_tpu_torch.cli train ...`` in this process (so the
+    launch counts are visible here); returns its JSON summary line."""
+    import contextlib
+    import io
+    from ance_tpu_torch.cli import main as cli_main
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli_main(argv)
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def _check_checkpoint(summary: dict, model_type: str, weights: Path,
+                      steps: int) -> None:
+    """checkpoint-<steps> is complete, loads strictly, is finite and moved
+    away from the starting weights."""
+    import torch
+    from ance_tpu_torch.models.registry import get_model_spec
+    from ance_tpu_torch.models.weights import load_pretrained
+    path = Path(summary["checkpoint"])
+    check(summary["steps"] == steps and path.name == f"checkpoint-{steps}"
+          and (path / "DONE").exists(), f"no complete {path}")
+    model = get_model_spec(model_type).build()
+    load_pretrained(model, str(path))  # strict
+    start = torch.load(weights / "pytorch_model.bin", weights_only=True)
+    sd = model.state_dict()
+    check(all(bool(torch.isfinite(t).all()) for t in sd.values()),
+          f"{path}: parameters not finite")
+    moved = max((sd[k] - start[k]).abs().max().item() for k in sd)
+    check(moved > 0, f"{path}: training did not move the weights")
+
+
+def phase_train(work: Path):
+    """The trainer job through ``cli train`` at full RoBERTa-base width from
+    the seeded weights of the serve phases: FirstP (batch 32, query seq 64,
+    passage seq 128, dropout 0.1) for TRAIN_STEPS steps, then MaxP (8
+    documents of seq 2048 per batch, attention dropout 0) for
+    MAXP_TRAIN_STEPS steps. Each run's launch counts are set to 0 before it
+    and read after it."""
+    import numpy as np
+    import shutil as sh
+    import torch
+    from ance_tpu_torch.ops.fused_attention import (fused_attention,
+                                                    fused_attention_backward)
+
+    weights = work / "roberta_base_seeded"
+    rs = np.random.RandomState(2)
+    data = work / "train"
+    data.mkdir()
+    _write_cache(data / "train-query", TRAIN_QUERIES, QUERY_LEN, 8, rs)
+    _write_cache(data / "passages", TRAIN_PASSAGES, PASSAGE_LEN, 8, rs)
+    _write_ann(data / "ann", TRAIN_QUERIES, TRAIN_PASSAGES, rs)
+    docs = work / "train_maxp"
+    docs.mkdir()
+    for suffix in ("", "_meta"):
+        sh.copy(data / f"train-query{suffix}", docs / f"train-query{suffix}")
+    _write_cache(docs / "passages", MAXP_TRAIN_DOCS, DOC_LEN, 64, rs)
+    _write_ann(docs / "ann", TRAIN_QUERIES, MAXP_TRAIN_DOCS, rs)
+
+    def common(d: Path, out: str, steps: int, batch: int) -> list[str]:
+        return ["train", "--device", "cuda", "--bf16",
+                "--model_name_or_path", str(weights), "--data_dir", str(d),
+                "--ann_dir", str(d / "ann"), "--output_dir", str(work / out),
+                "--max_steps", str(steps), "--save_steps", str(steps),
+                "--warmup_steps", "2", "--per_device_train_batch_size",
+                str(batch), "--max_query_length", str(QUERY_LEN),
+                "--max_seq_length", str(PASSAGE_LEN)]
+
+    results = {}
+    for name, argv, steps in (
+            ("firstp", common(data, "ckpt_firstp", TRAIN_STEPS, TRAIN_BATCH),
+             TRAIN_STEPS),
+            ("maxp", common(docs, "ckpt_maxp", MAXP_TRAIN_STEPS,
+                            MAXP_TRAIN_BATCH)
+             + ["--model_type", "rdot_nll_multi_chunk",
+                "--encoder_overrides", '{"attention_dropout": 0.0}'],
+             MAXP_TRAIN_STEPS)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_attention.launches = fused_attention_backward.launches = 0
+        t0 = time.perf_counter()
+        summary = _train_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd, bwd = fused_attention.launches, fused_attention_backward.launches
+        peak = torch.cuda.max_memory_allocated()
+        losses = summary["loss"]
+        check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+              f"{name} train: losses {losses}")
+        model_type = "rdot_nll_multi_chunk" if name == "maxp" else "rdot_nll"
+        _check_checkpoint(summary, model_type, weights, steps)
+        step_ms = statistics.median(summary["step_ms"][TIMED_FROM:])
+        if name == "maxp":
+            # the query pass is seq 64 (einsum); positives and negatives
+            # are chunked passes at S = 512 through the kernels
+            want = 12 * 2 * steps
+            check(fwd == want and bwd == want, f"MaxP train: {fwd} fused "
+                  f"forward / {bwd} backward launches, not {want} each")
+        else:
+            check(fwd == 0 and bwd == 0, "FirstP at seq 64/128 should take "
+                  "the einsum path")
+        results[name] = {"steps": steps, "loss": losses,
+                         "train_step_ms": step_ms,
+                         "step_ms": summary["step_ms"],
+                         "fused_forward_launches": fwd,
+                         "fused_backward_launches": bwd,
+                         "peak_mem_gib": peak / 2**30, "wall_s": wall}
+        print(f"train {name}: {steps} steps, loss {losses[0]:.3f} -> "
+              f"{losses[-1]:.3f}, all finite; step {step_ms:.1f} ms (median "
+              f"after {TIMED_FROM}); fused launches {fwd} forward / {bwd} "
+              f"backward; peak device memory {peak / 2**30:.2f} GiB; "
+              f"{summary['checkpoint']} loads strictly", flush=True)
+    check(no_reference_modules(), "the port imported jax or ance_tpu")
+    return results
+
+
+def _params_close(got: dict, want: dict, atol: float, lr_sum: float,
+                  share: float) -> None:
+    """All but ``share`` of the parameter entries within ``atol`` (the
+    attention key biases aside: their true gradient is 0, so Adam/LAMB
+    turn rounding noise into steps of up to ~3.2 x lr) and every entry
+    within twice that step over the rates' sum."""
+    outside = total = 0
+    for key, w in want.items():
+        diff = (got[key].float().cpu() - w.float().cpu()).abs()
+        check(diff.max().item() <= 2 * 3.2 * lr_sum, f"{key} moved apart")
+        if not key.endswith("attention.self.key.bias"):
+            outside += int((diff > atol).sum())
+            total += diff.numel()
+    check(outside <= share * total, f"{outside} of {total} entries differ "
+          f"by more than {atol}")
+
+
+def random_batches(n: int, batch: int, q_len: int, p_len: int,
+                   seed: int) -> list[dict]:
+    """``n`` train batches of random RoBERTa token ids: ``batch`` queries
+    of ``q_len`` and as many positives and negatives of ``p_len``, each row
+    ``<s>`` then ids, padded (id 1) past a length uniform from 8."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        b = {}
+        for side, seq in (("query", q_len), ("pos", p_len), ("neg", p_len)):
+            lengths = rs.randint(8, seq + 1, batch)
+            ids = rs.randint(3, 50265, (batch, seq))
+            ids[:, 0] = 0
+            mask = np.arange(seq)[None] < lengths[:, None]
+            b[f"{side}_ids"] = np.where(mask, ids, 1).astype(np.int32)
+            b[f"{side}_mask"] = mask.astype(np.int32)
+        out.append(b)
+    return out
+
+
+def train_setup(model_type: str, dtype, device, overrides: dict,
+                start: dict | None = None, *, attention_impl: str = "auto",
+                schedule: tuple = (1e-4, 1, 10), weight_decay: float = 0.01):
+    """(model, optimizer, loss_fn): a ``model_type`` RobertaDot
+    (``overrides`` on RoBERTa-base) at ``dtype`` on ``device``, from the
+    state dict ``start`` or seed 0, with the trainer's clip + LAMB over
+    ``warmup_linear(*schedule)`` and the model's triplet loss. The step
+    parity here and ``profile_train_step.py`` build their steps with it."""
+    from ance_tpu_torch.models.registry import get_model_spec
+    from ance_tpu_torch.optim.schedules import warmup_linear
+    from ance_tpu_torch.train import trainer
+    spec = get_model_spec(model_type)
+    model = spec.build(dtype=dtype, config_overrides=overrides,
+                       attention_impl=attention_impl)
+    if start is not None:
+        model.load_state_dict(start)
+    model = model.to(device)
+    optimizer = trainer.make_optimizer(model, "lamb", warmup_linear(*schedule),
+                                       weight_decay=weight_decay)
+    return model, optimizer, trainer.triplet_loss_fn(multichunk=spec.multichunk)
+
+
+def parity_run(model_type: str, overrides: dict, start: dict, batches,
+               device, dtype, attention_impl: str = "auto"):
+    """The trainer's step over ``batches`` from ``start``: (losses, the
+    parameters after, the first step's gradients), on the host in fp32.
+    The gradients are read after clipping, a factor common to all."""
+    import torch
+    from ance_tpu_torch.train import trainer
+    model, optimizer, loss_fn = train_setup(
+        model_type, dtype, device, overrides, start,
+        attention_impl=attention_impl)
+    state = trainer.init_train_state(model, optimizer)
+    step = trainer.make_train_step(loss_fn)
+    gen = torch.Generator().manual_seed(0)
+    losses, grads = [], None
+    for b in batches:
+        state, metrics = step(state, b, gen)
+        losses.append(metrics["loss"].item())
+        if grads is None:
+            grads = {n: p.grad.detach().float().cpu()
+                     for n, p in model.named_parameters()
+                     if p.grad is not None}
+    return losses, {k: v.detach().float().cpu()
+                    for k, v in model.state_dict().items()}, grads
+
+
+def _cos(a, b) -> float:
+    """Cosine of two tensors as flat vectors, in fp64."""
+    a, b = a.double().flatten(), b.double().flatten()
+    return (a @ b / (a.norm() * b.norm())).item()
+
+
+def bf16_readings(start: dict, ref, run) -> dict:
+    """How far a bf16 ``parity_run`` is from the fp32 one ``ref``: the
+    largest |loss − loss_ref| / max(1, |loss_ref|) over the steps, the
+    cosine of the two parameter updates, and the least per-tensor cosine of
+    the first step's gradients (the attention key biases aside: their true
+    gradient is 0)."""
+    import torch
+    (l_ref, p_ref, g_ref), (l, p, g) = ref, run
+    keys = [k for k in g_ref if not k.endswith("attention.self.key.bias")]
+    return {"loss": max(abs(a - b) / max(1.0, abs(b))
+                        for a, b in zip(l, l_ref)),
+            "update_cosine": _cos(
+                torch.cat([(p[k] - start[k]).flatten() for k in start]),
+                torch.cat([(p_ref[k] - start[k]).flatten() for k in start])),
+            "grad_cosine": min(_cos(g[k], g_ref[k]) for k in keys)}
+
+
+def phase_step_parity():
+    """3 train steps from the same weights and batches, dropout off, two
+    layers at full width (768, 12 heads): fp32 on the card against the
+    port's CPU path; bf16 (for MaxP through the fused kernels and their
+    backward) against fp32 on the card; and for MaxP a control, bf16
+    through the plain einsum attention, that the kernel path is held to.
+    FirstP: batch 8, seq 64 / 128; MaxP: 4 documents of 2 x 512 chunks."""
+    import numpy as np
+    import torch
+    from ance_tpu_torch.models.registry import get_model_spec
+    from ance_tpu_torch.ops.fused_attention import (fused_attention,
+                                                    fused_attention_backward)
+
+    # init std 0.05: at 0.02 a random encoder maps every text to nearly one
+    # embedding, so MaxP's bf16 gradients are mostly rounding; at 0.2 score
+    # gaps run to hundreds and the softplus saturates (losses of 0 and of
+    # tens), where bf16 and fp32 cannot be compared
+    overrides = {"num_layers": 2, "hidden_dropout": 0.0,
+                 "attention_dropout": 0.0, "initializer_range": 0.05}
+    lr_sum = 2e-4  # warmup_linear(1e-4, 1, 10): 0, 1e-4, 8/9 1e-4
+    out = {}
+    for model_type, batch, p_len in (("rdot_nll", 8, PASSAGE_LEN),
+                                     ("rdot_nll_multi_chunk", 4, 1024)):
+        maxp = model_type == "rdot_nll_multi_chunk"
+        start = get_model_spec(model_type).build(
+            config_overrides=overrides, seed=3).state_dict()
+        batches = random_batches(3, batch, QUERY_LEN, p_len, seed=4)
+        runs = {"cpu": ("cpu", torch.float32), "f32": ("cuda", torch.float32),
+                "bf16": ("cuda", torch.bfloat16)}
+        if maxp:
+            runs["bf16_plain"] = ("cuda", torch.bfloat16, "xla")
+        res, launches = {}, {}
+        for name, args in runs.items():
+            fused_attention.launches = fused_attention_backward.launches = 0
+            res[name] = parity_run(model_type, overrides, start, batches,
+                                   *args)
+            launches[name] = (fused_attention.launches,
+                              fused_attention_backward.launches)
+        if maxp:  # 2 layers x 2 chunked passes x 3 steps
+            check(launches["bf16"] == (12, 12)
+                  and launches["bf16_plain"] == (0, 0),
+                  f"MaxP parity fused launches {launches}")
+        cpu_l, cpu_p, _ = res["cpu"]
+        f32_l, f32_p, _ = res["f32"]
+        check(all(x >= 0.01 for x in cpu_l), f"{model_type} parity losses "
+              f"{cpu_l}: saturated, nothing to compare")
+        diffs = [(f32_p[k] - cpu_p[k]).abs() for k in start
+                 if not k.endswith("attention.self.key.bias")]
+        worst = max(d.max().item() for d in diffs)
+        share = sum(int((d > 1e-5).sum()) for d in diffs) / sum(
+            d.numel() for d in diffs)
+        loss32 = max(abs(a - b) for a, b in zip(f32_l, cpu_l))
+        b16 = bf16_readings(start, res["f32"], res["bf16"])
+        print(f"parity {model_type}: fp32 cuda vs cpu losses {f32_l} vs "
+              f"{cpu_l} (max |diff| {loss32:.3g}), max param diff "
+              f"{worst:.3g} ({share:.2e} of entries > 1e-5, key biases "
+              f"aside); bf16 losses {res['bf16'][0]}: within "
+              f"{b16['loss']:.3g} of max(1, |loss|), update cosine "
+              f"{b16['update_cosine']:.5f}, least step-1 gradient cosine "
+              f"{b16['grad_cosine']:.5f}", flush=True)
+        # fp32: the card and the CPU sum in other orders. Scores are dot
+        # products of LayerNorm'd 768-d embeddings, |s| ~ 700, where one
+        # fp32 ulp is 6e-5 and a 768-term sum taken in another order
+        # through two layers moves s by tens of ulps: losses within 2e-3 +
+        # 1e-3 relative. Entries whose gradient is nearly 0 may take
+        # opposite Adam steps (ROADMAP Queue 3), so at most 1e-3 of the
+        # parameter entries off by more than 1e-5
+        check(np.allclose(f32_l, cpu_l, atol=2e-3, rtol=1e-3),
+              f"{model_type} fp32 cuda vs cpu losses {f32_l} vs {cpu_l}")
+        _params_close(f32_p, cpu_p, 1e-5, lr_sum, 1e-3)
+        # bf16 against fp32: each bound allows 2.5-3x the deviation of
+        # plain bf16 steps at this set-up (FirstP's bf16 path is the plain
+        # one; MaxP's control below reads it)
+        check(b16["loss"] <= 0.1 and b16["update_cosine"] >= 0.95
+              and b16["grad_cosine"] >= 0.98,
+              f"{model_type} bf16 vs fp32 on the card: {b16}")
+        out[model_type] = {"cpu_loss": cpu_l, "cuda_f32_loss": f32_l,
+                           "cuda_bf16_loss": res["bf16"][0],
+                           "f32_max_loss_diff": loss32,
+                           "f32_max_param_diff": worst,
+                           "f32_share_outside_1e-5": share,
+                           "bf16_vs_f32": b16}
+        if maxp:
+            # the control shares every rounding with the kernel path but
+            # attention's, and its update and gradient cosines are sums
+            # over millions of entries: the kernel path must sit no farther
+            # from fp32 than twice the control does. Losses are held by the
+            # bound above only: the kernel and the einsum path sum in other
+            # orders, so their bf16 losses are two draws of the noise
+            ctrl = bf16_readings(start, res["f32"], res["bf16_plain"])
+            ctrl_l = res["bf16_plain"][0]
+            apart = max(abs(a - b) / max(1.0, abs(b))
+                        for a, b in zip(res["bf16"][0], ctrl_l))
+            print(f"parity {model_type} control (bf16, einsum attention): "
+                  f"losses {ctrl_l}, within {ctrl['loss']:.3g} of fp32's, "
+                  f"update cosine {ctrl['update_cosine']:.5f}, least "
+                  f"gradient cosine {ctrl['grad_cosine']:.5f}; kernel path "
+                  f"losses within {apart:.3g} of the control's", flush=True)
+            check(1 - b16["update_cosine"] <= 2 * (1 - ctrl["update_cosine"])
+                  and 1 - b16["grad_cosine"] <= 2 * (1 - ctrl["grad_cosine"]),
+                  f"MaxP bf16 kernel path {b16} against the control {ctrl}")
+            out[model_type].update(control_bf16_loss=ctrl_l,
+                                   control_vs_f32=ctrl,
+                                   bf16_vs_control_loss=apart)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -799,44 +1383,58 @@ def main() -> int:
     cases, max_err, searches = phase_kernel()
     ties = phase_ties()
     attn_cases, crossover = phase_attention()
+    bwd_cases, functions = phase_attention_backward()
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         serve = phase_serve(work)
         maxp = phase_maxp(work)
+        train = phase_train(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    parity = phase_step_parity()
     headline = next(c for c in cases
                     if c["dtypes"] == "bf16xbf16" and c["shape"] == "dev")
+
+    def entry(name, source, replaces, launches, head, shape, build, own):
+        return {"name": name, "route": "cuda",
+                "source": f"ance_tpu_torch/csrc/{source}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": head["max_abs_err"],
+                "tolerance": head.get("tolerance"), "ms": head["ms"],
+                "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "library_ms": head.get("library_ms"), "shape": shape,
+                "build_s": build_s[build], "cases": own}
 
     def attention_entry(kernel, replaces, B, S, launches):
         own = [c for c in attn_cases if c["name"] == kernel]
         head = next(c for c in own if c["dtype"] == "bf16" and c["B"] == B
                     and c["S"] == S)
-        return {"name": kernel, "route": "cuda",
-                "source": f"ance_tpu_torch/csrc/{kernel}.cu",
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": head["max_abs_err"],
-                "tolerance": head["tolerance"], "ms": head["ms"],
-                "plain_ms": head["plain_ms"],
-                "shape": f"bf16 B={B} S={S} H=12 D=64",
-                "build_s": build_s[kernel], "cases": own}
+        return entry(kernel, kernel, replaces, launches, head,
+                     f"bf16 B={B} S={S} H=12 D=64", kernel, own)
 
-    # launches: the MaxP path's own runs (its HTTP searches; its corpus
-    # encode; the encode of its first batches with --attention flash)
+    # launches: each path's own run — the MaxP serve path for the
+    # forward kernels and block-max (its HTTP searches; its corpus encode;
+    # the encode of its first batches with --attention flash), the MaxP
+    # train path for the backward. No PyTorch call computes the block
+    # maxima, so block-max has no library time.
+    bwd_head = next(c for c in bwd_cases if c["dtype"] == "bf16"
+                    and c["B"] == 64 and c["S"] == 512)
     print(json.dumps({"kernels": [
-        {"name": "blockmax_scores", "route": "cuda",
-         "source": "ance_tpu_torch/csrc/blockmax.cu",
-         "replaces": "ance_tpu/ops/topk.py:90",
-         "launches": maxp["blockmax_launches"], "max_abs_err": max_err,
-         "ms": headline["ms"], "plain_ms": headline["plain_ms"],
-         "shape": "bf16 Q=2048 x N=1000448 x D=768, block 16",
-         "build_s": build_s["blockmax"], "cases": cases},
+        entry("blockmax_scores", "blockmax", "ance_tpu/ops/topk.py:90",
+              maxp["blockmax_launches"], dict(headline, max_abs_err=max_err),
+              "bf16 Q=2048 x N=1000448 x D=768, block 16", "blockmax", cases),
         attention_entry("fused_attention", "ance_tpu/ops/fused_attention.py:40",
                         128, 512, maxp["fused_launches"]),
         attention_entry("flash_attention", "ance_tpu/ops/flash_attention.py:34",
-                        8, 2048, maxp["flash_launches"])],
-        "index_search": searches, "ties": ties, "crossover": crossover,
-        "serve": serve, "maxp": maxp}))
+                        8, 2048, maxp["flash_launches"]),
+        entry("fused_attention_bwd", "fused_attention",
+              "ance_tpu/ops/fused_attention.py:97",
+              train["maxp"]["fused_backward_launches"], bwd_head,
+              "bf16 B=64 S=512 H=12 D=64", "fused_attention", bwd_cases)],
+        "fused_function": functions, "index_search": searches, "ties": ties,
+        "crossover": crossover, "serve": serve, "maxp": maxp,
+        "train": train, "step_parity": parity}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

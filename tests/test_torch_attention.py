@@ -6,8 +6,10 @@ JAX kernels run as the JAX package's own tests run them (Pallas interpret
 mode). The ``cuda`` tests hold the hand-written kernels to those plain
 versions on the card and skip elsewhere."""
 
+import faulthandler
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,6 +57,28 @@ def _bf16_ulps(x: np.ndarray, n: int) -> float:
     return n * 2.0 ** (math.floor(math.log2(top)) - 7)
 
 
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bf16 ulp (8 significant bits) of each |x|; 0 where x is 0."""
+    x = np.abs(np.asarray(x, np.float32))
+    _, e = np.frexp(x)
+    return np.where(x > 0, np.ldexp(1.0, e - 8), 0.0)
+
+
+def assert_bf16_slice_close(got, want, what=""):
+    """bf16 attention outputs or gradients [B, S, H, D]: each element within
+    2 ulps of its own |want| plus 2 of the largest |want| in its (batch row,
+    head) slice. Slices differ in scale by up to ~100x (a row of 1-3 valid
+    keys: its output is one v row, its dk and dv sum over every query), so
+    a bound from the whole tensor's max would not see the ordinary rows."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    tol = 2 * _bf16_ulp(want) + 2 * _bf16_ulp(
+        np.abs(want).max(axis=(1, 3), keepdims=True))
+    err = np.abs(got - want)
+    assert (err <= tol).all(), (f"{what}: {(err > tol).sum()} elements "
+                                f"beyond the bound, worst |err| {err.max()}")
+
+
 def _assert_close(got, want, kind):
     got = got.to(torch.float32).numpy()
     want = np.asarray(want.astype(jnp.float32))
@@ -65,16 +89,18 @@ def _assert_close(got, want, kind):
     else:
         # bf16 output: exp and the sums round differently in XLA and torch,
         # which can move a bf16 probability (fused) or the output by one
-        # rounding step; 2 ulps of the largest value bound both
-        np.testing.assert_allclose(got, want, atol=_bf16_ulps(want, 2),
-                                   rtol=0)
+        # rounding step
+        assert_bf16_slice_close(got, want)
 
 
-@pytest.fixture
-def tpu_interpret():
-    from jax.experimental.pallas import tpu as pltpu
-    with pltpu.force_tpu_interpret_mode():
-        yield
+@pytest.fixture(autouse=True)
+def _time_limit():
+    """Pallas interpret mode re-enters JAX from its callbacks: should a
+    test hang, print every thread's stack and end this worker after 300 s,
+    so one test fails instead of the whole suite being cut."""
+    faulthandler.dump_traceback_later(300, exit=True)
+    yield
+    faulthandler.cancel_dump_traceback_later()
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
@@ -94,11 +120,13 @@ def test_fused_plain_matches_jax_kernel(kind, B, S, H, D):
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
 @pytest.mark.parametrize("B,S,H,D,block", [(3, 64, 2, 16, 32),
                                            (2, 40, 3, 8, 256)])
-def test_flash_plain_matches_jax_kernel(tpu_interpret, kind, B, S, H, D,
-                                        block):
+def test_flash_plain_matches_jax_kernel(kind, B, S, H, D, block):
+    from jax.experimental.pallas import tpu as pltpu
     (jq, jk, jv, jm), (q, k, v, m) = _both(_inputs(B, S, H, D, seed=S + 1),
                                            kind)
-    want = jax_flash(jq, jk, jv, jm, block, block)
+    flash = jax.jit(jax_flash, static_argnums=(4, 5))
+    with pltpu.force_tpu_interpret_mode():  # one jitted call, no eager JAX
+        want = flash(jq, jk, jv, jm, block, block)
     got = flash_attention(q, k, v, m)  # CPU tensor: the plain version
     _assert_close(got, want, kind)
 
@@ -181,7 +209,7 @@ def _cuda():
 def test_attention_kernel_matches_plain_on_cuda(impl, kind, S, strided):
     """Each kernel against its plain version on the card: ragged S, a fully
     masked row, and q/k/v as strided chunks of one fused-QKV projection.
-    bf16 within 2 ulps of max |plain|; fp32 within 1e-4 (summation order
+    bf16 by ``assert_bf16_slice_close``; fp32 within 1e-4 (summation order
     and expf against torch's exp)."""
     dev = _cuda()
     kernel, plain = {"fused": (fused_attention, fused_attention_reference),
@@ -200,8 +228,10 @@ def test_attention_kernel_matches_plain_on_cuda(impl, kind, S, strided):
     assert kernel.launches == before + 1
     want = plain(q, k, v, mask).float()
     torch.cuda.synchronize()
-    tol = 1e-4 if kind == "f32" else _bf16_ulps(want.cpu().numpy(), 2)
-    torch.testing.assert_close(got.float(), want, atol=tol, rtol=0)
+    if kind == "f32":
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    else:
+        assert_bf16_slice_close(got.float().cpu(), want.cpu(), impl)
 
 
 @pytest.mark.cuda

@@ -3,8 +3,10 @@ encoding, multi-chunk cache encode, the ``serve`` CLI (MaxP and FirstP at
 seq 512), ``/reload`` of a MaxP index, and the tie order of the block-max
 and merge top-k."""
 
+import faulthandler
 import json
 import urllib.request
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -45,15 +47,27 @@ def _docs(n, seq, rs, min_len=1):
     return lengths, np.where(mask == 1, ids, 1).astype(np.int32), mask
 
 
+@pytest.fixture(autouse=True)
+def _time_limit():
+    """Pallas interpret mode re-enters JAX from its callbacks: should a
+    test hang, print every thread's stack and end this worker after 300 s,
+    so one test fails instead of the whole suite being cut."""
+    faulthandler.dump_traceback_later(300, exit=True)
+    yield
+    faulthandler.cancel_dump_traceback_later()
+
+
 def _tiny_pair(base_len, impl, seed=0, overrides=TINY):
-    """A JAX RobertaDot with ``base_len`` and the port's, same weights
-    (``init`` runs the attention too: Pallas interpret mode)."""
-    from jax.experimental.pallas import tpu as pltpu
+    """A JAX RobertaDot with ``base_len`` and the port's, same weights.
+    The parameter tree does not depend on ``attention_impl``, so ``init``
+    runs on the einsum path, outside Pallas interpret mode."""
     jm = JaxRobertaDot(JaxConfig(attention_impl=impl, **overrides),
                        base_len=base_len)
+    init_model = JaxRobertaDot(JaxConfig(attention_impl="xla", **overrides),
+                               base_len=base_len)
     ids = jnp.ones((2, 8), jnp.int32)
-    with pltpu.force_tpu_interpret_mode():
-        params = jm.init(jax.random.PRNGKey(seed), ids, ids)["params"]
+    params = jax.jit(init_model.init)(jax.random.PRNGKey(seed), ids,
+                                      ids)["params"]
     params = jax.tree.map(np.asarray, params)
     pm = RobertaDot(EncoderConfig(attention_impl=impl, **overrides),
                     base_len=base_len)
@@ -72,10 +86,10 @@ def test_body_emb_multichunk_matches_jax(impl):
     rs = np.random.RandomState(1)
     _, ids, mask = _docs(5, 64, rs)
     mask[0, 20:], ids[0, 20:] = 0, 1  # chunks 2 and 3 are all padding
-    with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(jm.apply({"params": params}, jnp.asarray(ids),
-                                   jnp.asarray(mask),
-                                   method=JaxRobertaDot.body_emb_multichunk))
+    apply = jax.jit(partial(jm.apply, method=JaxRobertaDot.body_emb_multichunk))
+    with pltpu.force_tpu_interpret_mode():  # one jitted call, no eager JAX
+        want = np.asarray(apply({"params": params}, jnp.asarray(ids),
+                                jnp.asarray(mask)))
     with torch.inference_mode():
         got = pm.body_emb_multichunk(torch.as_tensor(ids).long(),
                                      torch.as_tensor(mask).long()).numpy()

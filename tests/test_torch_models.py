@@ -158,7 +158,7 @@ def test_load_pretrained_reads_an_hf_export_dir(tmp_path):
 def test_registry_names_unported_models():
     with pytest.raises(KeyError, match="ROADMAP"):
         get_model_spec("dpr")
-    with pytest.raises(NotImplementedError, match="eval-only"):
+    with pytest.raises(NotImplementedError, match="SEED"):
         get_model_spec("rdot_nll").build(
             config_overrides=dict(TINY, layerdrop_rate=0.1))
 

@@ -65,7 +65,22 @@ SCRIPT = textwrap.dedent("""
           "--save_index", f"{m}/index"])
     assert len(open(f"{m}/rank.tsv").read().splitlines()) == 15
     assert np.load(f"{m}/index.ids.npy").tolist() == [0, 0, 1, 1, 2, 2]
-    assert "jax" not in sys.modules, "serving pulled in jax"
+
+    # the trainer job: 2 steps over an ann file, then a checkpoint
+    import shutil
+    for suffix in ("", "_meta"):
+        shutil.copy(f"{d}/dev-query{suffix}", f"{d}/train-query{suffix}")
+    os.mkdir(f"{d}/ann")
+    with open(f"{d}/ann/ann_training_data_0", "w") as f:
+        f.writelines(f"{q}\\t{q}\\t{q + 10},{q + 20}\\n" for q in range(5))
+    with open(f"{d}/ann/ann_ndcg_0", "w") as f:
+        json.dump({"ndcg": 0.0}, f)
+    main(["train", "--device", "cpu", "--encoder_overrides", json.dumps(tiny),
+          "--data_dir", d, "--ann_dir", f"{d}/ann", "--output_dir",
+          f"{d}/ckpt", "--max_steps", "2", "--per_device_train_batch_size",
+          "4", "--max_query_length", "6"])
+    assert os.path.exists(f"{d}/ckpt/checkpoint-2/DONE")
+    assert "jax" not in sys.modules, "serving or training pulled in jax"
     assert "flax" not in sys.modules
     old = sorted(m for m in sys.modules
                  if m == "ance_tpu" or m.startswith("ance_tpu."))

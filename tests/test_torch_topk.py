@@ -1,6 +1,8 @@
 """Torch block-max top-k vs the JAX Pallas kernel (interpret mode) and the
 scan top-k, on the same numpy inputs."""
 
+import faulthandler
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +17,17 @@ from ance_tpu_torch.ops.topk import (blockmax_scores,
                                      blockmax_scores_reference, topk_blockmax)
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    """Pallas interpret mode re-enters JAX from its callbacks: should a
+    test hang, print every thread's stack and end this worker after 300 s,
+    so one test fails instead of the whole suite being cut."""
+    faulthandler.dump_traceback_later(300, exit=True)
+    yield
+    faulthandler.cancel_dump_traceback_later()
+
 
 _JNP = {"f32": jnp.float32, "bf16": jnp.bfloat16, "int8": jnp.int8}
 _TORCH = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
