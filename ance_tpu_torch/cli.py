@@ -1,9 +1,10 @@
 """Command line of the torch port: ``python -m ance_tpu_torch.cli
-{serve,train}``.
+{serve,train,generate,infer,eval,eval-full}``.
 
-Counterpart of ``ance_tpu/cli.py``'s ``serve`` and ``train`` subcommands,
-with the same flags plus ``--device`` (default ``cuda``; asking for CUDA
-where none exists exits, it never carries on on the CPU). The other
+Counterpart of the same subcommands of ``ance_tpu/cli.py``, with the same
+flags plus ``--device`` (default ``cuda``; asking for CUDA where none
+exists exits, it never carries on on the CPU) and minus the multi-device
+ones (``--tensor_parallel``, the mesh: ROADMAP Queue 1 #11). The other
 subcommands wait for later PRs (ROADMAP Queue 1 #6).
 
 ``serve`` batch mode writes ``qid\\tpid\\trank[\\tscore]`` lines in real id
@@ -11,7 +12,12 @@ space, as the JAX CLI does; ``--http HOST:PORT`` serves the JSON API of
 :mod:`ance_tpu_torch.serve_http` instead. ``train`` is the ANCE trainer
 job: it polls ``--ann_dir`` for ann data and writes ``checkpoint-<step>``
 directories to ``--output_dir``, then prints one JSON line of its
-per-step losses, gradient norms and step times.
+per-step losses, gradient norms and step times. ``generate`` is one pass
+of the generator job (encode, index, dev NDCG, mining, then
+``ann_training_data_<n>`` and ``ann_ndcg_<n>``) with the newest complete
+checkpoint under ``--training_dir``; ``infer`` stops after the encode and
+dumps embedding shards, which ``eval-full`` scores; ``eval`` is the
+official MS MARCO scorer.
 """
 
 from __future__ import annotations
@@ -119,7 +125,8 @@ def _build_model(args, device, seed: int = 0, warn_random: bool = True):
     else from an HF-layout ``--model_name_or_path`` directory (or the
     newest complete checkpoint of a training directory there, as the JAX
     CLI warm-starts), else stay random (serve warns). Returns (spec,
-    model, params_source)."""
+    model, params_source, checkpoint): ``checkpoint`` is the checkpoint
+    directory loaded, or None when the weights came from elsewhere."""
     import torch
     from ance_tpu_torch.models.registry import get_model_spec
     from ance_tpu_torch.models.weights import load_pretrained
@@ -140,7 +147,9 @@ def _build_model(args, device, seed: int = 0, warn_random: bool = True):
     if not (path and ckpt.is_complete(path)) and src and os.path.isdir(src) \
             and not _has_torch_checkpoint(src):
         path, _ = ckpt.get_latest_checkpoint(src)  # a training directory
-    if path and ckpt.is_complete(path):
+    if not (path and ckpt.is_complete(path)):
+        path = None
+    if path:
         if not os.path.exists(os.path.join(path, ckpt.MODEL_FILE)):
             raise SystemExit(f"{path} holds no {ckpt.MODEL_FILE}: a native "
                              "(msgpack/orbax) checkpoint, which the torch "
@@ -161,7 +170,7 @@ def _build_model(args, device, seed: int = 0, warn_random: bool = True):
                   "--training_dir/--init_model_dir/--model_name_or_path — "
                   "serving RANDOM encoder weights; rankings will be garbage "
                   "unless this is a smoke test", file=sys.stderr)
-    return spec, model.to(device), params_source
+    return spec, model.to(device), params_source, path
 
 
 def cmd_serve(args):
@@ -186,7 +195,7 @@ def cmd_serve(args):
                          "--load_index (saved index)")
 
     device = resolve_device(args.device)
-    spec, model, params_source = _build_model(args, device)
+    spec, model, params_source, _ = _build_model(args, device)
 
     if args.load_index:
         lp = args.load_index if args.load_index.endswith(".npz") \
@@ -436,8 +445,9 @@ def cmd_train(args):
     if not args.ann_dir:
         raise SystemExit("--ann_dir is required unless --num_epoch > 0")
     device = resolve_device(args.device)
-    spec, model, params_source = _build_model(args, device, seed=args.seed,
-                                              warn_random=False)
+    spec, model, params_source, _ = _build_model(args, device,
+                                                 seed=args.seed,
+                                                 warn_random=False)
     state, step = _make_training(args, model, spec)
     history = {"loss": [], "grad_norm": [], "step_ms": []}
     last = [time.perf_counter()]
@@ -467,6 +477,129 @@ def cmd_train(args):
                       "checkpoint": os.path.join(
                           args.output_dir, f"checkpoint-{state.step}"),
                       **history}))
+
+
+def cmd_generate(args, inference_only: bool = False):
+    """One generator pass (``ance generate``; ``infer`` with
+    ``inference_only``) with the weights :func:`_build_model` loads. The
+    handoff files cite the checkpoint directory they came from, or
+    ``<init>`` when they came from no checkpoint."""
+    import numpy as np
+    from ance_tpu_torch.data.cache import TokenCache
+    from ance_tpu_torch.models.dot_models import RobertaDot
+    from ance_tpu_torch.train.ance_loop import (load_offset_qrels,
+                                                positives_from_qrels)
+    from ance_tpu_torch.train.ann_gen import AnnGenConfig, generate_new_ann
+    from ance_tpu_torch.train.encode import make_encode_fn
+    from ance_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    spec, model, _, ckpt_path = _build_model(args, device, warn_random=False)
+    qfn = make_encode_fn(model, RobertaDot.query_emb, device)
+    bfn = make_encode_fn(model, RobertaDot.body_emb_multichunk
+                         if spec.multichunk else RobertaDot.body_emb, device)
+    gen_cfg = AnnGenConfig(topk_training=args.topk_training,
+                           negative_sample=args.negative_sample,
+                           ann_chunk_factor=args.ann_chunk_factor,
+                           ann_measure_topk_mrr=args.ann_measure_topk_mrr,
+                           multichunk=spec.multichunk,
+                           index_quantize=args.index_quantize,
+                           encode_batch_size=args.per_device_eval_batch_size)
+    train_qrels = load_offset_qrels(args.data_dir + "/train-qrel.tsv")
+    dev_qrels = load_offset_qrels(args.data_dir + "/dev-qrel.tsv")
+    with TokenCache(args.data_dir + "/dev-query") as dev_c, \
+            TokenCache(args.data_dir + "/passages") as pass_c, \
+            TokenCache(args.data_dir + "/train-query") as train_c:
+        result = generate_new_ann(
+            gen_cfg, output_num=args.output_num,
+            checkpoint_path=ckpt_path or "<init>",
+            query_encode_fn=qfn, body_encode_fn=bfn,
+            dev_query_cache=dev_c, passage_cache=pass_c,
+            train_query_cache=train_c,
+            training_query_positive_id=positives_from_qrels(train_qrels),
+            dev_query_positive_id=dev_qrels, output_dir=args.output_dir,
+            device=device, inference_only=inference_only)
+    if not inference_only:
+        print(json.dumps({"dev_ndcg": result["dev_ndcg"],
+                          "ann_mrr": result["ann_mrr"],
+                          "data_path": result["data_path"],
+                          "checkpoint": ckpt_path or "<init>",
+                          "seconds": result["seconds"]}))
+        return
+    # the embeddings in the reference's shard layout (its --inference mode
+    # stops after the encode, run_ann_data_gen.py:256-257): the passages as
+    # the index holds them, as ``ance infer`` writes them
+    from ance_tpu_torch.evaluation.offline import save_embedding_shard
+    os.makedirs(args.output_dir, exist_ok=True)
+    prefix = os.path.join(args.output_dir, f"step{args.output_num}")
+    index = result["index"]
+    paths = {
+        "passages": save_embedding_shard(
+            prefix + "_passage_emb_p_", index._emb[:index.ntotal].cpu()
+            .numpy()),
+        "passage_ids": save_embedding_shard(
+            prefix + "_passage_embid_p_",
+            np.asarray(result["passage_embedding2id"])),
+        "dev_query": save_embedding_shard(
+            prefix + "_dev_query_emb_p_", result["dev_query_embedding"]),
+        "dev_query_ids": save_embedding_shard(
+            prefix + "_dev_query_embid_p_",
+            result["dev_query_embedding2id"]),
+    }
+    print(json.dumps(paths))
+
+
+def cmd_eval(args):
+    from ance_tpu_torch.evaluation.msmarco_eval import \
+        compute_metrics_from_files
+    metrics = compute_metrics_from_files(args.reference, args.candidate)
+    for k in sorted(metrics):
+        print(f"{k}: {metrics[k]}")
+
+
+def _load_id_map(path: str) -> dict:
+    """A preprocess ``*2offset.pickle`` map ({real id: cache offset})."""
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def cmd_eval_full(args):
+    """Offline eval over dumped embedding shards: full ranking, or with
+    ``--candidates`` the BM25-candidate rerank (notebook cell 11)."""
+    from ance_tpu_torch.evaluation.offline import (full_ranking_eval,
+                                                   load_embedding_shards,
+                                                   rerank_eval)
+    from ance_tpu_torch.train.ance_loop import load_offset_qrels
+    from ance_tpu_torch.utils.device import resolve_device
+    device = resolve_device(args.device)
+    q = load_embedding_shards(args.query_prefix)
+    q_ids = load_embedding_shards(args.query_id_prefix)
+    p = load_embedding_shards(args.passage_prefix)
+    p_ids = load_embedding_shards(args.passage_id_prefix)
+    if any(x is None for x in (q, q_ids, p, p_ids)):
+        raise SystemExit("missing embedding shards")
+    qrels = load_offset_qrels(args.qrels)
+    if not args.candidates:
+        print(json.dumps(full_ranking_eval(q, q_ids, p, p_ids, qrels,
+                                           topn=args.topn, device=device)))
+        return
+    # candidate files carry REAL ids, embeddings cache offsets: map through
+    # the preprocess pickles with --data_dir, else the candidates must be
+    # offset-space already
+    from ance_tpu_torch.evaluation.mrr_eval import parse_top_dev
+    cand = parse_top_dev(args.candidates)
+    if args.data_dir:
+        pid2off = _load_id_map(os.path.join(args.data_dir,
+                                            "pid2offset.pickle"))
+        qmap_path = os.path.join(args.data_dir,
+                                 f"{args.query_split}_qid2offset.pickle")
+        if not os.path.exists(qmap_path):  # pre-per-split-map layouts
+            qmap_path = os.path.join(args.data_dir, "qid2offset.pickle")
+        qid2off = _load_id_map(qmap_path)
+        cand = {qid2off[qid]: [pid2off[p] for p in pids if p in pid2off]
+                for qid, pids in cand.items() if qid in qid2off}
+    print(json.dumps(rerank_eval(q, q_ids, p, p_ids, cand, qrels,
+                                 k=args.rerank_depth, device=device)))
 
 
 def _add_common_model_flags(p):
@@ -582,6 +715,56 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--allow_reload", action="store_true",
                    help="enable POST /reload (trusted networks only)")
     p.set_defaults(fn=cmd_serve)
+
+    for name, inference in (("generate", False), ("infer", True)):
+        p = sub.add_parser(name, help="ANN data generation (one pass)"
+                           if not inference else "encode and dump "
+                           "embedding shards")
+        _add_common_model_flags(p)
+        p.add_argument("--data_dir", required=True,
+                       help="token caches passages, train-query, dev-query "
+                            "and train-qrel.tsv / dev-qrel.tsv")
+        p.add_argument("--training_dir", required=True,
+                       help="encode with the newest complete "
+                            "checkpoint-<step> here")
+        p.add_argument("--init_model_dir", default=None)
+        p.add_argument("--output_dir", required=True)
+        p.add_argument("--output_num", type=int, default=0)
+        p.add_argument("--topk_training", type=int, default=500)
+        p.add_argument("--negative_sample", type=int, default=5)
+        p.add_argument("--ann_chunk_factor", type=int, default=5)
+        p.add_argument("--ann_measure_topk_mrr", action="store_true")
+        p.add_argument("--index_quantize", default=None, choices=["dims"],
+                       help="an int8 corpus index (per-dimension scales)")
+        p.add_argument("--per_device_eval_batch_size", type=int, default=128)
+        p.set_defaults(fn=lambda a, inf=inference: cmd_generate(a, inf))
+
+    p = sub.add_parser("eval", help="official MS MARCO MRR scorer")
+    p.add_argument("reference")
+    p.add_argument("candidate")
+    p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("eval-full", help="offline eval over dumped "
+                                         "embedding shards")
+    p.add_argument("--device", default="cuda",
+                   help="cuda[:N] (default) or cpu (CPU tests only)")
+    p.add_argument("--query_prefix", required=True)
+    p.add_argument("--query_id_prefix", required=True)
+    p.add_argument("--passage_prefix", required=True)
+    p.add_argument("--passage_id_prefix", required=True)
+    p.add_argument("--qrels", required=True,
+                   help="offset-space qrels tsv (train/dev-qrel.tsv)")
+    p.add_argument("--topn", type=int, default=1000)
+    p.add_argument("--candidates", default=None,
+                   help="BM25 candidate file (top1000.dev) → rerank mode")
+    p.add_argument("--data_dir", default=None,
+                   help="preprocess output dir whose pid2offset/qid2offset "
+                        "pickles map the candidates' real ids to offsets")
+    p.add_argument("--query_split", default="dev-query",
+                   help="query cache stem whose qid map applies to "
+                        "--candidates")
+    p.add_argument("--rerank_depth", type=int, default=10)
+    p.set_defaults(fn=cmd_eval_full)
     return parser
 
 

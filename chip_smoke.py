@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the three kernels of
-``ance_tpu_torch/csrc`` (block-max top-k, fused and flash attention; one
-nvcc each, all at once) and then:
+Run from the root of a checkout. It builds the four kernel sources of
+``ance_tpu_torch/csrc`` (block-max top-k, fused and flash attention, the
+seq-128 attention pair; one nvcc each, all at once) and then:
 
   * block-max: the kernel against its plain PyTorch version at the FirstP
     search shapes (1,000,448 × 768 corpus; Q=2048 k=10 and Q=512 k=200) for
@@ -41,7 +41,20 @@ nvcc each, all at once) and then:
     0.05, so no loss saturates): fp32 on the card against the port's CPU
     path, and bf16 (the kernels) against fp32 on the card by loss, update
     cosine and first-step gradient cosines, MaxP's also against a control
-    that runs bf16 through the plain einsum attention.
+    that runs bf16 through the plain einsum attention;
+  * seq-128 attention: kernels #5 (``fused128``) and #6 (``fused_block``)
+    against their plain versions at B=128 × S=128 × 768 bf16 (a padding
+    tail from 100, one fully masked row), timed beside SDPA and the
+    unfused composition; then the experiment's mirror encoder (12 layers,
+    FFN 3072, vocabulary 50265, seeded bf16 weights) through its four
+    attention variants, each against ``xla`` by per-row cosine, with the
+    kernels' launches counted over one forward;
+  * generate: the generator job at full RoBERTa-base width over the
+    FirstP serve caches (32,768 passages, 1,024 train and 256 dev queries,
+    synthetic qrels): ``cli generate`` at k=500, ``infer`` + ``eval-full``
+    (its NDCG@10 equals generate's), the mining ids against a scan of the
+    same index, ``cli train`` on the file and ``generate --training_dir``
+    on its checkpoint, then ``run_ance_cycles`` (2 cycles x 3 steps).
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. The last two lines are a JSON object of per-kernel results
@@ -80,7 +93,8 @@ N_DOCS, DOC_LEN, CHUNK_LEN = 4096, 2048, 512  # MaxP: 16,384 chunk rows
 DOC_BATCH = 32  # documents per MaxP encode batch: 128 chunk rows
 N_CHECK_DOCS = 8  # documents re-encoded on the plain / fp32 paths
 REPEATS = 5  # timed requests per (batch, k) after one warm-up each
-KERNELS = ("blockmax", "fused_attention", "flash_attention")
+KERNELS = ("blockmax", "fused_attention", "flash_attention",
+           "attn128")
 # fp32 sums of 768 products (|score| up to ~150, ulp ~1.5e-5) taken in
 # another order than cuBLAS's: the drift stays well under 2e-3
 FLOAT_ATOL = 2e-3
@@ -92,6 +106,13 @@ TRAIN_QUERIES, TRAIN_PASSAGES = 1024, 8192
 TRAIN_BATCH, TRAIN_STEPS = 32, 20
 MAXP_TRAIN_DOCS, MAXP_TRAIN_BATCH, MAXP_TRAIN_STEPS = 256, 8, 5
 TIMED_FROM = 3  # step times are medians over the steps after these
+SEQ128_BATCH, SEQ128_LEN, SEQ128_PAD_FROM = 128, 128, 100
+# per-row cosine of a mirror-encoder variant's [B, 768] output against
+# xla's: the variants compute one function with other roundings (xla
+# rounds its scores to bf16 before the softmax, the kernels do not),
+# through 12 bf16 layers (seen on an H100: 0.99991-0.99992)
+MIRROR_COSINE = 0.999
+GEN_TRAIN_QUERIES, GEN_TOPK, GEN_NEGATIVES = 1024, 500, 5
 
 
 def check(ok: bool, what: str) -> None:
@@ -1031,9 +1052,9 @@ def _write_ann(ann: Path, n_queries: int, n_passages: int, rs,
     (ann / "ann_ndcg_0").write_text(json.dumps({"ndcg": 0.0}))
 
 
-def _train_cli(argv: list[str]) -> dict:
-    """``python -m ance_tpu_torch.cli train ...`` in this process (so the
-    launch counts are visible here); returns its JSON summary line."""
+def _cli(argv: list[str]) -> dict:
+    """``python -m ance_tpu_torch.cli ...`` in this process (so the launch
+    counts are visible here); returns its last stdout line as JSON."""
     import contextlib
     import io
     from ance_tpu_torch.cli import main as cli_main
@@ -1112,7 +1133,7 @@ def phase_train(work: Path):
         torch.cuda.reset_peak_memory_stats()
         fused_attention.launches = fused_attention_backward.launches = 0
         t0 = time.perf_counter()
-        summary = _train_cli(argv)
+        summary = _cli(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         fwd, bwd = fused_attention.launches, fused_attention_backward.launches
@@ -1362,6 +1383,363 @@ def phase_step_parity():
     return out
 
 
+def _seq128_mask(B: int, S: int):
+    """The experiment's mask: a padding tail from SEQ128_PAD_FROM, and row
+    0 fully masked."""
+    import torch
+    mask = torch.ones(B, S, dtype=torch.int64, device="cuda")
+    mask[:, SEQ128_PAD_FROM:] = 0
+    mask[0] = 0
+    return mask
+
+
+def phase_seq128():
+    """Kernels #5 and #6 against their plain versions at the FirstP encode
+    shape, B=128 × S=128 × 768 (12 heads of 64), bf16, each element held
+    to BF16_SLICE_TOL on [B, S, 12, 64] views; timed beside SDPA on the
+    [B, 12, S, 64] views with the same additive bias (#5) and beside the
+    unfused composition, four torch.matmul and SDPA (#6), yardsticks the
+    port never calls."""
+    import torch
+    import torch.nn.functional as F
+    from ance_tpu_torch.ops.attention import mask_to_bias
+    from ance_tpu_torch.ops.attn128 import (fused128, fused128_reference,
+                                            fused_block,
+                                            fused_block_reference)
+
+    B, S, H = SEQ128_BATCH, SEQ128_LEN, DIM
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, x = (torch.randn(B, S, H, generator=g, device="cuda").to(bf16)
+                  for _ in range(4))
+    wq, wk, wv, wo = ((torch.randn(H, H, generator=g, device="cuda")
+                       * H ** -0.5).to(bf16) for _ in range(4))
+    mask = _seq128_mask(B, S)
+    heads = lambda t: t.reshape(B, S, H // 64, 64)  # noqa: E731
+    bias4 = mask_to_bias(mask, bf16)
+    cases = {}
+    for name, kernel, plain, args in (
+            ("fused128", fused128, fused128_reference, (q, k, v, mask)),
+            ("fused_block", fused_block, fused_block_reference,
+             (x, wq, wk, wv, wo, mask))):
+        got = kernel(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        check(got.shape == (B, S, H) and got.dtype == bf16
+              and bool(torch.isfinite(got).all()), f"{name}: not finite")
+        n_bad, err, ulps = bf16_slice_excess(heads(got), heads(want))
+        check(n_bad == 0, f"{name}: {n_bad} elements beyond {BF16_SLICE_TOL}"
+              f" (worst {ulps} slice ulps)")
+        del got, want
+        ms = cuda_ms(lambda: kernel(*args))
+        plain_ms = cuda_ms(lambda: plain(*args))
+        split = lambda t: heads(t).transpose(1, 2)  # noqa: E731
+        if name == "fused128":
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                split(q), split(k), split(v), attn_mask=bias4))
+            unfused_ms = None
+            # q, k, v in and the context out once, the int64 mask; QK^T and
+            # PV at 2·S²·64 each a head, bf16 on the tensor cores
+            b_ms, b_by = bound(4 * q.numel() * 2 + mask.numel() * 8,
+                               4.0 * B * (H // 64) * S * S * 64, "bf16")
+        else:
+            library_ms = None
+
+            def unfused():
+                qf, kf, vf = (x @ w for w in (wq, wk, wv))
+                ctx = F.scaled_dot_product_attention(
+                    split(qf), split(kf), split(vf), attn_mask=bias4)
+                return ctx.transpose(1, 2).reshape(B, S, H) @ wo
+            unfused_ms = cuda_ms(unfused)
+            # x in, out once, the four weights, the mask; four [B·S, H] x
+            # [H, H] projections and the attention, bf16
+            b_ms, b_by = bound(2 * x.numel() * 2 + 4 * H * H * 2
+                               + mask.numel() * 8,
+                               8.0 * B * S * H * H
+                               + 4.0 * B * (H // 64) * S * S * 64, "bf16")
+        cases[name] = {"B": B, "S": S, "H": H, "max_abs_err": err,
+                       "tolerance": BF16_SLICE_TOL, "err_slice_ulps": ulps,
+                       "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "unfused_ms": unfused_ms,
+                       "bound_ms": b_ms, "bound_by": b_by}
+        yard = (f"sdpa {library_ms:.3f} ms" if library_ms is not None
+                else f"unfused (4 matmul + sdpa) {unfused_ms:.3f} ms")
+        print(f"{name} bf16 B={B} S={S} H={H}: max|err| {err:.3g} ({ulps:.3g}"
+              f" slice ulps)  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+              f"{yard}  bound {b_ms:.4f} ms ({b_by})", flush=True)
+    del q, k, v, x
+    torch.cuda.empty_cache()
+    return cases
+
+
+def phase_mirror():
+    """The seq-128 experiment's mirror encoder at full width (12 layers,
+    768, FFN 3072, vocabulary 50265, seeded bf16 weights) over B=128 × S=128
+    with the padding tail: each attention variant's launches over one
+    forward (counts set to 0 just before it), its output against ``xla``
+    by per-row cosine, and its time (median of 5 after a warm-up)."""
+    import numpy as np
+    import torch
+    from ance_tpu_torch.experiments import perf_attn128 as exp
+    from ance_tpu_torch.ops.attn128 import (LAUNCHES_PER_CALL, fused128,
+                                            fused_block)
+    from ance_tpu_torch.ops.fused_attention import fused_attention
+
+    rs = np.random.RandomState(0)
+    params = exp.make_params(rs, seq=SEQ128_LEN, device="cuda")
+    ids, mask = exp.inputs(rs, SEQ128_BATCH, SEQ128_LEN, "cuda",
+                           pad_from=SEQ128_PAD_FROM)
+    layers = len(params["layers"])
+    counters = {"fold": (fused_attention, 1),
+                "fused128": (fused128, LAUNCHES_PER_CALL["fused128"]),
+                "block": (fused_block, LAUNCHES_PER_CALL["fused_block"])}
+    outs, rows, launches = {}, {}, {}
+    for attn in exp.VARIANTS:
+        for fn, _ in counters.values():
+            fn.launches = 0
+        outs[attn] = exp.encoder(params, ids, mask, attn=attn)
+        torch.cuda.synchronize()
+        launches[attn] = {n: fn.launches for n, (fn, _) in zip(
+            ("fused_attention", "fused128", "fused_block"),
+            counters.values())}
+        want = {n: 0 for n in launches[attn]}
+        if attn in counters:
+            fn, per_call = counters[attn]
+            want[fn.__name__] = layers * per_call
+        check(launches[attn] == want, f"mirror {attn}: launches "
+              f"{launches[attn]}, not {want}")
+        check(outs[attn].shape == (SEQ128_BATCH, DIM)
+              and bool(torch.isfinite(outs[attn]).all()),
+              f"mirror {attn}: output not finite [{SEQ128_BATCH}, {DIM}]")
+    for attn in exp.VARIANTS:
+        cos = _cosines(outs[attn], outs["xla"]).min().item()
+        check(cos >= MIRROR_COSINE, f"mirror {attn} vs xla: per-row cosine "
+              f"{cos} < {MIRROR_COSINE}")
+        ms = cuda_ms(lambda: exp.encoder(params, ids, mask, attn=attn))
+        rows[attn] = {"ms": ms, "passages_per_s": SEQ128_BATCH / ms * 1e3,
+                      "min_row_cosine_vs_xla": cos,
+                      "launches": launches[attn]}
+        print(f"mirror {attn:8s}: {ms:.2f} ms a batch of {SEQ128_BATCH} = "
+              f"{SEQ128_BATCH / ms * 1e3:.0f} passages/s; per-row cosine vs "
+              f"xla >= {cos:.5f}; launches in one forward "
+              f"{launches[attn]}", flush=True)
+    del params, outs
+    torch.cuda.empty_cache()
+    return rows
+
+
+DEV_FROM_PASSAGE = 7  # dev query i is the first QUERY_LEN tokens of this x i
+
+
+def _write_generate_data(data: Path, gen: Path, rs) -> None:
+    """The generator's data directory: the serve phase's passages (linked),
+    GEN_TRAIN_QUERIES random train queries, each with one random positive,
+    and N_QUERIES dev queries that are the first QUERY_LEN tokens of
+    passage DEV_FROM_PASSAGE x i, judged relevant (2) beside one random
+    passage (1). A random encoder ranks a passage it shares its tokens
+    with high, so dev NDCG@10 is far from 0 and the cross-check of two
+    NDCG computations has something to compare."""
+    import numpy as np
+    from ance_tpu_torch.data.cache import TokenCache, TokenCacheWriter
+    gen.mkdir()
+    for suffix in ("", "_meta"):
+        os.symlink(data / f"passages{suffix}", gen / f"passages{suffix}")
+    _write_cache(gen / "train-query", GEN_TRAIN_QUERIES, QUERY_LEN, 8, rs)
+    with open(gen / "train-qrel.tsv", "w") as f:
+        for q in range(GEN_TRAIN_QUERIES):
+            f.write(f"{q}\t{rs.randint(N_PASSAGES)}\t1\n")
+    sources = np.arange(N_QUERIES) * DEV_FROM_PASSAGE
+    with TokenCache(str(data / "passages")) as pc:
+        lengths, tokens = pc.batch(sources)
+    with TokenCacheWriter(str(gen / "dev-query"), QUERY_LEN) as w:
+        for length, row in zip(lengths, tokens):
+            n = int(min(length, QUERY_LEN))
+            q = np.ones(QUERY_LEN, np.int32)  # pad id 1
+            q[:n] = row[:n]
+            w.write(n, q)
+    with open(gen / "dev-qrel.tsv", "w") as f:
+        for q, p in enumerate(sources):
+            f.write(f"{q}\t{p}\t2\n{q}\t{rs.randint(N_PASSAGES)}\t1\n")
+
+
+def phase_generate(work: Path):
+    """The generator job at full RoBERTa-base width from the serve phase's
+    seeded weights, over its passages (``_write_generate_data``). Block-max
+    launches are counted over the first ``generate`` (set to 0 just before
+    it)."""
+    import numpy as np
+    import torch
+    from ance_tpu_torch.data.cache import TokenCache
+    from ance_tpu_torch.data.feed import parse_triple_line
+    from ance_tpu_torch.models.dot_models import RobertaDot
+    from ance_tpu_torch.models.registry import get_model_spec
+    from ance_tpu_torch.models.weights import load_pretrained
+    from ance_tpu_torch.ops.topk import blockmax_scores
+    from ance_tpu_torch.optim.schedules import warmup_linear
+    from ance_tpu_torch.train import ann_gen, trainer
+    from ance_tpu_torch.train.ance_loop import (AnceCycleConfig,
+                                                load_offset_qrels,
+                                                run_ance_cycles)
+    from ance_tpu_torch.train.encode import make_encode_fn
+
+    weights, data = work / "roberta_base_seeded", work / "gen_data"
+    _write_generate_data(work / "data", data, np.random.RandomState(3))
+    ann, ckpts = work / "gen_ann", work / "gen_ckpt"
+    flags = ["--device", "cuda", "--bf16", "--model_name_or_path",
+             str(weights), "--data_dir", str(data), "--training_dir",
+             str(ckpts), "--max_seq_length", str(PASSAGE_LEN),
+             "--max_query_length", str(QUERY_LEN),
+             "--topk_training", str(GEN_TOPK),
+             "--negative_sample", str(GEN_NEGATIVES),
+             "--ann_chunk_factor", "1"]
+
+    # 1. generate, as a user runs it (in process: its result and launches)
+    results = []
+    real = ann_gen.generate_new_ann
+
+    def keep(*args, **kwargs):
+        results.append(real(*args, **kwargs))
+        return results[-1]
+    ann_gen.generate_new_ann = keep
+    try:
+        torch.cuda.synchronize()
+        blockmax_scores.launches = 0
+        t0 = time.perf_counter()
+        summary = _cli(["generate", *flags, "--output_dir", str(ann)])
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = blockmax_scores.launches
+    finally:
+        ann_gen.generate_new_ann = real
+    result = results[0]
+    data_path, ndcg_path = ann / "ann_training_data_0", ann / "ann_ndcg_0"
+    check(data_path.exists() and ndcg_path.exists()
+          and ndcg_path.stat().st_mtime_ns >= data_path.stat().st_mtime_ns,
+          "generate did not write ann_training_data_0, then ann_ndcg_0")
+    check(launches > 0, "generate launched no block-max kernel")
+    check(summary["checkpoint"] == "<init>", f"generate cited "
+          f"{summary['checkpoint']}, not <init>")
+    secs = result["seconds"]
+    enc_rate = N_PASSAGES / secs["encode_passages"]
+    print(f"generate: {gen_s:.1f} s (CLI, in process: load, encode "
+          f"{N_PASSAGES} passages at {enc_rate:.0f} passages/s, index, dev "
+          f"search, mine {GEN_TRAIN_QUERIES} queries at k={GEN_TOPK} in "
+          f"{secs['mining_search'] * 1e3:.1f} ms, write); dev NDCG@10 "
+          f"{result['dev_ndcg']:.4f}; {launches} block-max launches",
+          flush=True)
+
+    # 2. repair (c): the mining ids equal a scan of the same index, and no
+    #    mined negative is its query's positive
+    index = result["index"]
+    index.method = "scan"
+    _, scan_ids = index.search(result["train_query_embedding"], GEN_TOPK)
+    same = (scan_ids.cpu().numpy() == result["train_neighbor_ids"]).mean()
+    check(same == 1.0, f"mining ids equal the scan on {same:.6f} of "
+          f"positions, not all")
+    positives = {q: next(iter(r)) for q, r in load_offset_qrels(
+        str(data / "train-qrel.tsv")).items()}
+    lines = data_path.read_text().splitlines()
+    check(len(lines) == GEN_TRAIN_QUERIES, f"{len(lines)} mined lines")
+    for line in lines:
+        qid, pos, negs = parse_triple_line(line)
+        check(pos == positives[qid] and pos not in negs
+              and len(negs) == GEN_NEGATIVES, f"bad mined line {line!r}")
+    del index, result, results
+    torch.cuda.empty_cache()
+    print(f"generate: mining ids == scan at k={GEN_TOPK} "
+          f"({GEN_TRAIN_QUERIES} queries); no negative is its positive",
+          flush=True)
+
+    # 3. infer, then eval-full on its dump: the same NDCG@10
+    emb = work / "gen_emb"
+    _cli(["infer", *flags, "--output_dir", str(emb)])
+    pre = str(emb / "step0")
+    full = _cli(["eval-full", "--device", "cuda",
+                 "--query_prefix", pre + "_dev_query_emb_p_",
+                 "--query_id_prefix", pre + "_dev_query_embid_p_",
+                 "--passage_prefix", pre + "_passage_emb_p_",
+                 "--passage_id_prefix", pre + "_passage_embid_p_",
+                 "--qrels", str(data / "dev-qrel.tsv")])
+    # the same per-query NDCGs, averaged by sum()/n in generate and by
+    # np.mean (pairwise) in eval-full: equal to the last bit or two
+    gap = abs(full["ndcg_10"] - summary["dev_ndcg"])
+    check(gap <= 1e-12 and summary["dev_ndcg"] > 0.1, f"eval-full ndcg_10 "
+          f"{full['ndcg_10']} vs generate's dev_ndcg {summary['dev_ndcg']} "
+          "(apart, or not above 0.1)")
+    print(f"infer + eval-full: ndcg_10 {full['ndcg_10']!r} == generate's "
+          f"dev_ndcg {summary['dev_ndcg']!r} (within 1e-12); mrr_10 "
+          f"{full['mrr_10']:.4f}", flush=True)
+
+    # 4. the two-job loop: train on the file, generate on the checkpoint
+    train = _cli([
+        "train", "--device", "cuda", "--bf16", "--model_name_or_path",
+        str(weights), "--data_dir", str(data), "--ann_dir", str(ann),
+        "--output_dir", str(ckpts), "--max_steps", "3", "--save_steps", "3",
+        "--warmup_steps", "1", "--per_device_train_batch_size", "32",
+        "--max_query_length", str(QUERY_LEN),
+        "--max_seq_length", str(PASSAGE_LEN)])
+    check(all(math.isfinite(x) for x in train["loss"]),
+          f"train on the mined file: losses {train['loss']}")
+    second = _cli(["generate", *flags, "--output_dir", str(ann),
+                   "--output_num", "1"])
+    meta = json.loads((ann / "ann_ndcg_1").read_text())
+    check(second["checkpoint"].endswith("checkpoint-3")
+          and meta["checkpoint"] == second["checkpoint"],
+          f"generate --training_dir cited {meta['checkpoint']}")
+    print(f"two-job loop: train 3 steps (losses {train['loss']}) -> "
+          f"generate on {second['checkpoint']} -> ann data 1, dev NDCG@10 "
+          f"{second['dev_ndcg']:.4f}", flush=True)
+
+    # 5. run_ance_cycles in process: 2 cycles x 3 steps
+    spec = get_model_spec("rdot_nll")
+    model = spec.build(dtype=torch.bfloat16)
+    load_pretrained(model, str(weights))
+    model = model.to("cuda")
+    state = trainer.init_train_state(model, trainer.make_optimizer(
+        model, "lamb", warmup_linear(1e-4, 1, 10)))
+    with TokenCache(str(data / "dev-query")) as dev_c, \
+            TokenCache(str(data / "passages")) as pass_c, \
+            TokenCache(str(data / "train-query")) as train_c:
+        t0 = time.perf_counter()
+        state, history = run_ance_cycles(
+            AnceCycleConfig(steps_per_cycle=3, batch_size=32, num_cycles=2,
+                            checkpoint_dir=str(work / "cycle_ckpt")),
+            ann_gen.AnnGenConfig(topk_training=GEN_TOPK,
+                                 negative_sample=GEN_NEGATIVES,
+                                 ann_chunk_factor=1),
+            state=state, train_step=trainer.make_train_step(
+                trainer.triplet_loss_fn()),
+            generator=torch.Generator().manual_seed(0),
+            query_encode_fn=make_encode_fn(model, RobertaDot.query_emb,
+                                           "cuda"),
+            body_encode_fn=make_encode_fn(model, RobertaDot.body_emb, "cuda"),
+            dev_query_cache=dev_c, passage_cache=pass_c,
+            train_query_cache=train_c,
+            train_qrels=load_offset_qrels(str(data / "train-qrel.tsv")),
+            dev_qrels=load_offset_qrels(str(data / "dev-qrel.tsv")),
+            output_dir=str(work / "cycle_ann"), device="cuda")
+        torch.cuda.synchronize()
+        cycles_s = time.perf_counter() - t0
+    check(len(history) == 2 and state.step == 6
+          and all(math.isfinite(h["mean_loss"]) for h in history),
+          f"run_ance_cycles: {history}")
+    check(ann_gen.get_latest_ann_data(str(work / "cycle_ann"))[0] == 1,
+          "run_ance_cycles wrote no ann data 1")
+    print(f"run_ance_cycles: 2 cycles x 3 steps in {cycles_s:.1f} s; "
+          f"dev NDCG@10 {[round(h['dev_ndcg'], 4) for h in history]}, "
+          f"mean losses {[round(h['mean_loss'], 4) for h in history]}",
+          flush=True)
+    check(no_reference_modules(), "the port imported jax or ance_tpu")
+    del state, model
+    torch.cuda.empty_cache()
+    return {"generate_s": gen_s, "encode_passages_per_s": enc_rate,
+            "mining_search_ms_k500": secs["mining_search"] * 1e3,
+            "blockmax_launches": launches, "dev_ndcg": summary["dev_ndcg"],
+            "eval_full_ndcg_10": full["ndcg_10"],
+            "second_checkpoint": second["checkpoint"],
+            "cycles_s": cycles_s, "cycles": history}
+
+
 def main() -> int:
     try:
         import torch
@@ -1384,11 +1762,14 @@ def main() -> int:
     ties = phase_ties()
     attn_cases, crossover = phase_attention()
     bwd_cases, functions = phase_attention_backward()
+    seq128 = phase_seq128()
+    mirror = phase_mirror()
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         serve = phase_serve(work)
         maxp = phase_maxp(work)
         train = phase_train(work)
+        generate = phase_generate(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     parity = phase_step_parity()
@@ -1413,11 +1794,23 @@ def main() -> int:
         return entry(kernel, kernel, replaces, launches, head,
                      f"bf16 B={B} S={S} H=12 D=64", kernel, own)
 
+    def seq128_entry(kernel, replaces, variant):
+        head = seq128[kernel]
+        out = entry(kernel, "attn128", replaces,
+                    mirror[variant]["launches"][kernel], head,
+                    f"bf16 B={head['B']} S={head['S']} H={head['H']} "
+                    "(12 heads of 64)", "attn128", [head])
+        if head["unfused_ms"] is not None:
+            out["unfused_ms"] = head["unfused_ms"]
+        return out
+
     # launches: each path's own run — the MaxP serve path for the
     # forward kernels and block-max (its HTTP searches; its corpus encode;
     # the encode of its first batches with --attention flash), the MaxP
-    # train path for the backward. No PyTorch call computes the block
-    # maxima, so block-max has no library time.
+    # train path for the backward, one mirror-encoder forward of the
+    # fused128 / block variant for #5 / #6. No PyTorch call computes the
+    # block maxima, or the whole attention sub-block (#6: the unfused
+    # composition is timed instead), so those have no library time.
     bwd_head = next(c for c in bwd_cases if c["dtype"] == "bf16"
                     and c["B"] == 64 and c["S"] == 512)
     print(json.dumps({"kernels": [
@@ -1431,10 +1824,13 @@ def main() -> int:
         entry("fused_attention_bwd", "fused_attention",
               "ance_tpu/ops/fused_attention.py:97",
               train["maxp"]["fused_backward_launches"], bwd_head,
-              "bf16 B=64 S=512 H=12 D=64", "fused_attention", bwd_cases)],
+              "bf16 B=64 S=512 H=12 D=64", "fused_attention", bwd_cases),
+        seq128_entry("fused128", "docs/perf_attn128_r3.py:44", "fused128"),
+        seq128_entry("fused_block", "docs/perf_attn128_r3.py:88", "block")],
         "fused_function": functions, "index_search": searches, "ties": ties,
         "crossover": crossover, "serve": serve, "maxp": maxp,
-        "train": train, "step_parity": parity}))
+        "train": train, "step_parity": parity, "mirror_encoder": mirror,
+        "generate": generate}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

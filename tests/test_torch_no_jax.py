@@ -80,7 +80,28 @@ SCRIPT = textwrap.dedent("""
           f"{d}/ckpt", "--max_steps", "2", "--per_device_train_batch_size",
           "4", "--max_query_length", "6"])
     assert os.path.exists(f"{d}/ckpt/checkpoint-2/DONE")
-    assert "jax" not in sys.modules, "serving or training pulled in jax"
+
+    # the generator job on that checkpoint, then the seq-128 mirror encoder
+    for split in ("train", "dev"):
+        with open(f"{d}/{split}-qrel.tsv", "w") as f:
+            f.writelines(f"{q}\\t{q + 3}\\t1\\n" for q in range(5))
+    main(["generate", "--device", "cpu", "--encoder_overrides",
+          json.dumps(tiny), "--data_dir", d, "--training_dir", f"{d}/ckpt",
+          "--output_dir", f"{d}/gen", "--output_num", "1",
+          "--topk_training", "8", "--negative_sample", "2",
+          "--ann_chunk_factor", "1", "--max_seq_length", "12",
+          "--max_query_length", "6"])
+    assert len(open(f"{d}/gen/ann_training_data_1").read().splitlines()) == 5
+    assert json.load(open(f"{d}/gen/ann_ndcg_1"))["checkpoint"].endswith(
+        "checkpoint-2")
+    from ance_tpu_torch.experiments import perf_attn128 as exp
+    params = exp.make_params(rs, layers=1, hidden=128, intermediate=64,
+                             seq=8)
+    ids, mask = exp.inputs(rs, 2, 8, "cpu", pad_from=6)
+    for attn in exp.VARIANTS:
+        assert exp.encoder(params, ids, mask, attn=attn,
+                           heads=2).shape == (2, 128)
+    assert "jax" not in sys.modules, "the port pulled in jax"
     assert "flax" not in sys.modules
     old = sorted(m for m in sys.modules
                  if m == "ance_tpu" or m.startswith("ance_tpu."))
