@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled for Hopper (``sm_90a``) into a shared
 library with a plain C interface, at first use, into
 ``ance_tpu_torch/build/`` (git-ignored). The library's file name carries a
-hash of the source and the flags, so an edited source rebuilds and a
-stale library is never loaded. A failed build raises with nvcc's stderr.
+hash of the source, of every ``csrc`` header it includes (``#include
+"x.cuh"``, followed through the headers) and of the flags, so an edited
+source or header rebuilds and a stale library is never loaded. A failed
+build raises with nvcc's stderr.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -34,10 +37,27 @@ def _nvcc() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes, directly or
+    through another header, each once."""
+    found = [CSRC_DIR / f"{name}.cu"]
+    for path in found:
+        for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            header = CSRC_DIR / inc.decode()
+            if header.exists() and header not in found:
+                found.append(header)
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> tuple[Path, str]:

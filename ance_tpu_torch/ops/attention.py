@@ -90,7 +90,7 @@ def kernel_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The kernels take q, k, v of one shape [B, S, H, D] and one dtype
     (float32 or bfloat16) on one CUDA device, with D = KERNEL_HEAD_DIM,
     one set of strides and unit stride along D; ``align16`` also asks for
-    16-byte-aligned rows (the bf16 cp.async loads)."""
+    16-byte-aligned rows (the bf16 kernels' cp.async and TMA loads)."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: need q, k, v of one shape [B, S, H, D], "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "

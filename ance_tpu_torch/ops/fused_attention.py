@@ -8,13 +8,15 @@ that joins them, here the ``torch.autograd.Function``
 the mask; the backward recomputes the scores.
 
 On a CUDA tensor both directions launch the hand-written Hopper kernels of
-``csrc/fused_attention.cu``. The forward keeps one query tile's whole fp32
-score rows in shared memory, so the max and the sum are exact and the
-[B, H, S, S] scores never reach device memory; bf16 products run on the
-tensor cores. The backward is two kernels: a rows pass (p and dp rows of a
-query tile, ds, dq and each row's softmax max, sum and rowsum(dp ⊙ p)) and
-a keys pass (64 keys of a head against every query tile, dk and dv
+``csrc/fused_attention.cu``. For bf16 they are wgmma kernels fed by TMA:
+the forward owns 128 query rows of a head and makes two passes over the
+key tiles (the exact row max and its sum, then p rounded to bf16 and
+p·v), with every score tile in registers, so the [B, H, S, S] scores
+never reach device memory. The backward is two kernels: a rows pass (the
+forward's statistics, rowsum(dp ⊙ p), ds and dq for 128 query rows) and
+a keys pass (128 keys of a head against every query tile, dk and dv
 accumulated in registers), so no atomics and a deterministic result.
+fp32 runs on the CUDA cores (TF32 stays off).
 
 On a CPU tensor each direction runs its plain version:
 :func:`fused_attention_reference` (``xla_attention`` with an fp32 softmax:
@@ -36,11 +38,12 @@ import torch
 from ance_tpu_torch.ops.attention import (KERNEL_DTYPES, kernel_operands,
                                           mask_to_bias, xla_attention)
 
-# the longest sequence whose score rows fit shared memory at 16 query rows
-# per block (bf16 needs about 96·S + 21 KB of the 227 KB); ``auto`` sends
-# S > 1024 to flash
+# the longest sequence: the bf16 kernels keep the key bias row in shared
+# memory (8 KB), and the fp32 forward a 16-row tile's whole score rows
+# (about 64·S + 21 KB of the 227 KB); ``auto`` sends S > 1024 to flash
 MAX_SEQ = 2048
-# the backward's rows pass also holds the fp32 dp rows: about 160·S + 23 KB
+# the fp32 backward's rows pass also holds the fp32 dp rows: about
+# 128·S + 21 KB
 MAX_SEQ_BACKWARD = 1024
 
 
@@ -135,11 +138,13 @@ def fused_attention_backward(q: torch.Tensor, k: torch.Tensor,
     vec = 16 // do.element_size()
     if do.stride(3) != 1 or do.data_ptr() % 16 or any(
             s % vec for s in do.stride()[:3]):
-        do = do.contiguous()  # the kernels read 16-byte row pieces
+        do = do.contiguous()  # TMA boxes need 16-byte strides
     B, S, H, D = q.shape
     dq, dk, dv = (torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
                   for _ in range(3))
-    stats = torch.empty(3 * B * H * S, dtype=torch.float32, device=q.device)
+    # each row's softmax max, sum, 1/sum and rowsum(dp ⊙ p), in 64-row tiles
+    stats = torch.empty(B * H * -(-S // 64) * 4 * 64, dtype=torch.float32,
+                        device=q.device)
     lib = _kernel_library()
     with torch.cuda.device(q.device):
         err = lib.fused_attention_backward_launch(
@@ -185,7 +190,12 @@ fused_attention_backward.launches = 0
 
 def _kernel_library() -> ctypes.CDLL:
     from ance_tpu_torch.ops._build import load_library
-    lib = load_library("fused_attention")
+    return bind(load_library("fused_attention"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument types of a ``fused_attention.cu`` library's
+    entry points (also a variant's build of it)."""
     # every pointer and the stream as c_void_p: an undeclared argument is
     # passed as a 32-bit int and the pointer is cut
     fwd = lib.fused_attention_launch

@@ -5,7 +5,10 @@
 
 Run from the root of a checkout. It builds the four kernel sources of
 ``ance_tpu_torch/csrc`` (block-max top-k, fused and flash attention, the
-seq-128 attention pair; one nvcc each, all at once) and then:
+seq-128 attention pair; one nvcc each, all at once), prints ptxas's
+registers and spills and the SASS counts of HGMMA (wgmma) and UTMALDG
+(TMA loads) of the three wgmma kernels of ``fused_attention.cu``, and
+then:
 
   * block-max: the kernel against its plain PyTorch version at the FirstP
     search shapes (1,000,448 × 768 corpus; Q=2048 k=10 and Q=512 k=200) for
@@ -14,8 +17,10 @@ seq-128 attention pair; one nvcc each, all at once) and then:
     bf16 index in which every 7th row is one vector that the queries rank
     inside their top k, where block-max ids must equal the scan's;
   * attention: each kernel against its plain version at the MaxP shapes
-    (fused S = 256 / 512 / 1024, flash S = 512 / 2048; bf16 and fp32),
-    timed, with the einsum path at S = 256 / 512 / 1024 beside them;
+    (fused S = 256 / 300 / 512 / 1024 and the encoder's ``qkv.chunk``
+    views, flash S = 512 / 2048; bf16 and fp32), timed in turns with SDPA
+    (on fp32 operands for flash, whose function is fp32), with the einsum
+    path at S = 256 / 512 / 1024 beside them;
   * FirstP serve: RoBERTa-base at full width (seeded random weights, bf16)
     through the ``serve`` CLI in a subprocess and the HTTP server in
     process;
@@ -25,8 +30,9 @@ seq-128 attention pair; one nvcc each, all at once) and then:
     through the flash kernel and the plain path), and the HTTP server,
     every answer held against a scan;
   * attention backward: kernel #3 (the fused backward) against its plain
-    version at the MaxP training shape (64 chunk rows of S = 512) and at
-    S = 256 / 1024 / a ragged 300, bf16 and fp32, and the autograd
+    version at the MaxP training shape (64 chunk rows of S = 512, also as
+    ``qkv.chunk`` views) and at S = 256 / 1024 / a ragged 300 and 65, bf16
+    and fp32, each call bit-equal to a second one, and the autograd
     ``Function`` (both kernels) against autograd through the plain
     forward; timed beside the backward of
     ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick the
@@ -144,6 +150,31 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def cuda_ms_turns(fns: dict, reps: int = 9, warmup: int = 10) -> dict:
+    """Median CUDA-event time of each ``fns[name]()``, timed in turns (one
+    run of each per round, after ``warmup`` rounds), so that a kernel and
+    its yardstick see the same clocks. Keep a much longer call out of the
+    rotation, and warm up for tens of ms: what runs right after a long
+    fp32 call reads slower (in one H100 run, the bf16 fused forward at
+    B=128 S=512 read 1.25 ms right after its 7.6 ms plain version and
+    0.89 ms in a run of its own)."""
+    import torch
+    for _ in range(warmup):
+        for fn in fns.values():
+            fn()
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
 def bound(bytes_moved: float, ops: float, op_type: str) -> tuple[float, str]:
     """(least ms the card could take, what bounds it): the larger of the
     bytes over the HBM rate and the operations over the peak for their
@@ -167,9 +198,10 @@ def phase_device():
     return name
 
 
-def phase_build() -> dict:
+def phase_build() -> tuple[dict, dict]:
     """One nvcc per kernel source, all started together; returns the
-    seconds each took."""
+    seconds each took and each (library path, nvcc's stderr: "" where the
+    library was current already)."""
     from concurrent.futures import ThreadPoolExecutor
     from ance_tpu_torch.ops import _build
 
@@ -184,7 +216,67 @@ def phase_build() -> dict:
         print(f"build: {path.name} in {seconds:.2f} s")
         if log:
             print(log, file=sys.stderr)
-    return {name: seconds for name, (_, _, seconds) in done.items()}
+    return ({name: seconds for name, (_, _, seconds) in done.items()},
+            {name: (path, log) for name, (path, log, _) in done.items()})
+
+
+WGMMA_KERNELS = ("fused_fwd_bf16", "fused_bwd_rows_bf16", "fused_bwd_keys_bf16")
+
+
+def phase_machine_code(path, log: str) -> dict:
+    """For each wgmma kernel of ``fused_attention.cu``: ptxas's registers,
+    stack and spills (from the build's ``-Xptxas -v`` report, so only when
+    this run built the library), the dynamic shared memory it is launched
+    with and, where ``cuobjdump`` exists, the SASS counts of HGMMA (wgmma)
+    and UTMALDG (TMA tile loads)."""
+    import ctypes
+    import re
+    smem = (ctypes.c_int * 3)()
+    ctypes.CDLL(str(path)).fused_attention_bf16_smem(smem)
+    out = {name: {"smem_bytes": smem[i]}
+           for i, name in enumerate(WGMMA_KERNELS)}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = next((n for n in WGMMA_KERNELS if n in m.group(1)), None)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[current].update(stack_bytes=int(m.group(1)),
+                                spill_store_bytes=int(m.group(2)),
+                                spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[current]["registers"] = int(m.group(1))
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", str(path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        current = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                current = next((n for n in WGMMA_KERNELS if n in m.group(1)),
+                               None)
+                if current:
+                    out[current].update(hgmma=0, utmaldg=0)
+            elif current:
+                out[current]["hgmma"] += "HGMMA" in line
+                out[current]["utmaldg"] += "UTMALDG" in line
+    for name, info in out.items():
+        print(f"machine code {name}: {info}", flush=True)
+    for name in WGMMA_KERNELS:
+        if log:
+            check("registers" in out[name], f"no ptxas report for {name}")
+        if "hgmma" in out[name]:
+            check(out[name]["hgmma"] > 0 and out[name]["utmaldg"] > 0,
+                  f"{name}: no HGMMA / UTMALDG in its SASS")
+    return out
 
 
 def check_against_plain_topk(scores, ids, q, c, k: int) -> float:
@@ -402,13 +494,19 @@ def slice_rel_err(got, want) -> float:
     return torch.where(n > 0, d / n, d).max().item()
 
 
-def _attention_inputs(B, S, dtype, seed, H=12, D=64):
-    """q, k, v ~ N(0, 1) [B, S, H, D] on the card; a mask of random
-    lengths with row 0 fully masked (an all-padding MaxP chunk)."""
+def _attention_inputs(B, S, dtype, seed, H=12, D=64, strided=False):
+    """q, k, v ~ N(0, 1) [B, S, H, D] on the card (``strided``: the three
+    chunks of one [B, S, 3·H·D] fused-QKV projection, as the encoder
+    passes them); a mask of random lengths with row 0 fully masked (an
+    all-padding MaxP chunk)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
-               for _ in range(3))
+    if strided:
+        qkv = torch.randn(B, S, 3 * H * D, generator=g, device="cuda").to(dtype)
+        q, k, v = (t.view(B, S, H, D) for t in qkv.chunk(3, dim=-1))
+    else:
+        q, k, v = (torch.randn(B, S, H, D, generator=g, device="cuda")
+                   .to(dtype) for _ in range(3))
     lengths = torch.randint(1, S + 1, (B,), generator=g, device="cuda")
     mask = (torch.arange(S, device="cuda")[None] < lengths[:, None]).long()
     mask[0] = 0
@@ -432,7 +530,9 @@ def phase_attention():
              "flash_attention": (flash_attention, flash_attention_reference)}
     bf16, f32 = torch.bfloat16, torch.float32
     shapes = [("fused_attention", bf16, 128, 512),   # one MaxP encode batch
+              ("fused_attention", bf16, 128, 512, True),  # its qkv.chunk views
               ("fused_attention", bf16, 128, 256),
+              ("fused_attention", bf16, 128, 300),
               ("fused_attention", bf16, 32, 1024),
               ("fused_attention", f32, 32, 512),
               ("flash_attention", bf16, 128, 512),
@@ -440,9 +540,10 @@ def phase_attention():
               ("flash_attention", bf16, 8, 2048),
               ("flash_attention", f32, 8, 2048)]
     cases = []
-    for i, (name, dtype, B, S) in enumerate(shapes):
+    for i, (name, dtype, B, S, *strided) in enumerate(shapes):
         kernel, plain = pairs[name]
-        q, k, v, mask = _attention_inputs(B, S, dtype, seed=i)
+        strided = bool(strided)
+        q, k, v, mask = _attention_inputs(B, S, dtype, seed=i, strided=strided)
         got = kernel(q, k, v, mask)
         want = plain(q, k, v, mask).float()
         torch.cuda.synchronize()
@@ -462,12 +563,18 @@ def phase_attention():
             check(n_bad == 0, f"{name} bf16 B={B} S={S}: {n_bad} elements "
                   f"beyond {tol} (worst {ulps} slice ulps)")
         del got, want
-        ms = cuda_ms(lambda: kernel(q, k, v, mask))
+        # the library call that computes the same function: SDPA with the
+        # additive bias; for flash on fp32 operands (its q, k, v and p are
+        # fp32), the output cast back to the input dtype
+        lib_dtype = f32 if name == "flash_attention" else dtype
+        qt, kt, vt = (t.transpose(1, 2).to(lib_dtype) for t in (q, k, v))
+        bias4 = mask_to_bias(mask, lib_dtype)
         plain_ms = cuda_ms(lambda: plain(q, k, v, mask))
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        bias4 = mask_to_bias(mask, dtype)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=bias4))
+        times = cuda_ms_turns({
+            "ms": lambda: kernel(q, k, v, mask),
+            "library_ms": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=bias4).to(dtype)})
+        ms, library_ms = times["ms"], times["library_ms"]
         dt = "bf16" if dtype == bf16 else "f32"
         # q, k, v in and out once, the int64 mask; 4·S²·D per head, in
         # bf16 on the tensor cores (fused bf16) or in fp32 (flash: k, v
@@ -477,14 +584,16 @@ def phase_attention():
             4.0 * B * 12 * S * S * 64,
             "bf16" if dtype == bf16 and name == "fused_attention" else "f32")
         cases.append({"name": name, "dtype": dt, "B": B, "S": S, "H": 12,
-                      "D": 64, "max_abs_err": err, "tolerance": tol,
+                      "D": 64, "strided": strided, "max_abs_err": err, "tolerance": tol,
                       "err_slice_ulps": ulps, "ms": ms, "plain_ms": plain_ms,
                       "library_ms": library_ms, "bound_ms": b_ms,
                       "bound_by": b_by})
-        print(f"{name} {dt:4s} B={B:3d} S={S:4d}: max|err| {err:.3g} "
+        print(f"{name} {dt:4s} B={B:3d} S={S:4d}{' qkv.chunk' if strided else ''}"
+              f": max|err| {err:.3g} "
               f"({'fp32 tol 1e-4' if ulps is None else f'{ulps:.3g} slice ulps'})"
               f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
-              f"  sdpa {library_ms:.3f} ms  bound {b_ms:.3f} ms ({b_by})",
+              f"  sdpa{' fp32' if lib_dtype != dtype else ''} {library_ms:.3f} ms"
+              f"  bound {b_ms:.3f} ms ({b_by})",
               flush=True)
         del q, k, v, mask
         torch.cuda.empty_cache()
@@ -509,10 +618,11 @@ def phase_attention():
 def phase_attention_backward():
     """Kernel #3 (the fused backward) against its plain version at the MaxP
     training shape (64 chunk rows of S = 512, H = 12, D = 64; row 0 all
-    padding, the rest ragged) and at S = 256, 1024 and a ragged 300, bf16
-    and fp32, timed beside the backward of SDPA with the same additive
-    bias; then the autograd ``Function`` (forward and backward kernels)
-    against autograd through the plain forward."""
+    padding, the rest ragged; also as ``qkv.chunk`` views) and at S = 256,
+    1024 and a ragged 300 and 65, bf16 and fp32, each call bit-equal to a
+    second one, timed in turns with the backward of SDPA with the same
+    additive bias; then the autograd ``Function`` (forward and backward
+    kernels) against autograd through the plain forward."""
     import torch
     import torch.nn.functional as F
     from ance_tpu_torch.ops.attention import mask_to_bias
@@ -522,16 +632,23 @@ def phase_attention_backward():
 
     torch.manual_seed(0)  # the output gradients
     bf16, f32 = torch.bfloat16, torch.float32
-    shapes = [(bf16, 64, 512), (bf16, 64, 256), (bf16, 16, 1024),
-              (bf16, 16, 300), (f32, 64, 512), (f32, 64, 256),
-              (f32, 16, 1024), (f32, 16, 300)]
+    shapes = [(bf16, 64, 512), (bf16, 64, 512, True), (bf16, 64, 256),
+              (bf16, 16, 1024), (bf16, 16, 300), (bf16, 16, 65),
+              (f32, 64, 512), (f32, 64, 256), (f32, 16, 1024), (f32, 16, 300)]
     cases = []
-    for i, (dtype, B, S) in enumerate(shapes):
-        q, k, v, mask = _attention_inputs(B, S, dtype, seed=100 + i)
+    for i, (dtype, B, S, *strided) in enumerate(shapes):
+        strided = bool(strided)
+        q, k, v, mask = _attention_inputs(B, S, dtype, seed=100 + i,
+                                          strided=strided)
         do = torch.randn_like(q, dtype=f32).to(dtype)
         got = fused_attention_backward(q, k, v, mask, do)
+        again = fused_attention_backward(q, k, v, mask, do)
         want = fused_attention_backward_reference(q, k, v, mask, do)
         torch.cuda.synchronize()
+        # no atomics: a second call gives the same bits
+        deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(deterministic, f"backward {dtype} B={B} S={S}: two calls differ")
+        del again
         err, ulps = 0.0, 0.0
         tol = 1e-5 if dtype == f32 else BF16_SLICE_TOL
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -551,7 +668,7 @@ def phase_attention_backward():
                 ulps = max(ulps, u)
             err = max(err, e)
         control = None
-        if dtype == bf16 and (B, S) == (64, 512):
+        if dtype == bf16 and (B, S) == (64, 512) and not strided:
             # the bound's power: copies of dk and dv with their longest row
             # zeroed, or off by 10%, must fail it; beside each, whether a
             # bound from the whole gradient's largest value (2 ulps of it)
@@ -576,16 +693,18 @@ def phase_attention_backward():
                           f"{whole:.3g} would {'pass' if e <= whole else 'fail'}"
                           " it", flush=True)
         del got, want
-        ms = cuda_ms(lambda: fused_attention_backward(q, k, v, mask, do))
-        plain_ms = cuda_ms(
-            lambda: fused_attention_backward_reference(q, k, v, mask, do))
         leaves = [t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v)]
         out = F.scaled_dot_product_attention(
             *leaves, attn_mask=mask_to_bias(mask, dtype))
         grad_out = do.transpose(1, 2)
-        library_ms = cuda_ms(lambda: torch.autograd.grad(
-            out, leaves, grad_out, retain_graph=True))
+        plain_ms = cuda_ms(
+            lambda: fused_attention_backward_reference(q, k, v, mask, do))
+        times = cuda_ms_turns({
+            "ms": lambda: fused_attention_backward(q, k, v, mask, do),
+            "library_ms": lambda: torch.autograd.grad(
+                out, leaves, grad_out, retain_graph=True)})
+        ms, library_ms = times["ms"], times["library_ms"]
         del out, leaves
         # q, k, v, do in and dq, dk, dv out once, the int64 mask; the
         # recomputed s and the four gradient products: 10·S²·D a head
@@ -594,12 +713,14 @@ def phase_attention_backward():
                            "bf16" if dtype == bf16 else "f32")
         dt = "bf16" if dtype == bf16 else "f32"
         cases.append({"dtype": dt, "B": B, "S": S, "H": 12, "D": 64,
+                      "strided": strided, "deterministic": deterministic,
                       "max_abs_err": err, "tolerance": tol,
                       "err_slice_ulps": ulps if dtype == bf16 else None,
                       "control": control, "ms": ms,
                       "plain_ms": plain_ms, "library_ms": library_ms,
                       "bound_ms": b_ms, "bound_by": b_by})
-        print(f"fused backward {dt:4s} B={B:3d} S={S:4d}: max|err| {err:.3g}"
+        print(f"fused backward {dt:4s} B={B:3d} S={S:4d}"
+              f"{' qkv.chunk' if strided else ''}: max|err| {err:.3g}"
               f" ({f'{ulps:.3g} slice ulps' if dtype == bf16 else 'fp32 tol 1e-5'})"
               f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
               f"  sdpa backward {library_ms:.3f} ms  bound {b_ms:.3f} ms "
@@ -1757,7 +1878,8 @@ def main() -> int:
     import ance_tpu_torch  # noqa: F401  (TF32 off before any work)
 
     name = phase_device()
-    build_s = phase_build()
+    build_s, built = phase_build()
+    machine_code = phase_machine_code(*built["fused_attention"])
     cases, max_err, searches = phase_kernel()
     ties = phase_ties()
     attn_cases, crossover = phase_attention()
@@ -1790,7 +1912,7 @@ def main() -> int:
     def attention_entry(kernel, replaces, B, S, launches):
         own = [c for c in attn_cases if c["name"] == kernel]
         head = next(c for c in own if c["dtype"] == "bf16" and c["B"] == B
-                    and c["S"] == S)
+                    and c["S"] == S and not c["strided"])
         return entry(kernel, kernel, replaces, launches, head,
                      f"bf16 B={B} S={S} H=12 D=64", kernel, own)
 
@@ -1812,7 +1934,7 @@ def main() -> int:
     # block maxima, or the whole attention sub-block (#6: the unfused
     # composition is timed instead), so those have no library time.
     bwd_head = next(c for c in bwd_cases if c["dtype"] == "bf16"
-                    and c["B"] == 64 and c["S"] == 512)
+                    and c["B"] == 64 and c["S"] == 512 and not c["strided"])
     print(json.dumps({"kernels": [
         entry("blockmax_scores", "blockmax", "ance_tpu/ops/topk.py:90",
               maxp["blockmax_launches"], dict(headline, max_abs_err=max_err),
@@ -1827,7 +1949,8 @@ def main() -> int:
               "bf16 B=64 S=512 H=12 D=64", "fused_attention", bwd_cases),
         seq128_entry("fused128", "docs/perf_attn128_r3.py:44", "fused128"),
         seq128_entry("fused_block", "docs/perf_attn128_r3.py:88", "block")],
-        "fused_function": functions, "index_search": searches, "ties": ties,
+        "fused_function": functions, "machine_code": machine_code,
+        "index_search": searches, "ties": ties,
         "crossover": crossover, "serve": serve, "maxp": maxp,
         "train": train, "step_parity": parity, "mirror_encoder": mirror,
         "generate": generate}))

@@ -195,6 +195,91 @@ def test_kernel_operands_raise_on_what_the_kernels_do_not_take(case, error,
         kernel_operands(q, k, v, None, name="test")
 
 
+# -- the bf16 kernel's schedule, tile for tile, on the CPU ---------------------
+
+KEY_TILE = 64  # keys a wgmma score tile holds (csrc/fused_attention.cu)
+
+
+def schedule_inputs(B, S, H, D, seed, kind, strided):
+    """``_inputs`` as torch tensors in ``kind``; with ``strided``, q, k and
+    v are the three chunks of one [B, S, 3·H·D] fused-QKV projection, the
+    views the encoder hands the kernel."""
+    q, k, v, mask = _inputs(B, S, H, D, seed)
+    if strided:
+        qkv = torch.as_tensor(np.concatenate([q, k, v], axis=-1).reshape(
+            B, S, 3 * H * D)).to(_TORCH[kind])
+        q, k, v = (t.view(B, S, H, D) for t in qkv.chunk(3, dim=-1))
+        assert not q.is_contiguous()
+    else:
+        q, k, v = (torch.as_tensor(a).to(_TORCH[kind]) for a in (q, k, v))
+    return q, k, v, torch.as_tensor(mask, dtype=torch.int64)
+
+
+def key_tiles(S):
+    return [(t, min(t + KEY_TILE, S)) for t in range(0, S, KEY_TILE)]
+
+
+def tile_scores(a, b, bias, t0, t1):
+    """fp32(a · b[t0:t1]ᵀ) · scale + bias, two roundings: [B, H, S, keys]."""
+    f32 = torch.float32
+    scale = torch.tensor(1.0 / math.sqrt(a.shape[-1]), dtype=f32)
+    s = torch.einsum("bqhd,bkhd->bhqk", a.to(f32), b[:, t0:t1].to(f32))
+    return s * scale + bias[:, None, None, t0:t1]
+
+
+def row_stats(q, k, bias):
+    """Pass 1 of the forward and loop A of the backward's rows kernel: the
+    exact running row max m, and the sum l of exp(s − m) rescaled by
+    exp(m_old − m_new) whenever a tile raises the max. [B, H, S, 1] each."""
+    B, S, H, _ = q.shape
+    m = torch.full((B, H, S, 1), -math.inf)
+    l = torch.zeros((B, H, S, 1))
+    for t0, t1 in key_tiles(k.shape[1]):
+        s = tile_scores(q, k, bias, t0, t1)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new).sum(-1, keepdim=True)
+        m = m_new
+    return m, l
+
+
+def forward_schedule(q, k, v, mask):
+    """Kernel #2's schedule: pass 1 (``row_stats``), then per key tile s
+    again, p = exp(s − m) / l rounded to the input dtype, o += p·v in
+    fp32."""
+    f32 = torch.float32
+    bias = (1.0 - mask.to(f32)) * -1e9
+    m, l = row_stats(q, k, bias)
+    o = torch.zeros(q.shape[0], q.shape[2], q.shape[1], q.shape[3])
+    for t0, t1 in key_tiles(k.shape[1]):
+        p = (torch.exp(tile_scores(q, k, bias, t0, t1) - m) / l).to(v.dtype)
+        o = o + torch.einsum("bhqk,bkhd->bhqd", p.to(f32), v[:, t0:t1].to(f32))
+    return o.transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("S,strided", [(1, False), (63, True), (65, False),
+                                       (300, True)])
+def test_two_pass_forward_schedule_matches_plain(kind, S, strided):
+    """The running max and rescaled running sum over 64-key tiles, then
+    bf16 p from the final m and l, give the plain forward's output: bf16
+    within ``assert_bf16_slice_close``, fp32 within 2e-6 (the sum taken in
+    another order); the fully masked row 0 comes out as the mean of v."""
+    q, k, v, mask = schedule_inputs(3, S, 2, 64, seed=S, kind=kind,
+                                    strided=strided)
+    got = forward_schedule(q, k, v, mask)
+    want = fused_attention_reference(q, k, v, mask)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if kind == "f32":
+        torch.testing.assert_close(got, want, atol=2e-6, rtol=0)
+    else:
+        assert_bf16_slice_close(got.float().numpy(), want.float().numpy(),
+                                "schedule")
+    mean_v = v[0].float().mean(0, keepdim=True).expand(S, 2, 64)
+    torch.testing.assert_close(got[0].float(), mean_v.to(v.dtype).float(),
+                               atol=_bf16_ulps(mean_v.numpy(), 1)
+                               if kind == "bf16" else 1e-6, rtol=0)
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
@@ -204,10 +289,12 @@ def _cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("impl", ["fused", "flash"])
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
-@pytest.mark.parametrize("S,strided", [(512, False), (300, False),
-                                       (256, True)])
+@pytest.mark.parametrize("S,strided", [(1, False), (64, False), (65, True),
+                                       (256, True), (300, False),
+                                       (512, False), (2048, False)])
 def test_attention_kernel_matches_plain_on_cuda(impl, kind, S, strided):
-    """Each kernel against its plain version on the card: ragged S, a fully
+    """Each kernel against its plain version on the card: ragged S (one key
+    tile, one key past a tile, 2048 = the fused forward's MAX_SEQ), a fully
     masked row, and q/k/v as strided chunks of one fused-QKV projection.
     bf16 by ``assert_bf16_slice_close``; fp32 within 1e-4 (summation order
     and expf against torch's exp)."""

@@ -27,7 +27,8 @@ from ance_tpu_torch.ops.attention import multi_head_attention
 from ance_tpu_torch.ops.fused_attention import (
     MAX_SEQ_BACKWARD, fused_attention, fused_attention_backward,
     fused_attention_backward_reference, fused_attention_reference)
-from test_torch_attention import assert_bf16_slice_close
+from test_torch_attention import (assert_bf16_slice_close, key_tiles,
+                                 row_stats, schedule_inputs, tile_scores)
 
 torch.set_num_threads(1)
 
@@ -88,6 +89,86 @@ def test_fused_backward_plain_matches_jax_kernel(kind, B, S, H, D):
                                        err_msg=name)
         else:
             assert_bf16_slice_close(g, w, name)
+
+
+KEY_BLOCK = 128  # keys a block of the keys kernel owns
+
+
+def backward_schedule(q, k, v, mask, do):
+    """Kernel #3's schedule, tile for tile. Rows kernel: loop A is the
+    forward's ``row_stats`` with, rescaled beside l, the sum d of
+    dp ⊙ exp(s − m), so delta = rowsum(dp ⊙ p) = d / l; loop B forms
+    ds = p ⊙ (dp − delta) and dq += bf16(ds·scale)·k. Keys kernel: each
+    block of 128 keys walks the
+    64-query tiles with transposed scores sᵀ = k·qᵀ and dpᵀ = v·doᵀ, takes
+    p from the rows kernel's m and l, and accumulates dv += bf16(pᵀ)·do and
+    dk += bf16(dsᵀ·scale)·q. Returns (dq, dk, dv) [B, S, H, D]."""
+    f32 = torch.float32
+    B, S, H, D = q.shape
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=f32)
+    bias = (1.0 - mask.to(f32)) * -1e9
+    # rows: A, then B
+    m = torch.full((B, H, S, 1), -math.inf)
+    l = torch.zeros((B, H, S, 1))
+    d = torch.zeros((B, H, S, 1))
+    for t0, t1 in key_tiles(S):
+        s = tile_scores(q, k, bias, t0, t1)
+        dp = torch.einsum("bqhd,bkhd->bhqk", do.to(f32), v[:, t0:t1].to(f32))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        e = torch.exp(s - m_new)
+        l = l * torch.exp(m - m_new) + e.sum(-1, keepdim=True)
+        d = d * torch.exp(m - m_new) + (dp * e).sum(-1, keepdim=True)
+        m = m_new
+    assert all(torch.equal(a, b) for a, b in zip((m, l), row_stats(q, k, bias)))
+    delta = d / l
+    dq = torch.zeros(B, H, S, D)
+    for t0, t1 in key_tiles(S):
+        p = torch.exp(tile_scores(q, k, bias, t0, t1) - m) / l
+        dp = torch.einsum("bqhd,bkhd->bhqk", do.to(f32), v[:, t0:t1].to(f32))
+        dsb = (p * (dp - delta) * scale).to(q.dtype).to(f32)
+        dq = dq + torch.einsum("bhqk,bkhd->bhqd", dsb, k[:, t0:t1].to(f32))
+    # keys: the statistics as the keys kernel reads them, [B, H, 1, S]
+    m_t, l_t, delta_t = (x.transpose(2, 3) for x in (m, l, delta))
+    dk = torch.zeros(B, H, S, D)
+    dv = torch.zeros(B, H, S, D)
+    for k0 in range(0, S, KEY_BLOCK):
+        k1 = min(k0 + KEY_BLOCK, S)
+        for t0, t1 in key_tiles(S):  # query tiles
+            st = tile_scores(k[:, k0:k1], q, torch.zeros_like(bias), t0, t1)
+            st = st + bias[:, None, k0:k1, None]  # [B, H, keys, queries]
+            pt = torch.exp(st - m_t[..., t0:t1]) / l_t[..., t0:t1]
+            dpt = torch.einsum("bkhd,bqhd->bhkq", v[:, k0:k1].to(f32),
+                               do[:, t0:t1].to(f32))
+            dst = (pt * (dpt - delta_t[..., t0:t1]) * scale).to(q.dtype)
+            dv[:, :, k0:k1] += torch.einsum(
+                "bhkq,bqhd->bhkd", pt.to(v.dtype).to(f32),
+                do[:, t0:t1].to(f32))
+            dk[:, :, k0:k1] += torch.einsum(
+                "bhkq,bqhd->bhkd", dst.to(f32), q[:, t0:t1].to(f32))
+    return tuple(x.transpose(1, 2).to(q.dtype) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("S,strided", [(1, False), (63, True), (65, False),
+                                       (300, True)])
+def test_backward_schedule_matches_plain(kind, S, strided):
+    """The rows kernel's two loops and the keys kernel's transposed
+    scores give the plain backward's gradients: bf16 within
+    ``assert_bf16_slice_close``, fp32 within 1e-5 (sums in other orders);
+    at S = 300 the last 128-key block holds 44 keys."""
+    q, k, v, mask = schedule_inputs(3, S, 2, 64, seed=S, kind=kind,
+                                    strided=strided)
+    do = torch.as_tensor(np.random.RandomState(S + 1).randn(3, S, 2, 64)
+                         .astype(np.float32)).to(q.dtype)
+    got = backward_schedule(q, k, v, mask, do)
+    want = fused_attention_backward_reference(q, k, v, mask, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        if kind == "f32":
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=0, msg=name)
+        else:
+            assert_bf16_slice_close(g.float().numpy(), w.float().numpy(),
+                                    name)
 
 
 @pytest.mark.parametrize("with_mask", [True, False])
@@ -410,20 +491,30 @@ def _cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
-@pytest.mark.parametrize("S", [256, 300, 512, 1024])
-def test_fused_backward_kernel_matches_plain_on_cuda(kind, S):
+@pytest.mark.parametrize("S,strided", [(1, False), (64, False), (65, True),
+                                       (256, False), (300, False),
+                                       (512, True), (1024, False)])
+def test_fused_backward_kernel_matches_plain_on_cuda(kind, S, strided):
     """Kernel #3 against its plain version at H = 12, D = 64, a fully
-    masked row and ragged lengths: bf16 by ``assert_bf16_slice_close``, fp32
-    within 1e-5."""
+    masked row and ragged lengths, q/k/v also as strided chunks of one
+    fused-QKV projection: bf16 by ``assert_bf16_slice_close``, fp32 within
+    1e-5; a second call gives the same bits (no atomics)."""
     dev = _cuda()
     q, k, v, do, mask = (torch.as_tensor(a).to(dev) for a in
                          _attn_inputs(4, S, 12, 64, seed=S))
     q, k, v, do = (t.to(_TORCH[kind]) for t in (q, k, v, do))
+    if strided:
+        qkv = torch.cat([q, k, v], dim=-1).reshape(4, S, 3 * 768)
+        q, k, v = (t.reshape(4, S, 12, 64) for t in qkv.chunk(3, dim=-1))
+        assert not q.is_contiguous()
     before = fused_attention_backward.launches
     got = fused_attention_backward(q, k, v, mask, do)
     assert fused_attention_backward.launches == before + 1
+    again = fused_attention_backward(q, k, v, mask, do)
     want = fused_attention_backward_reference(q, k, v, mask, do)
     torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         if kind == "f32":
             torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
@@ -433,8 +524,9 @@ def test_fused_backward_kernel_matches_plain_on_cuda(kind, S):
 
 @pytest.mark.cuda
 def test_fused_function_on_cuda_and_its_limits():
-    """Forward and backward kernels through autograd, each launched once;
-    S beyond MAX_SEQ_BACKWARD raises in the backward."""
+    """Forward and backward kernels through autograd, each launched once,
+    the same bits from a second pass; S beyond MAX_SEQ_BACKWARD raises in
+    the backward."""
     dev = _cuda()
     q, k, v, do, mask = (torch.as_tensor(a).to(dev) for a in
                          _attn_inputs(2, 512, 12, 64, seed=1))
@@ -448,6 +540,10 @@ def test_fused_function_on_cuda_and_its_limits():
         *(t.detach() for t in leaves), mask, do.to(torch.bfloat16))
     for name, g, w in zip(("dq", "dk", "dv"), grads, want):
         assert_bf16_slice_close(g.float().cpu(), w.float().cpu(), name)
+    again = torch.autograd.grad(fused_attention(*leaves, mask), leaves,
+                                do.to(torch.bfloat16))
+    for g, a in zip(grads, again):
+        assert torch.equal(g, a)
     long = torch.zeros(1, MAX_SEQ_BACKWARD + 64, 1, 64, device=dev,
                        dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="sequence length"):
