@@ -16,21 +16,31 @@
 // What bounds it on the H100. A head at S = 128 is 4*S*S*64 = 4.2 MFLOP
 // against 3*S*64*2 = 48 KB of q, k and v: ~85 FLOP a byte, under the bf16
 // ridge (~295), so the least time is the bytes: q, k, v read once, out
-// written once (4 * B*S*H*2 = 100.7 MB at B = 128, 0.030 ms at 3.35 TB/s).
-// The TPU kernel's point was to read the projection layout without the
-// [B, S, H, D] -> [B*H, S, D] transposes; this kernel keeps that and is
-// otherwise its own design, specialised to S <= 128:
-//  * a block owns one (b, h); its 8 warps own 16 query rows each. The
-//    head's 64 columns of q, k and v are 128-byte row segments of
-//    [B, S, H], copied into shared memory with cp.async (16 bytes a
-//    thread, rows past S zero-filled);
-//  * q.k^T and p.v run on the tensor cores as mma.sync m16n8k16 (bf16 in,
-//    fp32 accumulate). A warp's 16 x 128 score rows never leave its
-//    registers: 16 accumulator tiles of 16 x 8, whose documented fragment
-//    layout gives each thread two rows, reduced over the 4 threads of a
-//    quad with shuffles for the exact max and sum. The accumulator layout
-//    of q.k^T is the A-operand layout of p.v, so p goes from registers
-//    straight into the second product.
+// written once (4 * B*S*H*2 = 100.7 MB at B = 128, 0.030 ms at 3.35 TB/s;
+// the products are 6.4 GFLOP, ~7 us, and the exps 25 M MUFU operations,
+// ~7 us). The TPU kernel's point was to read the projection layout without
+// the [B, S, H, D] -> [B*H, S, D] transposes; this kernel keeps that and is
+// otherwise its own design, specialised to S <= 128 and built to keep HBM
+// streaming (wgmma + TMA, hopper.cuh):
+//  * persistent blocks, one an SM, the (b, h) heads dealt to them
+//    round-robin, so the blocks running at once read neighbouring heads
+//    of the same [B, S, H] rows. A producer warp
+//    loads a head's q, k and v as three TMA boxes of [128][64] (a 4-d
+//    tensor map over the [B, S, heads, 64] view of [B, S, H], 128-byte
+//    swizzle, rows past S zero-filled) and its bias row into a ring of
+//    kRing stages guarded by full / empty mbarriers, so the next heads'
+//    loads are in flight while this one computes;
+//  * two consumer warpgroups own 64 query rows each. q . k^T is wgmma
+//    m64n64k16 from shared memory into the whole 64 x 128 fp32 score row
+//    in registers (two 64-key halves; one where S <= 64), so the softmax is
+//    one pass with the exact max; p . v is wgmma with p as the register A
+//    fragment and v read MN-major (the transpose flag); the context goes
+//    back through shared memory (over q, done with by then) as a TMA
+//    store of the warpgroup's 64 rows (rows past S are not written);
+//  * the epilogue as the fused kernel's: scale and bias in one FMA (exact:
+//    the scale is 1/8), exp as one ex2.approx.ftz, 1/l once a row and
+//    Markstein's two FMAs for the correctly rounded p = e / l, the mask
+//    tested only in a ragged half.
 //
 // attn_block (kernel #6). Replaces docs/perf_attn128_r3.py::_block_kernel
 // (via fused_block). x is [B, S, H] bf16 and wq, wk, wv, wo [H, H] bf16
@@ -62,6 +72,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -75,7 +87,6 @@ constexpr int kLd = kD + 8;           // bf16 shared rows: 144 B, 16-B aligned;
 constexpr int kKeyTiles = kMaxS / 8;  // 8-key accumulator tiles of a row
 constexpr int kDimTiles = kD / 8;     // 8-column accumulator tiles of a head
 constexpr int kChunk = 64;            // reduction depth of a staged tile
-constexpr long long kHeadSmem = 3LL * kMaxS * kLd * 2;  // Q | K | V
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
@@ -90,9 +101,6 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::);  // all but the newest group
 }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -101,9 +109,6 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 __device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-__device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
-  return pack(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
 }
 
 // d += a . b for one 16 x 8 x 16 tile (bf16 in, fp32 accumulate). The PTX
@@ -155,32 +160,15 @@ __device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
   b1 = pack(p[8 * ld], p[9 * ld]);
 }
 
-// Start copying rows [0, rows) of a head's 64 columns (row r at
-// src + r * ld_src) into a shared [rows][kLd] tile; rows >= S become zeros.
-__device__ __forceinline__ void copy_head_async(bf16* dst, const bf16* src,
-                                                long long ld_src, int rows,
-                                                int S) {
-  for (int i = threadIdx.x; i < rows * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8), ch = i % (kD / 8);
-    const bool valid = r < S;
-    cp_async16(dst + r * kLd + ch * 8, valid ? src + r * ld_src + ch * 8 : src,
-               valid);
-  }
-}
+using hopper::pack_rn;
+using hopper::quad_max;
+using hopper::quad_sum;
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(~0u, x, 1));
-  return fmaxf(x, __shfl_xor_sync(~0u, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(~0u, x, 1);
-  return x + __shfl_xor_sync(~0u, x, 2);
-}
-
-// One warp's 16 query rows [16w, 16w + 16) of a head staged in shared
-// memory (Qs, Ks, Vs: [kMaxS][kLd], rows past S zero) against keys
-// [0, S): the attention of the file comment, the warp's rows of the
-// context stored in bf16 at out + row * ld_out.
+// Kernel #6's attention (mma.sync m16n8k16): one warp's 16 query rows
+// [16w, 16w + 16) of a head staged in shared memory (Qs, Ks, Vs:
+// [kMaxS][kLd], rows past S zero) against keys [0, S), the function of
+// the file comment with the division instruction and expf; the warp's
+// rows of the context stored in bf16 at out + row * ld_out.
 __device__ __forceinline__ void attend_rows(const bf16* Qs, const bf16* Ks,
                                             const bf16* Vs, const float* bias,
                                             int S, float scale, bf16* out,
@@ -357,26 +345,171 @@ __device__ __forceinline__ void project(float (&acc)[NW][kDimTiles][4],
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    attn128_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const float* __restrict__ bias,
-                   bf16* __restrict__ out, int S, int H, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kMaxS * kLd;
-  bf16* Vs = Ks + kMaxS * kLd;
+// ---- kernel #5: persistent, TMA ring, wgmma
+
+using hopper::Lane;
+using hopper::Ring;
+
+constexpr int kConsumerWgs = 2;  // 64 query rows each
+constexpr int kConsumerWarps = 4 * kConsumerWgs;
+constexpr int k5Threads = kConsumerWgs * hopper::kWgThreads + 32;  // + producer
+constexpr int kRing = 3;                     // heads in flight a block
+constexpr int k5BlocksPerSm = 1;
+constexpr int kBox = kMaxS * kD;             // a head's [128][64] TMA box
+constexpr uint32_t kBoxBytes = kBox * 2;
+
+struct alignas(1024) HeadSmem {
+  bf16 q[kRing][kBox], k[kRing][kBox], v[kRing][kBox];
+  float bias[kRing][kMaxS];  // keys >= S: 0 (masked in the epilogue)
+  uint64_t full[kRing], empty[kRing];
+};
+constexpr int kSmemSlack = 1024;  // aligned_smem's rounding
+constexpr int kHeadSmemBytes = static_cast<int>(sizeof(HeadSmem)) + kSmemSlack;
+
+// One warpgroup's 64 query rows (the shared tile q) against the head's
+// keys, in KT 64-key halves (k, v: [128][64] boxes): the whole score row
+// in registers, its exact max and sum, p = e / l rounded to bf16 into
+// p . v; the context, rounded to bf16, written over q (a TMA box's
+// layout) once q . k^T is done with it.
+template <int KT>
+__device__ __forceinline__ void attend_head(bf16* q, const bf16* k,
+                                            const bf16* v, const float* bias,
+                                            int S, float scale,
+                                            const Lane& ln) {
+  float s[KT][32];
+#pragma unroll
+  for (int t = 0; t < KT; ++t) hopper::fence_regs(s[t]);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < KT; ++t) hopper::issue_abt(s[t], q, k + t * 64 * kD);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait_all();
+  float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    hopper::fence_regs(s[t]);
+    hopper::scale_bias(s[t], bias + 64 * t, 64 * t, S, scale, ln.c);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      m[h] = fmaxf(m[h], s[t][i]);
+    }
+  }
+  float l[2] = {0.f, 0.f}, inv_l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) m[h] = quad_max(m[h]);
+#pragma unroll
+  for (int t = 0; t < KT; ++t)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      s[t][i] = hopper::exp_shifted(s[t][i], m[h]);
+      l[h] = __fadd_rn(l[h], s[t][i]);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = quad_sum(l[h]);
+    inv_l[h] = __frcp_rn(l[h]);
+  }
+  uint32_t a[KT][4][4];
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      s[t][i] = hopper::divide(s[t][i], l[h], inv_l[h]);
+    }
+    hopper::to_a(a[t], s[t]);
+  }
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  hopper::fence_regs(o);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < KT; ++t) hopper::issue_ab(o, a[t], v + t * 64 * kD);
+  hopper::wait_products(o);
+  hopper::store_tile_swizzled(o, q, ln);
+}
+
+// One block an SM: its ring of three heads is 147 KB of shared memory,
+// and two blocks would cap a thread at 112 registers (it takes 158: the
+// score row alone is 64).
+__global__ void __launch_bounds__(k5Threads, k5BlocksPerSm)
+    attn128_kernel(const __grid_constant__ CUtensorMap mq,
+                   const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv,
+                   const __grid_constant__ CUtensorMap mo,
+                   const float* __restrict__ bias, int S, int H, float scale,
+                   int n_heads) {
+  HeadSmem& sm = hopper::aligned_smem<HeadSmem>();
   const int heads = H / kD;
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
-  const long long base = static_cast<long long>(b) * S * H + h * kD;
-  const int rows = (S + 15) / 16 * 16;
-  copy_head_async(Qs, q + base, H, rows, S);
-  copy_head_async(Ks, k + base, H, rows, S);
-  copy_head_async(Vs, v + base, H, rows, S);
-  cp_async_commit();
-  cp_async_wait_all();
+  // the block's heads, dealt round-robin (block i takes heads i,
+  // i + grid, ...): the blocks running at once read neighbouring heads of
+  // the same rows, which kept HBM busier than a contiguous run a block
+  const int first = blockIdx.x;
+  const int last = n_heads;
+  const int step = gridDim.x;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRing; ++i) {
+      hopper::mbar_init(&sm.full[i], 32);  // every producer lane arrives
+      hopper::mbar_init(&sm.empty[i], kConsumerWarps);
+    }
+    hopper::mbar_init_fence();
+  }
   __syncthreads();
-  attend_rows(Qs, Ks, Vs, bias + static_cast<long long>(b) * S, S, scale,
-              out + base, H);
+
+  if (threadIdx.x / 32 == kConsumerWarps) {  // the producer warp
+    const int lane = threadIdx.x % 32;
+    Ring<kRing> r;
+    for (int w = first; w < last; w += step, r.next()) {
+      const int b = w / heads, h = w % heads;
+      hopper::mbar_wait(&sm.empty[r.stage], r.phase ^ 1);
+      // the bias row by the warp's plain stores, each lane's released by
+      // its own arrive
+      for (int i = lane; i < kMaxS; i += 32)
+        sm.bias[r.stage][i] =
+            i < S ? bias[static_cast<long long>(b) * S + i] : 0.f;
+      if (lane == 0) {
+        hopper::mbar_expect_tx(&sm.full[r.stage], 3 * kBoxBytes);
+        hopper::tma_load_4d(sm.q[r.stage], &mq, 0, h, 0, b, &sm.full[r.stage]);
+        hopper::tma_load_4d(sm.k[r.stage], &mk, 0, h, 0, b, &sm.full[r.stage]);
+        hopper::tma_load_4d(sm.v[r.stage], &mv, 0, h, 0, b, &sm.full[r.stage]);
+      } else {
+        hopper::mbar_arrive(&sm.full[r.stage]);
+      }
+    }
+    return;
+  }
+
+  const Lane ln;
+  const int q0 = 64 * ln.wg;  // the warpgroup's query rows
+  const bool arrives = threadIdx.x % 32 == 0;
+  // the warpgroup's first thread stores its context tile by TMA and
+  // releases the stage only once the store has read it
+  const bool stores = threadIdx.x % hopper::kWgThreads == 0;
+  Ring<kRing> r;
+  for (int w = first; w < last; w += step, r.next()) {
+    const int b = w / heads, h = w % heads;
+    hopper::mbar_wait(&sm.full[r.stage], r.phase);
+    if (q0 < S) {
+      bf16* qt = sm.q[r.stage] + q0 * kD;
+      if (S > 64)
+        attend_head<2>(qt, sm.k[r.stage], sm.v[r.stage], sm.bias[r.stage], S,
+                       scale, ln);
+      else
+        attend_head<1>(qt, sm.k[r.stage], sm.v[r.stage], sm.bias[r.stage], S,
+                       scale, ln);
+      hopper::fence_async_smem();
+      hopper::named_barrier(1 + ln.wg, hopper::kWgThreads);
+      if (stores) {  // rows past S are not written
+        hopper::tma_store_4d(&mo, qt, 0, h, q0, b);
+        hopper::tma_store_wait_read();
+      }
+    }
+    if (arrives) hopper::mbar_arrive(&sm.empty[r.stage]);
+  }
+  if (stores) hopper::tma_store_wait();
 }
 
 // attn_block launch 1: a block owns one (b, h)
@@ -458,24 +591,45 @@ cudaError_t allow_smem(Kernel kernel, long long bytes) {
 }  // namespace
 
 // Kernel #5. q, k, v, out: contiguous [B, S, H] bf16 with 16-byte-aligned
-// rows (the wrapper checks), 1 <= S <= 128, H a multiple of 64; bias fp32
-// [B, S]. Returns a cudaError_t, 0 on success (cudaErrorInvalidValue for
-// shapes it does not take); asynchronous on `stream`.
+// base addresses (the TMA boxes; the wrapper checks), 1 <= S <= 128, H a
+// multiple of 64; bias fp32 [B, S]; a power-of-two scale (1/sqrt(64) is).
+// Returns a cudaError_t, 0 on success (cudaErrorInvalidValue for what it
+// does not take); asynchronous on `stream`.
 extern "C" int attn128_launch(const void* q, const void* k, const void* v,
                               const float* bias, void* out, int B, int S,
                               int H, float scale, void* stream) {
-  if (!takes(B, S, H)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = static_cast<long long>(B) * (H / kD);
-  if (blocks == 0) return 0;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(attn128_kernel, kHeadSmem);
+  if (!takes(B, S, H) || !hopper::power_of_two(scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_heads = static_cast<long long>(B) * (H / kD);
+  if (n_heads == 0) return 0;
+  if (n_heads > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = allow_smem(attn128_kernel, kHeadSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn128_kernel<<<static_cast<unsigned>(blocks), kThreads, kHeadSmem,
+  // q, k, v and out as [B, S, heads, 64] with strides (S * H, H, 64): a
+  // load box is a head's 128 rows, a store box a warpgroup's 64
+  CUtensorMap maps[4];
+  const void* operands[4] = {q, k, v, out};
+  for (int i = 0; i < 4; ++i)
+    if (hopper::encode_bhsd(&maps[i], operands[i], B, S, H / kD,
+                            static_cast<long long>(S) * H, H, kD,
+                            i < 3 ? kMaxS : hopper::kTileRows) != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  const long long slots = static_cast<long long>(sms) * k5BlocksPerSm;
+  const int blocks = static_cast<int>(n_heads < slots ? n_heads : slots);
+  attn128_kernel<<<blocks, k5Threads, kHeadSmemBytes,
                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), bias, static_cast<bf16*>(out), S, H, scale);
+      maps[0], maps[1], maps[2], maps[3], bias, S, H, scale,
+      static_cast<int>(n_heads));
   return static_cast<int>(cudaGetLastError());
 }
+
+// The dynamic shared memory kernel #5 is launched with, in bytes (ptxas's
+// report counts only static shared memory).
+extern "C" void attn128_bf16_smem(int* bytes) { bytes[0] = kHeadSmemBytes; }
 
 // Kernel #6: x, ctx (scratch) and out contiguous [B, S, H] bf16; wq, wk,
 // wv, wo contiguous [H, H] bf16 (x . W); bias fp32 [B, S]; limits as

@@ -18,20 +18,49 @@
 // edge is masked (keys at or beyond S get -inf, rows beyond S are not
 // stored).
 //
-// What bounds it on the H100. Its job is long sequences, where the fused
-// kernel's whole score row no longer fits shared memory: per (b, h) it
-// reads q, k, v once per 64-query tile and keeps only a 64 x 64 score tile
-// and the running max / sum / accumulator on chip, so memory is O(S), not
-// O(S^2). The products are fp32 on the CUDA cores, because fp32 k, v and p
-// are part of the function (tensor cores would round them to TF32 or
-// bf16): at S = 2048 a head is 4*S*S*D = 1.07 GFLOP, and the fp32 rate
-// (67 TFLOP/s peak) is the bound. A 3xTF32 or bf16-split product on the
-// tensor cores is later work.
+// Its job is long sequences, where the fused kernel's whole score row no
+// longer fits shared memory: per (b, h) it reads q, k, v once per query
+// tile and keeps only a score tile and the running max / sum / accumulator
+// on chip, so memory is O(S), not O(S^2).
+//
+// bf16 inputs (flash_fwd_bf16: wgmma + TMA, hopper.cuh). The function's
+// products run on the bf16 tensor cores with no loss:
+//  * q . k: the scale 1/8 is a power of two, so q' = q / 8 is exact in
+//    bf16 and each product q'_d k_d = (q_d k_d) / 8 is exact in fp32;
+//    s = fma(q . k, 1/8, bias) with q . k from bf16 wgmma (fp32
+//    accumulate) is the function's s, its sum taken in another order;
+//  * p . v: p (fp32, 24 bits) is exactly p1 + p2 + p3 with p1 = bf16(p),
+//    p2 = bf16(p - p1), p3 = bf16(p - p1 - p2) (each remainder exact; the
+//    last piece fits bf16's 8 bits, down to bf16's subnormals, below
+//    which a piece under 2^-133 is lost), so p . v is three bf16 wgmma
+//    into one fp32 accumulator, the smallest piece first. Two pieces would
+//    be another function (p to 16 bits).
+// The least time is then the operations: 2*S*S*64 (q . k) + 3*2*S*S*64
+// (p . v) a head at the bf16 rate, 0.208 ms at B = 8, S = 2048, H = 12.
+// A block is a producer warp and two consumer warpgroups of 64 query rows;
+// the producer streams 64-key K and V tiles (and the tile's bias, by the
+// warp's own stores) through a ring of kStages guarded by full / empty
+// mbarriers, straight from the strided views (128-byte swizzle, rows past
+// S zero-filled). Each tile: s = q . k^T by wgmma from shared memory, the
+// scale-and-bias FMA, the online max and a rescaled running sum (the exp
+// one ex2.approx.ftz), acc *= a, the three pieces of p as register A
+// fragments into wgmma against v read MN-major; at the end out = acc / l
+// (1/l once a row and Markstein's two FMAs: the correctly rounded
+// quotient). What it waits on is the CUDA-core epilogue (max, exp, sum,
+// the split and its packing, ~13 instructions a score), which overlaps the
+// tensor cores only across the two warpgroups.
+//
+// float32 inputs (flash_fwd_f32) stay on the CUDA cores, because fp32 k,
+// v and p are part of the function (the port keeps TF32 off): 64 queries a
+// block through shared memory, at S = 2048 4*S*S*D = 1.07 GFLOP a head
+// against the fp32 rate (67 TFLOP/s peak).
 
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -45,13 +74,6 @@ struct Strides {
   long long b, s, h;  // elements; the D stride is 1
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(bf16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(~0u, x, o));
   return x;
@@ -63,16 +85,15 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Rows [row0, row0 + kTile) of one head into shared memory [kTile][D + 1]
-// as fp32, times `mul` (exact for mul == 1); rows >= S become zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* head,
+// times `mul` (exact for mul == 1); rows >= S become zeros.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* head,
                                           long long ld_src, int row0, int S,
                                           float mul) {
   for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
     const int r = i / D, d = i % D;
     dst[r * (D + 1) + d] =
-        row0 + r < S ? __fmul_rn(to_f32(head[(row0 + r) * ld_src + d]), mul)
-                     : 0.f;
+        row0 + r < S ? __fmul_rn(head[(row0 + r) * ld_src + d], mul) : 0.f;
   }
 }
 
@@ -82,12 +103,12 @@ constexpr int smem_bytes() {
   return 4 * (3 * kTile * (D + 1) + kTile * (kTile + 1) + 3 * kTile);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const float* __restrict__ bias,
-              T* __restrict__ out, int S, int H, Strides st, float scale,
-              int n_qtiles) {
+    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ bias,
+                  float* __restrict__ out, int S, int H, Strides st,
+                  float scale, int n_qtiles) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int kLd = D + 1;     // odd: column reads hit distinct banks
   constexpr int kLdP = kTile + 1;
@@ -108,7 +129,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  load_tile<T, D>(Qs, q + head, st.s, q0, S, scale);
+  load_tile<D>(Qs, q + head, st.s, q0, S, scale);
   for (int r = threadIdx.x; r < kTile; r += kThreads) {
     m_row[r] = -INFINITY;
     l_row[r] = 0.f;
@@ -117,8 +138,8 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int k0 = 0; k0 < S; k0 += kTile) {
     __syncthreads();  // the previous tile's K, V and p are consumed
-    load_tile<T, D>(Ks, k + head, st.s, k0, S, 1.f);
-    load_tile<T, D>(Vs, v + head, st.s, k0, S, 1.f);
+    load_tile<D>(Ks, k + head, st.s, k0, S, 1.f);
+    load_tile<D>(Vs, v + head, st.s, k0, S, 1.f);
     __syncthreads();
 
     // s = q' . k + bias for rows ty + 16 i, keys tx + 16 j
@@ -190,38 +211,226 @@ __global__ void __launch_bounds__(kThreads)
     const int r = ty + 16 * i;
     if (q0 + r >= S) continue;
     const float l = l_row[r];
-    T* o = out + ((static_cast<long long>(b) * S + q0 + r) * H + h) * D;
+    float* o = out + ((static_cast<long long>(b) * S + q0 + r) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c)
-      store(o + tx + 16 * c, __fdiv_rn(acc[i][c], l));
+    for (int c = 0; c < kCols; ++c) o[tx + 16 * c] = __fdiv_rn(acc[i][c], l);
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const float* bias,
-           void* out, int B, int S, int H, Strides st, float scale,
-           cudaStream_t stream) {
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v,
+               const float* bias, void* out, int B, int S, int H, Strides st,
+               float scale, cudaStream_t stream) {
   constexpr int smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qtiles = (S + kTile - 1) / kTile;
   const long long blocks = static_cast<long long>(B) * H * n_qtiles;
   if (blocks == 0) return 0;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  flash_fwd<T, D><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<T*>(out), S, H, st, scale,
-      n_qtiles);
+  flash_fwd_f32<D><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), bias, static_cast<float*>(out), S, H, st,
+      scale, n_qtiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------ bf16, wgmma
+
+using hopper::kTileBytes;  // one [64][64] bf16 tile
+using hopper::Lane;
+using hopper::Ring;
+
+constexpr int kConsumerWgs = 2;
+constexpr int kConsumerWarps = 4 * kConsumerWgs;
+constexpr int kBf16Threads = kConsumerWgs * hopper::kWgThreads + 32;
+constexpr int kBlockRows = kConsumerWgs * 64;  // query rows a block owns
+constexpr int kStages = 4;
+constexpr int kTileElems = 64 * 64;
+
+struct alignas(1024) FlashSmem {
+  bf16 q[kConsumerWgs][kTileElems];
+  bf16 kv[kStages][2][kTileElems];  // K | V
+  float bias[kStages][64];          // the tile's keys; >= S: 0 (masked)
+  uint64_t full[kStages], empty[kStages], q_full;
+};
+constexpr int kSmemSlack = 1024;  // aligned_smem's rounding
+constexpr int kFlashSmemBytes =
+    static_cast<int>(sizeof(FlashSmem)) + kSmemSlack;
+
+// x (fp32) as the sum of three bf16 pieces, for two neighbouring columns
+// (`lo` the lower): p1 = bf16(x), p2 = bf16(x - p1), p3 = bf16(x - p1 -
+// p2), each subtraction exact, packed as A-fragment registers.
+__device__ __forceinline__ void split3(float lo, float hi, uint32_t& p1,
+                                       uint32_t& p2, uint32_t& p3) {
+  p1 = hopper::pack_rn(lo, hi);
+  const float r_lo = __fsub_rn(lo, __uint_as_float(p1 << 16));
+  const float r_hi = __fsub_rn(hi, __uint_as_float(p1 & 0xffff0000u));
+  p2 = hopper::pack_rn(r_lo, r_hi);
+  p3 = hopper::pack_rn(__fsub_rn(r_lo, __uint_as_float(p2 << 16)),
+                       __fsub_rn(r_hi, __uint_as_float(p2 & 0xffff0000u)));
+}
+
+// Two blocks an SM: four consumer warpgroups, so one's epilogue overlaps
+// another's products. That caps a thread at 96 registers (the three
+// pieces of p alone are 48) where one block an SM took 162, and it ran
+// faster on the card all the same.
+__global__ void __launch_bounds__(kBf16Threads, 2)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap mq,
+                   const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv,
+                   const float* __restrict__ bias, bf16* __restrict__ out,
+                   int S, int H, float scale, int n_blocks) {
+  FlashSmem& sm = hopper::aligned_smem<FlashSmem>();
+  const int bh = blockIdx.x / n_blocks;
+  const int q0 = (blockIdx.x % n_blocks) * kBlockRows;
+  const int b = bh / H, h = bh % H;
+  const int n_kt = (S + 63) / 64;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      hopper::mbar_init(&sm.full[i], 32);  // every producer lane arrives
+      hopper::mbar_init(&sm.empty[i], kConsumerWarps);
+    }
+    hopper::mbar_init(&sm.q_full, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x / 32 == kConsumerWarps) {  // the producer warp
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      hopper::mbar_expect_tx(&sm.q_full, kConsumerWgs * kTileBytes);
+      for (int w = 0; w < kConsumerWgs; ++w)
+        hopper::tma_load_4d(sm.q[w], &mq, 0, h, q0 + 64 * w, b, &sm.q_full);
+    }
+    const float* bias_b = bias + static_cast<long long>(b) * S;
+    Ring<kStages> r;
+    for (int t = 0; t < n_kt; ++t, r.next()) {
+      hopper::mbar_wait(&sm.empty[r.stage], r.phase ^ 1);
+      // the tile's bias by the warp's plain stores, each lane's released by
+      // its own arrive
+      for (int i = lane; i < 64; i += 32) {
+        const int key = 64 * t + i;
+        sm.bias[r.stage][i] = key < S ? bias_b[key] : 0.f;
+      }
+      if (lane == 0) {
+        hopper::mbar_expect_tx(&sm.full[r.stage], 2 * kTileBytes);
+        hopper::tma_load_4d(sm.kv[r.stage][0], &mk, 0, h, 64 * t, b,
+                            &sm.full[r.stage]);
+        hopper::tma_load_4d(sm.kv[r.stage][1], &mv, 0, h, 64 * t, b,
+                            &sm.full[r.stage]);
+      } else {
+        hopper::mbar_arrive(&sm.full[r.stage]);
+      }
+    }
+    return;
+  }
+
+  const Lane ln;
+  const bool arrives = threadIdx.x % 32 == 0;
+  const bf16* qt = sm.q[ln.wg];
+  hopper::mbar_wait(&sm.q_full, 0);
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // the thread's partial sums, quad-reduced last
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  Ring<kStages> r;
+  for (int t = 0; t < n_kt; ++t, r.next()) {
+    hopper::mbar_wait(&sm.full[r.stage], r.phase);
+    float s[32];
+    hopper::scores(s, qt, sm.kv[r.stage][0]);
+    hopper::scale_bias(s, sm.bias[r.stage], 64 * t, S, scale, ln.c);
+    // online statistics: the exact running max (reduced over the quad),
+    // a = exp(m - m'), p = exp(s - m'), the thread's partial sums
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float x = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        x = fmaxf(x, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+      const float m_new = fmaxf(m[hh], hopper::quad_max(x));
+      const float a = hopper::exp_shifted(m[hh], m_new);
+      float sum = __fmul_rn(l[hh], a);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hh + e;
+          s[i] = hopper::exp_shifted(s[i], m_new);
+          sum = __fadd_rn(sum, s[i]);
+          acc[i] = __fmul_rn(acc[i], a);
+        }
+      m[hh] = m_new;
+      l[hh] = sum;
+    }
+    // p . v as three bf16 products; a piece's registers stay untouched
+    // until the wait that covers its product
+    uint32_t p1[4][4], p2[4][4], p3[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        split3(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1], p1[kk][q], p2[kk][q],
+               p3[kk][q]);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+    hopper::issue_ab(acc, p3, sm.kv[r.stage][1]);
+    hopper::issue_ab(acc, p2, sm.kv[r.stage][1]);
+    hopper::issue_ab(acc, p1, sm.kv[r.stage][1]);
+    hopper::wait_products(acc);
+    if (arrives) hopper::mbar_arrive(&sm.empty[r.stage]);
+  }
+  float inv_l[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] = hopper::quad_sum(l[hh]);
+    inv_l[hh] = __frcp_rn(l[hh]);
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int hh = (i >> 1) & 1;
+    acc[i] = hopper::divide(acc[i], l[hh], inv_l[hh]);
+  }
+  hopper::store_tile(acc, out + (static_cast<long long>(b) * S * H + h) * 64,
+                     static_cast<long long>(H) * 64, q0 + 64 * ln.wg, S, ln);
+}
+
+int launch_bf16(const void* q, const void* k, const void* v,
+                const float* bias, void* out, int B, int S, int H, Strides st,
+                float scale, cudaStream_t stream) {
+  if (!hopper::power_of_two(scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_blocks = (S + kBlockRows - 1) / kBlockRows;
+  const long long blocks = static_cast<long long>(B) * H * n_blocks;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[3];
+  const void* operands[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i)
+    if (hopper::encode_bhsd(&maps[i], operands[i], B, S, H, st.b, st.s, st.h,
+                            hopper::kTileRows) != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kFlashSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_bf16<<<static_cast<unsigned>(blocks), kBf16Threads,
+                   kFlashSmemBytes, stream>>>(maps[0], maps[1], maps[2], bias,
+                                              static_cast<bf16*>(out), S, H,
+                                              scale, n_blocks);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; D must be 64. q, k and v share one set
-// of strides (elements; unit stride along D). Returns a cudaError_t, 0 on
-// success (cudaErrorInvalidValue for what the kernel does not take); the
-// launch is asynchronous on `stream`.
+// of strides (elements; unit stride along D); bf16 operands need
+// 16-byte-aligned rows and base addresses (the TMA boxes; the wrapper
+// checks) and a power-of-two scale (1/sqrt(64) is). Returns a cudaError_t,
+// 0 on success (cudaErrorInvalidValue for what the kernel does not take);
+// the launch is asynchronous on `stream`.
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, const float* bias,
                                       void* out, int B, int S, int H, int D,
@@ -233,8 +442,14 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
   const Strides st{stride_b, stride_s, stride_h};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, 64>(q, k, v, bias, out, B, S, H, st, scale, s);
+    return launch_f32<64>(q, k, v, bias, out, B, S, H, st, scale, s);
   if (dtype == 1)
-    return launch<bf16, 64>(q, k, v, bias, out, B, S, H, st, scale, s);
+    return launch_bf16(q, k, v, bias, out, B, S, H, st, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The dynamic shared memory the bf16 kernel is launched with, in bytes
+// (ptxas's report counts only static shared memory).
+extern "C" void flash_attention_bf16_smem(int* bytes) {
+  bytes[0] = kFlashSmemBytes;
 }

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarriers, TMA
 // tile loads, wgmma with its shared-memory descriptors and register
-// fragments, and the host-side tensor-map encoder. Header-only; a kernel
+// fragments, what the attention kernels (fused_attention.cu,
+// flash_attention.cu, attn128.cu) share of their products and score
+// epilogue, and the host-side tensor-map encoder. Header-only; a kernel
 // source includes it (ops/_build.py hashes it with the source).
 //
 // Layout conventions used throughout:
@@ -21,6 +23,7 @@
 
 #pragma once
 
+#include <cmath>
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -110,6 +113,38 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// One box of a 4-d tensor map from shared memory to global (the box's
+// rows out of bounds are not written), in the issuing thread's bulk
+// async-group; tma_store_wait_read() waits until its shared memory has
+// been read, tma_store_wait() until it is written.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// make this thread's shared-memory writes visible to the async proxy (a
+// TMA store that reads them)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wait at named barrier `id` (1-15; 0 is __syncthreads) for `threads`
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // A contiguous copy (16-byte aligned, a multiple of 16 bytes) reported to
@@ -219,7 +254,180 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(~0u, x, 2);
 }
 
+// ------------------------------------------------------------ attention
+//
+// What the attention kernels share: the block's dynamic shared memory,
+// a thread's place in its warpgroup's accumulator, the two products of a
+// 64-row tile against a 64-key tile, and the score epilogue's devices.
+
+constexpr int kWgThreads = 128;  // one warpgroup
+
+// the dynamic shared memory, 1024-byte aligned (TMA's 128-byte swizzle
+// and the wgmma descriptors assume it); launched with 1 KB of slack
+template <typename T>
+__device__ __forceinline__ T& aligned_smem() {
+  extern __shared__ __align__(128) unsigned char smem_dyn[];
+  const uint32_t a = smem_u32(smem_dyn);
+  return *reinterpret_cast<T*>(smem_dyn + ((1024 - (a & 1023)) & 1023));
+}
+
+// A thread's place in its warpgroup's accumulator (hopper.cuh): rows
+// row0 + g and row0 + g + 8 of the warpgroup's 64, columns 8j + c, + 1.
+struct Lane {
+  int wg, row0, g, c;
+  __device__ Lane() {
+    const int t = threadIdx.x;
+    wg = t / kWgThreads;
+    row0 = 16 * ((t % kWgThreads) / 32);
+    g = (t % 32) / 4;
+    c = 2 * (t % 4);
+  }
+};
+
+// d = A . B^T over D = 64 (four k-steps): A's 64 rows and B's 64 rows,
+// both K-major tiles. Issued only; the caller fences, commits and waits.
+__device__ __forceinline__ void issue_abt(float (&d)[32], const bf16* a,
+                                          const bf16* b) {
+  const uint64_t da = desc_sw128(a), db = desc_sw128(b);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss<0>(d, da + kk * kKStepK,
+                        db + kk * kKStepK, kk);
+}
+
+// d += A . B with A [64 x 64] as four register fragments and B a [64][64]
+// tile read MN-major (its rows are the reduction dimension).
+__device__ __forceinline__ void issue_ab(float (&d)[32],
+                                         const uint32_t (&a)[4][4],
+                                         const bf16* b) {
+  const uint64_t db = desc_sw128(b);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<1>(d, a[kk], db + kk * kKStepMN);
+}
+
+__device__ __forceinline__ void wait_products(float (&x)[32]) {
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(x);
+}
+
+// s = q . k^T for one 64-key tile, then wait
+__device__ __forceinline__ void scores(float (&s)[32], const bf16* q,
+                                       const bf16* k) {
+  fence_regs(s);
+  wgmma_fence();
+  issue_abt(s, q, k);
+  wait_products(s);
+}
+
+// the accumulator as register A fragments, rounded to bf16
+__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_rn(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// s * scale + bias in one FMA. The host passes only a power-of-two scale
+// (1/sqrt(64) = 1/8), for which s * scale is exact, so the FMA rounds
+// once where the function rounds twice and gets the same bits.
+__device__ __forceinline__ float scaled(float s, float scale, float bias) {
+  return __fmaf_rn(s, scale, bias);
+}
+
+// scale, bias and the sequence mask on a score tile whose columns are
+// keys key0 + 8j + c (+1); `bias` (shared memory, 8-byte aligned) holds
+// the tile's 64 keys from key0. Keys >= S get -inf (only the last tile has
+// any, so only it pays for the test).
+__device__ __forceinline__ void scale_bias(float (&s)[32], const float* bias,
+                                           int key0, int S, float scale,
+                                           int c) {
+  const bool full = key0 + 64 <= S;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * j + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[4 * j + e] = scaled(s[4 * j + e], scale, (e & 1) ? b.y : b.x);
+  }
+  if (full) return;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (key0 + 8 * j + c + (e & 1) >= S) s[4 * j + e] = -INFINITY;
+}
+
+// exp(s - m) as 2^((s - m) * log2 e) by ex2.approx.ftz: within ~2 ulps of
+// the exact value plus (s - m)'s rounding times log2 e (~1e-6 relative at
+// p = 1e-9); 0 below 2^-126, where p rounds to no weight. The plain
+// ex2.approx (what __expf emits) adds three instructions an exp to keep
+// those subnormal results.
+__device__ __forceinline__ float exp_shifted(float s, float m) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;"
+      : "=f"(y)
+      : "f"(__fmul_rn(__fsub_rn(s, m), 1.44269504088896341f)));
+  return y;
+}
+
+// p = e / l correctly rounded, from inv_l = RN(1 / l): q0 = RN(e * inv_l)
+// is within an ulp of e / l, r = e - q0 * l is exact in one FMA, and
+// RN(q0 + r * inv_l) is the rounded quotient (Markstein). The division
+// instruction does the same and adds a range check whose slow path every
+// zero numerator (each masked key) took.
+__device__ __forceinline__ float divide(float e, float l, float inv_l) {
+  const float q0 = __fmul_rn(e, inv_l);
+  return __fmaf_rn(__fmaf_rn(-q0, l, e), inv_l, q0);
+}
+
+// store a [64 rows][64] fp32 tile, rounded to bf16, into rows
+// r0 + row0 + g (+8) < S of one head of a contiguous [B, S, H, 64] output
+// (`head` = the head's row 0, rows `ld` elements apart)
+__device__ __forceinline__ void store_tile(const float (&o)[32], bf16* head,
+                                           long long ld, int r0, int S,
+                                           const Lane& ln) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + ln.row0 + ln.g + 8 * h;
+    if (r >= S) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(head + r * ld + 8 * j + ln.c) =
+          pack_rn(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+  }
+}
+
+// the [64 rows][64] fp32 tile, rounded to bf16, into a 128-byte-swizzled
+// shared [64][64] tile (a TMA box's layout: row r's 16-byte chunk k at
+// r * 128 + 16 * (k ^ (r % 8))), each thread's two rows; a warp's 4-byte
+// stores then fall on 32 distinct banks
+__device__ __forceinline__ void store_tile_swizzled(const float (&o)[32],
+                                                    bf16* tile,
+                                                    const Lane& ln) {
+  unsigned char* base = reinterpret_cast<unsigned char*>(tile);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = ln.row0 + ln.g + 8 * h;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(base + r * 128 + 16 * (j ^ (r & 7)) +
+                                   2 * ln.c) =
+          pack_rn(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+  }
+}
+
 // ------------------------------------------------------------ host
+
+// The attention kernels fold scale and bias into one FMA (`scaled`),
+// which keeps the function's two roundings (or its q' = q * scale) only
+// for a scale of 2^e; their hosts refuse any other.
+inline bool power_of_two(float scale) {
+  int e;
+  return scale > 0.f && std::frexp(scale, &e) == 0.5f;
+}
 
 // A bf16 [B, S, H, 64] tensor (any batch, seq and head strides in
 // elements, multiples of 8; unit stride along the 64) as a 4-d tensor map

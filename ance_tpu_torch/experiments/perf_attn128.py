@@ -35,12 +35,12 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import statistics
 
 import numpy as np
 import torch
 
 from ance_tpu_torch.ops.attention import NEG_INF
+from ance_tpu_torch.utils.timing import cuda_ms
 
 VOCAB = 50265
 BATCH, SEQ, LAYERS = 128, 128, 12  # the script's B, S and L
@@ -158,22 +158,6 @@ def encoder(params: dict, ids: torch.Tensor, mask: torch.Tensor, *,
             h = (h @ lp["down"]).reshape(B, S, H)
             x = layer_norm(x + h, lp["ln2"])
         return x[:, 0, :] @ params["head"]
-
-
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median CUDA-event time of ``fn()`` over ``reps`` runs after one
-    warm-up run."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def inputs(rs: np.random.RandomState, batch: int, seq: int, device,

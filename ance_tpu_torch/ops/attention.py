@@ -90,7 +90,8 @@ def kernel_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The kernels take q, k, v of one shape [B, S, H, D] and one dtype
     (float32 or bfloat16) on one CUDA device, with D = KERNEL_HEAD_DIM,
     one set of strides and unit stride along D; ``align16`` also asks for
-    16-byte-aligned rows (the bf16 kernels' cp.async and TMA loads)."""
+    16-byte-aligned rows and base addresses (the bf16 kernels' TMA
+    boxes)."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: need q, k, v of one shape [B, S, H, D], "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -99,10 +100,6 @@ def kernel_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or v.dtype != q.dtype:
         raise TypeError(f"{name}: takes float32 or bfloat16 q, k, v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.device.type != "cuda" or k.device != q.device \
-            or v.device != q.device:
-        raise ValueError(f"{name}: the kernel runs on one CUDA device, got "
-                         f"{q.device}, {k.device}, {v.device}")
     B, S, H, D = q.shape
     if D != KERNEL_HEAD_DIM:
         raise ValueError(f"{name}: head dim {D} is not {KERNEL_HEAD_DIM}")
@@ -121,6 +118,11 @@ def kernel_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 t.data_ptr() % 16 for t in (q, k, v)):
             raise ValueError(f"{name}: {q.dtype} operands need 16-byte-"
                              f"aligned rows (strides {strides})")
+    # last, so that a CPU tensor meets every check above
+    if q.device.type != "cuda" or k.device != q.device \
+            or v.device != q.device:
+        raise ValueError(f"{name}: the kernel runs on one CUDA device, got "
+                         f"{q.device}, {k.device}, {v.device}")
     if attention_mask is None:
         bias = torch.zeros((B, S), dtype=torch.float32, device=q.device)
     else:

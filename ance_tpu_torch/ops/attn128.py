@@ -17,6 +17,11 @@ On a CUDA tensor each launches its hand-written Hopper kernel of
 ``csrc/attn128.cu`` (``fused128.launches`` counts one a call,
 ``fused_block.launches`` two: the block is a projection-and-attention
 kernel and an output-projection kernel) or raises; there is no fallback.
+:func:`fused128`'s kernel is persistent (one block an SM walking the
+(batch row, head) pairs), loads each head's q, k and v as TMA boxes
+through a ring, so the next heads' loads overlap this one's products, and
+runs both products on wgmma with the whole 128-key score row in
+registers; :func:`fused_block`'s two kernels are mma.sync.
 The kernels take bf16, B ≥ 0, 1 ≤ S ≤ 128 (the TPU kernel was S = 128
 only) and H a multiple of 64, shapes read from the tensors. On a CPU
 tensor each runs its plain version, :func:`fused128_reference` or
@@ -95,26 +100,29 @@ def fused_block_reference(x: torch.Tensor, wq: torch.Tensor,
 def _check(name: str, operands: dict) -> None:
     """What the kernels take, or a raise before any launch: ``operands``
     maps each name to (tensor, the shape it must have); the first is
-    [B, S, H]."""
-    device = next(iter(operands.values()))[0].device
+    [B, S, H]. The device is checked last, so that a CPU tensor meets every
+    other check."""
     for key, (t, shape) in operands.items():
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name}: the kernel takes bfloat16 only, got "
                             f"{key} {t.dtype} (the experiment runs bf16; "
                             "the plain version takes fp32 on the CPU)")
-        if t.device.type != "cuda" or t.device != device:
-            raise ValueError(f"{name}: the kernel runs on one CUDA device, "
-                             f"got {key} on {t.device}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: {key} is {tuple(t.shape)}, not "
                              f"{shape}")
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: {key} must be contiguous with "
-                             "16-byte-aligned rows")
+            raise ValueError(f"{name}: {key} must be contiguous with a "
+                             "16-byte-aligned base (#5's TMA boxes, #6's "
+                             "16-byte copies)")
     S = next(iter(operands.values()))[1][1]
     if not 1 <= S <= MAX_SEQ:
         raise ValueError(f"{name}: sequence length {S} outside [1, "
                          f"{MAX_SEQ}]")
+    device = next(iter(operands.values()))[0].device
+    for key, (t, _) in operands.items():
+        if t.device.type != "cuda" or t.device != device:
+            raise ValueError(f"{name}: the kernel runs on one CUDA device, "
+                             f"got {key} on {t.device}")
 
 
 def _stream(device: torch.device) -> int:
@@ -181,7 +189,12 @@ fused_block.launches = 0
 
 def _kernel_library() -> ctypes.CDLL:
     from ance_tpu_torch.ops._build import load_library
-    lib = load_library("attn128")
+    return bind(load_library("attn128"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument types of an ``attn128.cu`` library's entry
+    points (also a variant's build of it)."""
     # every pointer and the stream as c_void_p: an undeclared argument is
     # passed as a 32-bit int and the pointer is cut
     fn = lib.attn128_launch

@@ -2,9 +2,13 @@
 
 Counterpart of ``ance_tpu/ops/flash_attention.py`` (``_flash_kernel`` via
 ``_flash_forward``). On a CUDA tensor :func:`flash_attention` launches the
-hand-written Hopper kernel ``csrc/flash_attention.cu``: 64 queries per
-block stream the keys in tiles of 64 with a running max, sum and
-accumulator, so memory is O(S). On a CPU tensor it runs the plain version
+hand-written Hopper kernel ``csrc/flash_attention.cu``: query rows stream
+the keys in tiles of 64 with a running max, sum and accumulator, so memory
+is O(S). For bf16 it is a wgmma kernel fed by TMA (128 query rows a
+block): q·k in bf16 (the scale 1/8 is exact), and the fp32 p split into
+three bf16 pieces whose sum is p exactly, so p·v is three bf16 products
+into one fp32 accumulator with no loss. fp32 runs on the CUDA cores (TF32
+stays off). On a CPU tensor it runs the plain version
 :func:`flash_attention_reference`.
 
 This is another function than the fused kernel's: q is scaled in fp32
@@ -57,12 +61,14 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     """The forward alone (no autograd). A CPU tensor takes the plain
     version. A CUDA tensor launches the kernel (``flash_attention.launches``
     counts the launches) or raises: it takes float32 or bfloat16, D = 64,
-    any S ≥ 1, q/k/v sharing one set of strides with unit stride along
-    D."""
+    any S ≥ 1, q/k/v sharing one set of strides with unit stride along D
+    (bf16: 16-byte-aligned rows, as the encoder's ``qkv.chunk`` views
+    have)."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, attention_mask)
-    bias, (sb, ss, sh) = kernel_operands(q, k, v, attention_mask,
-                                         name="flash_attention")
+    bias, (sb, ss, sh) = kernel_operands(
+        q, k, v, attention_mask, name="flash_attention",
+        align16=q.dtype == torch.bfloat16)
     B, S, H, D = q.shape
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lib = _kernel_library()
@@ -114,7 +120,12 @@ flash_attention.launches = 0
 
 def _kernel_library() -> ctypes.CDLL:
     from ance_tpu_torch.ops._build import load_library
-    lib = load_library("flash_attention")
+    return bind(load_library("flash_attention"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument types of a ``flash_attention.cu`` library's
+    entry point (also a variant's build of it)."""
     fn = lib.flash_attention_launch
     # every pointer and the stream as c_void_p: an undeclared argument is
     # passed as a 32-bit int and the pointer is cut

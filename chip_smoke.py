@@ -7,8 +7,8 @@ Run from the root of a checkout. It builds the four kernel sources of
 ``ance_tpu_torch/csrc`` (block-max top-k, fused and flash attention, the
 seq-128 attention pair; one nvcc each, all at once), prints ptxas's
 registers and spills and the SASS counts of HGMMA (wgmma) and UTMALDG
-(TMA loads) of the three wgmma kernels of ``fused_attention.cu``, and
-then:
+(TMA loads) of the five wgmma kernels (the fused forward and its two
+backward passes, the bf16 flash forward, seq-128 kernel #5), and then:
 
   * block-max: the kernel against its plain PyTorch version at the FirstP
     search shapes (1,000,448 × 768 corpus; Q=2048 k=10 and Q=512 k=200) for
@@ -50,7 +50,7 @@ then:
     that runs bf16 through the plain einsum attention;
   * seq-128 attention: kernels #5 (``fused128``) and #6 (``fused_block``)
     against their plain versions at B=128 × S=128 × 768 bf16 (a padding
-    tail from 100, one fully masked row), timed beside SDPA and the
+    tail from 100, one fully masked row), timed in turns with SDPA and the
     unfused composition; then the experiment's mirror encoder (12 layers,
     FFN 3072, vocabulary 50265, seeded bf16 weights) through its four
     attention variants, each against ``xla`` by per-row cosine, with the
@@ -68,7 +68,10 @@ is printed. The last two lines are a JSON object of per-kernel results
 version, its time, the plain version's, a library call's where one
 computes the same function, and the bound: the larger of the bytes it
 must move over 3.35 TB/s and its operations over the H100's dense peak for
-their type) and ``{"ok": true, "device": {...}}``.
+their type; and the SM clock and power draw that ``nvidia-smi`` read just
+before and just after the kernel was timed with its yardstick, in turns)
+and ``{"ok": true, "device": {...}}``. Every kernel's line of output
+carries those clock readings too.
 
 Exits non-zero at once where CUDA is unavailable or the package is not
 beside this file.
@@ -133,48 +136,6 @@ def no_reference_modules() -> bool:
                    for m in sys.modules)
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median CUDA-event time of ``fn()`` over ``reps`` runs, after one
-    warm-up run."""
-    import torch
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def cuda_ms_turns(fns: dict, reps: int = 9, warmup: int = 10) -> dict:
-    """Median CUDA-event time of each ``fns[name]()``, timed in turns (one
-    run of each per round, after ``warmup`` rounds), so that a kernel and
-    its yardstick see the same clocks. Keep a much longer call out of the
-    rotation, and warm up for tens of ms: what runs right after a long
-    fp32 call reads slower (in one H100 run, the bf16 fused forward at
-    B=128 S=512 read 1.25 ms right after its 7.6 ms plain version and
-    0.89 ms in a run of its own)."""
-    import torch
-    for _ in range(warmup):
-        for fn in fns.values():
-            fn()
-    times = {name: [] for name in fns}
-    for _ in range(reps):
-        for name, fn in fns.items():
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            times[name].append(start.elapsed_time(end))
-    return {name: statistics.median(t) for name, t in times.items()}
-
-
 def bound(bytes_moved: float, ops: float, op_type: str) -> tuple[float, str]:
     """(least ms the card could take, what bounds it): the larger of the
     bytes over the HBM rate and the operations over the peak for their
@@ -220,62 +181,73 @@ def phase_build() -> tuple[dict, dict]:
             {name: (path, log) for name, (path, log, _) in done.items()})
 
 
-WGMMA_KERNELS = ("fused_fwd_bf16", "fused_bwd_rows_bf16", "fused_bwd_keys_bf16")
+# the wgmma + TMA kernels of each source; ``<source>_bf16_smem`` reports
+# the dynamic shared memory each is launched with, in this order
+WGMMA_KERNELS = {
+    "fused_attention": ("fused_fwd_bf16", "fused_bwd_rows_bf16",
+                        "fused_bwd_keys_bf16"),
+    "flash_attention": ("flash_fwd_bf16",),
+    "attn128": ("attn128_kernel",),
+}
 
 
-def phase_machine_code(path, log: str) -> dict:
-    """For each wgmma kernel of ``fused_attention.cu``: ptxas's registers,
-    stack and spills (from the build's ``-Xptxas -v`` report, so only when
-    this run built the library), the dynamic shared memory it is launched
-    with and, where ``cuobjdump`` exists, the SASS counts of HGMMA (wgmma)
-    and UTMALDG (TMA tile loads)."""
+def phase_machine_code(built: dict) -> dict:
+    """For each wgmma kernel (``WGMMA_KERNELS``): ptxas's registers, stack
+    and spills (from the build's ``-Xptxas -v`` report, so only when this
+    run built the library), the dynamic shared memory it is launched with
+    and, where ``cuobjdump`` exists, the SASS counts of HGMMA (wgmma) and
+    UTMALDG (TMA tile loads). ``built`` maps each source to (library path,
+    nvcc's stderr)."""
     import ctypes
     import re
-    smem = (ctypes.c_int * 3)()
-    ctypes.CDLL(str(path)).fused_attention_bf16_smem(smem)
-    out = {name: {"smem_bytes": smem[i]}
-           for i, name in enumerate(WGMMA_KERNELS)}
-    current = None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            current = next((n for n in WGMMA_KERNELS if n in m.group(1)), None)
-            continue
-        if current is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m:
-            out[current].update(stack_bytes=int(m.group(1)),
-                                spill_store_bytes=int(m.group(2)),
-                                spill_load_bytes=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out[current]["registers"] = int(m.group(1))
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if os.path.exists(cuobjdump):
-        sass = subprocess.run([cuobjdump, "-sass", str(path)],
-                              capture_output=True, text=True, check=True,
-                              timeout=300).stdout
+    out = {}
+    for source, kernels in WGMMA_KERNELS.items():
+        path, log = built[source]
+        smem = (ctypes.c_int * len(kernels))()
+        getattr(ctypes.CDLL(str(path)), f"{source}_bf16_smem")(smem)
+        own = {name: {"source": f"{source}.cu", "smem_bytes": smem[i]}
+               for i, name in enumerate(kernels)}
         current = None
-        for line in sass.splitlines():
-            m = re.search(r"Function : (\S+)", line)
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                current = next((n for n in WGMMA_KERNELS if n in m.group(1)),
-                               None)
-                if current:
-                    out[current].update(hgmma=0, utmaldg=0)
-            elif current:
-                out[current]["hgmma"] += "HGMMA" in line
-                out[current]["utmaldg"] += "UTMALDG" in line
-    for name, info in out.items():
-        print(f"machine code {name}: {info}", flush=True)
-    for name in WGMMA_KERNELS:
-        if log:
-            check("registers" in out[name], f"no ptxas report for {name}")
-        if "hgmma" in out[name]:
-            check(out[name]["hgmma"] > 0 and out[name]["utmaldg"] > 0,
-                  f"{name}: no HGMMA / UTMALDG in its SASS")
+                current = next((n for n in kernels if n in m.group(1)), None)
+                continue
+            if current is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                own[current].update(stack_bytes=int(m.group(1)),
+                                    spill_store_bytes=int(m.group(2)),
+                                    spill_load_bytes=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                own[current]["registers"] = int(m.group(1))
+        if os.path.exists(cuobjdump):
+            sass = subprocess.run([cuobjdump, "-sass", str(path)],
+                                  capture_output=True, text=True, check=True,
+                                  timeout=300).stdout
+            current = None
+            for line in sass.splitlines():
+                m = re.search(r"Function : (\S+)", line)
+                if m:
+                    current = next((n for n in kernels if n in m.group(1)),
+                                   None)
+                    if current:
+                        own[current].update(hgmma=0, utmaldg=0)
+                elif current:
+                    own[current]["hgmma"] += "HGMMA" in line
+                    own[current]["utmaldg"] += "UTMALDG" in line
+        for name, info in own.items():
+            print(f"machine code {name}: {info}", flush=True)
+            if log:
+                check("registers" in info, f"no ptxas report for {name}")
+            if "hgmma" in info:
+                check(info["hgmma"] > 0 and info["utmaldg"] > 0,
+                      f"{name}: no HGMMA / UTMALDG in its SASS")
+        out.update(own)
     return out
 
 
@@ -306,6 +278,7 @@ def phase_kernel():
     """Kernel vs plain at the 1M search shapes; FlatIPIndex block-max ids
     vs the scan on the same index, and both against a plain torch.topk."""
     import torch
+    from ance_tpu_torch.utils.timing import clocks, clocks_text, cuda_ms
     from ance_tpu_torch.index.flat import FlatIPIndex, quantize_dims_int8
     from ance_tpu_torch.ops.topk import (blockmax_scores,
                                          blockmax_scores_reference)
@@ -355,9 +328,11 @@ def phase_kernel():
                       f"{err} > {FLOAT_ATOL}")
             max_err = max(max_err, err)
             del got, want
+            before = clocks()
             ms = cuda_ms(lambda: blockmax_scores(qq, cc,
                                                  chunk_rows=CHUNK_ROWS))
             plain_ms = cuda_ms(lambda: blockmax_scores_reference(qq, cc))
+            sampled = {"before": before, "after": clocks()}
             # read q and c once, write the [Q, N/16] maxima; 2QND products
             # at the rate of the type they run in (fp32 queries: CUDA cores)
             nq, nc = qq.shape[0], cc.shape[0]
@@ -369,10 +344,12 @@ def phase_kernel():
             cases.append({"dtypes": dtypes, "shape": shape,
                           "Q": nq, "N": nc, "D": DIM,
                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": b_ms, "bound_by": b_by})
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "clocks": sampled})
             print(f"kernel {dtypes:10s} {shape:6s} Q={qq.shape[0]:5d} "
                   f"N={cc.shape[0]}: max|err| {err:.3g}  kernel {ms:.3f} ms  "
-                  f"plain {plain_ms:.3f} ms", flush=True)
+                  f"plain {plain_ms:.3f} ms  {clocks_text(sampled)}",
+                  flush=True)
             torch.cuda.empty_cache()
 
     searches = []
@@ -519,6 +496,8 @@ def phase_attention():
     fused kernel beside the einsum path ``auto`` takes below S = 256
     (bf16 softmax) and the flash kernel, to re-choose the crossovers."""
     import torch
+    from ance_tpu_torch.utils.timing import (clocks_text, cuda_ms,
+                                             timed_in_turns)
     import torch.nn.functional as F
     from ance_tpu_torch.ops.attention import mask_to_bias, multi_head_attention
     from ance_tpu_torch.ops.flash_attention import (flash_attention,
@@ -570,30 +549,37 @@ def phase_attention():
         qt, kt, vt = (t.transpose(1, 2).to(lib_dtype) for t in (q, k, v))
         bias4 = mask_to_bias(mask, lib_dtype)
         plain_ms = cuda_ms(lambda: plain(q, k, v, mask))
-        times = cuda_ms_turns({
+        times, sampled = timed_in_turns({
             "ms": lambda: kernel(q, k, v, mask),
             "library_ms": lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=bias4).to(dtype)})
         ms, library_ms = times["ms"], times["library_ms"]
         dt = "bf16" if dtype == bf16 else "f32"
-        # q, k, v in and out once, the int64 mask; 4·S²·D per head, in
-        # bf16 on the tensor cores (fused bf16) or in fp32 (flash: k, v
-        # and p are fp32 in its function)
+        # q, k, v in and out once, the int64 mask; the operations, the
+        # least any implementation of the function needs: fused, q.k and
+        # p.v at 2·S²·D a head each, in the input type; flash on fp32
+        # operands, the same in fp32 (k, v and p are fp32 in its
+        # function); flash on bf16 operands, q.k as bf16 products (the
+        # scale 1/8 is exact, so are bf16 × bf16 products in fp32) and
+        # p.v with a 24-bit p as three bf16 passes (p = p1 + p2 + p3
+        # exactly, two pieces would carry 16 bits): 2·S²·D + 3·2·S²·D a
+        # head at the bf16 rate
+        flash_bf16 = name == "flash_attention" and dtype == bf16
         b_ms, b_by = bound(
             4 * q.numel() * q.element_size() + mask.numel() * 8,
-            4.0 * B * 12 * S * S * 64,
-            "bf16" if dtype == bf16 and name == "fused_attention" else "f32")
+            (8.0 if flash_bf16 else 4.0) * B * 12 * S * S * 64,
+            "bf16" if dtype == bf16 else "f32")
         cases.append({"name": name, "dtype": dt, "B": B, "S": S, "H": 12,
                       "D": 64, "strided": strided, "max_abs_err": err, "tolerance": tol,
                       "err_slice_ulps": ulps, "ms": ms, "plain_ms": plain_ms,
                       "library_ms": library_ms, "bound_ms": b_ms,
-                      "bound_by": b_by})
+                      "bound_by": b_by, "clocks": sampled})
         print(f"{name} {dt:4s} B={B:3d} S={S:4d}{' qkv.chunk' if strided else ''}"
               f": max|err| {err:.3g} "
               f"({'fp32 tol 1e-4' if ulps is None else f'{ulps:.3g} slice ulps'})"
               f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
               f"  sdpa{' fp32' if lib_dtype != dtype else ''} {library_ms:.3f} ms"
-              f"  bound {b_ms:.3f} ms ({b_by})",
+              f"  bound {b_ms:.3f} ms ({b_by})  {clocks_text(sampled)}",
               flush=True)
         del q, k, v, mask
         torch.cuda.empty_cache()
@@ -624,6 +610,8 @@ def phase_attention_backward():
     additive bias; then the autograd ``Function`` (forward and backward
     kernels) against autograd through the plain forward."""
     import torch
+    from ance_tpu_torch.utils.timing import (clocks_text, cuda_ms,
+                                             timed_in_turns)
     import torch.nn.functional as F
     from ance_tpu_torch.ops.attention import mask_to_bias
     from ance_tpu_torch.ops.fused_attention import (
@@ -700,7 +688,7 @@ def phase_attention_backward():
         grad_out = do.transpose(1, 2)
         plain_ms = cuda_ms(
             lambda: fused_attention_backward_reference(q, k, v, mask, do))
-        times = cuda_ms_turns({
+        times, sampled = timed_in_turns({
             "ms": lambda: fused_attention_backward(q, k, v, mask, do),
             "library_ms": lambda: torch.autograd.grad(
                 out, leaves, grad_out, retain_graph=True)})
@@ -718,13 +706,13 @@ def phase_attention_backward():
                       "err_slice_ulps": ulps if dtype == bf16 else None,
                       "control": control, "ms": ms,
                       "plain_ms": plain_ms, "library_ms": library_ms,
-                      "bound_ms": b_ms, "bound_by": b_by})
+                      "bound_ms": b_ms, "bound_by": b_by, "clocks": sampled})
         print(f"fused backward {dt:4s} B={B:3d} S={S:4d}"
               f"{' qkv.chunk' if strided else ''}: max|err| {err:.3g}"
               f" ({f'{ulps:.3g} slice ulps' if dtype == bf16 else 'fp32 tol 1e-5'})"
               f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
               f"  sdpa backward {library_ms:.3f} ms  bound {b_ms:.3f} ms "
-              f"({b_by})", flush=True)
+              f"({b_by})  {clocks_text(sampled)}", flush=True)
         del q, k, v, mask, do
         torch.cuda.empty_cache()
 
@@ -1517,11 +1505,14 @@ def _seq128_mask(B: int, S: int):
 def phase_seq128():
     """Kernels #5 and #6 against their plain versions at the FirstP encode
     shape, B=128 × S=128 × 768 (12 heads of 64), bf16, each element held
-    to BF16_SLICE_TOL on [B, S, 12, 64] views; timed beside SDPA on the
-    [B, 12, S, 64] views with the same additive bias (#5) and beside the
-    unfused composition, four torch.matmul and SDPA (#6), yardsticks the
-    port never calls."""
+    to BF16_SLICE_TOL on [B, S, 12, 64] views; each timed in turns with its
+    yardstick (SDPA on the [B, 12, S, 64] views with the same additive
+    bias for #5, the unfused composition, four torch.matmul and SDPA, for
+    #6; calls the port never makes), the clocks sampled around the pair,
+    and the plain version timed apart."""
     import torch
+    from ance_tpu_torch.utils.timing import (clocks_text, cuda_ms,
+                                             timed_in_turns)
     import torch.nn.functional as F
     from ance_tpu_torch.ops.attention import mask_to_bias
     from ance_tpu_torch.ops.attn128 import (fused128, fused128_reference,
@@ -1552,42 +1543,49 @@ def phase_seq128():
         check(n_bad == 0, f"{name}: {n_bad} elements beyond {BF16_SLICE_TOL}"
               f" (worst {ulps} slice ulps)")
         del got, want
-        ms = cuda_ms(lambda: kernel(*args))
         plain_ms = cuda_ms(lambda: plain(*args))
         split = lambda t: heads(t).transpose(1, 2)  # noqa: E731
         if name == "fused128":
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                split(q), split(k), split(v), attn_mask=bias4))
-            unfused_ms = None
+            yardstick = "library_ms"
+
+            def yard():
+                return F.scaled_dot_product_attention(
+                    split(q), split(k), split(v), attn_mask=bias4)
             # q, k, v in and the context out once, the int64 mask; QK^T and
             # PV at 2·S²·64 each a head, bf16 on the tensor cores
             b_ms, b_by = bound(4 * q.numel() * 2 + mask.numel() * 8,
                                4.0 * B * (H // 64) * S * S * 64, "bf16")
         else:
-            library_ms = None
+            yardstick = "unfused_ms"
 
-            def unfused():
+            def yard():
                 qf, kf, vf = (x @ w for w in (wq, wk, wv))
                 ctx = F.scaled_dot_product_attention(
                     split(qf), split(kf), split(vf), attn_mask=bias4)
                 return ctx.transpose(1, 2).reshape(B, S, H) @ wo
-            unfused_ms = cuda_ms(unfused)
             # x in, out once, the four weights, the mask; four [B·S, H] x
             # [H, H] projections and the attention, bf16
             b_ms, b_by = bound(2 * x.numel() * 2 + 4 * H * H * 2
                                + mask.numel() * 8,
                                8.0 * B * S * H * H
                                + 4.0 * B * (H // 64) * S * S * 64, "bf16")
+        times, sampled = timed_in_turns({"ms": lambda: kernel(*args),
+                                         yardstick: yard})
+        ms = times["ms"]
+        library_ms = times.get("library_ms")
+        unfused_ms = times.get("unfused_ms")
         cases[name] = {"B": B, "S": S, "H": H, "max_abs_err": err,
                        "tolerance": BF16_SLICE_TOL, "err_slice_ulps": ulps,
                        "ms": ms, "plain_ms": plain_ms,
                        "library_ms": library_ms, "unfused_ms": unfused_ms,
-                       "bound_ms": b_ms, "bound_by": b_by}
-        yard = (f"sdpa {library_ms:.3f} ms" if library_ms is not None
-                else f"unfused (4 matmul + sdpa) {unfused_ms:.3f} ms")
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "clocks": sampled}
+        yard_text = (f"sdpa {library_ms:.3f} ms" if library_ms is not None
+                     else f"unfused (4 matmul + sdpa) {unfused_ms:.3f} ms")
         print(f"{name} bf16 B={B} S={S} H={H}: max|err| {err:.3g} ({ulps:.3g}"
               f" slice ulps)  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
-              f"{yard}  bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"{yard_text}  bound {b_ms:.4f} ms ({b_by})  "
+              f"{clocks_text(sampled)}", flush=True)
     del q, k, v, x
     torch.cuda.empty_cache()
     return cases
@@ -1598,9 +1596,11 @@ def phase_mirror():
     768, FFN 3072, vocabulary 50265, seeded bf16 weights) over B=128 × S=128
     with the padding tail: each attention variant's launches over one
     forward (counts set to 0 just before it), its output against ``xla``
-    by per-row cosine, and its time (median of 5 after a warm-up)."""
+    by per-row cosine, and its time, the four variants timed in turns
+    (the clocks sampled around them)."""
     import numpy as np
     import torch
+    from ance_tpu_torch.utils.timing import clocks_text, timed_in_turns
     from ance_tpu_torch.experiments import perf_attn128 as exp
     from ance_tpu_torch.ops.attn128 import (LAUNCHES_PER_CALL, fused128,
                                             fused_block)
@@ -1632,11 +1632,15 @@ def phase_mirror():
         check(outs[attn].shape == (SEQ128_BATCH, DIM)
               and bool(torch.isfinite(outs[attn]).all()),
               f"mirror {attn}: output not finite [{SEQ128_BATCH}, {DIM}]")
+    times, sampled = timed_in_turns({
+        attn: (lambda attn=attn: exp.encoder(params, ids, mask, attn=attn))
+        for attn in exp.VARIANTS})
+    print(f"mirror: {clocks_text(sampled)}", flush=True)
     for attn in exp.VARIANTS:
         cos = _cosines(outs[attn], outs["xla"]).min().item()
         check(cos >= MIRROR_COSINE, f"mirror {attn} vs xla: per-row cosine "
               f"{cos} < {MIRROR_COSINE}")
-        ms = cuda_ms(lambda: exp.encoder(params, ids, mask, attn=attn))
+        ms = times[attn]
         rows[attn] = {"ms": ms, "passages_per_s": SEQ128_BATCH / ms * 1e3,
                       "min_row_cosine_vs_xla": cos,
                       "launches": launches[attn]}
@@ -1646,6 +1650,7 @@ def phase_mirror():
               f"{launches[attn]}", flush=True)
     del params, outs
     torch.cuda.empty_cache()
+    rows["clocks"] = sampled
     return rows
 
 
@@ -1879,7 +1884,7 @@ def main() -> int:
 
     name = phase_device()
     build_s, built = phase_build()
-    machine_code = phase_machine_code(*built["fused_attention"])
+    machine_code = phase_machine_code(built)
     cases, max_err, searches = phase_kernel()
     ties = phase_ties()
     attn_cases, crossover = phase_attention()
@@ -1907,7 +1912,8 @@ def main() -> int:
                 "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                 "library_ms": head.get("library_ms"), "shape": shape,
-                "build_s": build_s[build], "cases": own}
+                "clocks": head["clocks"], "build_s": build_s[build],
+                "cases": own}
 
     def attention_entry(kernel, replaces, B, S, launches):
         own = [c for c in attn_cases if c["name"] == kernel]

@@ -178,11 +178,15 @@ def test_unknown_impl_raises():
     ("dtype", TypeError, "float32 or bfloat16"),
     ("mixed_dtype", TypeError, "float32 or bfloat16"),
     ("device", ValueError, "CUDA device"),
+    ("strides", ValueError, "one set of strides"),
+    ("misaligned", ValueError, "16-byte-aligned rows"),
 ])
 def test_kernel_operands_raise_on_what_the_kernels_do_not_take(case, error,
                                                                match):
     """The wrapper checks run before any launch; on a CPU tensor the last
-    of them (the device) is what stops the kernel path."""
+    of them (the device) is what stops the kernel path. ``misaligned``:
+    bf16 rows 2 bytes off, which the TMA boxes of the bf16 fused and
+    flash kernels refuse (both wrappers pass ``align16`` for bf16)."""
     q = torch.zeros(2, 8, 2, 64)
     k, v = q.clone(), q.clone()
     if case == "shape":
@@ -191,8 +195,13 @@ def test_kernel_operands_raise_on_what_the_kernels_do_not_take(case, error,
         q, k, v = (t.to(torch.float16) for t in (q, k, v))
     elif case == "mixed_dtype":
         k = k.to(torch.bfloat16)
+    elif case == "strides":
+        k = torch.zeros(2, 2, 8, 64).transpose(1, 2)
+    elif case == "misaligned":
+        q = k = v = torch.zeros(2, 8, 2, 66, dtype=torch.bfloat16)[..., 1:65]
     with pytest.raises(error, match=match):
-        kernel_operands(q, k, v, None, name="test")
+        kernel_operands(q, k, v, None, name="test",
+                        align16=q.dtype == torch.bfloat16)
 
 
 # -- the bf16 kernel's schedule, tile for tile, on the CPU ---------------------
@@ -291,11 +300,13 @@ def _cuda():
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
 @pytest.mark.parametrize("S,strided", [(1, False), (64, False), (65, True),
                                        (256, True), (300, False),
-                                       (512, False), (2048, False)])
+                                       (512, False), (2048, False),
+                                       (1, True), (300, True), (2048, True)])
 def test_attention_kernel_matches_plain_on_cuda(impl, kind, S, strided):
     """Each kernel against its plain version on the card: ragged S (one key
     tile, one key past a tile, 2048 = the fused forward's MAX_SEQ), a fully
-    masked row, and q/k/v as strided chunks of one fused-QKV projection.
+    masked row, and q/k/v as strided chunks of one fused-QKV projection
+    (the bf16 flash kernel's TMA maps at S 1, 65, 300 and 2048).
     bf16 by ``assert_bf16_slice_close``; fp32 within 1e-4 (summation order
     and expf against torch's exp)."""
     dev = _cuda()
@@ -337,3 +348,138 @@ def test_attention_kernels_raise_and_never_launch_on_bad_operands():
     shifted = odd[..., 1:65]  # rows no longer 16-byte aligned
     with pytest.raises(ValueError, match="aligned"):
         fused_attention(shifted, shifted, shifted)
+
+
+# -- the bf16 flash kernel's arithmetic (csrc/flash_attention.cu), on the CPU --
+
+def bf16_pieces(p: torch.Tensor, n: int) -> list:
+    """fp32 p as n bf16 pieces (as fp32 tensors): p1 = bf16(p),
+    p2 = bf16(p − p1), p3 = bf16(p − p1 − p2), each subtraction exact."""
+    out, rest = [], p
+    for _ in range(n):
+        piece = rest.to(torch.bfloat16).to(torch.float32)
+        out.append(piece)
+        rest = rest - piece
+    return out
+
+
+def flash_bf16_schedule(q, k, v, mask, pieces):
+    """Kernel #4's bf16 route in fp32, tile for tile: s = fma(q·k, 1/8,
+    bias) over 64-key tiles (q·k of bf16 values: exact products, fp32
+    sums), the online max and rescaled sum, acc·a, then p·v as ``pieces``
+    bf16 products of p's pieces (smallest first) into the fp32
+    accumulator; out = acc / l, in fp32. q, k, v: fp32 tensors holding
+    bf16 values."""
+    f32 = torch.float32
+    B, S, H, D = q.shape
+    bias = (1.0 - mask.to(f32)) * NEG_INF_BIAS
+    m = torch.full((B, H, S, 1), -math.inf)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, D))
+    for t0, t1 in key_tiles(S):
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k[:, t0:t1]) \
+            * torch.tensor(0.125) + bias[:, None, None, t0:t1]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        a = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * a + p.sum(-1, keepdim=True)
+        acc = acc * a
+        for piece in reversed(bf16_pieces(p, pieces)):
+            acc = acc + torch.einsum("bhqk,bkhd->bhqd", piece, v[:, t0:t1])
+        m = m_new
+    return (acc / l).transpose(1, 2)
+
+
+NEG_INF_BIAS = -1e9
+
+
+def _bf16_valued(B, S, H, D, seed):
+    """``_inputs`` with q, k, v rounded to bf16 and held as fp32, so the
+    plain version and the JAX kernel compute the bf16 route's function in
+    fp32 and compare to 1e-6."""
+    q, k, v, mask = _inputs(B, S, H, D, seed)
+    q, k, v = (torch.as_tensor(a).to(torch.bfloat16).to(torch.float32)
+               for a in (q, k, v))
+    return q, k, v, torch.as_tensor(mask, dtype=torch.int64)
+
+
+def test_flash_bf16_scores_are_the_functions():
+    """(a) q·(1/8) is exact in bf16, and so is every bf16 product in fp32:
+    the bf16 q'·k the tensor cores take equals the fp32 q'·k of the
+    function, and q·k scaled after the sum is the same bits; the kernel's
+    fma(q·k, 1/8, bias) then rounds once where the function rounds twice
+    (q'·k, + bias) and gets the same bits."""
+    rs = np.random.RandomState(3)
+    shape = (4, 96, 64)
+    # values across bf16's range, and the mask bias
+    q, k = (torch.as_tensor(rs.randn(*shape).astype(np.float32)
+                            * np.exp2(rs.randint(-40, 40, shape)))
+            .to(torch.bfloat16) for _ in range(2))
+    q8 = q * torch.tensor(0.125, dtype=torch.bfloat16)  # in bf16
+    assert torch.equal(q8.float(), q.float() * 0.125)
+    prods32 = q8.float()[:, :, None] * k.float()[:, None]
+    prods64 = q8.double()[:, :, None] * k.double()[:, None]
+    assert torch.equal(prods32.double(), prods64)
+    x = q.float() @ k.float().transpose(1, 2)      # what the wgmma sums
+    x8 = q8.float() @ k.float().transpose(1, 2)    # the function's q'·k
+    assert torch.equal(x * 0.125, x8)
+    bias = torch.as_tensor(np.where(rs.rand(4, 1, 96) < 0.3, NEG_INF_BIAS,
+                                    0.0).astype(np.float32))
+    fma = (x.double() * 0.125 + bias.double()).float()  # x/8 + bias exact
+    assert torch.equal(fma, x8 + bias)
+
+
+def test_flash_bf16_three_pieces_are_p():
+    """(b) p1 + p2 + p3 is p for every fp32 p in [2^-126, 1] (the range
+    the kernel's ex2.approx.ftz leaves: below it p is 0): exactly for
+    p ≥ 2^-110, and within 2^-134 (half the least bf16 subnormal, a lost
+    piece below it) under that, near bf16's subnormals; two pieces carry
+    16 bits and miss by up to 2^-17 of p."""
+    rs = np.random.RandomState(4)
+    n = 200_000
+    e = rs.randint(-126, 1, n)
+    p = torch.as_tensor(np.ldexp(rs.uniform(1.0, 2.0, n), e).astype(
+        np.float32)).clamp(2.0 ** -126, 1.0)
+    p1, p2, p3 = bf16_pieces(p, 3)
+    assert torch.equal(p2, (p - p1).to(torch.bfloat16).float())
+    three = p1.double() + p2.double() + p3.double()
+    err = (three - p.double()).abs()
+    big = p >= 2.0 ** -110
+    assert err[big].max().item() == 0.0
+    assert err.max().item() <= 2.0 ** -134
+    assert err[~big].max().item() > 0.0  # the subnormal shortfall exists
+    two = ((p1.double() + p2.double() - p.double()).abs() / p.double())
+    assert 2.0 ** -19 < two[big].max().item() <= 2.0 ** -17
+
+
+@pytest.mark.parametrize("S,block", [(130, 256), (128, 32)])
+def test_flash_bf16_three_piece_schedule_matches_plain_and_jax(S, block):
+    """(c) The bf16 route tile for tile, p·v from three bf16 pieces,
+    against the plain version and the JAX kernel on the same bf16 values
+    (in fp32, interpret mode): within 1e-6 (fp32 sums in other orders, the
+    online rescaling). With two pieces it is another function: it misses
+    that bound, and its RMS error against an fp64 evaluation of the same
+    function is over 4x the three-piece schedule's."""
+    from jax.experimental.pallas import tpu as pltpu
+    q, k, v, mask = _bf16_valued(3, S, 2, 64, seed=S)
+    got = flash_bf16_schedule(q, k, v, mask, pieces=3)
+    want = flash_attention_reference(q, k, v, mask)
+    tol = 1e-6
+    assert (got - want).abs().max().item() <= tol
+    flash = jax.jit(jax_flash, static_argnums=(4, 5))
+    with pltpu.force_tpu_interpret_mode():  # one jitted call, no eager JAX
+        jax_out = flash(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                        jnp.asarray(mask.numpy().astype(np.int32)), block,
+                        block)
+    assert np.abs(got.numpy() - np.asarray(jax_out)).max() <= tol
+    two = flash_bf16_schedule(q, k, v, mask, pieces=2)
+    assert (two - want).abs().max().item() > tol
+    # the function in fp64 from the same fp32 scores (the -1e9 bias
+    # swamps q·k in fp32, which makes the fully masked row uniform)
+    d = torch.float64
+    s = (torch.einsum("bqhd,bkhd->bhqk", q.to(d), k.to(d)) / 8
+         + ((1.0 - mask.to(d)) * NEG_INF_BIAS)[:, None, None, :]).float()
+    exact = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s.to(d), -1),
+                         v.to(d))
+    rms = lambda x: (x.to(d) - exact).pow(2).mean().sqrt().item()  # noqa: E731
+    assert rms(two) > 4 * rms(got)

@@ -277,14 +277,26 @@ def test_variants_agree_and_unknown_raises():
 @pytest.mark.parametrize("case,error,match", [
     ("dtype", TypeError, "bfloat16 only"),
     ("device", ValueError, "CUDA device"),
+    ("strided", ValueError, "contiguous"),
+    ("misaligned", ValueError, "16-byte-aligned base"),
+    ("long", ValueError, "sequence length 129"),
 ])
 def test_kernel_checks_raise_on_what_the_kernels_do_not_take(case, error,
                                                              match):
-    x = torch.zeros(2, 8, 128, dtype=torch.bfloat16)
+    """Every check but the device's runs first, so a CPU tensor meets it:
+    kernel #5's TMA boxes need a contiguous [B, S, H] with a 16-byte-
+    aligned base, and S ≤ 128."""
+    S = 129 if case == "long" else 8
+    x = torch.zeros(2, S, 128, dtype=torch.bfloat16)
     if case == "dtype":
         x = x.float()
+    elif case == "strided":
+        x = torch.zeros(2, S, 256, dtype=torch.bfloat16)[..., :128]
+    elif case == "misaligned":  # 2 bytes past an aligned base
+        x = torch.zeros(2 * S * 128 + 1, dtype=torch.bfloat16)[1:].view(
+            2, S, 128)
     with pytest.raises(error, match=match):
-        _check("test", {"x": (x, (2, 8, 128))})
+        _check("test", {"x": (x, (2, S, 128))})
     with pytest.raises(ValueError, match="heads x 64"):
         fused128(torch.zeros(2, 8, 100), torch.zeros(2, 8, 100),
                  torch.zeros(2, 8, 100))
@@ -304,8 +316,12 @@ def _cuda_inputs(B, S, H, seed, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H", [(8, 128, 768), (5, 77, 768), (3, 16, 128)])
+@pytest.mark.parametrize("B,S,H", [(8, 128, 768), (5, 77, 768), (3, 16, 128),
+                                   (23, 1, 768), (23, 16, 768),
+                                   (23, 77, 768), (23, 128, 768)])
 def test_fused128_kernel_matches_plain_on_cuda(B, S, H):
+    """23 x 12 = 276 heads: more than one per persistent block, and not a
+    multiple of the grid (one block an SM)."""
     dev = _cuda()
     q, k, v, mask = _cuda_inputs(B, S, H, S, dev)
     before = fused128.launches

@@ -4,6 +4,8 @@ source includes (through other headers too) and the nvcc flags, so an
 edited header rebuilds. No compiler is needed: only the paths are
 computed."""
 
+import pytest
+
 from ance_tpu_torch.ops import _build
 
 
@@ -39,22 +41,39 @@ def test_editing_an_included_header_changes_the_library_path(tmp_path,
 
 
 def test_the_package_sources_and_their_headers():
-    """fused_attention.cu includes the Hopper building blocks; the other
-    kernels are single files."""
-    names = [p.name for p in _build.sources("fused_attention")]
-    assert names == ["fused_attention.cu", "hopper.cuh"]
-    for name in ("blockmax", "flash_attention", "attn128"):
-        assert [p.name for p in _build.sources(name)] == [f"{name}.cu"]
+    """The three attention sources include the Hopper building blocks;
+    block-max is a single file."""
+    for name in ("fused_attention", "flash_attention", "attn128"):
+        assert [p.name for p in _build.sources(name)] == [f"{name}.cu",
+                                                          "hopper.cuh"]
+    assert [p.name for p in _build.sources("blockmax")] == ["blockmax.cu"]
 
 
-def test_fused_variants_undo_one_choice_each_in_the_source():
-    """``experiments/fused_variants.py`` rebuilds ``fused_attention.cu``
-    with one design choice undone a variant: each of its substitutions
-    must still match the source exactly once (else it fails on the card)."""
+@pytest.mark.parametrize("experiment,source", [
+    ("fused_variants", "fused_attention"), ("attn_variants", "flash_attention"),
+    ("attn_variants", "attn128")])
+def test_fused_variants_undo_one_choice_each_in_the_source(experiment,
+                                                          source):
+    """``experiments/fused_variants.py`` (kernels #2 and #3) and
+    ``experiments/attn_variants.py`` (#4 and #5) rebuild a kernel source
+    with one design choice changed a variant: each substitution must still
+    match the source's files (the ``.cu`` and the headers it includes)
+    exactly once (else it fails on the card)."""
+    import importlib
     from ance_tpu_torch.experiments import fused_variants
-    source = (_build.CSRC_DIR / "fused_attention.cu").read_text()
-    assert fused_variants.VARIANTS["as built"] == []
-    for name, subs in fused_variants.VARIANTS.items():
+    variants = importlib.import_module(
+        f"ance_tpu_torch.experiments.{experiment}").VARIANTS
+    if experiment == "attn_variants":
+        variants = variants[source]
+    paths = _build.sources(source)
+    texts = [p.read_text() for p in paths]
+    assert variants["as built"] == []
+    for name, subs in variants.items():
         for old, new in subs:
-            assert source.count(old) == 1, name
+            assert sum(text.count(old) for text in texts) == 1, name
             assert old != new
+        changed = fused_variants.substituted(source, subs)
+        holders = {p.name for p, text in zip(paths, texts)
+                   for old, _ in subs if old in text}
+        assert {p.name for p, text in zip(paths, texts)
+                if changed[p.name] != text} == holders
