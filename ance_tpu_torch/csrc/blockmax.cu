@@ -5,8 +5,8 @@
 //     out[q, b] = max_{r in [b*BS, (b+1)*BS)} <queries[q], corpus[r]>
 // as a row-major [Q, N/BS] array, so the caller needs no transpose. The
 // full [Q, N] score matrix never reaches device memory: each block keeps
-// its 128-row x 64-query score tile on chip and stores only the per-block
-// maxima (BS x fewer bytes than the scores).
+// its 128-row score tile on chip and stores only the per-block maxima (BS x
+// fewer bytes than the scores).
 //
 // Types (query x corpus -> accumulator): f32 x f32, bf16 x bf16, f32 x int8,
 // bf16 x int8 -> fp32, and int8 x int8 -> int32. An int8 corpus under a
@@ -15,27 +15,43 @@
 //
 // What bounds it on the H100. At the dev shape (Q = 2048) the product is
 // 2*Q*N*D = 3.1 TFLOP per 1M corpus rows against 1.5 GB of bf16 corpus:
-// compute bound by a wide margin. At small Q (a few queries per call) it is
-// the corpus bytes, ~0.46 ms per 1M x 768 bf16 rows at 3.35 TB/s.
-// What this simple design does about each:
-//  * compute: bf16 and int8 query operands run on the tensor cores through
-//    WMMA (16x16x16 mma.sync fragments; fp32 / int32 accumulation); each of
-//    8 warps owns a 32 x 32 piece of the tile. fp32 queries, whose products
-//    the tensor cores would round (TF32), stay on the CUDA cores: a
-//    shared-memory tiled product with an 8x4 register micro-tile per
-//    thread. wgmma, TMA and a multi-stage pipeline are later work.
-//  * bytes: the grid is 1-D with the query tile varying fastest, so the
-//    blocks that share a corpus tile run together and read it from device
-//    memory about once, while the (small) query matrix stays in L2. Only
-//    block maxima are written (Q*N/BS values).
+// compute bound by a wide margin (3.18 ms at the bf16 peak). At small Q (a
+// few queries per call) it is the corpus bytes, ~0.46 ms per 1M x 768 bf16
+// rows at 3.35 TB/s. Three kernels, one a route:
+//  * bf16 x bf16 (blockmax_bf16: every bf16 index, serve and search). A
+//    block is 128 corpus rows x 256 queries: one producer warp keeps TMA
+//    loads of 64-deep corpus and query tiles in flight through a ring of
+//    four stages, and two consumer warpgroups (64 rows each) run wgmma
+//    m64n256k16 with both operands K-major in shared memory, so a
+//    warpgroup reads its corpus tile once for 256 queries. The block
+//    maximum is taken in registers: with corpus rows as wgmma's M, a
+//    warp's 16 accumulator rows are one 16-row block, so a thread maxes
+//    its rows g and g + 8 and the warp reduces over g by xor shuffles (a
+//    reduce-scatter: each step halves the values a lane keeps), and only
+//    [8 or 16 row groups][256 queries] maxima pass through shared memory,
+//    to leave as 32-byte runs a query. block_size 1, 2 and 4 (blocks
+//    inside a row group) put the whole score tile over the spent ring.
+//  * bf16 x int8 and int8 x int8: WMMA (16x16x16 mma.sync fragments; fp32 /
+//    int32 accumulation); each of 8 warps owns a 32 x 32 piece of a 128-row
+//    x 64-query tile, one stage loaded through registers.
+//  * fp32 queries (f32 x f32, f32 x int8), whose products the tensor cores
+//    would round (TF32), stay on the CUDA cores: a shared-memory tiled
+//    product with an 8x4 register micro-tile per thread.
+// For all three the grid is 1-D with the query tile varying fastest, so
+// the blocks that share a corpus tile run together and read it from device
+// memory about once, while the (small) query matrix stays in L2. Only
+// block maxima are written (Q*N/BS values).
 // All row and element offsets are 64-bit: at 8.8M x 768 the corpus holds
 // 6.8e9 elements, past int32.
 
 #include <climits>
+#include <cstddef>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -150,7 +166,7 @@ blockmax_simt(const float* __restrict__ queries, const TC* __restrict__ corpus,
 }
 
 // -------------------------------------------------------------- tensor cores
-// bf16 x bf16, bf16 x int8 (as bf16) and int8 x int8. Tiles load in
+// bf16 x int8 (as bf16) and int8 x int8 on WMMA. Tiles load in
 // 8-element chunks, so dim must be a multiple of 8 and both bases 16-byte
 // aligned; the launcher refuses other operands.
 //
@@ -298,6 +314,188 @@ blockmax_wmma(const TQ* __restrict__ queries, const TC* __restrict__ corpus,
   store_block_maxima(scores, out, q0, row0, n_q, n_rows, block_size);
 }
 
+// ------------------------------------------------ bf16 x bf16, wgmma + TMA
+
+using hopper::bf16;
+
+constexpr int kBf16Q = 256;       // queries per block: wgmma's N
+constexpr int kBf16Stages = 4;    // ring of 64-deep k steps
+constexpr int kConsumerWarps = 8;  // two warpgroups of 64 corpus rows (M)
+constexpr int kBf16Consumers = 32 * kConsumerWarps;
+constexpr int kBf16Threads = kBf16Consumers + 32;  // + the producer warp
+constexpr int kMaximaLd = kBf16Q + 4;  // floats a row of the maxima tile
+constexpr int kBf16StageBytes = (kTileRows + kBf16Q) * 64 * 2;
+
+struct alignas(1024) Bf16Smem {
+  bf16 c[kBf16Stages][kTileRows * 64];  // corpus rows x 64 columns
+  bf16 q[kBf16Stages][kBf16Q * 64];     // queries x 64 columns
+  // the maximum of each 16-row group (8 for block_size 8) for each query
+  float maxima[kTileRows / 8][kMaximaLd];
+  uint64_t full[kBf16Stages], empty[kBf16Stages];
+  // block_size 1, 2 and 4: every row's score for each query, laid over the
+  // ring once its last product has been read
+  __device__ float (*rows())[kMaximaLd] {
+    return reinterpret_cast<float (*)[kMaximaLd]>(c);
+  }
+};
+static_assert(offsetof(Bf16Smem, maxima) >=
+                  sizeof(float) * kTileRows * kMaximaLd,
+              "the row scores overrun the ring");
+constexpr int kSmemSlack = 1024;  // aligned_smem's rounding
+constexpr int kBf16SmemBytes = static_cast<int>(sizeof(Bf16Smem)) + kSmemSlack;
+static_assert(kBf16SmemBytes <= 232448, "more than a block's shared memory");
+
+// Over the 8 lanes g of one c (lane bits 2-4), the maximum of each of the
+// 64 columns whose values this thread holds at acc[4j + Off + e] (column
+// 8j + c + e, j = 0..31, e = 0, 1), as a reduce-scatter: at each of three
+// xor shuffles (16, 8, 4: g's bits 2, 1, 0) a lane keeps the half of its
+// columns whose j has that bit equal to its own and takes the partner's
+// values of that half. Afterwards lane g holds the maximum of column
+// 8(8i + g) + c + e = 64i + 8g + c + e at acc[32i + Off + e], i = 0..3:
+// 56 shuffles where an all-reduce of 64 values takes 192.
+template <int Off>
+__device__ __forceinline__ void lane_max_scatter(float (&acc)[128], int g) {
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    const int jbit = 4 >> s, lanes = 16 >> s;
+    const bool up = g & jbit;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      if (j & (8 - jbit)) continue;  // a reduced bit or the step's bit set
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& lo = acc[4 * j + Off + e];
+        const float hi = acc[4 * (j + jbit) + Off + e];
+        const float send = up ? lo : hi;
+        const float keep = up ? hi : lo;
+        lo = fmaxf(keep, __shfl_xor_sync(~0u, send, lanes));
+      }
+    }
+  }
+}
+
+// One block: rows [row0, row0 + 128) of the corpus against queries
+// [q0, q0 + 256). Warp 8 is the producer; warps 0-7 are two consumer
+// warpgroups, warpgroup wg owning corpus rows 64 wg .. 64 wg + 63.
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    blockmax_bf16(const __grid_constant__ CUtensorMap mq,
+                  const __grid_constant__ CUtensorMap mc,
+                  float* __restrict__ out, int n_q, long long n_rows, int dim,
+                  int block_size, long long n_q_tiles) {
+  Bf16Smem& sm = hopper::aligned_smem<Bf16Smem>();
+  const long long bid = blockIdx.x;
+  const int q0 = static_cast<int>(bid % n_q_tiles) * kBf16Q;
+  const long long row0 = (bid / n_q_tiles) * kTileRows;
+  const int n_k = (dim + 63) / 64;  // columns past dim are zero-filled
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kBf16Stages; ++i) {
+      hopper::mbar_init(&sm.full[i], 1);
+      hopper::mbar_init(&sm.empty[i], kConsumerWarps);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x / 32 == kConsumerWarps) {  // the producer warp
+    if (threadIdx.x % 32 == 0) {
+      hopper::Ring<kBf16Stages> r;
+      for (int t = 0; t < n_k; ++t, r.next()) {
+        hopper::mbar_wait(&sm.empty[r.stage], r.phase ^ 1);
+        hopper::mbar_expect_tx(&sm.full[r.stage], kBf16StageBytes);
+        hopper::tma_load_2d(sm.c[r.stage], &mc, 64 * t,
+                            static_cast<int>(row0), &sm.full[r.stage]);
+        hopper::tma_load_2d(sm.q[r.stage], &mq, 64 * t, q0,
+                            &sm.full[r.stage]);
+      }
+    }
+    return;
+  }
+
+  const hopper::Lane ln;
+  const int warp = threadIdx.x / 32;  // the row group 16 warp .. + 15
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  hopper::Ring<kBf16Stages> r;
+  for (int t = 0; t < n_k; ++t, r.next()) {
+    hopper::mbar_wait(&sm.full[r.stage], r.phase);
+    const uint64_t da = hopper::desc_sw128(sm.c[r.stage] + ln.wg * 64 * 64);
+    const uint64_t db = hopper::desc_sw128(sm.q[r.stage]);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_ss_n256(acc, da + kk * hopper::kKStepK,
+                            db + kk * hopper::kKStepK, 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();  // the other warpgroup's products fill the gap
+    hopper::fence_regs(acc);
+    if (threadIdx.x % 32 == 0) hopper::mbar_arrive(&sm.empty[r.stage]);
+  }
+
+  // acc[4j + 2h + e] = score of corpus row 16 warp + g + 8h and query
+  // 8j + c + e. A row of `tile` holds, for each query, the maximum of a
+  // 16-row group (block_size >= 16) or of an 8-row group (8), taken in
+  // registers, or one row's score (1, 2, 4); a block is `per` of its rows.
+  float (*tile)[kMaximaLd] = sm.maxima;
+  int per = 1;
+  if (block_size >= 16) {  // rows g and g + 8 share a block
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        acc[4 * j + e] = fmaxf(acc[4 * j + e], acc[4 * j + 2 + e]);
+    lane_max_scatter<0>(acc, ln.g);
+    float* row = tile[warp];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float2*>(row + 64 * i + 8 * ln.g + ln.c) =
+          make_float2(acc[32 * i], acc[32 * i + 1]);
+    per = block_size / 16;
+  } else if (block_size == 8) {  // rows g and rows g + 8 are two blocks
+    lane_max_scatter<0>(acc, ln.g);
+    lane_max_scatter<2>(acc, ln.g);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* row = tile[2 * warp + h];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float2*>(row + 64 * i + 8 * ln.g + ln.c) =
+            make_float2(acc[32 * i + 2 * h], acc[32 * i + 2 * h + 1]);
+    }
+  } else {  // blocks within a row group: the whole score tile, over the ring
+    hopper::named_barrier(1, kBf16Consumers);  // every product has read it
+    tile = sm.rows();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* row = tile[16 * warp + ln.g + 8 * h];
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        *reinterpret_cast<float2*>(row + 8 * j + ln.c) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+    per = block_size;
+  }
+  hopper::named_barrier(1, kBf16Consumers);
+
+  // block b of the tile is rows b * per .. + per - 1 of `tile`; block index
+  // fastest, so a query's maxima leave as one run (32 bytes at block_size
+  // 16)
+  const int blocks_per_tile = kTileRows / block_size;
+  const long long n_blocks = n_rows / block_size;
+  const long long block0 = row0 / block_size;
+  for (int i = threadIdx.x; i < blocks_per_tile * kBf16Q;
+       i += kBf16Consumers) {
+    const int b = i % blocks_per_tile, n = i / blocks_per_tile;
+    const long long gb = block0 + b;
+    const int q = q0 + n;
+    if (gb >= n_blocks || q >= n_q) continue;
+    float m = tile[b * per][n];
+    for (int k = 1; k < per; ++k) m = fmaxf(m, tile[b * per + k][n]);
+    out[static_cast<long long>(q) * n_blocks + gb] = m;
+  }
+}
+
 struct Grid {
   long long n_q_tiles, blocks;
 };
@@ -338,6 +536,32 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// Refuses (cudaErrorInvalidValue) what the tensor maps cannot describe:
+// dim % 8 != 0, a base not 16-byte aligned, a failed encode, more rows
+// than a TMA coordinate holds; never hands the call to another kernel.
+int launch_bf16(const void* q, const void* c, void* out, int n_q,
+                long long n_rows, int dim, int block_size,
+                cudaStream_t stream) {
+  if (dim % 8 != 0 || !aligned16(q) || !aligned16(c) || n_rows > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_q_tiles = (n_q + kBf16Q - 1) / kBf16Q;
+  const long long blocks = n_q_tiles * ((n_rows + kTileRows - 1) / kTileRows);
+  if (blocks == 0) return 0;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mc;
+  if (hopper::encode_rows(&mq, q, n_q, dim, kBf16Q) != 0 ||
+      hopper::encode_rows(&mc, c, n_rows, dim, kTileRows) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      blockmax_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kBf16SmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  blockmax_bf16<<<static_cast<unsigned>(blocks), kBf16Threads, kBf16SmemBytes,
+                  stream>>>(mq, mc, static_cast<float*>(out), n_q, n_rows,
+                            dim, block_size, n_q_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Type codes: 0 = float32, 1 = bfloat16, 2 = int8. Returns a cudaError_t
@@ -355,11 +579,10 @@ extern "C" int blockmax_scores_launch(int q_type, int c_type, const void* q,
     return launch_simt<float>(q, c, out, n_q, n_rows, dim, block_size, s);
   if (q_type == 0 && c_type == 2)
     return launch_simt<int8_t>(q, c, out, n_q, n_rows, dim, block_size, s);
+  if (q_type == 1 && c_type == 1)
+    return launch_bf16(q, c, out, n_q, n_rows, dim, block_size, s);
   if (dim % 8 != 0 || !aligned16(q) || !aligned16(c))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (q_type == 1 && c_type == 1)
-    return launch_wmma<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, float>(
-        q, c, out, n_q, n_rows, dim, block_size, s);
   if (q_type == 1 && c_type == 2)
     return launch_wmma<__nv_bfloat16, int8_t, __nv_bfloat16, float>(
         q, c, out, n_q, n_rows, dim, block_size, s);
@@ -368,3 +591,7 @@ extern "C" int blockmax_scores_launch(int q_type, int c_type, const void* q,
         q, c, out, n_q, n_rows, dim, block_size, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// The dynamic shared memory blockmax_bf16 is launched with, in bytes
+// (ptxas's report counts only static shared memory).
+extern "C" void blockmax_bf16_smem(int* bytes) { bytes[0] = kBf16SmemBytes; }

@@ -2,8 +2,9 @@
 // tile loads, wgmma with its shared-memory descriptors and register
 // fragments, what the attention kernels (fused_attention.cu,
 // flash_attention.cu, attn128.cu) share of their products and score
-// epilogue, and the host-side tensor-map encoder. Header-only; a kernel
-// source includes it (ops/_build.py hashes it with the source).
+// epilogue, and the host-side tensor-map encoders (blockmax.cu's bf16
+// route uses the row-major one). Header-only; a kernel source includes it
+// (ops/_build.py hashes it with the source).
 //
 // Layout conventions used throughout:
 //  * every shared tile is bf16 [rows][64], 128 bytes a row, written by TMA
@@ -19,7 +20,8 @@
 //        a[2] = A[16w + g][c+8, c+9]      a[3] = A[16w + g + 8][c+8, c+9]
 //    (columns relative to 16 kk), so accumulator n-blocks 2kk and 2kk + 1
 //    are the A fragment of k-step kk: a score tile feeds the next product
-//    from registers.
+//    from registers. The wide form m64n256k16 (wgmma_ss_n256, d[128])
+//    keeps the same layout with j = 0..31.
 
 #pragma once
 
@@ -115,6 +117,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a 2-d tensor map (encode_rows) into shared memory, as
+// tma_load_4d.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 // One box of a 4-d tensor map from shared memory to global (the box's
 // rows out of bounds are not written), in the issuing thread's bulk
 // async-group; tma_store_wait_read() waits until its shared memory has
@@ -189,9 +203,10 @@ __device__ __forceinline__ void wgmma_wait_all() {
 
 // Keep the compiler from touching accumulator registers across the
 // asynchronous product (issue ... wait).
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define HOPPER_D32                                                        \
@@ -237,6 +252,40 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 
 #undef HOPPER_D32
 #undef HOPPER_D32_OUT
+
+#define HOPPER_F8(d, i)                                                    \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define HOPPER_F32(d, i)                                                   \
+  HOPPER_F8(d, i), HOPPER_F8(d, i + 8), HOPPER_F8(d, i + 16),              \
+      HOPPER_F8(d, i + 24)
+
+// d (+)= A . B, m64n256k16 bf16: A [64 x 16] and B [16 x 256] from shared
+// memory, both K-major (B's 256 rows one 128-byte-swizzled tile, 8-row
+// groups 1024 bytes apart); scale_d = 0 overwrites d. One A read serves
+// 256 columns, four times wgmma_ss's.
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_F32(d, 0), HOPPER_F32(d, 32), HOPPER_F32(d, 64),
+        HOPPER_F32(d, 96)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+#undef HOPPER_F8
+#undef HOPPER_F32
 
 // two bf16 in one register, `lo` (the lower column) in the low half
 __device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
@@ -429,22 +478,20 @@ inline bool power_of_two(float scale) {
   return scale > 0.f && std::frexp(scale, &e) == 0.5f;
 }
 
-// A bf16 [B, S, H, 64] tensor (any batch, seq and head strides in
-// elements, multiples of 8; unit stride along the 64) as a 4-d tensor map
-// whose box is `rows` sequence positions of one (batch, head): a
-// [rows][64] tile, 128-byte swizzled, rows past S zero-filled. Returns a
-// CUresult (0 on success).
-inline int encode_bhsd(CUtensorMap* map, const void* base, int B, int S, int H,
-                       long long stride_b, long long stride_s,
-                       long long stride_h, int rows) {
+// cuTensorMapEncodeTiled for a bf16 tensor of `rank` dimensions (sizes
+// and box innermost first, byte strides of the outer ones), 128-byte
+// swizzle, elements out of bounds zero-filled. The function is fetched
+// through the runtime: the library links no libcuda. Returns a CUresult
+// (0 on success).
+inline int encode_bf16(CUtensorMap* map, const void* base, cuuint32_t rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
                               CUtensorMapInterleave, CUtensorMapSwizzle,
                               CUtensorMapL2promotion,
                               CUtensorMapFloatOOBfill);
-  // cuTensorMapEncodeTiled, fetched through the runtime: the library
-  // links no libcuda
   static Encode encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -459,6 +506,22 @@ inline int encode_bhsd(CUtensorMap* map, const void* base, int B, int S, int H,
                                                 : nullptr;
   }();
   if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return static_cast<int>(encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// A bf16 [B, S, H, 64] tensor (any batch, seq and head strides in
+// elements, multiples of 8; unit stride along the 64) as a 4-d tensor map
+// whose box is `rows` sequence positions of one (batch, head): a
+// [rows][64] tile, 128-byte swizzled, rows past S zero-filled. Returns a
+// CUresult (0 on success).
+inline int encode_bhsd(CUtensorMap* map, const void* base, int B, int S, int H,
+                       long long stride_b, long long stride_s,
+                       long long stride_h, int rows) {
   const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
@@ -466,12 +529,21 @@ inline int encode_bhsd(CUtensorMap* map, const void* base, int B, int S, int H,
                                  static_cast<cuuint64_t>(stride_s) * 2,
                                  static_cast<cuuint64_t>(stride_b) * 2};
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return static_cast<int>(encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+  return encode_bf16(map, base, 4, dims, strides, box);
+}
+
+// A row-major bf16 [rows, cols] matrix (cols a multiple of 8, the base
+// 16-byte aligned) as a 2-d tensor map whose box is [box_rows][64]:
+// 128-byte swizzled, rows and columns out of bounds zero-filled (a ragged
+// last tile; cols not a multiple of 64). Returns a CUresult (0 on
+// success).
+inline int encode_rows(CUtensorMap* map, const void* base, long long rows,
+                       int cols, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  return encode_bf16(map, base, 2, dims, strides, box);
 }
 
 }  // namespace hopper

@@ -4,9 +4,11 @@ Counterpart of ``ance_tpu/ops/topk.py``, in three phases:
 
   phase 1 (kernel) — :func:`blockmax_scores`: [Q, D] × [N, D] → the maximum
       score of every ``block_size`` consecutive corpus rows, [Q, N/BS]. On
-      a CUDA tensor this launches the hand-written Hopper kernel
-      (``csrc/blockmax.cu``); on a CPU tensor it is the plain version
-      :func:`blockmax_scores_reference`.
+      a CUDA tensor this launches a hand-written Hopper kernel
+      (``csrc/blockmax.cu``: ``blockmax_bf16`` on wgmma + TMA for bf16 ×
+      bf16, ``blockmax_wmma`` for bf16 × int8 and int8 × int8,
+      ``blockmax_simt`` for fp32 queries); on a CPU tensor it is the plain
+      version :func:`blockmax_scores_reference`.
   phase 2 — :func:`top_blocks_lower_id_first` picks the k candidate blocks
       with the largest maxima, equal maxima lower block first.
   phase 3 — gather the candidate rows per query, rescore them exactly,
@@ -89,8 +91,8 @@ def blockmax_scores(queries: torch.Tensor, corpus: torch.Tensor, *,
     ``block_size`` (pad upstream; the caller masks padded blocks). A CUDA
     tensor always launches the kernel (``blockmax_scores.launches`` counts
     the launches) or raises; a CPU tensor takes the plain version. On the
-    card, bf16 and int8 queries (the tensor-core kernel) also need
-    D % 8 == 0 and 16-byte-aligned operands."""
+    card, bf16 and int8 queries (the tensor-core kernels: TMA boxes and
+    8-element chunks) also need D % 8 == 0 and 16-byte-aligned operands."""
     if queries.dim() != 2 or corpus.dim() != 2 or \
             queries.shape[1] != corpus.shape[1]:
         raise ValueError(f"need queries [Q, D] and corpus [N, D], got "
@@ -121,7 +123,7 @@ def blockmax_scores(queries: torch.Tensor, corpus: torch.Tensor, *,
     if queries.dtype != torch.float32 and (
             queries.shape[1] % 8 or queries.data_ptr() % 16
             or corpus.data_ptr() % 16):
-        # the tensor-core kernel loads 8-element chunks
+        # the tensor-core kernels load 16-byte rows and chunks
         raise ValueError(f"{queries.dtype} queries need D % 8 == 0 (got "
                          f"D={queries.shape[1]}) and 16-byte-aligned operands")
     lib = _kernel_library()

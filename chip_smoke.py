@@ -7,13 +7,17 @@ Run from the root of a checkout. It builds the four kernel sources of
 ``ance_tpu_torch/csrc`` (block-max top-k, fused and flash attention, the
 seq-128 attention pair; one nvcc each, all at once), prints ptxas's
 registers and spills and the SASS counts of HGMMA (wgmma) and UTMALDG
-(TMA loads) of the five wgmma kernels (the fused forward and its two
-backward passes, the bf16 flash forward, seq-128 kernel #5), and then:
+(TMA loads) of the six wgmma kernels (the fused forward and its two
+backward passes, the bf16 flash forward, seq-128 kernel #5, block-max's
+bf16 route), and then:
 
   * block-max: the kernel against its plain PyTorch version at the FirstP
     search shapes (1,000,448 × 768 corpus; Q=2048 k=10 and Q=512 k=200) for
-    every dtype pair; ``FlatIPIndex`` block-max ids against the scan for
-    the none / bf16 / dims indexes; and the tie check: a 1,000,448 × 768
+    every dtype pair, the bf16 route timed in turns with cuBLAS's product
+    of the same operands (a rate reference: it takes no maxima);
+    ``FlatIPIndex`` block-max ids against the scan for the none / bf16 /
+    dims indexes, each search's device time split by ``torch.profiler``
+    (phase 1 and the largest kernels); and the tie check: a 1,000,448 × 768
     bf16 index in which every 7th row is one vector that the queries rank
     inside their top k, where block-max ids must equal the scan's;
   * attention: each kernel against its plain version at the MaxP shapes
@@ -188,6 +192,7 @@ WGMMA_KERNELS = {
                         "fused_bwd_keys_bf16"),
     "flash_attention": ("flash_fwd_bf16",),
     "attn128": ("attn128_kernel",),
+    "blockmax": ("blockmax_bf16",),
 }
 
 
@@ -274,11 +279,38 @@ def check_against_plain_topk(scores, ids, q, c, k: int) -> float:
     return share
 
 
+def device_split(fn) -> dict:
+    """``torch.profiler`` over one ``fn()`` (after one warm-up): device ms
+    summed over its kernels and copies, the block-max kernel's part of it
+    (phase 1), and the eight largest kernels by name (cut to 80
+    characters, kernels whose cut names agree summed)."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            kernels[e.name[:80]] += e.time_range.elapsed_us() / 1e3
+    device_ms = sum(kernels.values())
+    phase1 = sum(ms for name, ms in kernels.items() if "blockmax" in name)
+    return {"device_ms": device_ms, "phase1_ms": phase1,
+            "top_kernels_ms": dict(kernels.most_common(8))}
+
+
 def phase_kernel():
     """Kernel vs plain at the 1M search shapes; FlatIPIndex block-max ids
     vs the scan on the same index, and both against a plain torch.topk."""
     import torch
-    from ance_tpu_torch.utils.timing import clocks, clocks_text, cuda_ms
+    from ance_tpu_torch.utils.timing import (clocks_text, cuda_ms,
+                                             timed_in_turns)
     from ance_tpu_torch.index.flat import FlatIPIndex, quantize_dims_int8
     from ance_tpu_torch.ops.topk import (blockmax_scores,
                                          blockmax_scores_reference)
@@ -328,11 +360,38 @@ def phase_kernel():
                       f"{err} > {FLOAT_ATOL}")
             max_err = max(max_err, err)
             del got, want
-            before = clocks()
-            ms = cuda_ms(lambda: blockmax_scores(qq, cc,
-                                                 chunk_rows=CHUNK_ROWS))
+            kernel = {"ms": lambda: blockmax_scores(qq, cc,
+                                                    chunk_rows=CHUNK_ROWS)}
+            head = dtypes == "bf16xbf16" and shape in SHAPES
+            if head:
+                # cuBLAS's product of the same operands (fp32 output), the
+                # rate a library reaches on this GEMM (it takes no block
+                # maxima: a reference, not a yardstick); and the kernel at
+                # D = 64 (one k step), for a tile's fixed part
+                q64, c64 = qq[:, :64].contiguous(), cc[:, :64].contiguous()
+                kernel["gemm_ms"] = lambda: torch.mm(
+                    qq, cc.T, out_dtype=torch.float32)
+                kernel["d64_ms"] = lambda: blockmax_scores(
+                    q64, c64, chunk_rows=CHUNK_ROWS)
+            times, sampled = timed_in_turns(kernel)
+            ms = times.pop("ms")
             plain_ms = cuda_ms(lambda: blockmax_scores_reference(qq, cc))
-            sampled = {"before": before, "after": clocks()}
+            extra = {}
+            if head:
+                del q64, c64
+                # a wave is one 128-row x 256-query tile on every SM; the
+                # line through (1 k step, D = 64) and (DIM / 64, D = DIM)
+                n_sms = torch.cuda.get_device_properties(
+                    dev).multi_processor_count
+                tiles = -(-qq.shape[0] // 256) * -(-cc.shape[0] // 128)
+                waves = -(-tiles // n_sms)
+                steps = DIM // 64
+                step_us = ((ms - times["d64_ms"]) * 1e3 / waves
+                           / (steps - 1))
+                extra = {"gemm_ms": times["gemm_ms"],
+                         "d64_ms": times["d64_ms"], "waves": waves,
+                         "tile_step_us": step_us, "tile_fixed_us":
+                         times["d64_ms"] * 1e3 / waves - step_us}
             # read q and c once, write the [Q, N/16] maxima; 2QND products
             # at the rate of the type they run in (fp32 queries: CUDA cores)
             nq, nc = qq.shape[0], cc.shape[0]
@@ -345,11 +404,16 @@ def phase_kernel():
                           "Q": nq, "N": nc, "D": DIM,
                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": b_ms, "bound_by": b_by,
-                          "clocks": sampled})
+                          "clocks": sampled, **extra})
+            gemm_text = (f"  cuBLAS GEMM {extra['gemm_ms']:.3f} ms  D=64 "
+                         f"{extra['d64_ms']:.3f} ms: a tile "
+                         f"{extra['tile_fixed_us']:.3f} us fixed + "
+                         f"{extra['tile_step_us']:.3f} us a k step"
+                         if extra else "")
             print(f"kernel {dtypes:10s} {shape:6s} Q={qq.shape[0]:5d} "
                   f"N={cc.shape[0]}: max|err| {err:.3g}  kernel {ms:.3f} ms  "
-                  f"plain {plain_ms:.3f} ms  {clocks_text(sampled)}",
-                  flush=True)
+                  f"plain {plain_ms:.3f} ms{gemm_text}  bound {b_ms:.3f} ms "
+                  f"({b_by})  {clocks_text(sampled)}", flush=True)
             torch.cuda.empty_cache()
 
     searches = []
@@ -379,11 +443,16 @@ def phase_kernel():
                   f"index {kind} {shape}: ids out of range")
             share = check_against_plain_topk(s1, i1, q_ref, c_ref, k)
             ms = cuda_ms(lambda: index.search(q, k), reps=3)
+            split = device_split(lambda: index.search(q, k))
             searches.append({"index": kind, "shape": shape, "Q": nq, "k": k,
-                             "search_ms": ms, "oracle_ids_compared": share})
+                             "search_ms": ms, "oracle_ids_compared": share,
+                             "split": split})
             print(f"index {kind:4s} {shape:6s} Q={nq} k={k}: ids == scan, "
                   f"== plain topk on {share:.4f} of {N_ORACLE}x{k}, search "
-                  f"{ms:.3f} ms ({nq / ms * 1000:.0f} qps)", flush=True)
+                  f"{ms:.3f} ms ({nq / ms * 1000:.0f} qps); device "
+                  f"{split['device_ms']:.3f} ms, phase 1 "
+                  f"{split['phase1_ms']:.3f}; {split['top_kernels_ms']}",
+                  flush=True)
         del index, c_ref
         torch.cuda.empty_cache()
     del corpus, c8, queries
@@ -1941,10 +2010,16 @@ def main() -> int:
     # composition is timed instead), so those have no library time.
     bwd_head = next(c for c in bwd_cases if c["dtype"] == "bf16"
                     and c["B"] == 64 and c["S"] == 512 and not c["strided"])
+    blockmax = entry("blockmax_scores", "blockmax", "ance_tpu/ops/topk.py:90",
+                     maxp["blockmax_launches"],
+                     dict(headline, max_abs_err=max_err),
+                     "bf16 Q=2048 x N=1000448 x D=768, block 16", "blockmax",
+                     cases)
+    # cuBLAS's product of the same operands (no block maxima): a rate
+    # reference beside the kernel, not a yardstick
+    blockmax["gemm_ms"] = headline["gemm_ms"]
     print(json.dumps({"kernels": [
-        entry("blockmax_scores", "blockmax", "ance_tpu/ops/topk.py:90",
-              maxp["blockmax_launches"], dict(headline, max_abs_err=max_err),
-              "bf16 Q=2048 x N=1000448 x D=768, block 16", "blockmax", cases),
+        blockmax,
         attention_entry("fused_attention", "ance_tpu/ops/fused_attention.py:40",
                         128, 512, maxp["fused_launches"]),
         attention_entry("flash_attention", "ance_tpu/ops/flash_attention.py:34",

@@ -41,12 +41,12 @@ def test_editing_an_included_header_changes_the_library_path(tmp_path,
 
 
 def test_the_package_sources_and_their_headers():
-    """The three attention sources include the Hopper building blocks;
-    block-max is a single file."""
-    for name in ("fused_attention", "flash_attention", "attn128"):
+    """Every kernel source includes the Hopper building blocks (block-max
+    for its bf16 route's TMA maps and wgmma)."""
+    for name in ("fused_attention", "flash_attention", "attn128",
+                 "blockmax"):
         assert [p.name for p in _build.sources(name)] == [f"{name}.cu",
                                                           "hopper.cuh"]
-    assert [p.name for p in _build.sources("blockmax")] == ["blockmax.cu"]
 
 
 @pytest.mark.parametrize("experiment,source", [
