@@ -17,7 +17,7 @@
 // 2*Q*N*D = 3.1 TFLOP per 1M corpus rows against 1.5 GB of bf16 corpus:
 // compute bound by a wide margin (3.18 ms at the bf16 peak). At small Q (a
 // few queries per call) it is the corpus bytes, ~0.46 ms per 1M x 768 bf16
-// rows at 3.35 TB/s. Three kernels, one a route:
+// rows at 3.35 TB/s. Four kernels, one a route:
 //  * bf16 x bf16 (blockmax_bf16: every bf16 index, serve and search). A
 //    block is 128 corpus rows x 256 queries: one producer warp keeps TMA
 //    loads of 64-deep corpus and query tiles in flight through a ring of
@@ -34,10 +34,37 @@
 //  * bf16 x int8 and int8 x int8: WMMA (16x16x16 mma.sync fragments; fp32 /
 //    int32 accumulation); each of 8 warps owns a 32 x 32 piece of a 128-row
 //    x 64-query tile, one stage loaded through registers.
-//  * fp32 queries (f32 x f32, f32 x int8), whose products the tensor cores
-//    would round (TF32), stay on the CUDA cores: a shared-memory tiled
-//    product with an 8x4 register micro-tile per thread.
-// For all three the grid is 1-D with the query tile varying fastest, so
+//  * fp32 queries (f32 x f32, f32 x int8: blockmax_pieces_f32 and
+//    blockmax_pieces_int8). The tensor cores take no exact fp32 product
+//    (TF32 keeps 10 bits), so each fp32 operand is split into three bf16
+//    pieces, x = x0 + x1 + x2 exactly (x0 = bf16(x), x1 = bf16(x - x0),
+//    x2 = bf16(x - x0 - x1)), and the piece products run on wgmma, each
+//    exact in fp32. f32 x f32 sums the six with i + j <= 2 (q0c0 + q0c1 +
+//    q1c0 + q0c2 + q1c1 + q2c0; the dropped three are below 2^-25 of
+//    |q||c|); f32 x int8 the three q_i c (an int8 code is exact in bf16).
+//    The query pieces [3, Q, D] come split (ops/topk.py); the corpus, the
+//    operand read from device memory, is split in registers as it is read,
+//    never stored twice: a consumer warpgroup reads its 64 rows of the
+//    TMA-loaded fp32 (or int8) tile into wgmma A fragments, splits (or
+//    widens) them, and issues m64n128k16 with A from registers against the
+//    query pieces in shared memory, the next fragments split while the
+//    last products run. The tensor cores' fp32 accumulation truncates, so
+//    a long sum drifts toward zero by up to an ulp of itself an update:
+//    each 32-column stage sums into a fresh accumulator, added to a
+//    running total with one round-to-nearest add a stage, which takes two
+//    accumulators a thread and so a block of 128 queries (not 256). Stages
+//    are 32 deep (an fp32 row of 32 is one 128-byte swizzle span; the
+//    pieces' 64-byte rows take the 64-byte swizzle), five in the ring; the
+//    grid and the epilogue are blockmax_bf16's at 128 queries, and the
+//    producer is a whole warpgroup that gives its registers to the
+//    consumers (setmaxnreg). At Q = 2048 x 1M x 768 the six products
+//    bound it at 19.1 ms (6 x 3.18), the three of int8 at 9.5 ms.
+//  * fp32 queries where a tensor map cannot describe an operand (D % 4 !=
+//    0, or D % 16 != 0 under an int8 corpus; a base not 16-byte aligned):
+//    blockmax_simt, on the CUDA cores, a shared-memory tiled product with
+//    an 8x4 register micro-tile per thread. ops/topk.py chooses it by
+//    shape before any launch.
+// For all of them the grid is 1-D with the query tile varying fastest, so
 // the blocks that share a corpus tile run together and read it from device
 // memory about once, while the (small) query matrix stays in L2. Only
 // block maxima are written (Q*N/BS values).
@@ -86,7 +113,8 @@ __device__ __forceinline__ void store_block_maxima(
 }
 
 // ---------------------------------------------------------------- CUDA cores
-// fp32 queries: f32 x f32 and f32 x int8.
+// fp32 queries (f32 x f32 and f32 x int8) whose corpus no tensor map
+// describes; every other fp32-query shape takes blockmax_pieces_*.
 
 constexpr int kSimtK = 32;  // depth of one k step
 constexpr int kMicroRows = kTileRows / 16;
@@ -346,21 +374,22 @@ constexpr int kBf16SmemBytes = static_cast<int>(sizeof(Bf16Smem)) + kSmemSlack;
 static_assert(kBf16SmemBytes <= 232448, "more than a block's shared memory");
 
 // Over the 8 lanes g of one c (lane bits 2-4), the maximum of each of the
-// 64 columns whose values this thread holds at acc[4j + Off + e] (column
-// 8j + c + e, j = 0..31, e = 0, 1), as a reduce-scatter: at each of three
-// xor shuffles (16, 8, 4: g's bits 2, 1, 0) a lane keeps the half of its
-// columns whose j has that bit equal to its own and takes the partner's
-// values of that half. Afterwards lane g holds the maximum of column
-// 8(8i + g) + c + e = 64i + 8g + c + e at acc[32i + Off + e], i = 0..3:
-// 56 shuffles where an all-reduce of 64 values takes 192.
-template <int Off>
-__device__ __forceinline__ void lane_max_scatter(float (&acc)[128], int g) {
+// NQ / 4 columns whose values this thread holds at acc[4j + Off + e]
+// (column 8j + c + e, j = 0..NQ/8 - 1, e = 0, 1), as a reduce-scatter: at
+// each of three xor shuffles (16, 8, 4: g's bits 2, 1, 0) a lane keeps the
+// half of its columns whose j has that bit equal to its own and takes the
+// partner's values of that half. Afterwards lane g holds the maximum of
+// column 8(8i + g) + c + e = 64i + 8g + c + e at acc[32i + Off + e],
+// i = 0..NQ/64 - 1: at NQ = 256, 56 shuffles where an all-reduce of 64
+// values takes 192.
+template <int Off, int NQ>
+__device__ __forceinline__ void lane_max_scatter(float (&acc)[NQ / 2], int g) {
 #pragma unroll
   for (int s = 0; s < 3; ++s) {
     const int jbit = 4 >> s, lanes = 16 >> s;
     const bool up = g & jbit;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
+    for (int j = 0; j < NQ / 8; ++j) {
       if (j & (8 - jbit)) continue;  // a reduced bit or the step's bit set
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -371,6 +400,79 @@ __device__ __forceinline__ void lane_max_scatter(float (&acc)[128], int g) {
         lo = fmaxf(keep, __shfl_xor_sync(~0u, send, lanes));
       }
     }
+  }
+}
+
+// The epilogue of the wgmma routes, for a block of 128 corpus rows
+// (two warpgroups' acc, the layout of hopper.cuh, j = 0..NQ/8 - 1) x NQ
+// queries (256 for blockmax_bf16, 128 for the pieces kernels):
+// acc[4j + 2h + e] = score of corpus row 16 warp + g + 8h and query
+// 8j + c + e. A row of `tile` (NQ + 4 floats) holds, for each query, the
+// maximum of a 16-row group (block_size >= 16) or of an 8-row group (8),
+// taken in registers, or one row's score (1, 2, 4: the whole score tile,
+// laid over the spent ring `rows`); a block is `per` of its rows. The
+// caller has waited for every product; `rows` is read by no product any
+// more once the consumers pass the first barrier.
+template <int NQ>
+__device__ __forceinline__ void block_maxima(
+    float (&acc)[NQ / 2], float (*maxima)[NQ + 4], float (*rows)[NQ + 4],
+    const hopper::Lane& ln, int warp, float* __restrict__ out, int q0,
+    long long row0, int n_q, long long n_rows, int block_size) {
+  float (*tile)[NQ + 4] = maxima;
+  int per = 1;
+  if (block_size >= 16) {  // rows g and g + 8 share a block
+#pragma unroll
+    for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        acc[4 * j + e] = fmaxf(acc[4 * j + e], acc[4 * j + 2 + e]);
+    lane_max_scatter<0, NQ>(acc, ln.g);
+    float* row = tile[warp];
+#pragma unroll
+    for (int i = 0; i < NQ / 64; ++i)
+      *reinterpret_cast<float2*>(row + 64 * i + 8 * ln.g + ln.c) =
+          make_float2(acc[32 * i], acc[32 * i + 1]);
+    per = block_size / 16;
+  } else if (block_size == 8) {  // rows g and rows g + 8 are two blocks
+    lane_max_scatter<0, NQ>(acc, ln.g);
+    lane_max_scatter<2, NQ>(acc, ln.g);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* row = tile[2 * warp + h];
+#pragma unroll
+      for (int i = 0; i < NQ / 64; ++i)
+        *reinterpret_cast<float2*>(row + 64 * i + 8 * ln.g + ln.c) =
+            make_float2(acc[32 * i + 2 * h], acc[32 * i + 2 * h + 1]);
+    }
+  } else {  // blocks within a row group: the whole score tile, over the ring
+    hopper::named_barrier(1, kBf16Consumers);  // every product has read it
+    tile = rows;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* row = tile[16 * warp + ln.g + 8 * h];
+#pragma unroll
+      for (int j = 0; j < NQ / 8; ++j)
+        *reinterpret_cast<float2*>(row + 8 * j + ln.c) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+    per = block_size;
+  }
+  hopper::named_barrier(1, kBf16Consumers);
+
+  // block b of the tile is rows b * per .. + per - 1 of `tile`; block index
+  // fastest, so a query's maxima leave as one run (32 bytes at block_size
+  // 16)
+  const int blocks_per_tile = kTileRows / block_size;
+  const long long n_blocks = n_rows / block_size;
+  const long long block0 = row0 / block_size;
+  for (int i = threadIdx.x; i < blocks_per_tile * NQ; i += kBf16Consumers) {
+    const int b = i % blocks_per_tile, n = i / blocks_per_tile;
+    const long long gb = block0 + b;
+    const int q = q0 + n;
+    if (gb >= n_blocks || q >= n_q) continue;
+    float m = tile[b * per][n];
+    for (int k = 1; k < per; ++k) m = fmaxf(m, tile[b * per + k][n]);
+    out[static_cast<long long>(q) * n_blocks + gb] = m;
   }
 }
 
@@ -433,67 +535,262 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
     if (threadIdx.x % 32 == 0) hopper::mbar_arrive(&sm.empty[r.stage]);
   }
 
-  // acc[4j + 2h + e] = score of corpus row 16 warp + g + 8h and query
-  // 8j + c + e. A row of `tile` holds, for each query, the maximum of a
-  // 16-row group (block_size >= 16) or of an 8-row group (8), taken in
-  // registers, or one row's score (1, 2, 4); a block is `per` of its rows.
-  float (*tile)[kMaximaLd] = sm.maxima;
-  int per = 1;
-  if (block_size >= 16) {  // rows g and g + 8 share a block
-#pragma unroll
-    for (int j = 0; j < 32; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        acc[4 * j + e] = fmaxf(acc[4 * j + e], acc[4 * j + 2 + e]);
-    lane_max_scatter<0>(acc, ln.g);
-    float* row = tile[warp];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float2*>(row + 64 * i + 8 * ln.g + ln.c) =
-          make_float2(acc[32 * i], acc[32 * i + 1]);
-    per = block_size / 16;
-  } else if (block_size == 8) {  // rows g and rows g + 8 are two blocks
-    lane_max_scatter<0>(acc, ln.g);
-    lane_max_scatter<2>(acc, ln.g);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float* row = tile[2 * warp + h];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        *reinterpret_cast<float2*>(row + 64 * i + 8 * ln.g + ln.c) =
-            make_float2(acc[32 * i + 2 * h], acc[32 * i + 2 * h + 1]);
-    }
-  } else {  // blocks within a row group: the whole score tile, over the ring
-    hopper::named_barrier(1, kBf16Consumers);  // every product has read it
-    tile = sm.rows();
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float* row = tile[16 * warp + ln.g + 8 * h];
-#pragma unroll
-      for (int j = 0; j < 32; ++j)
-        *reinterpret_cast<float2*>(row + 8 * j + ln.c) =
-            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-    }
-    per = block_size;
-  }
-  hopper::named_barrier(1, kBf16Consumers);
+  block_maxima<kBf16Q>(acc, sm.maxima, sm.rows(), ln, warp, out, q0, row0,
+                       n_q, n_rows, block_size);
+}
 
-  // block b of the tile is rows b * per .. + per - 1 of `tile`; block index
-  // fastest, so a query's maxima leave as one run (32 bytes at block_size
-  // 16)
-  const int blocks_per_tile = kTileRows / block_size;
-  const long long n_blocks = n_rows / block_size;
-  const long long block0 = row0 / block_size;
-  for (int i = threadIdx.x; i < blocks_per_tile * kBf16Q;
-       i += kBf16Consumers) {
-    const int b = i % blocks_per_tile, n = i / blocks_per_tile;
-    const long long gb = block0 + b;
-    const int q = q0 + n;
-    if (gb >= n_blocks || q >= n_q) continue;
-    float m = tile[b * per][n];
-    for (int k = 1; k < per; ++k) m = fmaxf(m, tile[b * per + k][n]);
-    out[static_cast<long long>(q) * n_blocks + gb] = m;
+// -------------------------------- fp32 queries: bf16 pieces on wgmma + TMA
+
+constexpr int kPieceK = 32;      // depth of a ring stage
+constexpr int kPieceStages = 5;
+constexpr int kPieceQ = 128;     // queries per block: wgmma's N
+// two consumer warpgroups and a producer warpgroup (one thread of it
+// issues the loads), which gives its registers to the consumers: 232 a
+// consumer thread holds the two 64-float accumulators, two k-steps of A
+// fragments (24) and the split's temporaries without spilling
+constexpr int kPieceThreads = kBf16Consumers + hopper::kWgThreads;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+static_assert(kConsumerRegs * kBf16Consumers +
+                      kProducerRegs * hopper::kWgThreads <= 65536,
+              "more registers than an SM holds");
+constexpr int kQPieceBytes = kPieceQ * kPieceK * 2;  // one query piece a stage
+
+// What a corpus element type brings to the route: its pieces in registers,
+// the swizzle of its [128][32] tile (an fp32 row of 32 is 128 bytes, an
+// int8 row 32) and the byte of row r, column k (0..31) of that tile.
+template <typename TC>
+struct CorpusTile;
+
+template <>
+struct CorpusTile<float> {
+  static constexpr int kPieces = 3;  // c0, c1, c2
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_128B;
+  // 128-byte swizzle: 16-byte chunk k / 4 of row r at chunk (k / 4) ^ (r % 8)
+  static __device__ __forceinline__ int offset(int r, int k) {
+    return r * 128 + (((k >> 2) ^ (r & 7)) << 4) + ((k & 3) << 2);
   }
+};
+
+template <>
+struct CorpusTile<int8_t> {
+  static constexpr int kPieces = 1;  // the code itself, exact in bf16
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_32B;
+  // 32-byte swizzle: 16-byte chunk k / 16 of row r at (k / 16) ^ (r / 4 % 2)
+  static __device__ __forceinline__ int offset(int r, int k) {
+    return r * 32 + (((k >> 4) ^ ((r >> 2) & 1)) << 4) + (k & 15);
+  }
+};
+
+template <typename TC>
+struct alignas(1024) PieceSmem {
+  bf16 q[kPieceStages][3][kPieceQ * kPieceK];  // 3 query pieces x 128 x 32
+  TC c[kPieceStages][kTileRows * kPieceK];     // corpus rows x 32 columns
+  float maxima[kTileRows / 8][kPieceQ + 4];
+  uint64_t full[kPieceStages], empty[kPieceStages];
+  static constexpr int kStageBytes =
+      3 * kQPieceBytes + kTileRows * kPieceK * static_cast<int>(sizeof(TC));
+  __device__ float (*rows())[kPieceQ + 4] {  // block_size 1, 2, 4
+    return reinterpret_cast<float (*)[kPieceQ + 4]>(q);
+  }
+};
+static_assert(sizeof(PieceSmem<int8_t>::q) >=
+                  sizeof(float) * kTileRows * (kPieceQ + 4),
+              "the row scores overrun the query pieces");
+template <typename TC>
+constexpr int kPieceSmemBytes =
+    static_cast<int>(sizeof(PieceSmem<TC>)) + kSmemSlack;
+static_assert(kPieceSmemBytes<float> <= 232448,
+              "more than a block's shared memory");
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Two fp32 values (v.x the lower column) as three packed bf16 pieces:
+// p0 = bf16(v), p1 = bf16(v - p0), p2 = bf16(v - p0 - p1), round to
+// nearest even; both differences are exact in fp32, and so is the sum
+// p0 + p1 + p2 = v (ops/topk.py's split_bf16_pieces, the same arithmetic).
+__device__ __forceinline__ void split3(float2 v, uint32_t& p0, uint32_t& p1,
+                                       uint32_t& p2) {
+  const __nv_bfloat162 h0 = __floats2bfloat162_rn(v.x, v.y);
+  const float2 f0 = __bfloat1622float2(h0);
+  const float2 r1 = make_float2(__fsub_rn(v.x, f0.x), __fsub_rn(v.y, f0.y));
+  const __nv_bfloat162 h1 = __floats2bfloat162_rn(r1.x, r1.y);
+  const float2 f1 = __bfloat1622float2(h1);
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(__fsub_rn(r1.x, f1.x),
+                                                  __fsub_rn(r1.y, f1.y));
+  p0 = bits(h0);
+  p1 = bits(h1);
+  p2 = bits(h2);
+}
+
+// The A fragments (hopper.cuh) of k-step kk (columns 16 kk .. + 15) of the
+// warp's 16 rows `row` .. + 15 of the stage's corpus tile, as pieces:
+// a[p][0] = rows row + g, columns c, c + 1; a[p][1] = row + g + 8;
+// a[p][2], a[p][3] = the same rows, columns c + 8, c + 9. A warp's 8-byte
+// fp32 loads fall on 32 distinct banks in two wavefronts (the swizzle
+// spreads its 8 rows over the 8 chunks), its 2-byte int8 loads on
+// distinct words.
+template <typename TC>
+__device__ __forceinline__ void load_pieces(
+    uint32_t (&a)[CorpusTile<TC>::kPieces][4], const TC* tile, int row,
+    const hopper::Lane& ln, int kk) {
+  const unsigned char* base = reinterpret_cast<const unsigned char*>(tile);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row + ln.g + 8 * (i & 1);
+    const int k = 16 * kk + ln.c + 8 * (i >> 1);
+    const int at = CorpusTile<TC>::offset(r, k);
+    if constexpr (sizeof(TC) == 4) {
+      split3(*reinterpret_cast<const float2*>(base + at), a[0][i], a[1][i],
+             a[2][i]);
+    } else {
+      const char2 v = *reinterpret_cast<const char2*>(base + at);
+      a[0][i] = bits(__floats2bfloat162_rn(static_cast<float>(v.x),
+                                           static_cast<float>(v.y)));
+    }
+  }
+}
+
+// The piece products of k-step kk, accumulated into d: with q (the
+// stage's three query pieces) as B, q0c0, q0c1, q1c0, q0c2, q1c1, q2c0 for
+// an fp32 corpus (A = c0, c1, c2), q0c, q1c, q2c for int8 (A = c). The
+// stage's first product (kk = 0) overwrites d.
+template <typename TC>
+__device__ __forceinline__ void issue_pieces(
+    float (&d)[64], const uint32_t (&a)[CorpusTile<TC>::kPieces][4],
+    const bf16 (*q)[kPieceQ * kPieceK], int kk) {
+  uint64_t db[3];
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+    db[p] = hopper::desc_sw64(q[p]) + kk * hopper::kKStepK;
+  if constexpr (sizeof(TC) == 4) {
+    hopper::wgmma_rs_n128(d, a[0], db[0], kk);
+    hopper::wgmma_rs_n128(d, a[1], db[0]);
+    hopper::wgmma_rs_n128(d, a[0], db[1]);
+    hopper::wgmma_rs_n128(d, a[2], db[0]);
+    hopper::wgmma_rs_n128(d, a[1], db[1]);
+    hopper::wgmma_rs_n128(d, a[0], db[2]);
+  } else {
+    hopper::wgmma_rs_n128(d, a[0], db[0], kk);
+    hopper::wgmma_rs_n128(d, a[0], db[1]);
+    hopper::wgmma_rs_n128(d, a[0], db[2]);
+  }
+}
+
+// One block: rows [row0, row0 + 128) of the corpus against queries
+// [q0, q0 + 128): one thread of warpgroup 2 the producer (per 32-column
+// stage: the corpus tile and the three query-piece tiles, rows
+// p * n_q + q0 of the [3 n_q, D] pieces), warps 0-7 two consumer
+// warpgroups of 64 corpus rows. The tensor cores' fp32 accumulation
+// truncates each product's sum (toward zero, not to nearest), so an update
+// of a large running sum loses up to an ulp of it: over D = 768 (288
+// updates) that drifts by ~4e-3 at scores ~700. So a stage's products go
+// to a fresh accumulator `part` (its first product overwrites it), small
+// as 32 columns' sum, and `total` takes it with one round-to-nearest add
+// a stage. Per stage a consumer fences the k-step 0 fragments and issues
+// their products, splits k-step 1's fragments while they run and issues
+// those, waits until only those are in flight (so k-step 0's fragments
+// are free) and splits the next stage's k-step 0 into them, then waits for
+// the stage's products, frees the stage and adds `part` to `total`. The
+// other warpgroup's products keep the tensor cores busy across the wait.
+template <typename TC>
+__device__ __forceinline__ void pieces_block(const CUtensorMap& mq,
+                                             const CUtensorMap& mc,
+                                             float* __restrict__ out, int n_q,
+                                             long long n_rows, int dim,
+                                             int block_size,
+                                             long long n_q_tiles) {
+  using Smem = PieceSmem<TC>;
+  constexpr int P = CorpusTile<TC>::kPieces;
+  Smem& sm = hopper::aligned_smem<Smem>();
+  const long long bid = blockIdx.x;
+  const int q0 = static_cast<int>(bid % n_q_tiles) * kPieceQ;
+  const long long row0 = (bid / n_q_tiles) * kTileRows;
+  const int n_k = (dim + kPieceK - 1) / kPieceK;  // columns past dim: zero
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kPieceStages; ++i) {
+      hopper::mbar_init(&sm.full[i], 1);
+      hopper::mbar_init(&sm.empty[i], kConsumerWarps);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kBf16Consumers) {  // the producer warpgroup
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kBf16Consumers) {
+      hopper::Ring<kPieceStages> r;
+      for (int t = 0; t < n_k; ++t, r.next()) {
+        hopper::mbar_wait(&sm.empty[r.stage], r.phase ^ 1);
+        hopper::mbar_expect_tx(&sm.full[r.stage], Smem::kStageBytes);
+        hopper::tma_load_2d(sm.c[r.stage], &mc, kPieceK * t,
+                            static_cast<int>(row0), &sm.full[r.stage]);
+        for (int p = 0; p < 3; ++p)
+          hopper::tma_load_2d(sm.q[r.stage][p], &mq, kPieceK * t,
+                              p * n_q + q0, &sm.full[r.stage]);
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+  const hopper::Lane ln;
+  const int warp = threadIdx.x / 32;  // corpus rows 16 warp .. + 15
+  float total[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) total[i] = part[i] = 0.f;
+  uint32_t a[2][P][4];  // the fragments of k-steps 0 and 1 of a stage
+  hopper::Ring<kPieceStages> r;
+  hopper::mbar_wait(&sm.full[0], 0);
+  load_pieces<TC>(a[0], sm.c[0], 16 * warp, ln, 0);
+  for (int t = 0; t < n_k; ++t, r.next()) {
+    hopper::fence_regs(a[0]);
+    hopper::fence_regs(part);
+    hopper::wgmma_fence();
+    issue_pieces<TC>(part, a[0], sm.q[r.stage], 0);
+    hopper::wgmma_commit();
+    load_pieces<TC>(a[1], sm.c[r.stage], 16 * warp, ln, 1);
+    hopper::fence_regs(a[1]);
+    hopper::wgmma_fence();
+    issue_pieces<TC>(part, a[1], sm.q[r.stage], 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();  // k-step 0's products are done
+    hopper::fence_regs(a[0]);
+    if (t + 1 < n_k) {
+      const bool wrap = r.stage + 1 == kPieceStages;
+      const int next = wrap ? 0 : r.stage + 1;
+      hopper::mbar_wait(&sm.full[next], wrap ? r.phase ^ 1 : r.phase);
+      load_pieces<TC>(a[0], sm.c[next], 16 * warp, ln, 0);
+    }
+    hopper::wgmma_wait_all();  // the stage's products are done
+    hopper::fence_regs(a[1]);
+    hopper::fence_regs(part);
+    if (threadIdx.x % 32 == 0) hopper::mbar_arrive(&sm.empty[r.stage]);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) total[i] = __fadd_rn(total[i], part[i]);
+  }
+
+  block_maxima<kPieceQ>(total, sm.maxima, sm.rows(), ln, warp, out, q0,
+                        row0, n_q, n_rows, block_size);
+}
+
+__global__ void __launch_bounds__(kPieceThreads, 1)
+    blockmax_pieces_f32(const __grid_constant__ CUtensorMap mq,
+                        const __grid_constant__ CUtensorMap mc,
+                        float* __restrict__ out, int n_q, long long n_rows,
+                        int dim, int block_size, long long n_q_tiles) {
+  pieces_block<float>(mq, mc, out, n_q, n_rows, dim, block_size, n_q_tiles);
+}
+
+__global__ void __launch_bounds__(kPieceThreads, 1)
+    blockmax_pieces_int8(const __grid_constant__ CUtensorMap mq,
+                         const __grid_constant__ CUtensorMap mc,
+                         float* __restrict__ out, int n_q, long long n_rows,
+                         int dim, int block_size, long long n_q_tiles) {
+  pieces_block<int8_t>(mq, mc, out, n_q, n_rows, dim, block_size, n_q_tiles);
 }
 
 struct Grid {
@@ -549,8 +846,12 @@ int launch_bf16(const void* q, const void* c, void* out, int n_q,
   if (blocks == 0) return 0;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mc;
-  if (hopper::encode_rows(&mq, q, n_q, dim, kBf16Q) != 0 ||
-      hopper::encode_rows(&mc, c, n_rows, dim, kTileRows) != 0)
+  if (hopper::encode_matrix(&mq, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, q, n_q,
+                            dim, dim, kBf16Q, 64,
+                            CU_TENSOR_MAP_SWIZZLE_128B) != 0 ||
+      hopper::encode_matrix(&mc, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, c,
+                            n_rows, dim, dim, kTileRows, 64,
+                            CU_TENSOR_MAP_SWIZZLE_128B) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
       blockmax_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -562,11 +863,58 @@ int launch_bf16(const void* q, const void* c, void* out, int n_q,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The query pieces' row length: D rounded up to 8 bf16 (16 bytes, a
+// tensor map's row stride), zero past D.
+int pieces_ld(int dim) { return (dim + 7) / 8 * 8; }
+
+// fp32 queries as three bf16 pieces `q` [3, n_q, pieces_ld(dim)] against
+// an fp32 or int8 corpus. Refuses (cudaErrorInvalidValue) what a tensor
+// map cannot describe: a corpus row not a multiple of 16 bytes (D % 4 for
+// fp32, D % 16 for int8), a base not 16-byte aligned, more rows than a
+// TMA coordinate holds, a failed encode; never hands the call to another
+// kernel (ops/topk.py sends those shapes to blockmax_simt before any
+// launch).
+template <typename TC>
+int launch_pieces(const void* q, const void* c, void* out, int n_q,
+                  long long n_rows, int dim, int block_size,
+                  cudaStream_t stream) {
+  if ((dim * sizeof(TC)) % 16 != 0 || !aligned16(q) || !aligned16(c) ||
+      n_rows > INT_MAX || 3LL * n_q > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_q_tiles = (n_q + kPieceQ - 1) / kPieceQ;
+  const long long blocks = n_q_tiles * ((n_rows + kTileRows - 1) / kTileRows);
+  if (blocks == 0) return 0;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mc;
+  if (hopper::encode_matrix(&mq, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, q,
+                            3LL * n_q, dim, pieces_ld(dim), kPieceQ, kPieceK,
+                            CU_TENSOR_MAP_SWIZZLE_64B) != 0 ||
+      hopper::encode_matrix(&mc, CorpusTile<TC>::kType,
+                            static_cast<int>(sizeof(TC)), c,
+                            n_rows, dim, dim, kTileRows, kPieceK,
+                            CorpusTile<TC>::kSwizzle) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = sizeof(TC) == 4 ? blockmax_pieces_f32 : blockmax_pieces_int8;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kPieceSmemBytes<TC>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(blocks), kPieceThreads, kPieceSmemBytes<TC>,
+           stream>>>(mq, mc, static_cast<float*>(out), n_q, n_rows, dim,
+                     block_size, n_q_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Type codes: 0 = float32, 1 = bfloat16, 2 = int8. Returns a cudaError_t
-// (0 on success; cudaErrorInvalidValue for operands the kernels do not
-// take); the launch is asynchronous on `stream`.
+// Type codes: 0 = float32, 1 = bfloat16, 2 = int8, and for queries 3 =
+// float32 given as its three bf16 pieces [3, Q, D rounded up to 8] (ops/
+// topk.py's split_bf16_pieces). Each pair has one kernel: f32 pieces x f32
+// or int8 -> blockmax_pieces_*, float32 x f32 or int8 -> blockmax_simt,
+// bf16 x bf16 -> blockmax_bf16, bf16 x int8 and int8 x int8 ->
+// blockmax_wmma. Returns a cudaError_t (0 on success;
+// cudaErrorInvalidValue for operands the pair's kernel does not take, and
+// for any other pair); the launch is asynchronous on `stream`.
 extern "C" int blockmax_scores_launch(int q_type, int c_type, const void* q,
                                       const void* c, void* out, int n_q,
                                       long long n_rows, int dim,
@@ -575,6 +923,10 @@ extern "C" int blockmax_scores_launch(int q_type, int c_type, const void* q,
       n_rows < 0 || dim <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_type == 3 && c_type == 0)
+    return launch_pieces<float>(q, c, out, n_q, n_rows, dim, block_size, s);
+  if (q_type == 3 && c_type == 2)
+    return launch_pieces<int8_t>(q, c, out, n_q, n_rows, dim, block_size, s);
   if (q_type == 0 && c_type == 0)
     return launch_simt<float>(q, c, out, n_q, n_rows, dim, block_size, s);
   if (q_type == 0 && c_type == 2)
@@ -592,6 +944,11 @@ extern "C" int blockmax_scores_launch(int q_type, int c_type, const void* q,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The dynamic shared memory blockmax_bf16 is launched with, in bytes
+// The dynamic shared memory blockmax_bf16, blockmax_pieces_f32 and
+// blockmax_pieces_int8 are launched with, in bytes, in that order
 // (ptxas's report counts only static shared memory).
-extern "C" void blockmax_bf16_smem(int* bytes) { bytes[0] = kBf16SmemBytes; }
+extern "C" void blockmax_bf16_smem(int* bytes) {
+  bytes[0] = kBf16SmemBytes;
+  bytes[1] = kPieceSmemBytes<float>;
+  bytes[2] = kPieceSmemBytes<int8_t>;
+}

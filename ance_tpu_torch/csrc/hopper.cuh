@@ -2,14 +2,14 @@
 // tile loads, wgmma with its shared-memory descriptors and register
 // fragments, what the attention kernels (fused_attention.cu,
 // flash_attention.cu, attn128.cu) share of their products and score
-// epilogue, and the host-side tensor-map encoders (blockmax.cu's bf16
-// route uses the row-major one). Header-only; a kernel source includes it
+// epilogue, and the host-side tensor-map encoders (blockmax.cu's routes
+// use the 2-d one). Header-only; a kernel source includes it
 // (ops/_build.py hashes it with the source).
 //
 // Layout conventions used throughout:
-//  * every shared tile is bf16 [rows][64], 128 bytes a row, written by TMA
-//    with 128-byte swizzle and 1024-byte aligned, so an 8-row group is one
-//    1024-byte swizzle atom;
+//  * a shared tile of the attention kernels and of blockmax_bf16 is bf16
+//    [rows][64], 128 bytes a row, written by TMA with 128-byte swizzle and
+//    1024-byte aligned, so an 8-row group is one 1024-byte swizzle atom;
 //  * wgmma m64n64k16, fp32 accumulate. The accumulator d[32] of a
 //    warpgroup thread (warp w of the group, lane l, g = l / 4,
 //    c = 2 * (l % 4)) holds, for n-block j = 0..7,
@@ -20,8 +20,13 @@
 //        a[2] = A[16w + g][c+8, c+9]      a[3] = A[16w + g + 8][c+8, c+9]
 //    (columns relative to 16 kk), so accumulator n-blocks 2kk and 2kk + 1
 //    are the A fragment of k-step kk: a score tile feeds the next product
-//    from registers. The wide form m64n256k16 (wgmma_ss_n256, d[128])
-//    keeps the same layout with j = 0..31.
+//    from registers. The wide forms m64n256k16 (wgmma_ss_n256; d[128])
+//    and, with A from registers, m64n128k16 (wgmma_rs_n128; d[64]) keep
+//    the same layout with j = 0..31 and j = 0..15.
+//  * blockmax.cu's fp32-query route also reads 32-column tiles: bf16
+//    [rows][32] (64 bytes a row, 64-byte swizzle, desc_sw64), fp32
+//    [rows][32] (128-byte swizzle) and int8 [rows][32] (32-byte swizzle),
+//    each written by TMA (encode_matrix).
 
 #pragma once
 
@@ -117,7 +122,7 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// One box of a 2-d tensor map (encode_rows) into shared memory, as
+// One box of a 2-d tensor map (encode_matrix) into shared memory, as
 // tma_load_4d.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             int c0, int c1, uint64_t* bar) {
@@ -156,6 +161,18 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Move registers between warpgroups (every thread of a warpgroup runs
+// the same one): a producer gives registers back down to N a thread, the
+// consumers take up to N; the block is launched with the even share.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // wait at named barrier `id` (1-15; 0 is __syncthreads) for `threads`
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
@@ -191,15 +208,32 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
 constexpr uint64_t kKStepK = 32 >> 4;     // K-major: 16 columns
 constexpr uint64_t kKStepMN = 2048 >> 4;  // MN-major: 16 rows
 
+// Descriptor of a K-major bf16 tile of 32 columns (64 bytes a row, 8-row
+// groups 512 bytes apart, 64-byte swizzle: a row's 16-byte chunk j at
+// 16 * (j ^ ((row / 2) % 4))), 512-byte aligned. A k-step of 16 advances
+// it by 32 bytes (kKStepK), as in the 128-byte layout; the leading byte
+// offset is unused by a swizzled K-major operand.
+__device__ __forceinline__ uint64_t desc_sw64(const void* tile) {
+  uint64_t d = (smem_u32(tile) & 0x3FFFF) >> 4;
+  d |= static_cast<uint64_t>(1) << 16;          // leading byte offset
+  d |= static_cast<uint64_t>(512 >> 4) << 32;   // stride byte offset
+  d |= static_cast<uint64_t>(2) << 62;          // 64-byte swizzle
+  return d;
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most `Pending` committed groups are still in flight
+template <int Pending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(Pending)
+               : "memory");
 }
+__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
 
 // Keep the compiler from touching accumulator registers across the
 // asynchronous product (issue ... wait).
@@ -207,6 +241,16 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for register A fragments: fenced after the wait that retires
+// their product, they stay live (their registers unused by anything else)
+// while the product reads them.
+template <int P>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[P][4]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[p][i])::"memory");
 }
 
 #define HOPPER_D32                                                        \
@@ -282,6 +326,26 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t a,
       : HOPPER_F32(d, 0), HOPPER_F32(d, 32), HOPPER_F32(d, 64),
         HOPPER_F32(d, 96)
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (+)= A . B, m64n128k16 bf16: A [64 x 16] from registers (the fragment
+// in the file comment), B [16 x 128] K-major from shared memory (d[64],
+// j = 0..15); scale_d = 0 overwrites d. Registers `a` must not change
+// until the product has completed (wgmma_wait).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : HOPPER_F32(d, 0), HOPPER_F32(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 #undef HOPPER_F8
@@ -478,14 +542,15 @@ inline bool power_of_two(float scale) {
   return scale > 0.f && std::frexp(scale, &e) == 0.5f;
 }
 
-// cuTensorMapEncodeTiled for a bf16 tensor of `rank` dimensions (sizes
-// and box innermost first, byte strides of the outer ones), 128-byte
-// swizzle, elements out of bounds zero-filled. The function is fetched
-// through the runtime: the library links no libcuda. Returns a CUresult
-// (0 on success).
-inline int encode_bf16(CUtensorMap* map, const void* base, cuuint32_t rank,
-                       const cuuint64_t* dims, const cuuint64_t* strides,
-                       const cuuint32_t* box) {
+// cuTensorMapEncodeTiled for a tensor of `type` and `rank` dimensions
+// (sizes and box innermost first, byte strides of the outer ones),
+// elements out of bounds zero-filled. The function is fetched through the
+// runtime: the library links no libcuda. Returns a CUresult (0 on
+// success).
+inline int encode_tiled(CUtensorMap* map, CUtensorMapDataType type,
+                        const void* base, cuuint32_t rank,
+                        const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -508,11 +573,11 @@ inline int encode_bf16(CUtensorMap* map, const void* base, cuuint32_t rank,
   if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return static_cast<int>(encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+      map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
+
 
 // A bf16 [B, S, H, 64] tensor (any batch, seq and head strides in
 // elements, multiples of 8; unit stride along the 64) as a 4-d tensor map
@@ -529,21 +594,25 @@ inline int encode_bhsd(CUtensorMap* map, const void* base, int B, int S, int H,
                                  static_cast<cuuint64_t>(stride_s) * 2,
                                  static_cast<cuuint64_t>(stride_b) * 2};
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  return encode_bf16(map, base, 4, dims, strides, box);
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 4, dims,
+                      strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// A row-major bf16 [rows, cols] matrix (cols a multiple of 8, the base
-// 16-byte aligned) as a 2-d tensor map whose box is [box_rows][64]:
-// 128-byte swizzled, rows and columns out of bounds zero-filled (a ragged
-// last tile; cols not a multiple of 64). Returns a CUresult (0 on
-// success).
-inline int encode_rows(CUtensorMap* map, const void* base, long long rows,
-                       int cols, int box_rows) {
+// A row-major [rows, cols] matrix of `type` (`elem_bytes` each; rows
+// `ld` elements apart, a multiple of 16 bytes; the base 16-byte aligned)
+// as a 2-d tensor map whose box is [box_rows][box_cols] with `swizzle`
+// (box_cols * elem_bytes no wider than the swizzle span): rows and
+// columns out of bounds zero-filled. Returns a CUresult (0 on success).
+inline int encode_matrix(CUtensorMap* map, CUtensorMapDataType type,
+                         int elem_bytes, const void* base, long long rows,
+                         int cols, long long ld, int box_rows, int box_cols,
+                         CUtensorMapSwizzle swizzle) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  return encode_bf16(map, base, 2, dims, strides, box);
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  return encode_tiled(map, type, base, 2, dims, strides, box, swizzle);
 }
 
 }  // namespace hopper

@@ -5,10 +5,14 @@ Counterpart of ``ance_tpu/ops/topk.py``, in three phases:
   phase 1 (kernel) — :func:`blockmax_scores`: [Q, D] × [N, D] → the maximum
       score of every ``block_size`` consecutive corpus rows, [Q, N/BS]. On
       a CUDA tensor this launches a hand-written Hopper kernel
-      (``csrc/blockmax.cu``: ``blockmax_bf16`` on wgmma + TMA for bf16 ×
-      bf16, ``blockmax_wmma`` for bf16 × int8 and int8 × int8,
-      ``blockmax_simt`` for fp32 queries); on a CPU tensor it is the plain
-      version :func:`blockmax_scores_reference`.
+      (``csrc/blockmax.cu``; :func:`blockmax_kernel_for` names which):
+      ``blockmax_bf16`` on wgmma + TMA for bf16 × bf16;
+      ``blockmax_pieces_f32`` / ``blockmax_pieces_int8`` for fp32 queries
+      against an fp32 / int8 corpus, exact piece products of bf16 pieces
+      (:func:`split_bf16_pieces`) on wgmma + TMA; ``blockmax_simt`` for the
+      fp32-query shapes a tensor map cannot describe; ``blockmax_wmma`` for
+      bf16 × int8 and int8 × int8. On a CPU tensor it is the plain version
+      :func:`blockmax_scores_reference`.
   phase 2 — :func:`top_blocks_lower_id_first` picks the k candidate blocks
       with the largest maxima, equal maxima lower block first.
   phase 3 — gather the candidate rows per query, rescore them exactly,
@@ -41,6 +45,7 @@ package's defaults, tuned on a TPU; re-choosing them on the H100 is open
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional
 
@@ -49,6 +54,7 @@ import torch
 NEG_INF = torch.finfo(torch.float32).min
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_PIECES_CODE = 3  # fp32 queries passed as split_bf16_pieces, rows padded to 8
 # (query dtype, corpus dtype) pairs phase 1 computes; an int8 corpus under a
 # float query is widened to the query dtype
 _PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
@@ -81,6 +87,44 @@ def blockmax_scores_reference(queries: torch.Tensor, corpus: torch.Tensor,
     return s.reshape(Q, N // block_size, block_size).amax(-1)
 
 
+def split_bf16_pieces(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` as three bf16 pieces [3, *x.shape] that sum to it
+    exactly: x0 = bf16(x), x1 = bf16(x − x0), x2 = bf16(x − x0 − x1),
+    each rounded to nearest even (both differences are exact in fp32).
+    Exact for 0 and for 2^-100 ≤ |x| < 2^127: below, x2 can fall under
+    bf16's subnormal spacing; above, x0 can round to infinity. The fp32-
+    query kernels take the queries so and split each corpus tile in
+    registers with the same arithmetic."""
+    x0 = x.to(torch.bfloat16)
+    r1 = x - x0.float()
+    x1 = r1.to(torch.bfloat16)
+    x2 = (r1 - x1.float()).to(torch.bfloat16)
+    return torch.stack([x0, x1, x2])
+
+
+def blockmax_kernel_for(queries: torch.Tensor, corpus: torch.Tensor) -> str:
+    """The kernel of ``csrc/blockmax.cu`` that phase 1 launches for these
+    operands on the card, chosen by dtype and shape before any launch.
+    fp32 queries take ``blockmax_pieces_f32`` / ``blockmax_pieces_int8``
+    where a tensor map describes the corpus (rows a multiple of 16 bytes:
+    D % 4 == 0 for fp32, D % 16 == 0 for int8; a 16-byte-aligned base; at
+    most 2^31 − 1 rows), else ``blockmax_simt`` on the CUDA cores. Every
+    index, search and serve shape of the port (D = 64, 768) takes the
+    pieces kernel."""
+    qt, ct = queries.dtype, corpus.dtype
+    if qt == torch.bfloat16 and ct == torch.bfloat16:
+        return "blockmax_bf16"
+    if qt != torch.float32:
+        return "blockmax_wmma"
+    D = queries.shape[1]
+    tma = (D * corpus.element_size()) % 16 == 0 \
+        and corpus.data_ptr() % 16 == 0 and corpus.shape[0] < 2 ** 31
+    if not tma:
+        return "blockmax_simt"
+    return "blockmax_pieces_f32" if ct == torch.float32 \
+        else "blockmax_pieces_int8"
+
+
 def blockmax_scores(queries: torch.Tensor, corpus: torch.Tensor, *,
                     block_size: int = 16,
                     chunk_rows: int = 1024) -> torch.Tensor:
@@ -89,10 +133,13 @@ def blockmax_scores(queries: torch.Tensor, corpus: torch.Tensor, *,
 
     N must be a multiple of ``chunk_rows`` and ``chunk_rows`` of
     ``block_size`` (pad upstream; the caller masks padded blocks). A CUDA
-    tensor always launches the kernel (``blockmax_scores.launches`` counts
-    the launches) or raises; a CPU tensor takes the plain version. On the
-    card, bf16 and int8 queries (the tensor-core kernels: TMA boxes and
-    8-element chunks) also need D % 8 == 0 and 16-byte-aligned operands."""
+    tensor always launches the kernel that :func:`blockmax_kernel_for`
+    names (``blockmax_scores.launches`` counts the launches,
+    ``blockmax_scores.kernel_launches`` each kernel's) or raises; a CPU
+    tensor takes the plain version. On the card, bf16 and int8 queries
+    (the tensor-core kernels: TMA boxes and 8-element chunks) also need
+    D % 8 == 0 and 16-byte-aligned operands; fp32 queries are split into
+    their bf16 pieces first for the pieces kernels."""
     if queries.dim() != 2 or corpus.dim() != 2 or \
             queries.shape[1] != corpus.shape[1]:
         raise ValueError(f"need queries [Q, D] and corpus [N, D], got "
@@ -128,21 +175,29 @@ def blockmax_scores(queries: torch.Tensor, corpus: torch.Tensor, *,
                          f"D={queries.shape[1]}) and 16-byte-aligned operands")
     lib = _kernel_library()
     Q, D = queries.shape
+    kernel = blockmax_kernel_for(queries, corpus)
+    q_arg, q_code = queries, _TYPE_CODES[queries.dtype]
+    if kernel.startswith("blockmax_pieces"):
+        q_arg, q_code = split_bf16_pieces(queries), _PIECES_CODE
+        if D % 8:  # rows of 16 bytes for the pieces' tensor map (pad unread)
+            q_arg = torch.nn.functional.pad(q_arg, (0, -D % 8))
     out = torch.empty((Q, N // block_size),
                       dtype=_out_dtype(queries, corpus), device=queries.device)
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream(queries.device).cuda_stream
         err = lib.blockmax_scores_launch(
-            _TYPE_CODES[queries.dtype], _TYPE_CODES[corpus.dtype],
-            queries.data_ptr(), corpus.data_ptr(), out.data_ptr(),
-            Q, N, D, block_size, stream)
+            q_code, _TYPE_CODES[corpus.dtype], q_arg.data_ptr(),
+            corpus.data_ptr(), out.data_ptr(), Q, N, D, block_size, stream)
     if err != 0:
-        raise RuntimeError(f"blockmax kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"blockmax kernel {kernel} launch failed: CUDA "
+                           f"error {err}")
     blockmax_scores.launches += 1
+    blockmax_scores.kernel_launches[kernel] += 1
     return out
 
 
 blockmax_scores.launches = 0
+blockmax_scores.kernel_launches = collections.Counter()  # by kernel name
 
 
 def _kernel_library() -> ctypes.CDLL:

@@ -7,16 +7,19 @@ Run from the root of a checkout. It builds the four kernel sources of
 ``ance_tpu_torch/csrc`` (block-max top-k, fused and flash attention, the
 seq-128 attention pair; one nvcc each, all at once), prints ptxas's
 registers and spills and the SASS counts of HGMMA (wgmma) and UTMALDG
-(TMA loads) of the six wgmma kernels (the fused forward and its two
+(TMA loads) of the eight wgmma kernels (the fused forward and its two
 backward passes, the bf16 flash forward, seq-128 kernel #5, block-max's
-bf16 route), and then:
+bf16 route and its two fp32-query kernels), and then:
 
   * block-max: the kernel against its plain PyTorch version at the FirstP
     search shapes (1,000,448 × 768 corpus; Q=2048 k=10 and Q=512 k=200) for
-    every dtype pair, the bf16 route timed in turns with cuBLAS's product
-    of the same operands (a rate reference: it takes no maxima);
+    every dtype pair, the bf16 and fp32-query routes timed in turns with
+    cuBLAS's product of the same operands (a rate reference: it takes no
+    maxima) and with the kernel at D=64 (a tile's fixed part); fp32
+    queries over a corpus view 4 bytes off alignment (``blockmax_simt``);
     ``FlatIPIndex`` block-max ids against the scan for the none / bf16 /
-    dims indexes, each search's device time split by ``torch.profiler``
+    dims indexes (each search's phase-1 kernel counted), each search's
+    device time split by ``torch.profiler``
     (phase 1 and the largest kernels); and the tie check: a 1,000,448 × 768
     bf16 index in which every 7th row is one vector that the queries rank
     inside their top k, where block-max ids must equal the scan's;
@@ -61,10 +64,14 @@ bf16 route), and then:
     kernels' launches counted over one forward;
   * generate: the generator job at full RoBERTa-base width over the
     FirstP serve caches (32,768 passages, 1,024 train and 256 dev queries,
-    synthetic qrels): ``cli generate`` at k=500, ``infer`` + ``eval-full``
-    (its NDCG@10 equals generate's), the mining ids against a scan of the
-    same index, ``cli train`` on the file and ``generate --training_dir``
-    on its checkpoint, then ``run_ance_cycles`` (2 cycles x 3 steps).
+    synthetic qrels): ``cli generate`` at k=500 (an fp32 index: phase 1 on
+    ``blockmax_pieces_f32``) and again with ``--index_quantize dims``
+    (``blockmax_pieces_int8``), the mining ids of each against a scan of
+    its index and its phase 1 on the operands its searches gave it (the
+    encoder's embeddings) against the plain version, ``infer`` +
+    ``eval-full`` (its NDCG@10 equals generate's),
+    ``cli train`` on the file and ``generate --training_dir`` on its
+    checkpoint, then ``run_ance_cycles`` (2 cycles x 3 steps).
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. The last two lines are a JSON object of per-kernel results
@@ -150,6 +157,20 @@ def bound(bytes_moved: float, ops: float, op_type: str) -> tuple[float, str]:
                                        else "operations")
 
 
+def reset_blockmax_counts() -> None:
+    """Set the block-max wrapper's launch counts (all kernels, and each
+    kernel's) to 0, just before a path runs."""
+    from ance_tpu_torch.ops.topk import blockmax_scores
+    blockmax_scores.launches = 0
+    blockmax_scores.kernel_launches.clear()
+
+
+def blockmax_counts() -> dict:
+    """The block-max launches of each kernel since the last reset."""
+    from ance_tpu_torch.ops.topk import blockmax_scores
+    return dict(blockmax_scores.kernel_launches)
+
+
 def phase_device():
     import torch
     name = torch.cuda.get_device_name(0)
@@ -192,8 +213,23 @@ WGMMA_KERNELS = {
                         "fused_bwd_keys_bf16"),
     "flash_attention": ("flash_fwd_bf16",),
     "attn128": ("attn128_kernel",),
-    "blockmax": ("blockmax_bf16",),
+    "blockmax": ("blockmax_bf16", "blockmax_pieces_f32",
+                 "blockmax_pieces_int8"),
 }
+# block-max's fp32-query routes run each fp32 product as bf16 piece
+# products on wgmma: the six with i + j <= 2 of three query pieces and
+# three corpus pieces, or the three of the query pieces with an int8 code
+FP32_PIECE_PRODUCTS = {"f32xf32": 6, "f32xint8": 3}
+# the block-max routes timed with a tile split and cuBLAS's product: piece
+# products a k step
+WGMMA_PRODUCTS = {"bf16xbf16": 1, **FP32_PIECE_PRODUCTS}
+# the phase-1 kernel of each dtype pair at D = 768 on aligned operands, and
+# of each FlatIPIndex kind
+ROUTE_KERNEL = {"f32xf32": "blockmax_pieces_f32", "bf16xbf16": "blockmax_bf16",
+                "f32xint8": "blockmax_pieces_int8",
+                "bf16xint8": "blockmax_wmma", "int8xint8": "blockmax_wmma"}
+INDEX_KERNEL = {"none": "blockmax_pieces_f32", "bf16": "blockmax_bf16",
+                "dims": "blockmax_pieces_int8"}
 
 
 def phase_machine_code(built: dict) -> dict:
@@ -312,7 +348,8 @@ def phase_kernel():
     from ance_tpu_torch.utils.timing import (clocks_text, cuda_ms,
                                              timed_in_turns)
     from ance_tpu_torch.index.flat import FlatIPIndex, quantize_dims_int8
-    from ance_tpu_torch.ops.topk import (blockmax_scores,
+    from ance_tpu_torch.ops.topk import (blockmax_kernel_for,
+                                         blockmax_scores,
                                          blockmax_scores_reference)
 
     dev = torch.device("cuda")
@@ -329,7 +366,7 @@ def phase_kernel():
         qmax = q.abs().amax(1, keepdim=True).clamp_min(1e-12)
         return torch.round(q * (127.0 / qmax)).clamp(-127, 127).to(torch.int8)
 
-    cases, max_err = [], 0.0
+    cases = []
     # the 1M search shapes for every dtype pair, and the serve phase's own
     # shape (bf16 index of N_PASSAGES rows, a 256-query request)
     serve_q = queries["dev"][:N_QUERIES].to(torch.bfloat16)
@@ -342,9 +379,24 @@ def phase_kernel():
     }) for shape, q in queries.items()]
     shapes.append(("serve", {"bf16xbf16": (
         serve_q, corpus[:N_PASSAGES].to(torch.bfloat16))}))
+    # fp32 queries over an fp32 corpus whose base is 4 bytes off 16-byte
+    # alignment: no tensor map describes it, so blockmax_simt takes it
+    offset = torch.empty(N_PASSAGES * DIM + 1, device=dev)
+    unaligned = offset[1:].view(N_PASSAGES, DIM)
+    unaligned.copy_(corpus[:N_PASSAGES])
+    shapes.append(("unaligned", {"f32xf32": (queries["dev"][:N_QUERIES],
+                                             unaligned)}))
     for shape, operands in shapes:
         for dtypes, (qq, cc) in operands.items():
+            kernel_name = "blockmax_simt" if shape == "unaligned" \
+                else ROUTE_KERNEL[dtypes]
+            check(blockmax_kernel_for(qq, cc) == kernel_name, f"{dtypes} "
+                  f"{shape}: phase 1 would take "
+                  f"{blockmax_kernel_for(qq, cc)}, not {kernel_name}")
+            reset_blockmax_counts()
             got = blockmax_scores(qq, cc, chunk_rows=CHUNK_ROWS)
+            check(blockmax_counts() == {kernel_name: 1}, f"{dtypes} {shape}: "
+                  f"launched {blockmax_counts()}")
             want = blockmax_scores_reference(qq, cc)
             torch.cuda.synchronize()
             check(got.shape == want.shape ==
@@ -358,49 +410,70 @@ def phase_kernel():
                 err = (got - want).abs().max().item()
                 check(err <= FLOAT_ATOL, f"{dtypes} {shape}: max |err| "
                       f"{err} > {FLOAT_ATOL}")
-            max_err = max(max_err, err)
             del got, want
             kernel = {"ms": lambda: blockmax_scores(qq, cc,
                                                     chunk_rows=CHUNK_ROWS)}
-            head = dtypes == "bf16xbf16" and shape in SHAPES
-            if head:
-                # cuBLAS's product of the same operands (fp32 output), the
-                # rate a library reaches on this GEMM (it takes no block
-                # maxima: a reference, not a yardstick); and the kernel at
-                # D = 64 (one k step), for a tile's fixed part
+            # the wgmma routes at the search shapes, and how many piece
+            # products each runs a k step (fp32 queries: bf16 pieces)
+            products = WGMMA_PRODUCTS.get(dtypes) if shape in SHAPES \
+                else None
+            if products:
+                # cuBLAS's product of the same operands (fp32 output; for
+                # fp32 queries the fp32 GEMM, TF32 off, of the corpus as
+                # fp32), the rate a library reaches on this GEMM (it takes
+                # no block maxima: a reference, not a yardstick); and the
+                # kernel at D = 64, for a tile's fixed part
                 q64, c64 = qq[:, :64].contiguous(), cc[:, :64].contiguous()
-                kernel["gemm_ms"] = lambda: torch.mm(
-                    qq, cc.T, out_dtype=torch.float32)
+                if dtypes == "bf16xbf16":
+                    kernel["gemm_ms"] = lambda: torch.mm(
+                        qq, cc.T, out_dtype=torch.float32)
+                else:
+                    cf = cc.float()  # exact; outside the timed window
+                    kernel["gemm_ms"] = lambda: torch.mm(qq, cf.T)
                 kernel["d64_ms"] = lambda: blockmax_scores(
                     q64, c64, chunk_rows=CHUNK_ROWS)
             times, sampled = timed_in_turns(kernel)
             ms = times.pop("ms")
             plain_ms = cuda_ms(lambda: blockmax_scores_reference(qq, cc))
             extra = {}
-            if head:
+            if products:
                 del q64, c64
-                # a wave is one 128-row x 256-query tile on every SM; the
-                # line through (1 k step, D = 64) and (DIM / 64, D = DIM)
+                cf = None
+                # a wave is one tile on every SM (128 rows x 256 queries,
+                # x 128 for fp32 queries); the line through (D = 64) and
+                # (D = DIM), in 64-column k steps (two 32-deep stages for
+                # fp32 queries)
                 n_sms = torch.cuda.get_device_properties(
                     dev).multi_processor_count
-                tiles = -(-qq.shape[0] // 256) * -(-cc.shape[0] // 128)
+                tile_q = 256 if dtypes == "bf16xbf16" else 128
+                tiles = -(-qq.shape[0] // tile_q) * -(-cc.shape[0] // 128)
                 waves = -(-tiles // n_sms)
                 steps = DIM // 64
                 step_us = ((ms - times["d64_ms"]) * 1e3 / waves
                            / (steps - 1))
                 extra = {"gemm_ms": times["gemm_ms"],
                          "d64_ms": times["d64_ms"], "waves": waves,
-                         "tile_step_us": step_us, "tile_fixed_us":
+                         "tile_step_us": step_us,
+                         "tile_step_us_a_product": step_us / products,
+                         "tile_fixed_us":
                          times["d64_ms"] * 1e3 / waves - step_us}
             # read q and c once, write the [Q, N/16] maxima; 2QND products
-            # at the rate of the type they run in (fp32 queries: CUDA cores)
+            # at the rate of the type they run in; fp32 queries run them as
+            # bf16 piece products (6 or 3 a product, at the bf16 rate), and
+            # beside that the bound at the CUDA cores' fp32 rate
             nq, nc = qq.shape[0], cc.shape[0]
-            b_ms, b_by = bound(
-                nq * DIM * qq.element_size() + nc * DIM * cc.element_size()
-                + nq * (nc // 16) * 4, 2.0 * nq * nc * DIM,
-                {"f32": "f32", "bf16": "bf16",
-                 "int8": "int8"}[dtypes.split("x")[0]])
+            moved = (nq * DIM * qq.element_size()
+                     + nc * DIM * cc.element_size() + nq * (nc // 16) * 4)
+            qtype = dtypes.split("x")[0]
+            if qtype == "f32":
+                b_ms, b_by = bound(moved, 2.0 * nq * nc * DIM
+                                   * FP32_PIECE_PRODUCTS[dtypes], "bf16")
+                extra["fp32_rate_bound_ms"] = bound(
+                    moved, 2.0 * nq * nc * DIM, "f32")[0]
+            else:
+                b_ms, b_by = bound(moved, 2.0 * nq * nc * DIM, qtype)
             cases.append({"dtypes": dtypes, "shape": shape,
+                          "kernel": kernel_name,
                           "Q": nq, "N": nc, "D": DIM,
                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": b_ms, "bound_by": b_by,
@@ -408,12 +481,16 @@ def phase_kernel():
             gemm_text = (f"  cuBLAS GEMM {extra['gemm_ms']:.3f} ms  D=64 "
                          f"{extra['d64_ms']:.3f} ms: a tile "
                          f"{extra['tile_fixed_us']:.3f} us fixed + "
-                         f"{extra['tile_step_us']:.3f} us a k step"
-                         if extra else "")
+                         f"{extra['tile_step_us']:.3f} us a 64-column k step"
+                         f" ({extra['tile_step_us_a_product']:.3f} a product)"
+                         if products else "")
+            fp32_text = (f", fp32 rate {extra['fp32_rate_bound_ms']:.3f} ms"
+                         if "fp32_rate_bound_ms" in extra else "")
             print(f"kernel {dtypes:10s} {shape:6s} Q={qq.shape[0]:5d} "
-                  f"N={cc.shape[0]}: max|err| {err:.3g}  kernel {ms:.3f} ms  "
-                  f"plain {plain_ms:.3f} ms{gemm_text}  bound {b_ms:.3f} ms "
-                  f"({b_by})  {clocks_text(sampled)}", flush=True)
+                  f"N={cc.shape[0]} ({cases[-1]['kernel']}): max|err| "
+                  f"{err:.3g}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
+                  f"{gemm_text}  bound {b_ms:.3f} ms ({b_by}{fp32_text})  "
+                  f"{clocks_text(sampled)}", flush=True)
             torch.cuda.empty_cache()
 
     searches = []
@@ -431,7 +508,11 @@ def phase_kernel():
             q = queries[shape]
             q_ref = {"none": q, "bf16": q.to(torch.bfloat16).float(),
                      "dims": q * dim_scales}[kind]
+            reset_blockmax_counts()
             s1, i1 = index.search(q, k)
+            by_kernel = blockmax_counts()
+            check(by_kernel == {INDEX_KERNEL[kind]: 1}, f"index {kind} "
+                  f"{shape}: phase 1 launched {by_kernel}")
             index.method = "scan"
             s2, i2 = index.search(q, k)
             index.method = "auto"
@@ -444,10 +525,12 @@ def phase_kernel():
             share = check_against_plain_topk(s1, i1, q_ref, c_ref, k)
             ms = cuda_ms(lambda: index.search(q, k), reps=3)
             split = device_split(lambda: index.search(q, k))
-            searches.append({"index": kind, "shape": shape, "Q": nq, "k": k,
+            searches.append({"index": kind, "kernel": INDEX_KERNEL[kind],
+                             "shape": shape, "Q": nq, "k": k,
                              "search_ms": ms, "oracle_ids_compared": share,
                              "split": split})
-            print(f"index {kind:4s} {shape:6s} Q={nq} k={k}: ids == scan, "
+            print(f"index {kind:4s} {shape:6s} Q={nq} k={k} "
+                  f"({INDEX_KERNEL[kind]}): ids == scan, "
                   f"== plain topk on {share:.4f} of {N_ORACLE}x{k}, search "
                   f"{ms:.3f} ms ({nq / ms * 1000:.0f} qps); device "
                   f"{split['device_ms']:.3f} ms, phase 1 "
@@ -455,9 +538,9 @@ def phase_kernel():
                   flush=True)
         del index, c_ref
         torch.cuda.empty_cache()
-    del corpus, c8, queries
+    del corpus, c8, queries, offset, unaligned
     torch.cuda.empty_cache()
-    return cases, max_err, searches
+    return cases, searches
 
 
 def phase_ties():
@@ -966,7 +1049,7 @@ def phase_serve(work: Path):
         addr = server.address
         for payload in payloads:  # first use of each shape: lazy loading
             _post(addr, "/search", payload)
-        blockmax_scores.launches = 0
+        reset_blockmax_counts()
         answers, latency = [], []
         for payload in payloads:
             times = []
@@ -976,14 +1059,15 @@ def phase_serve(work: Path):
                 times.append((time.perf_counter() - t0) * 1000.0)
             answers.append(body)
             latency.append(statistics.median(times))
-        launches = blockmax_scores.launches
+        launches, by_kernel = blockmax_scores.launches, blockmax_counts()
         health = _get(addr, "/healthz")
         metrics = _get(addr, "/metrics")
     finally:
         server.shutdown()
     n_searches = len(requests) * REPEATS
-    check(launches == n_searches, f"blockmax kernel launched {launches} "
-          f"times for {n_searches} searches")
+    check(launches == n_searches and by_kernel == {"blockmax_bf16": launches},
+          f"blockmax kernels launched {by_kernel} for {n_searches} searches "
+          "of a bf16 index")
     check(health["status"] == "ok" and health["ntotal"] == N_PASSAGES,
           f"/healthz {health}")
     check(metrics["requests"] == n_searches + len(requests) and
@@ -1012,7 +1096,8 @@ def phase_serve(work: Path):
     print(f"http: {launches} kernel launches for {n_searches} searches, "
           f"answers == scan; peak device memory {peak / 2**30:.2f} GiB",
           flush=True)
-    return {"launches": launches, "encode_passages_per_s": N_PASSAGES / enc_s,
+    return {"launches": launches, "blockmax_kernels": by_kernel,
+            "encode_passages_per_s": N_PASSAGES / enc_s,
             "latency_ms": {f"B{b}_k{k}": ms
                            for (b, k), ms in zip(requests, latency)},
             "peak_mem_gib": peak / 2**30, "cli_s": cli_s}
@@ -1170,7 +1255,7 @@ def phase_maxp(work: Path):
         addr = server.address
         for payload in payloads:  # first use of each shape
             _post(addr, "/search", payload)
-        blockmax_scores.launches = 0
+        reset_blockmax_counts()
         answers, latency = [], []
         for payload in payloads:
             times = []
@@ -1180,12 +1265,15 @@ def phase_maxp(work: Path):
                 times.append((time.perf_counter() - t0) * 1000.0)
             answers.append(body)
             latency.append(statistics.median(times))
-        search_launches = blockmax_scores.launches
+        search_launches, by_kernel = blockmax_scores.launches, \
+            blockmax_counts()
     finally:
         server.shutdown()
     n_searches = len(requests) * REPEATS
-    check(search_launches == n_searches, f"blockmax kernel launched "
-          f"{search_launches} times for {n_searches} MaxP searches")
+    check(search_launches == n_searches
+          and by_kernel == {"blockmax_bf16": search_launches},
+          f"blockmax kernels launched {by_kernel} for {n_searches} MaxP "
+          "searches of a bf16 index")
     scan = Retriever(encode_q, FlatIPIndex.load(str(saved), device=dev,
                                                 method="scan"),
                      embedding2id=saved_ids)
@@ -1208,7 +1296,8 @@ def phase_maxp(work: Path):
           f"block-max launches for {n_searches} searches; peak device memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
     return {"fused_launches": fused_launches, "flash_launches": flash_launches,
-            "blockmax_launches": search_launches, "encode_batches": n_batches,
+            "blockmax_launches": search_launches,
+            "blockmax_kernels": by_kernel, "encode_batches": n_batches,
             "encode_chunk_rows_per_s": n_rows / enc_s,
             "encode_docs_per_s": N_DOCS / enc_s,
             "cos_flash_vs_fused": cos_flash, "cos_fused_vs_plain": cos_plain,
@@ -1769,7 +1858,10 @@ def phase_generate(work: Path):
     from ance_tpu_torch.models.dot_models import RobertaDot
     from ance_tpu_torch.models.registry import get_model_spec
     from ance_tpu_torch.models.weights import load_pretrained
-    from ance_tpu_torch.ops.topk import blockmax_scores
+    from ance_tpu_torch.index import flat
+    from ance_tpu_torch.ops.topk import (_pad_rows, blockmax_kernel_for,
+                                         blockmax_scores,
+                                         blockmax_scores_reference)
     from ance_tpu_torch.optim.schedules import warmup_linear
     from ance_tpu_torch.train import ann_gen, trainer
     from ance_tpu_torch.train.ance_loop import (AnceCycleConfig,
@@ -1788,30 +1880,84 @@ def phase_generate(work: Path):
              "--negative_sample", str(GEN_NEGATIVES),
              "--ann_chunk_factor", "1"]
 
-    # 1. generate, as a user runs it (in process: its result and launches)
-    results = []
-    real = ann_gen.generate_new_ann
+    # 1. generate, as a user runs it (in process: its result and launches);
+    #    its index is fp32, so phase 1 runs blockmax_pieces_f32
+    results, searched = [], []
+    real, real_topk = ann_gen.generate_new_ann, flat.topk_blockmax
 
     def keep(*args, **kwargs):
         results.append(real(*args, **kwargs))
         return results[-1]
-    ann_gen.generate_new_ann = keep
-    try:
-        torch.cuda.synchronize()
-        blockmax_scores.launches = 0
-        t0 = time.perf_counter()
-        summary = _cli(["generate", *flags, "--output_dir", str(ann)])
-        torch.cuda.synchronize()
-        gen_s = time.perf_counter() - t0
-        launches = blockmax_scores.launches
-    finally:
-        ann_gen.generate_new_ann = real
-    result = results[0]
+
+    def recorded(queries, corpus, **kwargs):  # each search's operands
+        searched.append((queries, corpus))
+        return real_topk(queries, corpus, **kwargs)
+
+    def generate(out: Path, *extra):
+        ann_gen.generate_new_ann, flat.topk_blockmax = keep, recorded
+        try:
+            torch.cuda.synchronize()
+            reset_blockmax_counts()
+            t0 = time.perf_counter()
+            summary = _cli(["generate", *flags, "--output_dir", str(out),
+                            *extra])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            ann_gen.generate_new_ann, flat.topk_blockmax = real, real_topk
+        return (summary, results.pop(), seconds, blockmax_scores.launches,
+                blockmax_counts())
+
+    def phase1_against_plain(dtypes: str) -> list:
+        """Phase 1 on the operands generate's searches gave it (its dev
+        queries, then its mining queries, against its index: the encoder's
+        embeddings, not randn), the kernel against the plain version. Run
+        after the path's launches were read, so not counted in them."""
+        check(len(searched) == 2, f"generate searched {len(searched)} "
+              "times through block-max, not twice")
+        out = []
+        for what, (q, corpus) in zip(("dev", "mining"), searched):
+            q = q.contiguous()
+            c = _pad_rows(corpus, CHUNK_ROWS)  # as topk_blockmax pads
+            kernel = blockmax_kernel_for(q, c)
+            check(kernel == ROUTE_KERNEL[dtypes], f"generate {what}: phase 1 "
+                  f"takes {kernel}")
+            got = blockmax_scores(q, c, chunk_rows=CHUNK_ROWS)
+            want = blockmax_scores_reference(q, c)
+            err = (got - want).abs().max().item()
+            top = want.abs().max().item()
+            check(err <= FLOAT_ATOL, f"{dtypes} generate {what}: max |err| "
+                  f"{err} > {FLOAT_ATOL} (block maxima up to {top})")
+            # both against the exact maxima (fp64): how much of the gap
+            # is the kernel's and how much cuBLAS's fp32 sum
+            exact = (q.double() @ c.double().T).reshape(
+                q.shape[0], -1, 16).amax(-1)
+            k_err = (got.double() - exact).abs().max().item()
+            p_err = (want.double() - exact).abs().max().item()
+            out.append({"dtypes": dtypes, "shape": f"generate {what}",
+                        "kernel": kernel, "Q": q.shape[0], "N": c.shape[0],
+                        "D": q.shape[1], "max_abs_err": err,
+                        "max_abs_err_exact": k_err,
+                        "plain_max_abs_err_exact": p_err,
+                        "max_abs_block_max": top})
+            print(f"kernel {dtypes:10s} generate {what:6s} Q={q.shape[0]:5d} "
+                  f"N={c.shape[0]} ({kernel}): max|err| {err:.3g} on the "
+                  f"encoder's embeddings (block maxima up to {top:.1f}); "
+                  f"against the exact maxima: kernel {k_err:.3g}, plain "
+                  f"{p_err:.3g}", flush=True)
+            del got, want, exact, c
+        searched.clear()
+        return out
+
+    summary, result, gen_s, launches, by_kernel = generate(ann)
+    kernel_cases = phase1_against_plain("f32xf32")
     data_path, ndcg_path = ann / "ann_training_data_0", ann / "ann_ndcg_0"
     check(data_path.exists() and ndcg_path.exists()
           and ndcg_path.stat().st_mtime_ns >= data_path.stat().st_mtime_ns,
           "generate did not write ann_training_data_0, then ann_ndcg_0")
-    check(launches > 0, "generate launched no block-max kernel")
+    check(launches > 0 and by_kernel == {"blockmax_pieces_f32": launches},
+          f"generate's fp32 index launched {by_kernel}, not only "
+          "blockmax_pieces_f32")
     check(summary["checkpoint"] == "<init>", f"generate cited "
           f"{summary['checkpoint']}, not <init>")
     secs = result["seconds"]
@@ -1820,7 +1966,7 @@ def phase_generate(work: Path):
           f"{N_PASSAGES} passages at {enc_rate:.0f} passages/s, index, dev "
           f"search, mine {GEN_TRAIN_QUERIES} queries at k={GEN_TOPK} in "
           f"{secs['mining_search'] * 1e3:.1f} ms, write); dev NDCG@10 "
-          f"{result['dev_ndcg']:.4f}; {launches} block-max launches",
+          f"{result['dev_ndcg']:.4f}; block-max launches {by_kernel}",
           flush=True)
 
     # 2. repair (c): the mining ids equal a scan of the same index, and no
@@ -1839,11 +1985,34 @@ def phase_generate(work: Path):
         qid, pos, negs = parse_triple_line(line)
         check(pos == positives[qid] and pos not in negs
               and len(negs) == GEN_NEGATIVES, f"bad mined line {line!r}")
-    del index, result, results
+    del index, result
     torch.cuda.empty_cache()
     print(f"generate: mining ids == scan at k={GEN_TOPK} "
           f"({GEN_TRAIN_QUERIES} queries); no negative is its positive",
           flush=True)
+
+    # 2b. generate over an int8 index (--index_quantize dims): phase 1 on
+    #     blockmax_pieces_int8, mining ids equal a scan of that index
+    _, dims, dims_s, dims_launches, dims_kernels = generate(
+        work / "gen_ann_dims", "--index_quantize", "dims")
+    kernel_cases += phase1_against_plain("f32xint8")
+    check(dims_launches > 0
+          and dims_kernels == {"blockmax_pieces_int8": dims_launches},
+          f"generate's dims index launched {dims_kernels}, not only "
+          "blockmax_pieces_int8")
+    index = dims["index"]
+    check(index.quantize == "dims", "generate --index_quantize dims built "
+          f"a {index.quantize} index")
+    index.method = "scan"
+    _, scan_ids = index.search(dims["train_query_embedding"], GEN_TOPK)
+    same = (scan_ids.cpu().numpy() == dims["train_neighbor_ids"]).mean()
+    check(same == 1.0, f"dims mining ids equal the scan on {same:.6f} of "
+          f"positions, not all")
+    del index, dims
+    torch.cuda.empty_cache()
+    print(f"generate --index_quantize dims: {dims_s:.1f} s, {dims_launches} "
+          f"blockmax_pieces_int8 launches; mining ids == scan at "
+          f"k={GEN_TOPK}", flush=True)
 
     # 3. infer, then eval-full on its dump: the same NDCG@10
     emb = work / "gen_emb"
@@ -1929,7 +2098,10 @@ def phase_generate(work: Path):
     torch.cuda.empty_cache()
     return {"generate_s": gen_s, "encode_passages_per_s": enc_rate,
             "mining_search_ms_k500": secs["mining_search"] * 1e3,
-            "blockmax_launches": launches, "dev_ndcg": summary["dev_ndcg"],
+            "blockmax_launches": launches, "blockmax_kernels": by_kernel,
+            "dims_generate_s": dims_s, "dims_blockmax_kernels": dims_kernels,
+            "kernel_cases": kernel_cases,
+            "dev_ndcg": summary["dev_ndcg"],
             "eval_full_ndcg_10": full["ndcg_10"],
             "second_checkpoint": second["checkpoint"],
             "cycles_s": cycles_s, "cycles": history}
@@ -1954,7 +2126,7 @@ def main() -> int:
     name = phase_device()
     build_s, built = phase_build()
     machine_code = phase_machine_code(built)
-    cases, max_err, searches = phase_kernel()
+    cases, searches = phase_kernel()
     ties = phase_ties()
     attn_cases, crossover = phase_attention()
     bwd_cases, functions = phase_attention_backward()
@@ -2010,16 +2182,44 @@ def main() -> int:
     # composition is timed instead), so those have no library time.
     bwd_head = next(c for c in bwd_cases if c["dtype"] == "bf16"
                     and c["B"] == 64 and c["S"] == 512 and not c["strided"])
+    # kernel #1: blockmax_bf16 with the WMMA routes' cases,
+    # then the fp32-query routes' two kernels, each with its launches on
+    # the path that runs it (generate over an fp32 / a dims index); the
+    # launches of every path by kernel beside the first
+    pieces = ("blockmax_pieces_f32", "blockmax_pieces_int8")
+    cases += generate.pop("kernel_cases")  # phase 1 on generate's operands
+    own = [c for c in cases if c["kernel"] not in pieces]
     blockmax = entry("blockmax_scores", "blockmax", "ance_tpu/ops/topk.py:90",
                      maxp["blockmax_launches"],
-                     dict(headline, max_abs_err=max_err),
+                     dict(headline, max_abs_err=max(c["max_abs_err"]
+                                                    for c in own)),
                      "bf16 Q=2048 x N=1000448 x D=768, block 16", "blockmax",
-                     cases)
+                     own)
     # cuBLAS's product of the same operands (no block maxima): a rate
     # reference beside the kernel, not a yardstick
     blockmax["gemm_ms"] = headline["gemm_ms"]
+    blockmax["launches_by_path"] = {
+        "firstp_serve": serve["blockmax_kernels"],
+        "maxp_serve": maxp["blockmax_kernels"],
+        "generate": generate["blockmax_kernels"],
+        "generate_index_quantize_dims": generate["dims_blockmax_kernels"]}
+    fp32_entries = []
+    for kernel, dtypes, launches in (
+            ("blockmax_pieces_f32", "f32xf32",
+             generate["blockmax_kernels"]["blockmax_pieces_f32"]),
+            ("blockmax_pieces_int8", "f32xint8",
+             generate["dims_blockmax_kernels"]["blockmax_pieces_int8"])):
+        own = [c for c in cases if c["kernel"] == kernel]
+        head = next(c for c in own if c["shape"] == "dev")
+        e = entry(kernel, "blockmax", "ance_tpu/ops/topk.py:90", launches,
+                  dict(head, max_abs_err=max(c["max_abs_err"] for c in own)),
+                  f"{dtypes} Q=2048 x N=1000448 x D=768, block 16",
+                  "blockmax", own)
+        e["gemm_ms"] = head["gemm_ms"]
+        e["fp32_rate_bound_ms"] = head["fp32_rate_bound_ms"]
+        fp32_entries.append(e)
     print(json.dumps({"kernels": [
-        blockmax,
+        blockmax, *fp32_entries,
         attention_entry("fused_attention", "ance_tpu/ops/fused_attention.py:40",
                         128, 512, maxp["fused_launches"]),
         attention_entry("flash_attention", "ance_tpu/ops/flash_attention.py:34",
