@@ -608,24 +608,6 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// Two fp32 values (v.x the lower column) as three packed bf16 pieces:
-// p0 = bf16(v), p1 = bf16(v - p0), p2 = bf16(v - p0 - p1), round to
-// nearest even; both differences are exact in fp32, and so is the sum
-// p0 + p1 + p2 = v (ops/topk.py's split_bf16_pieces, the same arithmetic).
-__device__ __forceinline__ void split3(float2 v, uint32_t& p0, uint32_t& p1,
-                                       uint32_t& p2) {
-  const __nv_bfloat162 h0 = __floats2bfloat162_rn(v.x, v.y);
-  const float2 f0 = __bfloat1622float2(h0);
-  const float2 r1 = make_float2(__fsub_rn(v.x, f0.x), __fsub_rn(v.y, f0.y));
-  const __nv_bfloat162 h1 = __floats2bfloat162_rn(r1.x, r1.y);
-  const float2 f1 = __bfloat1622float2(h1);
-  const __nv_bfloat162 h2 = __floats2bfloat162_rn(__fsub_rn(r1.x, f1.x),
-                                                  __fsub_rn(r1.y, f1.y));
-  p0 = bits(h0);
-  p1 = bits(h1);
-  p2 = bits(h2);
-}
-
 // The A fragments (hopper.cuh) of k-step kk (columns 16 kk .. + 15) of the
 // warp's 16 rows `row` .. + 15 of the stage's corpus tile, as pieces:
 // a[p][0] = rows row + g, columns c, c + 1; a[p][1] = row + g + 8;
@@ -644,8 +626,8 @@ __device__ __forceinline__ void load_pieces(
     const int k = 16 * kk + ln.c + 8 * (i >> 1);
     const int at = CorpusTile<TC>::offset(r, k);
     if constexpr (sizeof(TC) == 4) {
-      split3(*reinterpret_cast<const float2*>(base + at), a[0][i], a[1][i],
-             a[2][i]);
+      const float2 v = *reinterpret_cast<const float2*>(base + at);
+      hopper::split3(v.x, v.y, a[0][i], a[1][i], a[2][i]);
     } else {
       const char2 v = *reinterpret_cast<const char2*>(base + at);
       a[0][i] = bits(__floats2bfloat162_rn(static_cast<float>(v.x),

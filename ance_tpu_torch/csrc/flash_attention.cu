@@ -259,19 +259,6 @@ constexpr int kSmemSlack = 1024;  // aligned_smem's rounding
 constexpr int kFlashSmemBytes =
     static_cast<int>(sizeof(FlashSmem)) + kSmemSlack;
 
-// x (fp32) as the sum of three bf16 pieces, for two neighbouring columns
-// (`lo` the lower): p1 = bf16(x), p2 = bf16(x - p1), p3 = bf16(x - p1 -
-// p2), each subtraction exact, packed as A-fragment registers.
-__device__ __forceinline__ void split3(float lo, float hi, uint32_t& p1,
-                                       uint32_t& p2, uint32_t& p3) {
-  p1 = hopper::pack_rn(lo, hi);
-  const float r_lo = __fsub_rn(lo, __uint_as_float(p1 << 16));
-  const float r_hi = __fsub_rn(hi, __uint_as_float(p1 & 0xffff0000u));
-  p2 = hopper::pack_rn(r_lo, r_hi);
-  p3 = hopper::pack_rn(__fsub_rn(r_lo, __uint_as_float(p2 << 16)),
-                       __fsub_rn(r_hi, __uint_as_float(p2 & 0xffff0000u)));
-}
-
 // Two blocks an SM: four consumer warpgroups, so one's epilogue overlaps
 // another's products. That caps a thread at 96 registers (the three
 // pieces of p alone are 48) where one block an SM took 162, and it ran
@@ -344,27 +331,7 @@ __global__ void __launch_bounds__(kBf16Threads, 2)
     hopper::scale_bias(s, sm.bias[r.stage], 64 * t, S, scale, ln.c);
     // online statistics: the exact running max (reduced over the quad),
     // a = exp(m - m'), p = exp(s - m'), the thread's partial sums
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float x = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        x = fmaxf(x, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
-      const float m_new = fmaxf(m[hh], hopper::quad_max(x));
-      const float a = hopper::exp_shifted(m[hh], m_new);
-      float sum = __fmul_rn(l[hh], a);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 4 * j + 2 * hh + e;
-          s[i] = hopper::exp_shifted(s[i], m_new);
-          sum = __fadd_rn(sum, s[i]);
-          acc[i] = __fmul_rn(acc[i], a);
-        }
-      m[hh] = m_new;
-      l[hh] = sum;
-    }
+    hopper::online_softmax(s, m, l, acc);
     // p . v as three bf16 products; a piece's registers stay untouched
     // until the wait that covers its product
     uint32_t p1[4][4], p2[4][4], p3[4][4];
@@ -372,8 +339,8 @@ __global__ void __launch_bounds__(kBf16Threads, 2)
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        split3(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1], p1[kk][q], p2[kk][q],
-               p3[kk][q]);
+        hopper::split3(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1], p1[kk][q],
+                       p2[kk][q], p3[kk][q]);
     hopper::fence_regs(acc);
     hopper::wgmma_fence();
     hopper::issue_ab(acc, p3, sm.kv[r.stage][1]);
@@ -382,17 +349,7 @@ __global__ void __launch_bounds__(kBf16Threads, 2)
     hopper::wait_products(acc);
     if (arrives) hopper::mbar_arrive(&sm.empty[r.stage]);
   }
-  float inv_l[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    l[hh] = hopper::quad_sum(l[hh]);
-    inv_l[hh] = __frcp_rn(l[hh]);
-  }
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int hh = (i >> 1) & 1;
-    acc[i] = hopper::divide(acc[i], l[hh], inv_l[hh]);
-  }
+  hopper::online_finish(l, acc);
   hopper::store_tile(acc, out + (static_cast<long long>(b) * S * H + h) * 64,
                      static_cast<long long>(H) * 64, q0 + 64 * ln.wg, S, ln);
 }

@@ -358,6 +358,21 @@ __device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
           << 16);
 }
 
+// Two fp32 values (`lo` the lower column) as three packed bf16 pieces:
+// p0 = bf16(x), p1 = bf16(x - p0), p2 = bf16(x - p0 - p1), each rounded to
+// nearest even; both differences are exact in fp32, and so is the sum
+// p0 + p1 + p2 = x for 0 and 2^-100 <= |x| < 2^127 (ops/topk.py's
+// split_bf16_pieces, the same arithmetic). Packed as A-fragment registers.
+__device__ __forceinline__ void split3(float lo, float hi, uint32_t& p0,
+                                       uint32_t& p1, uint32_t& p2) {
+  p0 = pack_rn(lo, hi);
+  const float r_lo = __fsub_rn(lo, __uint_as_float(p0 << 16));
+  const float r_hi = __fsub_rn(hi, __uint_as_float(p0 & 0xffff0000u));
+  p1 = pack_rn(r_lo, r_hi);
+  p2 = pack_rn(__fsub_rn(r_lo, __uint_as_float(p1 << 16)),
+               __fsub_rn(r_hi, __uint_as_float(p1 & 0xffff0000u)));
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(~0u, x, 1));
   return fmaxf(x, __shfl_xor_sync(~0u, x, 2));
@@ -486,6 +501,46 @@ __device__ __forceinline__ float exp_shifted(float s, float m) {
   return y;
 }
 
+// exp_shifted as a function object (the softmax helpers take the exp)
+struct ExpShifted {
+  __device__ __forceinline__ float operator()(float s, float m) const {
+    return exp_shifted(s, m);
+  }
+};
+
+// The online softmax of one score tile (its two rows a thread): the exact
+// running max m (reduced over the quad), a = exp(m - m'), s = exp(s - m')
+// in place, the thread's partial sums l = l * a + rowsum(s) and the
+// accumulator acc *= a (flash_fwd_bf16, whose p then carries 24 bits into
+// its products, and fused_attention.cu's fp32 forward, with an exact exp).
+template <typename Exp = ExpShifted>
+__device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2],
+                                               float (&l)[2],
+                                               float (&acc)[32],
+                                               Exp exp = Exp()) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float x = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      x = fmaxf(x, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+    const float m_new = fmaxf(m[hh], quad_max(x));
+    const float a = exp(m[hh], m_new);
+    float sum = __fmul_rn(l[hh], a);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * hh + e;
+        s[i] = exp(s[i], m_new);
+        sum = __fadd_rn(sum, s[i]);
+        acc[i] = __fmul_rn(acc[i], a);
+      }
+    m[hh] = m_new;
+    l[hh] = sum;
+  }
+}
+
 // p = e / l correctly rounded, from inv_l = RN(1 / l): q0 = RN(e * inv_l)
 // is within an ulp of e / l, r = e - q0 * l is exact in one FMA, and
 // RN(q0 + r * inv_l) is the rounded quotient (Markstein). The division
@@ -496,10 +551,29 @@ __device__ __forceinline__ float divide(float e, float l, float inv_l) {
   return __fmaf_rn(__fmaf_rn(-q0, l, e), inv_l, q0);
 }
 
-// store a [64 rows][64] fp32 tile, rounded to bf16, into rows
-// r0 + row0 + g (+8) < S of one head of a contiguous [B, S, H, 64] output
-// (`head` = the head's row 0, rows `ld` elements apart)
-__device__ __forceinline__ void store_tile(const float (&o)[32], bf16* head,
+// The end of the online softmax: l sums the quad's partial sums, and
+// acc / l is correctly rounded (divide)
+__device__ __forceinline__ void online_finish(float (&l)[2],
+                                              float (&acc)[32]) {
+  float inv_l[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] = quad_sum(l[hh]);
+    inv_l[hh] = __frcp_rn(l[hh]);
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int hh = (i >> 1) & 1;
+    acc[i] = divide(acc[i], l[hh], inv_l[hh]);
+  }
+}
+
+// store a [64 rows][64] fp32 tile in the output's type T (bf16: rounded
+// to nearest; fp32 as it is) into rows r0 + row0 + g (+8) < S of one head
+// of a contiguous [B, S, H, 64] output (`head` = the head's row 0, rows
+// `ld` elements apart)
+template <typename T>
+__device__ __forceinline__ void store_tile(const float (&o)[32], T* head,
                                            long long ld, int r0, int S,
                                            const Lane& ln) {
 #pragma unroll
@@ -507,9 +581,15 @@ __device__ __forceinline__ void store_tile(const float (&o)[32], bf16* head,
     const int r = r0 + ln.row0 + ln.g + 8 * h;
     if (r >= S) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<uint32_t*>(head + r * ld + 8 * j + ln.c) =
-          pack_rn(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+    for (int j = 0; j < 8; ++j) {
+      T* at = head + r * ld + 8 * j + ln.c;
+      if constexpr (sizeof(T) == 4)
+        *reinterpret_cast<float2*>(at) =
+            make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+      else
+        *reinterpret_cast<uint32_t*>(at) =
+            pack_rn(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+    }
   }
 }
 

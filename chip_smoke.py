@@ -7,9 +7,10 @@ Run from the root of a checkout. It builds the four kernel sources of
 ``ance_tpu_torch/csrc`` (block-max top-k, fused and flash attention, the
 seq-128 attention pair; one nvcc each, all at once), prints ptxas's
 registers and spills and the SASS counts of HGMMA (wgmma) and UTMALDG
-(TMA loads) of the eight wgmma kernels (the fused forward and its two
-backward passes, the bf16 flash forward, seq-128 kernel #5, block-max's
-bf16 route and its two fp32-query kernels), and then:
+(TMA loads) of the eleven wgmma kernels (the fused forward and its two
+backward passes, on bf16 and on fp32 pieces; the bf16 flash forward,
+seq-128 kernel #5, block-max's bf16 route and its two fp32-query
+kernels), and then:
 
   * block-max: the kernel against its plain PyTorch version at the FirstP
     search shapes (1,000,448 × 768 corpus; Q=2048 k=10 and Q=512 k=200) for
@@ -25,9 +26,11 @@ bf16 route and its two fp32-query kernels), and then:
     inside their top k, where block-max ids must equal the scan's;
   * attention: each kernel against its plain version at the MaxP shapes
     (fused S = 256 / 300 / 512 / 1024 and the encoder's ``qkv.chunk``
-    views, flash S = 512 / 2048; bf16 and fp32), timed in turns with SDPA
-    (on fp32 operands for flash, whose function is fp32), with the einsum
-    path at S = 256 / 512 / 1024 beside them;
+    views, flash S = 512 / 2048; bf16 and fp32, the fused fp32 forward on
+    its pieces route and, on rows off alignment, its CUDA-core kernel),
+    timed in turns with SDPA (on fp32 operands for flash, whose function
+    is fp32), with the einsum path at S = 256 / 512 / 1024 beside them;
+    the fp32 pieces route also against the function in fp64;
   * FirstP serve: RoBERTa-base at full width (seeded random weights, bf16)
     through the ``serve`` CLI in a subprocess and the HTTP server in
     process;
@@ -39,7 +42,8 @@ bf16 route and its two fp32-query kernels), and then:
   * attention backward: kernel #3 (the fused backward) against its plain
     version at the MaxP training shape (64 chunk rows of S = 512, also as
     ``qkv.chunk`` views) and at S = 256 / 1024 / a ragged 300 and 65, bf16
-    and fp32, each call bit-equal to a second one, and the autograd
+    and fp32 (the pieces route, and the CUDA-core pair on rows off
+    alignment), each call bit-equal to a second one, and the autograd
     ``Function`` (both kernels) against autograd through the plain
     forward; timed beside the backward of
     ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick the
@@ -50,6 +54,14 @@ bf16 route and its two fp32-query kernels), and then:
     seq 2048 per batch, attention dropout 0 so the fused kernels and their
     backward run: launches == 12 layers x 2 chunked passes x steps), each
     writing a checkpoint that loads strictly;
+  * MaxP at the CLI's default fp32 (no --bf16): ``cli serve`` in process
+    over 512 documents of seq 2048 (the fused forward's pieces route on
+    every layer, an fp32 index on ``blockmax_pieces_f32``), every ranking
+    held against a scan of its saved index, an fp32 encode rate, ``cli
+    train`` (4 documents a batch, attention dropout 0, so the pieces
+    forward and backward run on every layer) writing a checkpoint that
+    loads strictly, the launches of each route counted, and both kernels
+    held to their plain versions on the operands this path gave them;
   * step parity: 3 steps, dropout off, two layers at full width (init std
     0.05, so no loss saturates): fp32 on the card against the port's CPU
     path, and bf16 (the kernels) against fp32 on the card by loss, update
@@ -90,6 +102,7 @@ beside this file.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -125,6 +138,10 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 TRAIN_QUERIES, TRAIN_PASSAGES = 1024, 8192
 TRAIN_BATCH, TRAIN_STEPS = 32, 20
 MAXP_TRAIN_DOCS, MAXP_TRAIN_BATCH, MAXP_TRAIN_STEPS = 256, 8, 5
+# MaxP at the CLI's default fp32: a slice of documents to serve (2,048
+# chunk rows), and a smaller train batch
+N_F32_DOCS = 512
+MAXP_F32_TRAIN_BATCH, MAXP_F32_TRAIN_STEPS = 4, 5
 TIMED_FROM = 3  # step times are medians over the steps after these
 SEQ128_BATCH, SEQ128_LEN, SEQ128_PAD_FROM = 128, 128, 100
 # per-row cosine of a mirror-encoder variant's [B, 768] output against
@@ -210,7 +227,8 @@ def phase_build() -> tuple[dict, dict]:
 # the dynamic shared memory each is launched with, in this order
 WGMMA_KERNELS = {
     "fused_attention": ("fused_fwd_bf16", "fused_bwd_rows_bf16",
-                        "fused_bwd_keys_bf16"),
+                        "fused_bwd_keys_bf16", "fused_fwd_pieces",
+                        "fused_bwd_rows_pieces", "fused_bwd_keys_pieces"),
     "flash_attention": ("flash_fwd_bf16",),
     "attn128": ("attn128_kernel",),
     "blockmax": ("blockmax_bf16", "blockmax_pieces_f32",
@@ -623,16 +641,21 @@ def slice_rel_err(got, want) -> float:
     return torch.where(n > 0, d / n, d).max().item()
 
 
-def _attention_inputs(B, S, dtype, seed, H=12, D=64, strided=False):
+def _attention_inputs(B, S, dtype, seed, H=12, D=64, strided=False,
+                      misaligned=False):
     """q, k, v ~ N(0, 1) [B, S, H, D] on the card (``strided``: the three
     chunks of one [B, S, 3·H·D] fused-QKV projection, as the encoder
-    passes them); a mask of random lengths with row 0 fully masked (an
-    all-padding MaxP chunk)."""
+    passes them; ``misaligned``: views into [..., D + 2] tensors, rows 8
+    bytes off 16-byte alignment for fp32); a mask of random lengths with
+    row 0 fully masked (an all-padding MaxP chunk)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     if strided:
         qkv = torch.randn(B, S, 3 * H * D, generator=g, device="cuda").to(dtype)
         q, k, v = (t.view(B, S, H, D) for t in qkv.chunk(3, dim=-1))
+    elif misaligned:
+        q, k, v = (torch.randn(B, S, H, D + 2, generator=g, device="cuda")
+                   .to(dtype)[..., 2:] for _ in range(3))
     else:
         q, k, v = (torch.randn(B, S, H, D, generator=g, device="cuda")
                    .to(dtype) for _ in range(3))
@@ -640,6 +663,99 @@ def _attention_inputs(B, S, dtype, seed, H=12, D=64, strided=False):
     mask = (torch.arange(S, device="cuda")[None] < lengths[:, None]).long()
     mask[0] = 0
     return q, k, v, mask
+
+
+def exact_attention(q, k, v, mask, do=None):
+    """The fp32 fused function in fp64 on the card (rounding only the
+    inputs): out, or (dq, dk, dv) for an output gradient ``do``. Keys the
+    mask drops weigh 0; a fully masked row weighs every key alike, as the
+    fp32 function does (its s rounds to -1e9 on every key), while its
+    gradient flows through s as the fp32 function's does (s - s.detach():
+    0, differentiable), so autograd through this forward is the
+    backward's formula too."""
+    import torch
+    f64 = torch.float64
+    qd, kd, vd = (t.to(f64) for t in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) / math.sqrt(q.shape[-1])
+    valid = mask.bool()[:, None, None, :].expand_as(s)
+    empty = ~valid.any(-1, keepdim=True).expand_as(s)
+    s = torch.where(valid, s, torch.where(empty, s - s.detach(),
+                                          torch.full_like(s, -math.inf)))
+    p = torch.softmax(s, -1)
+    if do is None:
+        return torch.einsum("bhqk,bkhd->bqhd", p, vd)
+    dd = do.to(f64)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dd, vd)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) / math.sqrt(q.shape[-1])
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, kd),
+            torch.einsum("bhqk,bqhd->bkhd", ds, qd),
+            torch.einsum("bhqk,bqhd->bkhd", p, dd))
+
+
+def pieces_split(fn) -> dict:
+    """``device_split`` of one call of the fused kernels' fp32 pieces
+    route: device ms of each of its kernels (``split_pieces`` and the
+    wgmma kernels) by their names in ``csrc/fused_attention.cu``."""
+    names = ("split_pieces", "fused_fwd_pieces", "fused_bwd_rows_pieces",
+             "fused_bwd_keys_pieces")
+    split = device_split(fn)["top_kernels_ms"]
+    return {n: sum(ms for k, ms in split.items() if n in k) for n in names
+            if any(n in k for k in split)}
+
+
+def exact_in_rows(q, k, v, mask, do=None, rows=8) -> tuple:
+    """``exact_attention`` ``rows`` batch rows at a time: (out,) or (dq,
+    dk, dv), fp64."""
+    import torch
+    parts = [exact_attention(q[b0:b0 + rows], k[b0:b0 + rows],
+                             v[b0:b0 + rows], mask[b0:b0 + rows],
+                             None if do is None else do[b0:b0 + rows])
+             for b0 in range(0, q.shape[0], rows)]
+    if do is None:
+        return (torch.cat(parts),)
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+# The fp32 backward's yardstick. The CUDA-core kernels sum in the plain
+# version's own order (cuBLAS's), and are held to its fp32 evaluation.
+# The pieces route sums in another order, so it is held to the function
+# evaluated in fp64 (exact_attention): on a row of 1-6 valid keys the fp32
+# plain version's 256- to 512-deep sums are themselves 1.5e-5 to 4.3e-5
+# from it (seen on an H100), beyond the 1e-5 tolerance, where the pieces
+# kernels stay within 3e-6 of it.
+FP32_BACKWARD_YARDSTICK = {"fused_bwd_pieces": "fp64 function",
+                           "fused_bwd_f32": "fp32 plain version"}
+
+
+def exact_errors(got, plain, exact, mask) -> dict:
+    """The kernel's output (or gradients) and the plain version's against
+    the fp64 ``exact`` (tuples): max |kernel - exact|, max |plain - exact|,
+    max |kernel - plain| and where it is (that element's batch row, its
+    valid keys, |plain| and both errors against exact there)."""
+    import torch
+    if not isinstance(got, tuple):
+        got, plain = (got,), (plain,)
+    out = {"kernel_vs_exact": 0.0, "plain_vs_exact": 0.0}
+    worst = (-1.0, None)
+    for g, w, x in zip(got, plain, exact):
+        g, w = g.double(), w.double()
+        out["kernel_vs_exact"] = max(out["kernel_vs_exact"],
+                                     (g - x).abs().max().item())
+        out["plain_vs_exact"] = max(out["plain_vs_exact"],
+                                    (w - x).abs().max().item())
+        d = (g - w).abs()
+        i = int(d.argmax())
+        if d.flatten()[i].item() > worst[0]:
+            at = tuple(int(j) for j in torch.unravel_index(
+                torch.tensor(i), d.shape))
+            worst = (d.flatten()[i].item(), {
+                "row": at[0], "valid_keys": int(mask[at[0]].sum()),
+                "abs_plain": abs(w[at].item()),
+                "kernel_vs_exact": abs((g - x)[at].item()),
+                "plain_vs_exact": abs((w - x)[at].item())})
+    out["kernel_vs_plain"] = worst[0]
+    out["at_worst"] = worst[1]
+    return out
 
 
 def phase_attention():
@@ -655,29 +771,46 @@ def phase_attention():
     from ance_tpu_torch.ops.flash_attention import (flash_attention,
                                                     flash_attention_reference)
     from ance_tpu_torch.ops.fused_attention import (fused_attention,
-                                                    fused_attention_reference)
+                                                    fused_attention_reference,
+                                                    fused_kernel_for)
 
     pairs = {"fused_attention": (fused_attention, fused_attention_reference),
              "flash_attention": (flash_attention, flash_attention_reference)}
     bf16, f32 = torch.bfloat16, torch.float32
     shapes = [("fused_attention", bf16, 128, 512),   # one MaxP encode batch
-              ("fused_attention", bf16, 128, 512, True),  # its qkv.chunk views
+              ("fused_attention", bf16, 128, 512, "qkv.chunk"),  # its views
               ("fused_attention", bf16, 128, 256),
               ("fused_attention", bf16, 128, 300),
               ("fused_attention", bf16, 32, 1024),
-              ("fused_attention", f32, 32, 512),
+              ("fused_attention", f32, 32, 512),  # fp32 pieces
+              ("fused_attention", f32, 32, 512, "qkv.chunk"),
+              ("fused_attention", f32, 8, 512, "misaligned"),  # CUDA cores
               ("flash_attention", bf16, 128, 512),
               ("flash_attention", f32, 128, 512),
               ("flash_attention", bf16, 8, 2048),
               ("flash_attention", f32, 8, 2048)]
     cases = []
-    for i, (name, dtype, B, S, *strided) in enumerate(shapes):
+    for i, (name, dtype, B, S, *layout) in enumerate(shapes):
         kernel, plain = pairs[name]
-        strided = bool(strided)
-        q, k, v, mask = _attention_inputs(B, S, dtype, seed=i, strided=strided)
+        layout = layout[0] if layout else "contiguous"
+        strided = layout == "qkv.chunk"
+        q, k, v, mask = _attention_inputs(B, S, dtype, seed=i, strided=strided,
+                                          misaligned=layout == "misaligned")
+        route = fused_kernel_for(q, k, v) \
+            if name == "fused_attention" else None
+        before = fused_attention.kernel_launches[route]
         got = kernel(q, k, v, mask)
         want = plain(q, k, v, mask).float()
         torch.cuda.synchronize()
+        if route:
+            check(fused_attention.kernel_launches[route] == before + 1,
+                  f"{name} {dtype} B={B} S={S} {layout}: {route} did not "
+                  "launch")
+        exact = split = None
+        if route == "fused_fwd_pieces":  # both against the function in fp64
+            exact = exact_errors(got, want, exact_in_rows(q, k, v, mask),
+                                 mask)
+            split = pieces_split(lambda: kernel(q, k, v, mask))
         check(got.shape == q.shape and got.dtype == dtype
               and bool(torch.isfinite(got).all()),
               f"{name} {dtype} B={B} S={S}: output not finite {tuple(q.shape)}")
@@ -697,8 +830,11 @@ def phase_attention():
         # the library call that computes the same function: SDPA with the
         # additive bias; for flash on fp32 operands (its q, k, v and p are
         # fp32), the output cast back to the input dtype
+        # (SDPA's kernels take no rows off alignment: those get copies)
         lib_dtype = f32 if name == "flash_attention" else dtype
         qt, kt, vt = (t.transpose(1, 2).to(lib_dtype) for t in (q, k, v))
+        if layout == "misaligned":
+            qt, kt, vt = (t.contiguous() for t in (qt, kt, vt))
         bias4 = mask_to_bias(mask, lib_dtype)
         plain_ms = cuda_ms(lambda: plain(q, k, v, mask))
         times, sampled = timed_in_turns({
@@ -716,23 +852,41 @@ def phase_attention():
         # p.v with a 24-bit p as three bf16 passes (p = p1 + p2 + p3
         # exactly, two pieces would carry 16 bits): 2·S²·D + 3·2·S²·D a
         # head at the bf16 rate
+        # The fp32 pieces route runs each product as the six bf16 piece
+        # products of block-max's f32 x f32 route: its bound is those at
+        # the bf16 rate, the fp32-rate bound beside it.
         flash_bf16 = name == "flash_attention" and dtype == bf16
-        b_ms, b_by = bound(
-            4 * q.numel() * q.element_size() + mask.numel() * 8,
-            (8.0 if flash_bf16 else 4.0) * B * 12 * S * S * 64,
-            "bf16" if dtype == bf16 else "f32")
+        io_bytes = 4 * q.numel() * q.element_size() + mask.numel() * 8
+        ops = (8.0 if flash_bf16 else 4.0) * B * 12 * S * S * 64
+        fp32_rate_ms = None
+        if route == "fused_fwd_pieces":
+            fp32_rate_ms = bound(io_bytes, ops, "f32")[0]
+            b_ms, b_by = bound(io_bytes, FP32_PIECE_PRODUCTS["f32xf32"] * ops, "bf16")
+        else:
+            b_ms, b_by = bound(io_bytes, ops,
+                               "bf16" if dtype == bf16 else "f32")
         cases.append({"name": name, "dtype": dt, "B": B, "S": S, "H": 12,
-                      "D": 64, "strided": strided, "max_abs_err": err, "tolerance": tol,
-                      "err_slice_ulps": ulps, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": library_ms, "bound_ms": b_ms,
-                      "bound_by": b_by, "clocks": sampled})
-        print(f"{name} {dt:4s} B={B:3d} S={S:4d}{' qkv.chunk' if strided else ''}"
-              f": max|err| {err:.3g} "
+                      "D": 64, "strided": strided, "layout": layout,
+                      "kernel": route, "max_abs_err": err, "tolerance": tol,
+                      "err_slice_ulps": ulps, "exact": exact,
+                      "device_split_ms": split, "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "fp32_rate_bound_ms": fp32_rate_ms, "clocks": sampled})
+        print(f"{name} {dt:4s} B={B:3d} S={S:4d}"
+              f"{'' if layout == 'contiguous' else ' ' + layout}"
+              f"{f' ({route})' if route else ''}: max|err| {err:.3g} "
               f"({'fp32 tol 1e-4' if ulps is None else f'{ulps:.3g} slice ulps'})"
-              f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
+              + (f", vs fp64 exact: kernel {exact['kernel_vs_exact']:.3g} "
+                 f"plain {exact['plain_vs_exact']:.3g}" if exact else "")
+              + f"  kernel {ms:.3f} ms"
+              + (f" {({n: round(t, 4) for n, t in split.items()})}"
+                 if split else "")
+              + f"  plain {plain_ms:.3f} ms"
               f"  sdpa{' fp32' if lib_dtype != dtype else ''} {library_ms:.3f} ms"
-              f"  bound {b_ms:.3f} ms ({b_by})  {clocks_text(sampled)}",
-              flush=True)
+              f"  bound {b_ms:.3f} ms ({b_by})"
+              + (f", fp32 rate {fp32_rate_ms:.3f} ms" if fp32_rate_ms else "")
+              + f"  {clocks_text(sampled)}", flush=True)
         del q, k, v, mask
         torch.cuda.empty_cache()
 
@@ -768,39 +922,56 @@ def phase_attention_backward():
     from ance_tpu_torch.ops.attention import mask_to_bias
     from ance_tpu_torch.ops.fused_attention import (
         fused_attention, fused_attention_backward,
-        fused_attention_backward_reference, fused_attention_reference)
+        fused_attention_backward_reference, fused_attention_reference,
+        fused_kernel_for)
 
     torch.manual_seed(0)  # the output gradients
     bf16, f32 = torch.bfloat16, torch.float32
-    shapes = [(bf16, 64, 512), (bf16, 64, 512, True), (bf16, 64, 256),
+    shapes = [(bf16, 64, 512), (bf16, 64, 512, "qkv.chunk"), (bf16, 64, 256),
               (bf16, 16, 1024), (bf16, 16, 300), (bf16, 16, 65),
-              (f32, 64, 512), (f32, 64, 256), (f32, 16, 1024), (f32, 16, 300)]
+              (f32, 64, 512), (f32, 64, 512, "qkv.chunk"), (f32, 64, 256),
+              (f32, 16, 1024), (f32, 16, 300), (f32, 16, 65),
+              (f32, 16, 512, "misaligned")]  # the CUDA-core pair
     cases = []
-    for i, (dtype, B, S, *strided) in enumerate(shapes):
-        strided = bool(strided)
+    for i, (dtype, B, S, *layout) in enumerate(shapes):
+        layout = layout[0] if layout else "contiguous"
+        strided = layout == "qkv.chunk"
         q, k, v, mask = _attention_inputs(B, S, dtype, seed=100 + i,
-                                          strided=strided)
+                                          strided=strided,
+                                          misaligned=layout == "misaligned")
         do = torch.randn_like(q, dtype=f32).to(dtype)
+        route = fused_kernel_for(q, k, v, backward=True)
+        before = fused_attention_backward.kernel_launches[route]
         got = fused_attention_backward(q, k, v, mask, do)
         again = fused_attention_backward(q, k, v, mask, do)
         want = fused_attention_backward_reference(q, k, v, mask, do)
         torch.cuda.synchronize()
+        check(fused_attention_backward.kernel_launches[route] == before + 2,
+              f"backward {dtype} B={B} S={S} {layout}: {route} did not "
+              "launch")
+        exact, yard, split = None, want, None
+        if route == "fused_bwd_pieces":  # both against the function in fp64
+            yard = exact_in_rows(q, k, v, mask, do, rows=max(1, 4096 // S))
+            exact = exact_errors(got, want, yard, mask)
+            split = pieces_split(
+                lambda: fused_attention_backward(q, k, v, mask, do))
         # no atomics: a second call gives the same bits
         deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
         check(deterministic, f"backward {dtype} B={B} S={S}: two calls differ")
         del again
         err, ulps = 0.0, 0.0
         tol = 1e-5 if dtype == f32 else BF16_SLICE_TOL
-        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        for name, g, w in zip(("dq", "dk", "dv"), got, yard):
             check(g.shape == q.shape and g.dtype == dtype
                   and bool(torch.isfinite(g).all()),
                   f"backward {name} {dtype} B={B} S={S}: not finite")
-            # fp32: sums in other orders; bf16: a p or ds one rounding
-            # step apart, held per (row, head) slice
+            # fp32: sums in other orders (FP32_BACKWARD_YARDSTICK); bf16:
+            # a p or ds one rounding step apart, held per (row, head) slice
             if dtype == f32:
-                e = (g - w).abs().max().item()
-                check(e <= tol, f"backward {name} fp32 B={B} S={S}: max "
-                      f"|kernel - plain| {e} > {tol}")
+                e = (g.double() - w.double()).abs().max().item()
+                check(e <= tol, f"backward {name} fp32 B={B} S={S} {layout}:"
+                      f" max |kernel - {FP32_BACKWARD_YARDSTICK[route]}| "
+                      f"{e} > {tol}")
             else:
                 n_bad, e, u = bf16_slice_excess(g, w)
                 check(n_bad == 0, f"backward {name} bf16 B={B} S={S}: "
@@ -832,8 +1003,10 @@ def phase_attention_backward():
                           f"bound, max |err| {e:.3g}; the whole-tensor bound "
                           f"{whole:.3g} would {'pass' if e <= whole else 'fail'}"
                           " it", flush=True)
-        del got, want
-        leaves = [t.transpose(1, 2).detach().requires_grad_()
+        del got, want, yard
+        # (SDPA takes no rows off alignment: those get copies)
+        leaves = [(t.transpose(1, 2).contiguous() if layout == "misaligned"
+                   else t.transpose(1, 2)).detach().requires_grad_()
                   for t in (q, k, v)]
         out = F.scaled_dot_product_attention(
             *leaves, attn_mask=mask_to_bias(mask, dtype))
@@ -847,24 +1020,47 @@ def phase_attention_backward():
         ms, library_ms = times["ms"], times["library_ms"]
         del out, leaves
         # q, k, v, do in and dq, dk, dv out once, the int64 mask; the
-        # recomputed s and the four gradient products: 10·S²·D a head
-        b_ms, b_by = bound(7 * q.numel() * q.element_size() + mask.numel() * 8,
-                           10.0 * B * 12 * S * S * 64,
-                           "bf16" if dtype == bf16 else "f32")
+        # recomputed s and the four gradient products: 10·S²·D a head (on
+        # the pieces route six bf16 piece products each, the fp32-rate
+        # bound beside)
+        io_bytes = 7 * q.numel() * q.element_size() + mask.numel() * 8
+        ops = 10.0 * B * 12 * S * S * 64
+        fp32_rate_ms = None
+        if route == "fused_bwd_pieces":
+            fp32_rate_ms = bound(io_bytes, ops, "f32")[0]
+            b_ms, b_by = bound(io_bytes, FP32_PIECE_PRODUCTS["f32xf32"] * ops, "bf16")
+        else:
+            b_ms, b_by = bound(io_bytes, ops,
+                               "bf16" if dtype == bf16 else "f32")
         dt = "bf16" if dtype == bf16 else "f32"
         cases.append({"dtype": dt, "B": B, "S": S, "H": 12, "D": 64,
-                      "strided": strided, "deterministic": deterministic,
+                      "strided": strided, "layout": layout, "kernel": route,
+                      "yardstick": (FP32_BACKWARD_YARDSTICK[route]
+                                    if dtype == f32 else "bf16 plain"),
+                      "deterministic": deterministic,
                       "max_abs_err": err, "tolerance": tol,
                       "err_slice_ulps": ulps if dtype == bf16 else None,
+                      "exact": exact, "device_split_ms": split,
                       "control": control, "ms": ms,
                       "plain_ms": plain_ms, "library_ms": library_ms,
-                      "bound_ms": b_ms, "bound_by": b_by, "clocks": sampled})
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "fp32_rate_bound_ms": fp32_rate_ms, "clocks": sampled})
         print(f"fused backward {dt:4s} B={B:3d} S={S:4d}"
-              f"{' qkv.chunk' if strided else ''}: max|err| {err:.3g}"
-              f" ({f'{ulps:.3g} slice ulps' if dtype == bf16 else 'fp32 tol 1e-5'})"
-              f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
+              f"{'' if layout == 'contiguous' else ' ' + layout} ({route}):"
+              f" max|err| {err:.3g}"
+              f" ({f'{ulps:.3g} slice ulps' if dtype == bf16 else 'tol 1e-5 against the ' + FP32_BACKWARD_YARDSTICK[route]})"
+              + (f", vs fp64 exact: kernel {exact['kernel_vs_exact']:.3g} "
+                 f"plain {exact['plain_vs_exact']:.3g}; kernel - fp32 plain "
+                 f"{exact['kernel_vs_plain']:.3g} (there: "
+                 f"{exact['at_worst']})" if exact else "")
+              + f"  kernel {ms:.3f} ms"
+              + (f" {({n: round(t, 4) for n, t in split.items()})}"
+                 if split else "")
+              + f"  plain {plain_ms:.3f} ms"
               f"  sdpa backward {library_ms:.3f} ms  bound {b_ms:.3f} ms "
-              f"({b_by})  {clocks_text(sampled)}", flush=True)
+              f"({b_by})"
+              + (f", fp32 rate {fp32_rate_ms:.3f} ms" if fp32_rate_ms else "")
+              + f"  {clocks_text(sampled)}", flush=True)
         del q, k, v, mask, do
         torch.cuda.empty_cache()
 
@@ -880,8 +1076,20 @@ def phase_attention_backward():
               == (f0 + 1, b0 + 1), "the Function did not launch both kernels")
         want = torch.autograd.grad(fused_attention_reference(*leaves, mask),
                                    leaves, do)
+        plain_errs = None
+        if dtype == f32:
+            # the pieces route's yardstick (FP32_BACKWARD_YARDSTICK):
+            # autograd through the function in fp64; beside it, the error
+            # against autograd through the fp32 plain forward
+            plain_errs = [(g.double() - w.double()).abs().max().item()
+                          for g, w in zip(got, want)]
+            leaves64 = [t.detach().double().requires_grad_()
+                        for t in (q, k, v)]
+            want = torch.autograd.grad(exact_attention(*leaves64, mask),
+                                       leaves64, do.double())
+            del leaves64
         torch.cuda.synchronize()
-        errs = [(g.float() - w.float()).abs().max().item()
+        errs = [(g.double() - w.double()).abs().max().item()
                 for g, w in zip(got, want)]
         rel = max(slice_rel_err(g, w) for g, w in zip(got, want))
         # fp32: the kernel's delta = rowsum(dp ⊙ p) against autograd's
@@ -889,17 +1097,26 @@ def phase_attention_backward():
         # to bf16 (2^-9 relative) where the kernel keeps it fp32 and rounds
         # ds, so each (row, head) slice within 1e-2 of its norm
         if dtype == f32:
-            check(max(errs) <= 1e-5, f"Function fp32 grads differ by {errs}")
+            check(max(errs) <= 1e-5, f"Function fp32 grads differ from "
+                  f"autograd through the fp64 function by {errs}")
         else:
             check(rel <= 1e-2, f"Function bf16 grads: a (row, head) slice "
                   f"off by {rel} of its norm")
         functions.append({"dtype": "bf16" if dtype == bf16 else "f32",
+                          "yardstick": ("autograd through the fp64 function"
+                                        if dtype == f32 else
+                                        "autograd through the plain forward"),
                           "max_abs_err": max(errs),
+                          "max_abs_err_vs_fp32_plain_autograd": (
+                              max(plain_errs) if plain_errs else None),
                           "max_slice_rel_err": rel})
         print(f"fused Function {functions[-1]['dtype']:4s} B=64 S=512: "
-              f"grads vs autograd of the plain forward: max|err| "
-              f"{max(errs):.3g}, worst (row, head) slice {rel:.3g} of its "
-              f"norm", flush=True)
+              f"grads vs {functions[-1]['yardstick']}: max|err| "
+              f"{max(errs):.3g}"
+              + (f" (vs the fp32 plain forward's: {max(plain_errs):.3g})"
+                 if plain_errs else "")
+              + f", worst (row, head) slice {rel:.3g} of its norm",
+              flush=True)
         del q, k, v, mask, do, leaves, got, want
         torch.cuda.empty_cache()
     return cases, functions
@@ -1433,6 +1650,259 @@ def phase_train(work: Path):
               f"{summary['checkpoint']} loads strictly", flush=True)
     check(no_reference_modules(), "the port imported jax or ance_tpu")
     return results
+
+
+def _keep_layout(t):
+    """A copy of ``t`` in its own strides: a view of a copy of the
+    contiguous tensor it views (the encoder's q, k, v are chunks of one
+    projection), else a plain copy."""
+    base = t if t._base is None else t._base
+    if not base.is_contiguous():
+        return t.clone()
+    return base.clone().as_strided(t.size(), t.stride(),
+                                   t.storage_offset() - base.storage_offset())
+
+
+@contextlib.contextmanager
+def first_call(direction: str, kept: list):
+    """``FusedAttention.forward`` (``direction`` "forward": q, k, v, mask)
+    or ``.backward`` ("backward": q, k, v, mask, do) wrapped so that
+    ``kept`` receives copies of the operands of its first call (floating
+    ones in their own strides); the kernels' wrappers and their launch
+    counts stay as they are."""
+    import torch
+    from ance_tpu_torch.ops.fused_attention import FusedAttention
+    real = getattr(FusedAttention, direction)
+
+    def wrapper(ctx, *args):
+        if direction == "backward":
+            ops = (*ctx.saved_tensors, *args)
+        else:
+            ops = args
+        if not kept:
+            kept.extend(a if not torch.is_tensor(a) else _keep_layout(a)
+                        if torch.is_floating_point(a) else a.clone()
+                        for a in ops)
+        return real(ctx, *args)
+
+    setattr(FusedAttention, direction, staticmethod(wrapper))
+    try:
+        yield
+    finally:
+        setattr(FusedAttention, direction, staticmethod(real))
+
+
+def phase_maxp_fp32(work: Path):
+    """MaxP at the CLI's default dtype (no --bf16: an fp32 encoder and an
+    fp32 index), where every seq-512 chunk's attention takes the fused
+    kernels' fp32 pieces route: the serve CLI in process over
+    N_F32_DOCS documents of seq 2048, every ranking against a scan of its
+    saved index; an in-process encode for the rate; ``cli train`` for
+    MAXP_F32_TRAIN_STEPS steps (attention dropout 0); and the kernels
+    against their plain versions on the operands this path gave them (the
+    first forward of the serve encode, the first backward of training).
+    Each run's launch counts are set to 0 before it and read after it,
+    per route."""
+    import numpy as np
+    import torch
+    from ance_tpu_torch.data.cache import TokenCache
+    from ance_tpu_torch.index.flat import FlatIPIndex
+    from ance_tpu_torch.models.dot_models import RobertaDot
+    from ance_tpu_torch.models.registry import get_model_spec
+    from ance_tpu_torch.models.weights import load_pretrained
+    from ance_tpu_torch.ops import fused_attention as fa
+    from ance_tpu_torch.ops.flash_attention import flash_attention
+    from ance_tpu_torch.ops.topk import blockmax_scores
+    from ance_tpu_torch.serve import Retriever
+    from ance_tpu_torch.train.encode import (encode_cache_to_device,
+                                             iter_cache_batches,
+                                             make_encode_fn)
+
+    def reset():
+        for f in (fa.fused_attention, fa.fused_attention_backward):
+            f.launches = 0
+            f.kernel_launches.clear()
+        flash_attention.launches = 0
+        reset_blockmax_counts()
+
+    dev = torch.device("cuda")
+    weights, queries = work / "roberta_base_seeded", work / "data" / "dev-query"
+    docs = work / "maxp_fp32"
+    docs.mkdir()
+    _write_cache(docs / "passages", N_F32_DOCS, DOC_LEN, 64,
+                 np.random.RandomState(3))
+    n_chunks = DOC_LEN // CHUNK_LEN
+    n_rows = N_F32_DOCS * n_chunks
+    n_batches = -(-N_F32_DOCS // DOC_BATCH)
+
+    # 1. the serve CLI, as a user runs it: no --bf16
+    ranking, saved = work / "maxp_fp32_ranking.tsv", work / "maxp_fp32_index"
+    fwd_ops = []
+    reset()
+    t0 = time.perf_counter()
+    with first_call("forward", fwd_ops):
+        summary = _cli(["serve", "--device", "cuda",
+                        "--model_type", "rdot_nll_multi_chunk",
+                        "--max_seq_length", str(DOC_LEN),
+                        "--model_name_or_path", str(weights),
+                        "--data_dir", str(docs), "--query_cache", str(queries),
+                        "--topk", "10", "--max_query_length", str(QUERY_LEN),
+                        "--per_device_eval_batch_size", str(DOC_BATCH),
+                        "--output", str(ranking), "--save_index", str(saved)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    serve_fwd = dict(fa.fused_attention.kernel_launches)
+    serve_search = blockmax_counts()
+    layers = 12
+    check(serve_fwd == {"fused_fwd_pieces": layers * n_batches}
+          and flash_attention.launches == 0,
+          f"fp32 MaxP serve: fused launches {serve_fwd}, flash "
+          f"{flash_attention.launches}, not {layers} layers x {n_batches} "
+          "batches on fused_fwd_pieces")
+    n_q_batches = -(-N_QUERIES // DOC_BATCH)
+    check(serve_search == {"blockmax_pieces_f32": n_q_batches},
+          f"fp32 MaxP serve: block-max launches {serve_search}, not "
+          f"{n_q_batches} on blockmax_pieces_f32 (an fp32 index)")
+    check(summary["queries"] == N_QUERIES and summary["corpus_rows"] == n_rows,
+          f"fp32 MaxP serve CLI: {summary}")
+    rows = [line.split("\t") for line in ranking.read_text().splitlines()]
+    check(len(rows) == N_QUERIES * 10 and [int(r[2]) for r in rows]
+          == list(range(1, 11)) * N_QUERIES,
+          f"fp32 MaxP serve CLI wrote {len(rows)} lines, not ranks 1..10 "
+          f"for {N_QUERIES} queries")
+    cli_pids = np.array([int(r[1]) for r in rows]).reshape(N_QUERIES, 10)
+
+    # 2. every ranking against a scan of the saved fp32 index, with the
+    # same fp32 query encoder in the CLI's batches
+    model = get_model_spec("rdot_nll_multi_chunk").build(dtype=torch.float32)
+    load_pretrained(model, str(weights))
+    model = model.to(dev)
+    index = FlatIPIndex.load(str(saved), device=dev, method="scan")
+    saved_ids = np.load(str(saved) + ".ids.npy")
+    check(index.ntotal == n_rows and index.dtype == torch.float32,
+          "saved fp32 MaxP index is not an fp32 index of every chunk row")
+    scan = Retriever(make_encode_fn(model, RobertaDot.query_emb, dev), index,
+                     embedding2id=saved_ids)
+    with TokenCache(str(queries)) as qc:
+        _, q_ids, q_mask = next(iter_cache_batches(qc, N_QUERIES))
+    want = np.concatenate([
+        scan.search_tokens(q_ids[i:i + DOC_BATCH], q_mask[i:i + DOC_BATCH],
+                           10)[1] for i in range(0, N_QUERIES, DOC_BATCH)])
+    check(np.array_equal(cli_pids, want),
+          f"fp32 MaxP serve CLI: {(cli_pids != want).sum()} ranked pids "
+          "differ from the scan")
+
+    # 3. the fp32 encode rate in process (after one warm-up batch)
+    encode_b = make_encode_fn(model, RobertaDot.body_emb_multichunk, dev)
+    with TokenCache(str(docs / "passages")) as dc:
+        encode_cache_to_device(encode_b, dc, DOC_BATCH, multichunk=True,
+                               stop=DOC_BATCH)
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb, _ = encode_cache_to_device(encode_b, dc, DOC_BATCH,
+                                        multichunk=True)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+    check(dict(fa.fused_attention.kernel_launches)
+          == {"fused_fwd_pieces": layers * n_batches}
+          and emb.shape == (n_rows, DIM) and bool(torch.isfinite(emb).all()),
+          "fp32 MaxP encode: not finite, or not on fused_fwd_pieces")
+    del model, scan, index, encode_b, emb
+    torch.cuda.empty_cache()
+    print(f"maxp fp32 serve CLI: {N_QUERIES * 10} ranking lines == scan in "
+          f"{cli_s:.1f} s ({N_F32_DOCS} documents = {n_rows} chunk rows, fp32 "
+          f"index); fused launches {serve_fwd}, block-max {serve_search}; "
+          f"encode {n_rows / enc_s:.0f} chunk rows/s = "
+          f"{N_F32_DOCS / enc_s:.1f} documents/s (fp32, {DOC_BATCH} "
+          "documents per batch)", flush=True)
+
+    # 4. cli train, fp32 MaxP through the fused forward and backward
+    data = work / "train_maxp"  # phase_train's MaxP caches
+    steps = MAXP_F32_TRAIN_STEPS
+    bwd_ops = []
+    reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with first_call("backward", bwd_ops):
+        train = _cli(["train", "--device", "cuda",
+                      "--model_type", "rdot_nll_multi_chunk",
+                      "--model_name_or_path", str(weights),
+                      "--data_dir", str(data), "--ann_dir", str(data / "ann"),
+                      "--output_dir", str(work / "ckpt_maxp_fp32"),
+                      "--max_steps", str(steps), "--save_steps", str(steps),
+                      "--warmup_steps", "2", "--per_device_train_batch_size",
+                      str(MAXP_F32_TRAIN_BATCH),
+                      "--max_query_length", str(QUERY_LEN),
+                      "--max_seq_length", str(PASSAGE_LEN),
+                      "--encoder_overrides", '{"attention_dropout": 0.0}'])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    train_fwd = dict(fa.fused_attention.kernel_launches)
+    train_bwd = dict(fa.fused_attention_backward.kernel_launches)
+    want_n = layers * 2 * steps  # positives and negatives, chunked at S=512
+    check(train_fwd == {"fused_fwd_pieces": want_n}
+          and train_bwd == {"fused_bwd_pieces": want_n},
+          f"fp32 MaxP train: fused launches {train_fwd} / {train_bwd}, not "
+          f"{want_n} each on the pieces route")
+    losses = train["loss"]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"fp32 MaxP train: losses {losses}")
+    _check_checkpoint(train, "rdot_nll_multi_chunk", weights, steps)
+    step_ms = statistics.median(train["step_ms"][TIMED_FROM:])
+    print(f"train maxp fp32: {steps} steps of {MAXP_F32_TRAIN_BATCH} "
+          f"documents, loss {losses[0]:.3f} -> {losses[-1]:.3f}; step "
+          f"{step_ms:.1f} ms (median after {TIMED_FROM}); fused launches "
+          f"{train_fwd} / {train_bwd}; peak device memory "
+          f"{peak / 2**30:.2f} GiB; {train['checkpoint']} loads strictly",
+          flush=True)
+
+    # 5. the kernels on this path's own operands
+    q, k, v, mask = fwd_ops
+    got = fa.fused_attention_forward(q, k, v, mask)
+    plain = fa.fused_attention_reference(q, k, v, mask)
+    fwd_err = (got - plain).abs().max().item()
+    fwd_exact = exact_errors(got, plain, exact_in_rows(q, k, v, mask), mask)
+    check(fwd_err <= 1e-4, f"fused_fwd_pieces on the serve path's operands: "
+          f"max |kernel - plain| {fwd_err} > 1e-4")
+    fwd_shape = {"shape": list(q.shape), "strides": list(q.stride())}
+    q, k, v, mask, do = bwd_ops
+    got = fa.fused_attention_backward(q, k, v, mask, do)
+    again = fa.fused_attention_backward(q, k, v, mask, do)
+    plain = fa.fused_attention_backward_reference(q, k, v, mask, do)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "fused_bwd_pieces on the train path's operands: two calls differ")
+    bwd_exact = exact_errors(got, plain, exact_in_rows(q, k, v, mask, do),
+                             mask)
+    bwd_err = bwd_exact["kernel_vs_exact"]  # FP32_BACKWARD_YARDSTICK
+    check(bwd_err <= 1e-5, f"fused_bwd_pieces on the train path's operands: "
+          f"max |kernel - fp64 function| {bwd_err} > 1e-5")
+    bwd_plain = max((g - w).abs().max().item() for g, w in zip(got, plain))
+    print(f"maxp fp32 path operands: fused_fwd_pieces on the serve encode's "
+          f"first call {fwd_shape}: max|err| {fwd_err:.3g} (tol 1e-4; vs "
+          f"fp64 exact: kernel {fwd_exact['kernel_vs_exact']:.3g}, plain "
+          f"{fwd_exact['plain_vs_exact']:.3g}); fused_bwd_pieces on the "
+          f"train step's first backward {list(q.shape)}: max|err| against "
+          f"the fp64 function {bwd_err:.3g} (tol 1e-5; the fp32 plain "
+          f"version's {bwd_exact['plain_vs_exact']:.3g}, kernel - fp32 plain "
+          f"{bwd_plain:.3g}), two calls bit-equal", flush=True)
+    check(no_reference_modules(), "the port imported jax or ance_tpu")
+    return {"serve_fused_launches": serve_fwd,
+            "serve_blockmax_kernels": serve_search, "cli_s": cli_s,
+            "encode_chunk_rows_per_s": n_rows / enc_s,
+            "encode_docs_per_s": N_F32_DOCS / enc_s,
+            "train_fused_forward_launches": train_fwd,
+            "train_fused_backward_launches": train_bwd,
+            "train_steps": steps, "train_loss": losses,
+            "train_step_ms": step_ms, "step_ms": train["step_ms"],
+            "train_peak_mem_gib": peak / 2**30, "train_wall_s": wall,
+            "path_forward": dict(fwd_shape, max_abs_err=fwd_err, **fwd_exact),
+            "path_backward": dict(shape=list(q.shape), max_abs_err=bwd_err,
+                                  yardstick="fp64 function",
+                                  max_abs_err_vs_fp32_plain=bwd_plain,
+                                  **bwd_exact)}
 
 
 def _params_close(got: dict, want: dict, atol: float, lr_sum: float,
@@ -2137,6 +2607,7 @@ def main() -> int:
         serve = phase_serve(work)
         maxp = phase_maxp(work)
         train = phase_train(work)
+        maxp_fp32 = phase_maxp_fp32(work)
         generate = phase_generate(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2218,6 +2689,32 @@ def main() -> int:
         e["gemm_ms"] = head["gemm_ms"]
         e["fp32_rate_bound_ms"] = head["fp32_rate_bound_ms"]
         fp32_entries.append(e)
+    # the fused kernels' fp32 pieces route: the forward with its launches
+    # on the fp32 MaxP serve path, the backward with those of the fp32
+    # MaxP train path; max_abs_err over the route's cases and the path's
+    # own operands
+    fp32_attention = []
+    for entry_name, kernel, replaces, own, launches, path in (
+            ("fused_attention_f32", "fused_fwd_pieces",
+             "ance_tpu/ops/fused_attention.py:40",
+             [c for c in attn_cases if c["kernel"] == "fused_fwd_pieces"],
+             maxp_fp32["serve_fused_launches"]["fused_fwd_pieces"],
+             maxp_fp32["path_forward"]),
+            ("fused_attention_bwd_f32", "fused_bwd_pieces",
+             "ance_tpu/ops/fused_attention.py:97",
+             [c for c in bwd_cases if c["kernel"] == "fused_bwd_pieces"],
+             maxp_fp32["train_fused_backward_launches"]["fused_bwd_pieces"],
+             maxp_fp32["path_backward"])):
+        head = next(c for c in own if c["layout"] == "contiguous"
+                    and c["S"] == 512 and c["B"] in (32, 64))
+        e = entry(entry_name, "fused_attention", replaces, launches,
+                  dict(head, max_abs_err=max([c["max_abs_err"] for c in own]
+                                             + [path["max_abs_err"]])),
+                  f"f32 B={head['B']} S=512 H=12 D=64 ({kernel})",
+                  "fused_attention", own)
+        e.update(kernel=kernel, fp32_rate_bound_ms=head["fp32_rate_bound_ms"],
+                 exact=head["exact"], path_operands=path)
+        fp32_attention.append(e)
     print(json.dumps({"kernels": [
         blockmax, *fp32_entries,
         attention_entry("fused_attention", "ance_tpu/ops/fused_attention.py:40",
@@ -2228,12 +2725,14 @@ def main() -> int:
               "ance_tpu/ops/fused_attention.py:97",
               train["maxp"]["fused_backward_launches"], bwd_head,
               "bf16 B=64 S=512 H=12 D=64", "fused_attention", bwd_cases),
+        *fp32_attention,
         seq128_entry("fused128", "docs/perf_attn128_r3.py:44", "fused128"),
         seq128_entry("fused_block", "docs/perf_attn128_r3.py:88", "block")],
         "fused_function": functions, "machine_code": machine_code,
         "index_search": searches, "ties": ties,
         "crossover": crossover, "serve": serve, "maxp": maxp,
-        "train": train, "step_parity": parity, "mirror_encoder": mirror,
+        "train": train, "maxp_fp32": maxp_fp32, "step_parity": parity,
+        "mirror_encoder": mirror,
         "generate": generate}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -22,7 +22,9 @@ from ance_tpu_torch.ops.attention import (kernel_operands, mask_to_bias,
 from ance_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_reference)
 from ance_tpu_torch.ops.fused_attention import (fused_attention,
-                                                fused_attention_reference)
+                                                fused_attention_reference,
+                                                fused_kernel_for)
+from ance_tpu_torch.ops.topk import split_bf16_pieces
 
 torch.set_num_threads(1)
 
@@ -289,6 +291,155 @@ def test_two_pass_forward_schedule_matches_plain(kind, S, strided):
                                if kind == "bf16" else 1e-6, rtol=0)
 
 
+# -- the fp32 pieces route's arithmetic (csrc/fused_attention.cu), on the CPU --
+
+# fused_*_pieces' piece products (A piece, B piece) in issue order, the
+# smallest first; each is issued for the four k-steps of 16 of a 64-deep
+# tile
+PIECE_PRODUCTS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+
+
+def toward_zero(x):
+    """fp64 ``x`` rounded to fp32 toward zero, as the tensor cores' fp32
+    accumulation rounds (it does not round to nearest)."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(),
+                       torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def tile_product(a, b, acc=None):
+    """One tile product of the pieces kernels, a [..., M, K] · b [..., K, N]
+    with K ≤ 64: both fp32 operands as their three bf16 pieces
+    (``split_bf16_pieces``, the kernels' ``split3``); per piece product in
+    issue order and per k-step of 16, one wgmma update: its 16 products
+    summed exactly (fp64) and added to the accumulator rounded toward
+    zero. The accumulator is fresh (``acc`` None: the first update
+    overwrites it), as in the kernels, or, for contrast, a running one.
+    A ragged tile's missing rows are the kernels' zero-filled ones and add
+    nothing."""
+    ap = split_bf16_pieces(a.float()).double()
+    bp = split_bf16_pieces(b.float()).double()
+    for i, j in PIECE_PRODUCTS:
+        for k0 in range(0, a.shape[-1], 16):
+            x = ap[i][..., k0:k0 + 16] @ bp[j][..., k0:k0 + 16, :]
+            acc = toward_zero(x if acc is None else acc.double() + x)
+    return acc
+
+
+def running_product(a, b, fresh=True):
+    """a [..., M, S] · b [..., S, N] over 64-deep tiles of S: each tile a
+    fresh ``tile_product`` added to a running fp32 total rounded to
+    nearest, as the kernels sum p·v, dq, dv and dk (``fresh=False``: every
+    update into one running accumulator)."""
+    total = None
+    for t0, t1 in key_tiles(a.shape[-1]):
+        if fresh:
+            part = tile_product(a[..., t0:t1], b[..., t0:t1, :])
+            total = part if total is None else total + part
+        else:
+            total = tile_product(a[..., t0:t1], b[..., t0:t1, :], acc=total)
+    return total
+
+
+def score_tiles(a, b, bias):
+    """s = (a·bᵀ)·scale + bias [B, H, S, S] for a, b [B, S, H, 64], each
+    64-key tile a fresh ``tile_product`` (the keys pass pairs its pieces
+    so that its sᵀ = k·qᵀ takes the same updates in the same order: the
+    same bits)."""
+    ah, bh = a.transpose(1, 2).float(), b.transpose(1, 2).float()
+    s = torch.cat([tile_product(ah, bh[:, :, t0:t1].transpose(-1, -2))
+                   for t0, t1 in key_tiles(b.shape[1])], -1)
+    return s * 0.125 + bias
+
+
+def forward_pieces_emulated(q, k, v, mask, fresh=True):
+    """What ``fused_fwd_pieces`` computes, on the CPU: per 64-key tile s =
+    q·kᵀ, scale and bias (fp32), the online max and rescaled sum (l and
+    the total times exp(m − m')), p = exp(s − m') in fp32, p·v as a fresh
+    ``tile_product`` added to the total to nearest (``fresh=False``: into
+    the running total); out = total / l. [B, S, H, D] fp32."""
+    B, S, H, D = q.shape
+    bias = ((1.0 - mask.float()) * -1e9)[:, None, None, :]
+    s_all = score_tiles(q, k, bias)
+    vh = v.transpose(1, 2).float()
+    m = torch.full((B, H, S, 1), -math.inf)
+    l = torch.zeros((B, H, S, 1))
+    total = torch.zeros((B, H, S, D))
+    for t0, t1 in key_tiles(S):
+        s = s_all[..., t0:t1]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        a = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * a + p.sum(-1, keepdim=True)
+        total = total * a
+        if fresh:
+            total = total + tile_product(p, vh[:, :, t0:t1])
+        else:
+            total = tile_product(p, vh[:, :, t0:t1], acc=total)
+        m = m_new
+    return (total / l).transpose(1, 2)
+
+
+@pytest.mark.parametrize("S,strided", [(65, True), (300, False),
+                                       (512, False), (512, True)])
+def test_fp32_pieces_forward_emulated_matches_plain_and_jax(S, strided):
+    """The fp32 forward's arithmetic (pieces, products smallest first,
+    each tile's accumulator truncated toward zero, one pass with an online
+    softmax) within 1e-4 of the plain version (chip_smoke.py's fp32
+    tolerance) and of the Pallas kernel in interpret mode; the fully
+    masked row 0 is the mean of v."""
+    q, k, v, mask = schedule_inputs(3, S, 2, 64, seed=S, kind="f32",
+                                    strided=strided)
+    got = forward_pieces_emulated(q, k, v, mask)
+    want = fused_attention_reference(q, k, v, mask)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    jax_out = jax_fused_forward(*(jnp.asarray(t.contiguous().numpy())
+                                  for t in (q, k, v)),
+                                jnp.asarray(mask.numpy()), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_out), atol=1e-4,
+                               rtol=0)
+    torch.testing.assert_close(got[0], v[0].mean(0, keepdim=True).expand(
+        S, 2, 64), atol=1e-5, rtol=0)
+
+
+def test_fp32_pieces_forward_needs_a_fresh_accumulator():
+    """Why a fresh accumulator a tile: with large same-signed values (v
+    in [32, 36), every partial sum growing one way) the truncated updates
+    of one running total (192 of them over 512 keys) drift toward zero by
+    more than the 1e-4 tolerance (1.7e-4 here); the tiles' fresh sums
+    added to nearest stay within half of it (3.1e-5: each tile's four
+    (0, 0) updates still truncate, ~8 ulps of an output near 34)."""
+    q, k, v, mask = schedule_inputs(2, 512, 2, 64, seed=7, kind="f32",
+                                    strided=False)
+    v = 32.0 + v.abs()
+    mask = torch.ones_like(mask)
+    want = fused_attention_reference(q, k, v, mask)
+    got = forward_pieces_emulated(q, k, v, mask)
+    one = forward_pieces_emulated(q, k, v, mask, fresh=False)
+    assert float((got - want).abs().max()) < 1e-4 / 2
+    assert float((one - want).abs().max()) > 1e-4
+
+
+def test_fused_kernel_for_names_each_route():
+    """bf16 takes the bf16 kernels; fp32 the pieces kernels where every
+    row is 16-byte aligned (contiguous, or the encoder's qkv.chunk views),
+    else the CUDA-core kernels."""
+    def ops(dtype, width=64, lo=0):
+        x = torch.zeros(2, 8, 3, width, dtype=dtype)[..., lo:lo + 64]
+        return x, x, x
+    q, k, v, _ = schedule_inputs(2, 8, 2, 64, seed=0, kind="f32",
+                                 strided=True)
+    for backward, kind in ((False, "fwd"), (True, "bwd")):
+        assert fused_kernel_for(*ops(torch.bfloat16),
+                                backward=backward) == f"fused_{kind}_bf16"
+        assert fused_kernel_for(*ops(torch.float32),
+                                backward=backward) == f"fused_{kind}_pieces"
+        assert fused_kernel_for(q, k, v,
+                                backward=backward) == f"fused_{kind}_pieces"
+        assert fused_kernel_for(*ops(torch.float32, 66, 1),
+                                backward=backward) == f"fused_{kind}_f32"
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
@@ -330,6 +481,41 @@ def test_attention_kernel_matches_plain_on_cuda(impl, kind, S, strided):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
     else:
         assert_bf16_slice_close(got.float().cpu(), want.cpu(), impl)
+
+
+def fp32_operands(B, S, layout, dev, seed, n=3):
+    """n fp32 [B, S, 12, 64] operands on ``dev`` sharing one layout:
+    contiguous, the chunks of one fused projection (``qkv.chunk``), or
+    rows 4 bytes off 16-byte alignment (``misaligned``: views into
+    [..., 66] tensors)."""
+    rs = np.random.RandomState(seed)
+    if layout == "qkv.chunk":
+        x = torch.as_tensor(rs.randn(B, S, n * 768).astype(np.float32))
+        return [t.reshape(B, S, 12, 64) for t in x.to(dev).chunk(n, dim=-1)]
+    width = 66 if layout == "misaligned" else 64
+    return [torch.as_tensor(rs.randn(B, S, 12, width).astype(np.float32))
+            .to(dev)[..., width - 64:] for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [300, 512])
+@pytest.mark.parametrize("layout", ["contiguous", "qkv.chunk", "misaligned"])
+def test_fused_fp32_routes_on_cuda(layout, S):
+    """The fp32 forward on the route ``fused_kernel_for`` names: the
+    pieces kernels for contiguous operands and the encoder's qkv.chunk
+    views, the CUDA-core kernel for rows off alignment; each launch counted
+    under its kernel, each within 1e-4 of the plain version."""
+    dev = _cuda()
+    q, k, v = fp32_operands(4, S, layout, dev, seed=S)
+    _, _, _, mask = _inputs(4, S, 1, 1, seed=S)
+    mask = torch.as_tensor(mask).to(dev)
+    kernel = "fused_fwd_f32" if layout == "misaligned" else "fused_fwd_pieces"
+    assert fused_kernel_for(q, k, v) == kernel
+    before = fused_attention.kernel_launches[kernel]
+    got = fused_attention(q, k, v, mask)
+    assert fused_attention.kernel_launches[kernel] == before + 1
+    want = fused_attention_reference(q, k, v, mask)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
 
 @pytest.mark.cuda

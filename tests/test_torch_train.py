@@ -26,9 +26,11 @@ from ance_tpu_torch.models.weights import state_dict_from_flax
 from ance_tpu_torch.ops.attention import multi_head_attention
 from ance_tpu_torch.ops.fused_attention import (
     MAX_SEQ_BACKWARD, fused_attention, fused_attention_backward,
-    fused_attention_backward_reference, fused_attention_reference)
-from test_torch_attention import (assert_bf16_slice_close, key_tiles,
-                                 row_stats, schedule_inputs, tile_scores)
+    fused_attention_backward_reference, fused_attention_reference,
+    fused_kernel_for)
+from test_torch_attention import (assert_bf16_slice_close, fp32_operands,
+                                 key_tiles, row_stats, running_product,
+                                 schedule_inputs, score_tiles, tile_scores)
 
 torch.set_num_threads(1)
 
@@ -169,6 +171,83 @@ def test_backward_schedule_matches_plain(kind, S, strided):
         else:
             assert_bf16_slice_close(g.float().numpy(), w.float().numpy(),
                                     name)
+
+
+def backward_pieces_emulated(q, k, v, mask, do, fresh=True):
+    """What ``fused_bwd_rows_pieces`` and ``fused_bwd_keys_pieces`` compute,
+    on the CPU: s and dp per 64-key tile as fresh tile products of the
+    bf16 pieces, truncated toward zero (``score_tiles``; the keys pass's
+    sᵀ and dpᵀ are the same bits); the rows pass's running max, rescaled
+    sum and rescaled sum d of dp ⊙ exp(s − m), delta = d / l; p =
+    exp(s − m) / l and ds = p ⊙ (dp − delta)·scale in fp32; then dq = ds·k
+    (rows pass), dv = pᵀ·do and dk = dsᵀ·q (keys pass, 64-query tiles),
+    each a running fp32 total of its tiles' fresh products
+    (``fresh=False``: one running accumulator). Returns (dq, dk, dv)."""
+    B, S, H, D = q.shape
+    bias = ((1.0 - mask.float()) * -1e9)[:, None, None, :]
+    s = score_tiles(q, k, bias)
+    dp = score_tiles(do, v, torch.zeros_like(bias)) * 8.0  # unscaled
+    m = torch.full((B, H, S, 1), -math.inf)
+    l = torch.zeros((B, H, S, 1))
+    d = torch.zeros((B, H, S, 1))
+    for t0, t1 in key_tiles(S):
+        m_new = torch.maximum(m, s[..., t0:t1].amax(-1, keepdim=True))
+        e = torch.exp(s[..., t0:t1] - m_new)
+        a = torch.exp(m - m_new)
+        l = l * a + e.sum(-1, keepdim=True)
+        d = d * a + (dp[..., t0:t1] * e).sum(-1, keepdim=True)
+        m = m_new
+    p = torch.exp(s - m) / l
+    ds = p * (dp - d / l) * 0.125
+    qh, kh, oh = (t.transpose(1, 2).float() for t in (q, k, do))
+    dq = running_product(ds, kh, fresh)
+    dv = running_product(p.transpose(-1, -2), oh, fresh)
+    dk = running_product(ds.transpose(-1, -2), qh, fresh)
+    return tuple(x.transpose(1, 2) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("S,strided", [(65, True), (300, False),
+                                       (512, False), (512, True)])
+def test_fp32_pieces_backward_emulated_matches_plain_and_jax(S, strided):
+    """The fp32 backward's arithmetic (pieces, products smallest first,
+    each tile's accumulator truncated toward zero, the rows pass and the
+    keys pass) within 1e-5 of the plain version (chip_smoke.py's fp32
+    tolerance) and of ``_fused_backward`` in interpret mode, with a fully
+    masked row 0 and, at S = 65 and one S = 512, the qkv.chunk views."""
+    q, k, v, mask = schedule_inputs(3, S, 2, 64, seed=S, kind="f32",
+                                    strided=strided)
+    do = torch.as_tensor(np.random.RandomState(S + 1).randn(3, S, 2, 64)
+                         .astype(np.float32))
+    got = backward_pieces_emulated(q, k, v, mask, do)
+    want = fused_attention_backward_reference(q, k, v, mask, do)
+    jax_grads = jax_fused_backward(
+        *(jnp.asarray(t.contiguous().numpy()) for t in (q, k, v)),
+        jnp.asarray(mask.numpy()), jnp.asarray(do.numpy()), interpret=True)
+    for name, g, w, j in zip(("dq", "dk", "dv"), got, want, jax_grads):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0, msg=name)
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=1e-5,
+                                   rtol=0, err_msg=name)
+
+
+def test_fp32_pieces_backward_needs_a_fresh_accumulator():
+    """Why a fresh accumulator a tile in the backward too: 128 valid keys a
+    row and same-signed output gradients give dv up to ~5.5 summed over
+    512 queries, every partial sum growing one way; one running
+    accumulator's truncated updates drift dk and dv beyond the 1e-5
+    tolerance (2.5e-5, 2.7e-5 here), the tiles' fresh sums added to
+    nearest stay within half of it."""
+    q, k, v, mask = schedule_inputs(2, 512, 2, 64, seed=11, kind="f32",
+                                    strided=False)
+    mask = (torch.arange(512)[None] < 128).long().expand(2, 512)
+    do = 0.5 + torch.as_tensor(np.random.RandomState(12).rand(2, 512, 2, 64)
+                               .astype(np.float32))
+    want = fused_attention_backward_reference(q, k, v, mask, do)
+    got = backward_pieces_emulated(q, k, v, mask, do)
+    one = backward_pieces_emulated(q, k, v, mask, do, fresh=False)
+    assert float(want[2].abs().max()) > 4
+    for i in (1, 2):  # dk, dv
+        assert float((got[i] - want[i]).abs().max()) < 1e-5 / 2
+        assert float((one[i] - want[i]).abs().max()) > 1e-5
 
 
 @pytest.mark.parametrize("with_mask", [True, False])
@@ -483,6 +562,39 @@ def test_accumulation_equals_one_big_batch():
 
 # -- on the card -------------------------------------------------------------
 
+def backward_fp64(q, k, v, mask, do):
+    """The fp32 backward's function evaluated in fp64 (the pieces route's
+    yardstick): masked keys weigh 0, a fully masked row weighs every key
+    alike, as the fp32 function's s rounds to -1e9 on every key. The fp32
+    plain version's 512-deep sums are themselves up to ~4e-5 from it on a
+    row of a few valid keys, where the CUDA-core kernels, summing in
+    cuBLAS's order, follow it and the pieces kernels do not.
+    Returns fp64 (dq, dk, dv)."""
+    f64 = torch.float64
+    qd, kd, vd, dd = (t.to(f64) for t in (q, k, v, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) / math.sqrt(q.shape[-1])
+    valid = mask.bool()[:, None, None, :].expand_as(s)
+    empty = ~valid.any(-1, keepdim=True).expand_as(s)
+    s = torch.where(valid, s, torch.where(empty, torch.zeros_like(s),
+                                          torch.full_like(s, -math.inf)))
+    p = torch.softmax(s, -1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dd, vd)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) / math.sqrt(q.shape[-1])
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, kd),
+            torch.einsum("bhqk,bqhd->bkhd", ds, qd),
+            torch.einsum("bhqk,bqhd->bkhd", p, dd))
+
+
+def test_backward_fp64_is_the_plain_backward():
+    """The fp64 yardstick computes the plain backward's function: within
+    fp32 rounding of it, the fully masked row included."""
+    q, k, v, do, mask = (torch.as_tensor(a) for a in
+                         _attn_inputs(3, 40, 2, 64, seed=3))
+    want = fused_attention_backward_reference(q, k, v, mask, do)
+    for g, w in zip(backward_fp64(q, k, v, mask, do), want):
+        torch.testing.assert_close(g.float(), w, atol=2e-6, rtol=0)
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
@@ -497,8 +609,10 @@ def _cuda():
 def test_fused_backward_kernel_matches_plain_on_cuda(kind, S, strided):
     """Kernel #3 against its plain version at H = 12, D = 64, a fully
     masked row and ragged lengths, q/k/v also as strided chunks of one
-    fused-QKV projection: bf16 by ``assert_bf16_slice_close``, fp32 within
-    1e-5; a second call gives the same bits (no atomics)."""
+    fused-QKV projection: bf16 by ``assert_bf16_slice_close``, fp32 (the
+    pieces route) within 1e-5 of the function in fp64
+    (``backward_fp64``); a second call gives the same bits (no
+    atomics)."""
     dev = _cuda()
     q, k, v, do, mask = (torch.as_tensor(a).to(dev) for a in
                          _attn_inputs(4, S, 12, 64, seed=S))
@@ -512,14 +626,45 @@ def test_fused_backward_kernel_matches_plain_on_cuda(kind, S, strided):
     assert fused_attention_backward.launches == before + 1
     again = fused_attention_backward(q, k, v, mask, do)
     want = fused_attention_backward_reference(q, k, v, mask, do)
+    if kind == "f32":
+        want = backward_fp64(q, k, v, mask, do)
     torch.cuda.synchronize()
     for g, a in zip(got, again):
         assert torch.equal(g, a)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         if kind == "f32":
-            torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+            torch.testing.assert_close(g.double(), w, atol=1e-5, rtol=0)
         else:
             assert_bf16_slice_close(g.float().cpu(), w.float().cpu(), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [65, 512])
+@pytest.mark.parametrize("layout", ["contiguous", "qkv.chunk", "misaligned"])
+def test_fused_backward_fp32_routes_on_cuda(layout, S):
+    """The fp32 backward on the route ``fused_kernel_for`` names (the
+    pieces kernels, or the CUDA-core pair for rows off alignment), each
+    call counted under it, the same bits from a second call, within 1e-5
+    of its yardstick: the function in fp64 for the pieces kernels, the
+    fp32 plain version (whose summation order they share) for the
+    CUDA-core pair."""
+    dev = _cuda()
+    q, k, v, do = fp32_operands(4, S, layout, dev, seed=S, n=4)
+    mask = torch.as_tensor(_attn_inputs(4, S, 1, 1, seed=S)[-1]).to(dev)
+    kernel = "fused_bwd_f32" if layout == "misaligned" else "fused_bwd_pieces"
+    assert fused_kernel_for(q, k, v, backward=True) == kernel
+    counts = fused_attention_backward.kernel_launches
+    before = counts[kernel]
+    got = fused_attention_backward(q, k, v, mask, do)
+    again = fused_attention_backward(q, k, v, mask, do)
+    assert counts[kernel] == before + 2
+    want = fused_attention_backward_reference(q, k, v, mask, do)
+    if kernel == "fused_bwd_pieces":
+        want = backward_fp64(q, k, v, mask, do)
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(g, a), name
+        torch.testing.assert_close(g.to(w.dtype), w, atol=1e-5, rtol=0,
+                                   msg=name)
 
 
 @pytest.mark.cuda
