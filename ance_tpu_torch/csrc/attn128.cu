@@ -50,22 +50,35 @@
 //     out     = bf16(fp32(ctx . wo))
 // The TPU kernel holds all four [768, 768] weights (4.7 MB) and a group of
 // x rows (384 KB at G = 2) in VMEM; a Hopper block has 227 KB of shared
-// memory and holds neither. So this is two launches, each streaming
-// 64-deep tiles of x and of the weights through a cp.async double buffer:
-//  1. qkv_attend: a block owns one (b, h): it projects the b's S rows of x
-//     onto the head's 64 columns of wq, wk and wv (three 128 x 64 fp32
-//     accumulators in registers, 12 tiles of 64), rounds q, k and v to bf16
-//     into shared memory, and runs attn128's attention on them. Only ctx
-//     ([B, S, H] bf16) reaches device memory; q, k and v never do.
-//  2. out_proj: a block owns 128 rows x 64 columns of out = ctx . wo.
+// memory and holds neither. The work is 83.7 GFLOP at B = 128 (the four
+// projections 77.3 of it): bound by the bf16 tensor-core rate, 0.085 ms
+// at 989 TFLOP/s. So the projections are wgmma m64n256k16 products fed by
+// a TMA ring (blockmax_bf16's mainloop), in two launches:
+//  1. qkv_attend: a block owns two batch rows (256 rows of x, each batch
+//     row's S rows at 128-row offsets, rows past S zero-filled) and one
+//     head h: each weight tile serves two batch rows, half the L2 traffic
+//     of the weights a block of one row read (each block reads its weight
+//     columns, 295 KB, and its x rows, 393 KB, from L2). Three warpgroups
+//     each project onto one of wq, wk, wv: out^T = W_h^T . x^T, the
+//     weight's [64 k][64 n] tile as wgmma's A (MN-major, the transpose
+//     flag), x's [256 rows][64 k] tile as B (K-major), so one m64n256k16
+//     covers the head's 64 columns of all 256 rows, 128 fp32 accumulators
+//     a thread (twelve warps: 168 registers a thread). The first thread
+//     keeps 64-deep x and weight tiles in flight by TMA through a ring of
+//     kProjStages (128-byte swizzle). q, k and v are rounded to bf16 into
+//     shared memory, transposed back to [rows][64] over the spent ring;
+//     they never reach device memory, the fusion's reason for being.
+//     attn128's attention (attend_head) then runs on them, a 64-query tile
+//     at a time, and the context leaves by one TMA store.
+//  2. out_proj: the same mainloop and block over out = ctx . wo, a block
+//     owning two batch rows and 192 output columns (64 a warpgroup), the
+//     result stored by TMA.
 // The output projection needs every head of a row, so it cannot finish in
 // a block that owns one head without summing heads across blocks (fp32
 // atomics, a result that changes from run to run); the split keeps the
 // result deterministic at the cost of writing and reading ctx once
 // (2 * 25 MB at B = 128). Every product of the TPU kernel's body runs
-// here on the tensor cores; none goes to a library. The work is 83.7 GFLOP
-// at B = 128 (the projections are 96%): bound by the bf16 tensor-core
-// rate, 0.085 ms at 989 TFLOP/s. wgmma, TMA and tuning are later work.
+// here on the tensor cores; none goes to a library.
 
 #include <cmath>
 #include <cstdint>
@@ -80,270 +93,9 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kD = 64;                // head dim
 constexpr int kMaxS = 128;            // the longest sequence
-constexpr int kWarps = kMaxS / 16;    // one warp per 16 query rows
-constexpr int kThreads = 32 * kWarps;
-constexpr int kLd = kD + 8;           // bf16 shared rows: 144 B, 16-B aligned;
-                                      // fragment loads hit 32 distinct banks
-constexpr int kKeyTiles = kMaxS / 8;  // 8-key accumulator tiles of a row
-constexpr int kDimTiles = kD / 8;     // 8-column accumulator tiles of a head
-constexpr int kChunk = 64;            // reduction depth of a staged tile
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::);  // all but the newest group
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-// two bf16 in one register, `lo` in the low half (the lower index)
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// d += a . b for one 16 x 8 x 16 tile (bf16 in, fp32 accumulate). The PTX
-// ISA fixes the fragment layouts; with g = lane / 4 and c = 2 * (lane % 4):
-//   a[0] = A[g][c..c+1]    a[1] = A[g+8][c..c+1]
-//   a[2] = A[g][c+8..c+9]  a[3] = A[g+8][c+8..c+9]
-//   b0   = B[c..c+1][g]    b1   = B[c+8..c+9][g]
-//   d[0..1] = D[g][c..c+1] d[2..3] = D[g+8][c..c+1]
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment: rows [r0, r0 + 16) x columns [c0, c0 + 16) of a row-major
-// shared tile with row pitch ld
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* t,
-                                       int ld, int r0, int c0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = t + (r0 + (lane >> 2)) * ld + c0 + 2 * (lane & 3);
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B fragment of B = T^T (T row-major [n][k], e.g. K[key][d]): n from n0,
-// k from k0; each register is two neighbours of one row of T
-__device__ __forceinline__ void load_bt(uint32_t& b0, uint32_t& b1,
-                                        const bf16* t, int ld, int n0,
-                                        int k0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = t + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-
-// B fragment of a row-major B [k][n] (V[key][d], W[in][out]): k from k0,
-// n from n0; each register is two rows of one column
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
-                                       const bf16* t, int ld, int k0,
-                                       int n0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = t + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
-  b0 = pack(p[0], p[ld]);
-  b1 = pack(p[8 * ld], p[9 * ld]);
-}
-
-using hopper::pack_rn;
 using hopper::quad_max;
 using hopper::quad_sum;
-
-// Kernel #6's attention (mma.sync m16n8k16): one warp's 16 query rows
-// [16w, 16w + 16) of a head staged in shared memory (Qs, Ks, Vs:
-// [kMaxS][kLd], rows past S zero) against keys [0, S), the function of
-// the file comment with the division instruction and expf; the warp's
-// rows of the context stored in bf16 at out + row * ld_out.
-__device__ __forceinline__ void attend_rows(const bf16* Qs, const bf16* Ks,
-                                            const bf16* Vs, const float* bias,
-                                            int S, float scale, bf16* out,
-                                            long long ld_out) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = 2 * (lane & 3);
-  const int r0 = warp * 16;
-  if (r0 >= S) return;
-  const int key_tiles = (S + 15) / 16;  // 16-key tiles that hold a valid key
-
-  // 1. s = q . k^T: 16 rows x up to 128 keys in registers
-  float s[kKeyTiles][4];
-#pragma unroll
-  for (int j = 0; j < kKeyTiles; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int kd = 0; kd < kD; kd += 16) {
-    uint32_t a[4];
-    load_a(a, Qs, kLd, r0, kd);
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-      if (j < 2 * key_tiles) {
-        uint32_t b0, b1;
-        load_bt(b0, b1, Ks, kLd, j * 8, kd);
-        mma(s[j], a, b0, b1);
-      }
-    }
-  }
-
-  // 2. scale, bias (keys past S weigh nothing), exact max and sum over the
-  //    row: this thread holds rows g (e = 0, 1) and g + 8 (e = 2, 3)
-  float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < kKeyTiles; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = j * 8 + c + (e & 1);
-      s[j][e] = key < S ? __fadd_rn(__fmul_rn(s[j][e], scale), bias[key])
-                        : -INFINITY;
-    }
-    m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
-    m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
-  }
-  m0 = quad_max(m0);
-  m1 = quad_max(m1);
-  float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < kKeyTiles; ++j) {
-    s[j][0] = expf(s[j][0] - m0);
-    s[j][1] = expf(s[j][1] - m0);
-    s[j][2] = expf(s[j][2] - m1);
-    s[j][3] = expf(s[j][3] - m1);
-    l0 += s[j][0] + s[j][1];
-    l1 += s[j][2] + s[j][3];
-  }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-
-  // 3. out = bf16(p / l) . v: the score tiles 2t and 2t + 1 are the A
-  //    fragment of key tile t
-  float o[kDimTiles][4];
-#pragma unroll
-  for (int n = 0; n < kDimTiles; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-#pragma unroll
-  for (int t = 0; t < kKeyTiles / 2; ++t) {
-    if (t < key_tiles) {
-      uint32_t a[4];
-      a[0] = pack_rn(__fdiv_rn(s[2 * t][0], l0), __fdiv_rn(s[2 * t][1], l0));
-      a[1] = pack_rn(__fdiv_rn(s[2 * t][2], l1), __fdiv_rn(s[2 * t][3], l1));
-      a[2] = pack_rn(__fdiv_rn(s[2 * t + 1][0], l0),
-                     __fdiv_rn(s[2 * t + 1][1], l0));
-      a[3] = pack_rn(__fdiv_rn(s[2 * t + 1][2], l1),
-                     __fdiv_rn(s[2 * t + 1][3], l1));
-#pragma unroll
-      for (int n = 0; n < kDimTiles; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, Vs, kLd, t * 16, n * 8);
-        mma(o[n], a, b0, b1);
-      }
-    }
-  }
-
-  // 4. store the rows that exist, bf16
-#pragma unroll
-  for (int n = 0; n < kDimTiles; ++n) {
-    if (r0 + g < S)
-      *reinterpret_cast<__nv_bfloat162*>(out + (r0 + g) * ld_out + n * 8 + c) =
-          __floats2bfloat162_rn(o[n][0], o[n][1]);
-    if (r0 + g + 8 < S)
-      *reinterpret_cast<__nv_bfloat162*>(out + (r0 + g + 8) * ld_out + n * 8 +
-                                         c) =
-          __floats2bfloat162_rn(o[n][2], o[n][3]);
-  }
-}
-
-template <int NW>
-struct Weights {
-  const bf16* p[NW];
-};
-
-// x tiles in a projection's staging buffer: kMaxS rows of kChunk (+ pad)
-constexpr int kLdX = kChunk + 8;
-template <int NW>
-__host__ __device__ constexpr long long proj_stage() {  // elements a stage
-  return static_cast<long long>(kMaxS) * kLdX +
-         static_cast<long long>(NW) * kChunk * kLd;
-}
-template <int NW>
-__host__ __device__ constexpr long long proj_smem() {
-  return 2 * proj_stage<NW>() * 2;
-}
-
-// acc[m] = x[rows 16w..16w+16, :K] . W_m[:K, col0..col0+64) for this warp
-// w and each of the NW weights; x row-major with row stride ldx, rows
-// >= n_rows read as zeros; W_m row-major [K][ldw]. 64-deep tiles of x (all
-// kMaxS rows) and of each W_m stream through a cp.async double buffer at
-// `stage` (proj_smem<NW>() bytes). K must be a multiple of kChunk.
-template <int NW>
-__device__ __forceinline__ void project(float (&acc)[NW][kDimTiles][4],
-                                        const bf16* x, long long ldx,
-                                        int n_rows, int K, Weights<NW> w,
-                                        long long ldw, int col0,
-                                        bf16* stage) {
-  const int r0 = (threadIdx.x >> 5) * 16;
-#pragma unroll
-  for (int m = 0; m < NW; ++m)
-#pragma unroll
-    for (int n = 0; n < kDimTiles; ++n)
-      acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
-
-  auto load = [&](int buf, int k0) {
-    bf16* X = stage + buf * proj_stage<NW>();
-    for (int i = threadIdx.x; i < kMaxS * (kChunk / 8); i += kThreads) {
-      const int r = i / (kChunk / 8), ch = i % (kChunk / 8);
-      const bool valid = r < n_rows;
-      cp_async16(X + r * kLdX + ch * 8, valid ? x + r * ldx + k0 + ch * 8 : x,
-                 valid);
-    }
-#pragma unroll
-    for (int m = 0; m < NW; ++m) {
-      bf16* W = X + kMaxS * kLdX + m * kChunk * kLd;
-      for (int i = threadIdx.x; i < kChunk * (kD / 8); i += kThreads) {
-        const int r = i / (kD / 8), ch = i % (kD / 8);
-        cp_async16(W + r * kLd + ch * 8, w.p[m] + (k0 + r) * ldw + col0 + ch * 8,
-                   true);
-      }
-    }
-  };
-
-  const int n_chunks = K / kChunk;
-  load(0, 0);
-  cp_async_commit();
-  for (int t = 0; t < n_chunks; ++t) {
-    if (t + 1 < n_chunks) load((t + 1) & 1, (t + 1) * kChunk);
-    cp_async_commit();
-    cp_async_wait_prior();
-    __syncthreads();
-    const bf16* X = stage + (t & 1) * proj_stage<NW>();
-#pragma unroll
-    for (int kk = 0; kk < kChunk; kk += 16) {
-      uint32_t a[4];
-      load_a(a, X, kLdX, r0, kk);
-#pragma unroll
-      for (int m = 0; m < NW; ++m) {
-        const bf16* W = X + kMaxS * kLdX + m * kChunk * kLd;
-#pragma unroll
-        for (int n = 0; n < kDimTiles; ++n) {
-          uint32_t b0, b1;
-          load_b(b0, b1, W, kLd, kk, n * 8);
-          mma(acc[m][n], a, b0, b1);
-        }
-      }
-    }
-    __syncthreads();  // this buffer is refilled at t + 2
-  }
-}
 
 // ---- kernel #5: persistent, TMA ring, wgmma
 
@@ -512,71 +264,207 @@ __global__ void __launch_bounds__(k5Threads, k5BlocksPerSm)
   if (stores) hopper::tma_store_wait();
 }
 
-// attn_block launch 1: a block owns one (b, h)
-__global__ void __launch_bounds__(kThreads)
-    qkv_attend_kernel(const bf16* __restrict__ x, Weights<3> w,
-                      const float* __restrict__ bias, bf16* __restrict__ ctx,
-                      int S, int H, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* stage = reinterpret_cast<bf16*>(smem);
-  const int heads = H / kD;
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
-  const long long row0 = static_cast<long long>(b) * S;
 
-  float acc[3][kDimTiles][4];
-  project<3>(acc, x + row0 * H, H, S, H, w, H, h * kD, stage);
+// ---- kernel #6: two batch rows a block, wgmma + TMA ring, two launches
 
-  // q, k, v in bf16 into shared memory (over the staging buffers, which
-  // the last __syncthreads of project() has released); rows past S are 0
-  bf16* Qs = stage;
-  bf16* qkv[3] = {Qs, Qs + kMaxS * kLd, Qs + 2 * kMaxS * kLd};
-  const int lane = threadIdx.x & 31, g = lane >> 2, c = 2 * (lane & 3);
-  const int r0 = (threadIdx.x >> 5) * 16;
-#pragma unroll
-  for (int m = 0; m < 3; ++m)
-#pragma unroll
-    for (int n = 0; n < kDimTiles; ++n) {
-      *reinterpret_cast<uint32_t*>(qkv[m] + (r0 + g) * kLd + n * 8 + c) =
-          pack_rn(acc[m][n][0], acc[m][n][1]);
-      *reinterpret_cast<uint32_t*>(qkv[m] + (r0 + g + 8) * kLd + n * 8 + c) =
-          pack_rn(acc[m][n][2], acc[m][n][3]);
-    }
-  __syncthreads();
-  attend_rows(qkv[0], qkv[1], qkv[2], bias + row0, S, scale,
-              ctx + row0 * H + h * kD, H);
+constexpr int kBlockBatch = 2;                 // batch rows a block
+constexpr int kRows = kBlockBatch * kMaxS;     // x rows a block: wgmma's N
+constexpr int kProjWgs = 3;                    // one a weight tile
+// Twelve warps, three to a register sub-partition: 168 registers a
+// thread, room for a 64 x 256 tile's 128 accumulators (a fourth,
+// producer, warpgroup would cap every thread at 128, which ptxas compiles
+// the whole kernel to, setmaxnreg or not), so the first thread issues the
+// TMA loads between its own products.
+constexpr int kProjThreads = kProjWgs * hopper::kWgThreads;
+constexpr int kProjStages = 3;                 // ring of 64-deep k steps
+constexpr int kProjCols = kProjWgs * kD;       // out_proj's columns a block
+constexpr uint32_t kXBytes = kRows * kD * 2;         // an x stage, 32 KB
+constexpr uint32_t kWBytes = hopper::kTileBytes;     // a weight tile, 8 KB
+constexpr uint32_t kStageBytes = kXBytes + kProjWgs * kWBytes;
+
+struct alignas(1024) ProjSmem {
+  // the ring's x tiles; after the mainloop, warpgroup w's product in bf16
+  // [kRows][64] over x[w] (q, k, v in qkv_attend; then the context over q)
+  bf16 x[kProjStages][kRows * kD];
+  bf16 w[kProjStages][kProjWgs][kD * kD];  // [64 k][64 n] weight tiles
+  float bias[kBlockBatch][kMaxS];          // keys >= S: 0 (masked)
+  uint64_t full[kProjStages], empty[kProjStages];
+};
+static_assert(kProjStages == kProjWgs, "each product lands on one x stage");
+constexpr int kProjSmemBytes = static_cast<int>(sizeof(ProjSmem)) + kSmemSlack;
+static_assert(kProjSmemBytes <= 232448, "more than a block's shared memory");
+
+// What a block's loads read: x's (or ctx's) two batch rows from b0, and
+// three weight tiles, weight i's columns col[i]..
+struct ProjOperands {
+  const CUtensorMap* x;
+  const CUtensorMap* w[kProjWgs];
+  int col[kProjWgs];
+  int b0;
+};
+
+// stage t's tiles (x columns 64 t.., weight rows 64 t..) into ring stage
+// `stage`, by one thread
+__device__ __forceinline__ void load_stage(ProjSmem& sm, int stage, int t,
+                                           const ProjOperands& op) {
+  hopper::mbar_expect_tx(&sm.full[stage], kStageBytes);
+  hopper::tma_load_3d(sm.x[stage], op.x, 64 * t, 0, op.b0, &sm.full[stage]);
+  for (int i = 0; i < kProjWgs; ++i)
+    hopper::tma_load_2d(sm.w[stage][i], op.w[i], op.col[i], 64 * t,
+                        &sm.full[stage]);
 }
 
-// attn_block launch 2: a block owns rows [128 i, 128 i + 128) x columns
-// [64 j, 64 j + 64) of out = bf16(ctx . wo)
-__global__ void __launch_bounds__(kThreads)
-    out_proj_kernel(const bf16* __restrict__ ctx, Weights<1> wo,
-                    bf16* __restrict__ out, long long M, int H) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* stage = reinterpret_cast<bf16*>(smem);
-  const int col_tiles = H / kD;
-  const long long row0 = static_cast<long long>(blockIdx.x / col_tiles) * kMaxS;
-  const int col0 = (blockIdx.x % col_tiles) * kD;
-  const long long left = M - row0;
-  const int n_rows = left < kMaxS ? static_cast<int>(left) : kMaxS;
-
-  float acc[1][kDimTiles][4];
-  project<1>(acc, ctx + row0 * H, H, n_rows, H, wo, H, col0, stage);
-
-  const int lane = threadIdx.x & 31, g = lane >> 2, c = 2 * (lane & 3);
-  const int r0 = (threadIdx.x >> 5) * 16;
+// The mainloop both launches share: warpgroup wg's 64 output columns of
+// the block's 256 rows, acc = (W tile)^T . (x tile)^T over the H / 64
+// stages (hopper.cuh's accumulator layout: acc[4j + e] is column
+// 16 warp + g + 8 (e / 2) of row 8j + c + e % 2), then every warpgroup's
+// product lands in bf16 on x[wg] as [row][column], 128-byte swizzled (a
+// TMA box's layout), once every warpgroup is past the ring. Thread 0
+// fills the ring: kProjStages stages ahead, then each stage again once
+// every warp has released it.
+__device__ __forceinline__ void project(ProjSmem& sm, int n_k,
+                                        const ProjOperands& op,
+                                        const hopper::Lane& ln) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kProjStages; ++i) {
+      hopper::mbar_init(&sm.full[i], 1);
+      hopper::mbar_init(&sm.empty[i], kProjThreads / 32);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  const bool loads = threadIdx.x == 0;
+  if (loads)
+    for (int t = 0; t < kProjStages && t < n_k; ++t) load_stage(sm, t, t, op);
+  float acc[128];
+  hopper::Ring<kProjStages> r;
+  for (int t = 0; t < n_k; ++t, r.next()) {
+    hopper::mbar_wait(&sm.full[r.stage], r.phase);
+    const uint64_t da = hopper::desc_sw128(sm.w[r.stage][ln.wg]);
+    const uint64_t db = hopper::desc_sw128(sm.x[r.stage]);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < kDimTiles; ++n) {
-    if (r0 + g < n_rows)
-      *reinterpret_cast<__nv_bfloat162*>(out + (row0 + r0 + g) * H + col0 +
-                                         n * 8 + c) =
-          __floats2bfloat162_rn(acc[0][n][0], acc[0][n][1]);
-    if (r0 + g + 8 < n_rows)
-      *reinterpret_cast<__nv_bfloat162*>(out + (row0 + r0 + g + 8) * H + col0 +
-                                         n * 8 + c) =
-          __floats2bfloat162_rn(acc[0][n][2], acc[0][n][3]);
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_ss_n256<1>(acc, da + kk * hopper::kKStepMN,
+                               db + kk * hopper::kKStepK, t > 0 || kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();  // the other warpgroups' products fill the gap
+    hopper::fence_regs(acc);
+    if (threadIdx.x % 32 == 0) hopper::mbar_arrive(&sm.empty[r.stage]);
+    if (loads && t + kProjStages < n_k) {
+      hopper::mbar_wait(&sm.empty[r.stage], r.phase);
+      load_stage(sm, r.stage, t + kProjStages, op);
+    }
+    __syncwarp();  // warp 0 converged again for the next wgmma
+  }
+  hopper::named_barrier(1, kProjThreads);  // the ring is spent
+  unsigned char* tile = reinterpret_cast<unsigned char*>(sm.x[ln.wg]);
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = 8 * j + ln.c + (e & 1);
+      const int col = ln.row0 + ln.g + 8 * (e >> 1);
+      *reinterpret_cast<uint16_t*>(tile + row * 128 +
+                                   16 * ((col >> 3) ^ (row & 7)) +
+                                   2 * (col & 7)) =
+          __bfloat16_as_ushort(__float2bfloat16_rn(acc[4 * j + e]));
+    }
+  hopper::fence_async_smem();  // wgmma and TMA stores read these tiles
+}
+
+// attn_block launch 1: batch rows b0, b0 + 1 and head h (blocks of one
+// pair of rows adjacent, so x comes from L2). Each warpgroup projects onto
+// one of wq, wk, wv; then query tiles i = wg, wg + 3 of the four (batch
+// row i / 2, rows 64 (i % 2)..) attend to their batch row's keys, and the
+// context ([2][128][64] over q) leaves by one TMA store (rows past S and
+// batch rows past B are not written).
+__global__ void __launch_bounds__(kProjThreads, 1)
+    qkv_attend_kernel(const __grid_constant__ CUtensorMap mx,
+                      const __grid_constant__ CUtensorMap mwq,
+                      const __grid_constant__ CUtensorMap mwk,
+                      const __grid_constant__ CUtensorMap mwv,
+                      const __grid_constant__ CUtensorMap mctx,
+                      const float* __restrict__ bias, int B, int S, int H,
+                      float scale) {
+  ProjSmem& sm = hopper::aligned_smem<ProjSmem>();
+  const int heads = H / kD;
+  const int b0 = kBlockBatch * (blockIdx.x / heads), h = blockIdx.x % heads;
+  for (int i = threadIdx.x; i < kBlockBatch * kMaxS; i += kProjThreads) {
+    const int b = b0 + i / kMaxS, key = i % kMaxS;
+    sm.bias[i / kMaxS][key] =
+        b < B && key < S ? bias[static_cast<long long>(b) * S + key] : 0.f;
+  }
+  const ProjOperands op{&mx, {&mwq, &mwk, &mwv}, {h * kD, h * kD, h * kD},
+                        b0};
+  const hopper::Lane ln;
+  project(sm, H / 64, op, ln);  // its __syncthreads covers the bias too
+  hopper::named_barrier(1, kProjThreads);  // q, k and v are in place
+  for (int i = ln.wg; i < 2 * kBlockBatch; i += kProjWgs) {
+    const int g = i / 2, q0 = 64 * (i % 2);
+    if (b0 + g >= B || q0 >= S) continue;
+    bf16* qt = sm.x[0] + (g * kMaxS + q0) * kD;
+    const bf16* kt = sm.x[1] + g * kMaxS * kD;
+    const bf16* vt = sm.x[2] + g * kMaxS * kD;
+    if (S > 64)
+      attend_head<2>(qt, kt, vt, sm.bias[g], S, scale, ln);
+    else
+      attend_head<1>(qt, kt, vt, sm.bias[g], S, scale, ln);
+  }
+  hopper::fence_async_smem();
+  hopper::named_barrier(1, kProjThreads);  // every context tile is in
+  if (threadIdx.x == 0) {
+    hopper::tma_store_3d(&mctx, sm.x[0], h * kD, 0, b0);
+    hopper::tma_store_wait();
   }
 }
 
+// attn_block launch 2: batch rows b0, b0 + 1 and output columns
+// [192 j, 192 j + 192), 64 a warpgroup: out = bf16(ctx . wo), each
+// warpgroup's [2][128][64] stored by TMA (columns past H, rows past S and
+// batch rows past B are not written).
+__global__ void __launch_bounds__(kProjThreads, 1)
+    out_proj_kernel(const __grid_constant__ CUtensorMap mctx,
+                    const __grid_constant__ CUtensorMap mwo,
+                    const __grid_constant__ CUtensorMap mout, int H) {
+  ProjSmem& sm = hopper::aligned_smem<ProjSmem>();
+  const int col_groups = (H + kProjCols - 1) / kProjCols;
+  const int b0 = kBlockBatch * (blockIdx.x / col_groups);
+  const int col0 = kProjCols * (blockIdx.x % col_groups);
+  const ProjOperands op{&mctx, {&mwo, &mwo, &mwo},
+                        {col0, col0 + kD, col0 + 2 * kD}, b0};
+  const hopper::Lane ln;
+  project(sm, H / 64, op, ln);
+  const int col = col0 + kD * ln.wg;
+  hopper::named_barrier(2 + ln.wg, hopper::kWgThreads);  // its tile is in
+  if (threadIdx.x % hopper::kWgThreads == 0 && col < H) {
+    hopper::tma_store_3d(&mout, sm.x[ln.wg], col, 0, b0);
+    hopper::tma_store_wait();
+  }
+}
+
+// A contiguous [B, S, H] bf16 tensor as a 3-d tensor map whose box is
+// [kBlockBatch][kMaxS][64]: two batch rows' 128 rows (rows past S and
+// batch rows past B zero-filled on load, not written on store) of 64
+// columns, 128-byte swizzled. Returns a CUresult (0 on success).
+int encode_bsh(CUtensorMap* map, const void* base, int B, int S, int H) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(H) * 2,
+                                 static_cast<cuuint64_t>(S) * H * 2};
+  const cuuint32_t box[3] = {kD, kMaxS, kBlockBatch};
+  return hopper::encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 3,
+                              dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A [H, H] bf16 weight (x . W: rows the input features) as a 2-d tensor
+// map of [64][64] tiles, 128-byte swizzled. Returns a CUresult.
+int encode_weight(CUtensorMap* map, const void* w, int H) {
+  return hopper::encode_matrix(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, H,
+                               H, H, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+}
 bool takes(int B, int S, int H) {
   return B >= 0 && S >= 1 && S <= kMaxS && H > 0 && H % kD == 0;
 }
@@ -627,41 +515,50 @@ extern "C" int attn128_launch(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The dynamic shared memory kernel #5 is launched with, in bytes (ptxas's
-// report counts only static shared memory).
-extern "C" void attn128_bf16_smem(int* bytes) { bytes[0] = kHeadSmemBytes; }
+// The dynamic shared memory each wgmma kernel is launched with, in bytes:
+// [0] attn128_kernel (#5), [1] qkv_attend_kernel and [2] out_proj_kernel
+// (#6) (ptxas's report counts only static shared memory).
+extern "C" void attn128_bf16_smem(int* bytes) {
+  bytes[0] = kHeadSmemBytes;
+  bytes[1] = bytes[2] = kProjSmemBytes;
+}
 
 // Kernel #6: x, ctx (scratch) and out contiguous [B, S, H] bf16; wq, wk,
-// wv, wo contiguous [H, H] bf16 (x . W); bias fp32 [B, S]; limits as
-// attn128_launch. Two kernels on `stream`, qkv_attend then out_proj.
+// wv, wo contiguous [H, H] bf16 (x . W); every base 16-byte aligned (TMA);
+// bias fp32 [B, S]; limits as attn128_launch. Two kernels on `stream`,
+// qkv_attend then out_proj.
 extern "C" int attn_block_launch(const void* x, const void* wq,
                                  const void* wk, const void* wv,
                                  const void* wo, const float* bias, void* ctx,
                                  void* out, int B, int S, int H, float scale,
                                  void* stream) {
-  if (!takes(B, S, H)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long M = static_cast<long long>(B) * S;
-  const long long attend_blocks = static_cast<long long>(B) * (H / kD);
-  const long long proj_blocks = (M + kMaxS - 1) / kMaxS * (H / kD);
-  if (M == 0) return 0;
+  if (!takes(B, S, H) || !hopper::power_of_two(scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long pairs = (static_cast<long long>(B) + kBlockBatch - 1) /
+                          kBlockBatch;
+  const long long attend_blocks = pairs * (H / kD);
+  const long long proj_blocks = pairs * ((H + kProjCols - 1) / kProjCols);
+  if (pairs == 0) return 0;
   if (attend_blocks > 0x7fffffffLL || proj_blocks > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(qkv_attend_kernel, proj_smem<3>());
-  if (err == cudaSuccess) err = allow_smem(out_proj_kernel, proj_smem<1>());
+  CUtensorMap mx, mctx, mout, mw[4];
+  const void* weights[4] = {wq, wk, wv, wo};
+  bool ok = encode_bsh(&mx, x, B, S, H) == 0 &&
+            encode_bsh(&mctx, ctx, B, S, H) == 0 &&
+            encode_bsh(&mout, out, B, S, H) == 0;
+  for (int i = 0; i < 4 && ok; ++i)
+    ok = encode_weight(&mw[i], weights[i], H) == 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(qkv_attend_kernel, kProjSmemBytes);
+  if (err == cudaSuccess) err = allow_smem(out_proj_kernel, kProjSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Weights<3> w{{static_cast<const bf16*>(wq),
-                      static_cast<const bf16*>(wk),
-                      static_cast<const bf16*>(wv)}};
-  qkv_attend_kernel<<<static_cast<unsigned>(attend_blocks), kThreads,
-                      proj_smem<3>(), s>>>(static_cast<const bf16*>(x), w,
-                                           bias, static_cast<bf16*>(ctx), S,
-                                           H, scale);
+  qkv_attend_kernel<<<static_cast<unsigned>(attend_blocks), kProjThreads,
+                      kProjSmemBytes, s>>>(mx, mw[0], mw[1], mw[2], mctx, bias,
+                                           B, S, H, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Weights<1> w_o{{static_cast<const bf16*>(wo)}};
-  out_proj_kernel<<<static_cast<unsigned>(proj_blocks), kThreads,
-                    proj_smem<1>(), s>>>(static_cast<const bf16*>(ctx), w_o,
-                                         static_cast<bf16*>(out), M, H);
+  out_proj_kernel<<<static_cast<unsigned>(proj_blocks), kProjThreads,
+                    kProjSmemBytes, s>>>(mctx, mw[3], mout, H);
   return static_cast<int>(cudaGetLastError());
 }

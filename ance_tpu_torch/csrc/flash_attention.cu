@@ -50,10 +50,33 @@
 // the split and its packing, ~13 instructions a score), which overlaps the
 // tensor cores only across the two warpgroups.
 //
-// float32 inputs (flash_fwd_f32) stay on the CUDA cores, because fp32 k,
-// v and p are part of the function (the port keeps TF32 off): 64 queries a
-// block through shared memory, at S = 2048 4*S*S*D = 1.07 GFLOP a head
-// against the fp32 rate (67 TFLOP/s peak).
+// float32 inputs (flash_fwd_pieces: wgmma on exact bf16 pieces). TF32
+// stays off, so an fp32 product must keep every bit: one split_pieces
+// launch (hopper.cuh) writes three bf16 pieces of q, k and v, each element
+// exactly x0 + x1 + x2 (hopper::split3), and every product of the function
+// is the six piece products with i + j <= 2 on wgmma, each exact in fp32
+// (the dropped three are below 2^-25 of |a||b|). For fp32 operands this is
+// the function of fused_attention.cu's fused_fwd_pieces (q / 8 is exact,
+// p stays fp32 in both), so the block is that kernel's: 128 query rows of
+// one (b, h), two consumer warpgroups and a producer warpgroup that gives
+// its registers to them (setmaxnreg); the producer streams the K | V piece
+// tiles through a TMA ring of kPieceStages and, as flash_fwd_bf16's does,
+// each tile's 64 bias values by stage, so S has no cap (the fused kernel
+// holds the whole bias row, S <= 2048). Each 64-key tile: s = the six
+// piece products smallest first into a fresh accumulator, the scale-and-
+// bias FMA and the online softmax with expf (ExpExact: p keeps 24 bits),
+// p split into three A fragments in registers, p . v as six piece products
+// into a fresh partial added to the running total rounded to nearest,
+// because the tensor cores' fp32 accumulation truncates; out = total / l.
+// Its least time is the piece products, 6 x 4*S*S*64 a head at the bf16
+// rate (0.625 ms at B = 8, S = 2048, H = 12), where the fp32 rate would
+// take 1.538 ms; the split moves 10 bytes an element.
+//
+// float32 operands the split's 16-byte loads cannot read (strides not a
+// multiple of 4 elements, or a base off 16-byte alignment) take
+// flash_fwd_f32 on the CUDA cores: 64 queries a block through shared
+// memory. ops/flash_attention.py's flash_kernel_for names the route
+// before any launch.
 
 #include <cmath>
 #include <cstdint>
@@ -70,9 +93,7 @@ constexpr int kThreads = 256;  // 8 warps; tx = tid % 16, ty = tid / 16
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;      // query rows per block and keys per tile
 
-struct Strides {
-  long long b, s, h;  // elements; the D stride is 1
-};
+using hopper::Strides;
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(~0u, x, o));
@@ -380,33 +401,182 @@ int launch_bf16(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------ fp32, bf16 pieces
+
+using hopper::kPieces;
+using hopper::kPieceTileBytes;
+
+constexpr int kPieceStages = 3;  // the K | V piece ring
+constexpr int kConsumerThreads = kConsumerWgs * hopper::kWgThreads;
+constexpr int kPieceThreads = kConsumerThreads + hopper::kWgThreads;
+// a consumer's registers: three pieces of a fragment beside a fresh
+// accumulator and a running total (nine warps would cap them at 168)
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+static_assert(kConsumerRegs * kConsumerThreads +
+                      kProducerRegs * hopper::kWgThreads <= 65536,
+              "more registers than an SM holds");
+
+struct alignas(1024) FlashPiecesSmem {
+  bf16 q[kConsumerWgs][kPieces][kTileElems];
+  bf16 kv[kPieceStages][2][kPieces][kTileElems];  // K | V pieces
+  float bias[kPieceStages][64];  // the tile's keys; >= S: 0 (masked)
+  uint64_t full[kPieceStages], empty[kPieceStages], q_full;
+};
+constexpr int kFlashPiecesSmemBytes =
+    static_cast<int>(sizeof(FlashPiecesSmem)) + kSmemSlack;
+static_assert(kFlashPiecesSmemBytes <= 232448,
+              "more than a block's shared memory");
+
+// 128 query rows of one (b, h) of the fp32 function on the operands'
+// pieces: warps 0-7 are two consumer warpgroups of 64 rows, warps 8-11
+// the producer warpgroup, whose first warp loads the tiles and the bias.
+__global__ void __launch_bounds__(kPieceThreads, 1)
+    flash_fwd_pieces(const __grid_constant__ CUtensorMap mq,
+                     const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv,
+                     const float* __restrict__ bias, float* __restrict__ out,
+                     int B, int S, int H, float scale, int n_blocks) {
+  FlashPiecesSmem& sm = hopper::aligned_smem<FlashPiecesSmem>();
+  const int bh = blockIdx.x / n_blocks;
+  const int q0 = (blockIdx.x % n_blocks) * kBlockRows;
+  const int b = bh / H, h = bh % H;
+  const int n_kt = (S + 63) / 64;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kPieceStages; ++i) {
+      hopper::mbar_init(&sm.full[i], 32);  // every loading lane arrives
+      hopper::mbar_init(&sm.empty[i], kConsumerWarps);
+    }
+    hopper::mbar_init(&sm.q_full, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {  // the producer warpgroup
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x / 32 != kConsumerWarps) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      hopper::mbar_expect_tx(&sm.q_full, kConsumerWgs * kPieceTileBytes);
+      for (int w = 0; w < kConsumerWgs; ++w)
+        hopper::load_pieces(sm.q[w], &mq, h, q0 + 64 * w, b, B, &sm.q_full);
+    }
+    const float* bias_b = bias + static_cast<long long>(b) * S;
+    Ring<kPieceStages> r;
+    for (int t = 0; t < n_kt; ++t, r.next()) {
+      hopper::mbar_wait(&sm.empty[r.stage], r.phase ^ 1);
+      // the tile's bias by the warp's plain stores, each lane's released by
+      // its own arrive
+      for (int i = lane; i < 64; i += 32) {
+        const int key = 64 * t + i;
+        sm.bias[r.stage][i] = key < S ? bias_b[key] : 0.f;
+      }
+      if (lane == 0) {
+        hopper::mbar_expect_tx(&sm.full[r.stage], 2 * kPieceTileBytes);
+        hopper::load_pieces(sm.kv[r.stage][0], &mk, h, 64 * t, b, B,
+                            &sm.full[r.stage]);
+        hopper::load_pieces(sm.kv[r.stage][1], &mv, h, 64 * t, b, B,
+                            &sm.full[r.stage]);
+      } else {
+        hopper::mbar_arrive(&sm.full[r.stage]);
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+  const Lane ln;
+  const bool arrives = threadIdx.x % 32 == 0;
+  const bf16* qt = sm.q[ln.wg][0];
+  hopper::mbar_wait(&sm.q_full, 0);
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // the thread's partial sums, quad-reduced last
+  float total[32], s[32], part[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) total[i] = 0.f;
+  Ring<kPieceStages> r;
+  for (int t = 0; t < n_kt; ++t, r.next()) {
+    hopper::mbar_wait(&sm.full[r.stage], r.phase);
+    hopper::fence_regs(s);
+    hopper::wgmma_fence();
+    hopper::issue_abt_pieces(s, qt, sm.kv[r.stage][0][0]);
+    hopper::wait_products(s);
+    hopper::scale_bias(s, sm.bias[r.stage], 64 * t, S, scale, ln.c);
+    hopper::online_softmax(s, m, l, total, hopper::ExpExact());
+    uint32_t pa[kPieces][4][4];
+    hopper::to_a_pieces(pa, s);
+    hopper::add_product(total, part, pa, sm.kv[r.stage][1][0]);
+    if (arrives) hopper::mbar_arrive(&sm.empty[r.stage]);
+  }
+  hopper::online_finish(l, total);
+  hopper::store_tile(total, out + (static_cast<long long>(b) * S * H + h) * 64,
+                     static_cast<long long>(H) * 64, q0 + 64 * ln.wg, S, ln);
+}
+
+int launch_pieces(const void* q, const void* k, const void* v,
+                  const float* bias, void* out, bf16* pieces, int B, int S,
+                  int H, Strides st, float scale, cudaStream_t stream) {
+  if (!hopper::power_of_two(scale) || pieces == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_blocks = (S + kBlockRows - 1) / kBlockRows;
+  const long long blocks = static_cast<long long>(B) * H * n_blocks;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL || 3LL * B > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* ops[3] = {q, k, v};
+  const Strides sts[3] = {st, st, st};
+  CUtensorMap maps[3];
+  int err = hopper::split_operands(ops, sts, pieces, B, S, H, stream);
+  for (int i = 0; i < 3 && err == 0; ++i)
+    err = hopper::pieces_map(&maps[i], pieces, i, B, S, H);
+  if (err == 0)
+    err = static_cast<int>(cudaFuncSetAttribute(
+        flash_fwd_pieces, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kFlashPiecesSmemBytes));
+  if (err != 0) return err;
+  flash_fwd_pieces<<<static_cast<unsigned>(blocks), kPieceThreads,
+                     kFlashPiecesSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], bias, static_cast<float*>(out), B, S, H,
+      scale, n_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D must be 64. q, k and v share one set
-// of strides (elements; unit stride along D); bf16 operands need
-// 16-byte-aligned rows and base addresses (the TMA boxes; the wrapper
-// checks) and a power-of-two scale (1/sqrt(64) is). Returns a cudaError_t,
-// 0 on success (cudaErrorInvalidValue for what the kernel does not take);
-// the launch is asynchronous on `stream`.
-extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
+// Kernel codes: 0 = float32 on the CUDA cores (flash_fwd_f32), 1 =
+// bfloat16 (flash_fwd_bf16), 2 = float32 as bf16 pieces (split_pieces,
+// then flash_fwd_pieces; `pieces` is bf16 scratch of 9 * B * S * H * 64
+// elements, three pieces of each operand). D must be 64. q, k and v share
+// one set of strides (elements; unit stride along D); the bf16 and pieces
+// routes need 16-byte-aligned rows and base addresses (TMA boxes, the
+// split's 16-byte loads; ops/flash_attention.py's flash_kernel_for chooses
+// the code, and the launch refuses, never re-routes, operands its kernel
+// cannot take) and a power-of-two scale (1/sqrt(64) is). Returns a
+// cudaError_t, 0 on success (cudaErrorInvalidValue for what the kernel
+// does not take); the launch is asynchronous on `stream`.
+extern "C" int flash_attention_launch(int code, const void* q, const void* k,
                                       const void* v, const float* bias,
-                                      void* out, int B, int S, int H, int D,
-                                      long long stride_b, long long stride_s,
-                                      long long stride_h, float scale,
-                                      void* stream) {
+                                      void* out, void* pieces, int B, int S,
+                                      int H, int D, long long stride_b,
+                                      long long stride_s, long long stride_h,
+                                      float scale, void* stream) {
   if (D != 64 || B < 0 || S <= 0 || H <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides st{stride_b, stride_s, stride_h};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (code == 0)
     return launch_f32<64>(q, k, v, bias, out, B, S, H, st, scale, s);
-  if (dtype == 1)
+  if (code == 1)
     return launch_bf16(q, k, v, bias, out, B, S, H, st, scale, s);
+  if (code == 2)
+    return launch_pieces(q, k, v, bias, out, static_cast<bf16*>(pieces), B,
+                         S, H, st, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The dynamic shared memory the bf16 kernel is launched with, in bytes
-// (ptxas's report counts only static shared memory).
+// The dynamic shared memory each wgmma kernel is launched with, in bytes:
+// [0] flash_fwd_bf16, [1] flash_fwd_pieces (ptxas's report counts only
+// static shared memory).
 extern "C" void flash_attention_bf16_smem(int* bytes) {
   bytes[0] = kFlashSmemBytes;
+  bytes[1] = kFlashPiecesSmemBytes;
 }

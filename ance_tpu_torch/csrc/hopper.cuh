@@ -30,6 +30,7 @@
 
 #pragma once
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cuda.h>
@@ -122,6 +123,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a 3-d tensor map into shared memory, as tma_load_4d.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // One box of a 2-d tensor map (encode_matrix) into shared memory, as
 // tma_load_4d.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
@@ -145,6 +158,18 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
       "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// One box of a 3-d tensor map from shared memory to global, as
+// tma_store_4d.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -305,9 +330,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       HOPPER_F8(d, i + 24)
 
 // d (+)= A . B, m64n256k16 bf16: A [64 x 16] and B [16 x 256] from shared
-// memory, both K-major (B's 256 rows one 128-byte-swizzled tile, 8-row
-// groups 1024 bytes apart); scale_d = 0 overwrites d. One A read serves
-// 256 columns, four times wgmma_ss's.
+// memory, B K-major (its 256 rows one 128-byte-swizzled tile, 8-row groups
+// 1024 bytes apart), A K-major for TransA = 0 and MN-major for 1 (a
+// [k][64] tile, wgmma's transpose flag, stepped as kKStepMN); scale_d = 0
+// overwrites d. One A read serves 256 columns, four times wgmma_ss's.
+template <int TransA = 0>
 __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t a,
                                               uint64_t b, int scale_d) {
   asm volatile(
@@ -322,10 +349,10 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t a,
       "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
       "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
-      "%124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      "%124, %125, %126, %127}, %128, %129, p, 1, 1, %131, 0;\n}\n"
       : HOPPER_F32(d, 0), HOPPER_F32(d, 32), HOPPER_F32(d, 64),
         HOPPER_F32(d, 96)
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransA));
 }
 
 // d (+)= A . B, m64n128k16 bf16: A [64 x 16] from registers (the fragment
@@ -612,6 +639,163 @@ __device__ __forceinline__ void store_tile_swizzled(const float (&o)[32],
   }
 }
 
+// ------------------------------------------------------ fp32 as bf16 pieces
+//
+// The fp32 attention routes (fused_attention.cu's fused_*_pieces,
+// flash_attention.cu's flash_fwd_pieces): fp32 q, k, v (and dout) as
+// three bf16 pieces each (x = x0 + x1 + x2 exactly, split3), every product
+// of the function as the six piece products with i + j <= 2 on the bf16
+// wgmma path: each is exact in fp32, and the three dropped ones are below
+// 2^-25 of |a||b|. One split_pieces launch writes each operand's pieces as
+// bf16 [3][B][S][H][64] (split_operands); the kernels read them as
+// [64][64] TMA tiles (pieces_map, load_pieces).
+
+// element strides of a [B, S, H, D] operand (the D stride is 1)
+struct Strides {
+  long long b, s, h;
+};
+
+constexpr int kTileElems = kTileRows * 64;  // a [64][64] tile's elements
+constexpr int kPieces = 3;
+constexpr int kPieceTileBytes = kPieces * kTileBytes;  // one operand's tile
+
+// The A and B piece of product n = 0..5, smallest first: (2, 0) (1, 1)
+// (0, 2), then (1, 0) (0, 1), then (0, 0).
+__device__ __forceinline__ constexpr int piece_a(int n) {
+  return n == 0 ? 2 : (n == 1 || n == 3) ? 1 : 0;
+}
+__device__ __forceinline__ constexpr int piece_b(int n) {
+  return n == 2 ? 2 : (n == 1 || n == 4) ? 1 : 0;
+}
+
+// The tensor cores add each k-step's sum to the fp32 accumulator rounded
+// toward zero, so every update of a sum may lose up to an ulp of it. So a
+// product takes a fresh accumulator (its first update overwrites d) and
+// its 24 updates (6 piece products x 4 k-steps of one 64-deep tile) go
+// smallest first: the 20 of the small pieces while d is still ~2^-8 of
+// its final size, then the four (0, 0) k-steps, each truncated by at most
+// an ulp of the tile's partial sum. A longer product adds its tiles'
+// partial sums to a running total rounded to nearest (add_product).
+
+// d = A . B^T over D = 64: `a` and `b` each the three K-major [64][64]
+// piece tiles of one operand, one after another. Issued only. With
+// Swapped, A's piece is piece_b(n) and B's piece_a(n): the keys pass's
+// s^T = k . q^T then adds the rows pass's 16 products of s = q . k^T in
+// the same order, so both truncate alike and p is the same in both.
+template <bool Swapped = false>
+__device__ __forceinline__ void issue_abt_pieces(float (&d)[32], const bf16* a,
+                                                 const bf16* b) {
+#pragma unroll
+  for (int n = 0; n < 6; ++n) {
+    const int pa = Swapped ? piece_b(n) : piece_a(n);
+    const int pb = Swapped ? piece_a(n) : piece_b(n);
+    const uint64_t da = desc_sw128(a + pa * kTileElems);
+    const uint64_t db = desc_sw128(b + pb * kTileElems);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0>(d, da + kk * kKStepK, db + kk * kKStepK, n + kk);
+  }
+}
+
+// d = A . B over 64 keys (or queries): A [64 x 64] as three register
+// piece fragments, B's three piece tiles read MN-major. Issued only.
+__device__ __forceinline__ void issue_ab_pieces(
+    float (&d)[32], const uint32_t (&a)[kPieces][4][4], const bf16* b) {
+#pragma unroll
+  for (int n = 0; n < 6; ++n) {
+    const uint64_t db = desc_sw128(b + piece_b(n) * kTileElems);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<1>(d, a[piece_a(n)][kk], db + kk * kKStepMN, n + kk);
+  }
+}
+
+// an fp32 accumulator tile as the three pieces of its A fragments
+__device__ __forceinline__ void to_a_pieces(uint32_t (&a)[kPieces][4][4],
+                                            const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split3(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], a[0][kk][r],
+             a[1][kk][r], a[2][kk][r]);
+}
+
+// part = A . B over one tile (issue_ab_pieces), then total += part rounded
+// to nearest. The fragments are fenced after the wait, so their registers
+// hold until the product has read them.
+__device__ __forceinline__ void add_product(float (&total)[32],
+                                            float (&part)[32],
+                                            uint32_t (&a)[kPieces][4][4],
+                                            const bf16* b) {
+  fence_regs(part);
+  wgmma_fence();
+  issue_ab_pieces(part, a, b);
+  wait_products(part);
+#pragma unroll
+  for (int p = 0; p < kPieces; ++p) fence_regs(a[p]);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) total[i] = __fadd_rn(total[i], part[i]);
+}
+
+// exp(s - m) to within an ulp (expf, as the plain version's exp), for the
+// fp32 routes: their p keeps all 24 bits, where exp_shifted's rounding of
+// (s - m) * log2 e alone costs ~|s - m| 2^-24 of it
+struct ExpExact {
+  __device__ __forceinline__ float operator()(float s, float m) const {
+    return expf(__fsub_rn(s, m));
+  }
+};
+
+// Load the `kPieces` piece tiles of rows row0.. of (b, h) from a pieces
+// map (piece p of batch row b is batch coordinate p * B + b).
+__device__ __forceinline__ void load_pieces(bf16 (*dst)[kTileElems],
+                                            const CUtensorMap* map, int h,
+                                            int row0, int b, int B,
+                                            uint64_t* bar) {
+  for (int p = 0; p < kPieces; ++p)
+    tma_load_4d(dst[p], map, 0, h, row0, p * B + b, bar);
+}
+
+// Up to four fp32 operands [B, S, H, 64] (each its strides; 16-byte-
+// aligned rows and base) and their pieces [3][B][S][H][64] (bf16,
+// contiguous). Four slots for every caller: indexed by blockIdx.y, three
+// put the arguments on each thread's stack (120 bytes; the split ran at
+// half its rate on an H100), four stay in the parameter space.
+constexpr int kSplitSlots = 4;
+struct SplitArgs {
+  const float* x[kSplitSlots];
+  bf16* out[kSplitSlots];
+  Strides st[kSplitSlots];
+};
+
+// Each operand (blockIdx.y) as its three bf16 pieces: one 16-byte load
+// and three 8-byte stores a thread a step.
+__global__ void __launch_bounds__(256)
+    split_pieces(const SplitArgs args, int S, int H, long long n4) {
+  const float* x = args.x[blockIdx.y];
+  uint2* out = reinterpret_cast<uint2*>(args.out[blockIdx.y]);
+  const Strides st = args.st[blockIdx.y];
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n4; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int d = 4 * static_cast<int>(i % 16);
+    long long row = i / 16;  // (b * S + s) * H + h
+    const int h = static_cast<int>(row % H);
+    row /= H;
+    const int s = static_cast<int>(row % S);
+    const long long b = row / S;
+    const float4 v = *reinterpret_cast<const float4*>(x + b * st.b +
+                                                      s * st.s + h * st.h + d);
+    uint2 p0, p1, p2;
+    split3(v.x, v.y, p0.x, p1.x, p2.x);
+    split3(v.z, v.w, p0.y, p1.y, p2.y);
+    out[i] = p0;
+    out[i + n4] = p1;
+    out[i + 2 * n4] = p2;
+  }
+}
+
 // ------------------------------------------------------------ host
 
 // The attention kernels fold scale and bias into one FMA (`scaled`),
@@ -693,6 +877,49 @@ inline int encode_matrix(CUtensorMap* map, CUtensorMapDataType type,
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows)};
   return encode_tiled(map, type, base, 2, dims, strides, box, swizzle);
+}
+
+// what split_pieces' float4 loads read: a 16-byte-aligned base and
+// strides of whole 16-byte chunks
+inline bool chunked(const void* p, const Strides& st) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 4 == 0 &&
+         st.s % 4 == 0 && st.h % 4 == 0;
+}
+
+// Split N fp32 operands [B, S, H, 64] into their pieces, operand i at
+// pieces + i * 3 * B * S * H * 64, in one launch on `stream`. Returns a
+// cudaError_t (cudaErrorInvalidValue for an operand split_pieces cannot
+// read).
+template <int N>
+int split_operands(const void* const (&ops)[N], const Strides (&st)[N],
+                   bf16* pieces, int B, int S, int H, cudaStream_t stream) {
+  static_assert(N <= kSplitSlots, "more operands than split_pieces takes");
+  SplitArgs args{};
+  const long long n = static_cast<long long>(B) * S * H * 64;
+  for (int i = 0; i < N; ++i) {
+    if (!chunked(ops[i], st[i])) return static_cast<int>(cudaErrorInvalidValue);
+    args.x[i] = static_cast<const float*>(ops[i]);
+    args.out[i] = pieces + i * kPieces * n;
+    args.st[i] = st[i];
+  }
+  const long long n4 = n / 4;
+  const long long blocks = std::min<long long>((n4 + 255) / 256, 4096);
+  split_pieces<<<dim3(static_cast<unsigned>(blocks), N), 256, 0,
+                 stream>>>(args, S, H, n4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// operand i's pieces [3][B][S][H][64] as one tensor map of [64][64] tiles
+// (batch coordinate p * B + b: piece p of batch row b). Returns a
+// cudaError_t.
+inline int pieces_map(CUtensorMap* map, const bf16* pieces, int i, int B,
+                      int S, int H) {
+  const long long n = static_cast<long long>(B) * S * H * 64;
+  return encode_bhsd(map, pieces + i * kPieces * n, kPieces * B, S, H,
+                     static_cast<long long>(S) * H * 64,
+                     static_cast<long long>(H) * 64, 64, kTileRows) == 0
+             ? 0
+             : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace hopper

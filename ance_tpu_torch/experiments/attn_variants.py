@@ -1,7 +1,7 @@
-"""What the design choices of the two kernels rebuilt on wgmma + TMA after
-the fused pair are worth, on one CUDA card: kernel #4's bf16 route (the
-flash forward, ``csrc/flash_attention.cu``) and kernel #5 (``fused128``,
-``csrc/attn128.cu``).
+"""What the design choices of the kernels rebuilt on wgmma + TMA after the
+fused pair are worth, on one CUDA card: kernel #4's bf16 route (the flash
+forward, ``csrc/flash_attention.cu``), kernel #5 (``fused128``) and kernel
+#6 (``fused_block``, both ``csrc/attn128.cu``).
 
 Each variant is the source with one choice undone or changed by a text
 substitution (``fused_variants.substituted``):
@@ -19,7 +19,12 @@ substitution (``fused_variants.substituted``):
   * fused128, ``four heads``— a ring of four heads;
   * fused128, ``two blocks``— two blocks an SM with a ring of two heads
                               each (112 registers a thread);
-  * fused128, ``contiguous runs`` — a contiguous run of heads a block.
+  * fused128, ``contiguous runs`` — a contiguous run of heads a block;
+  * fused_block, ``#6 four stages`` — a ring of four 64-deep stages in
+                              place of three (231 KB of shared memory);
+  * fused_block, ``#6 heads slowest`` — the blocks of one head adjacent in
+                              the grid, in place of those of one pair of
+                              batch rows (which share their x rows).
 
 Every variant is built with nvcc (one process each, in parallel), run
 through the port's own wrapper with its library in place of the
@@ -29,8 +34,10 @@ package's, held to the plain version per element (2 bf16 ulps of |plain|
 yardstick: SDPA on fp32 operands for flash (its function is fp32) at
 B=8 S=2048 and B=128 S=512, SDPA with the same additive bias for
 ``fused128`` at B=128 and 512, S=128 H=768 (the larger batch gives the
-time a head beyond the fixed start and tail), H = 12 heads of 64, row 0
-all padding.
+time a head beyond the fixed start and tail), the unfused composition
+(four ``torch.matmul`` and SDPA) for ``fused_block`` at B=128 S=128 H=768,
+H = 12 heads of 64, row 0 all padding. Every ``attn128`` variant runs
+every ``attn128`` case (a #5 variant leaves #6 as built, and the reverse).
 
     python -m ance_tpu_torch.experiments.attn_variants [--reps 9]
 
@@ -63,6 +70,13 @@ CONTIGUOUS = """  const int first = static_cast<int>(
   const int last = static_cast<int>(
       static_cast<long long>(blockIdx.x + 1) * n_heads / gridDim.x);
   const int step = 1;"""
+# fused_block's qkv_attend blocks with the heads of one pair of batch rows
+# adjacent (as built) or the pairs of one head
+PAIRS_FASTEST = ("  const int b0 = kBlockBatch * (blockIdx.x / heads), "
+                 "h = blockIdx.x % heads;")
+HEADS_FASTEST = ("  const int pairs = gridDim.x / heads;\n"
+                 "  const int b0 = kBlockBatch * (blockIdx.x % pairs), "
+                 "h = blockIdx.x / pairs;")
 # the TMA loads' L2 promotion (hopper.cuh's tensor maps) at 256 bytes in
 # place of 128: a row's neighbouring 128 bytes (fused128: the next head's)
 # come into L2 with the box
@@ -90,10 +104,17 @@ VARIANTS = {
                         "constexpr int k5BlocksPerSm = 2;")],
         "contiguous runs": [(ROUND_ROBIN, CONTIGUOUS)],
         "256-byte L2 promotion": [PROMOTE_256],
+        "#6 four stages": [
+            ("constexpr int kProjStages = 3;", "constexpr int kProjStages = 4;"),
+            ("static_assert(kProjStages == kProjWgs,",
+             "static_assert(kProjStages >= kProjWgs,")],
+        "#6 heads slowest": [(PAIRS_FASTEST, HEADS_FASTEST)],
     },
 }
-MODULES = {"flash_attention": (fl, "flash_fwd_bf16"),
-           "attn128": (a128, "attn128_kernel")}
+# the kernels whose ptxas report each source's variants print
+MODULES = {"flash_attention": (fl, ("flash_fwd_bf16",)),
+           "attn128": (a128, ("attn128_kernel", "qkv_attend_kernel",
+                              "out_proj_kernel"))}
 
 
 def cases():
@@ -121,6 +142,26 @@ def cases():
                "sdpa", lambda: F.scaled_dot_product_attention(
                    *(t.transpose(1, 2) for t in (q, k, v)),
                    attn_mask=bias))
+    B, H = 128, 768  # fused_block at the encode batch
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(B, S, H, generator=g, device="cuda").to(torch.bfloat16)
+    ws = [(torch.randn(H, H, generator=g, device="cuda") * H ** -0.5)
+          .to(torch.bfloat16) for _ in range(4)]
+    mask = torch.ones(B, S, dtype=torch.int64, device="cuda")
+    mask[:, 100:] = 0
+    mask[0] = 0
+    bias = mask_to_bias(mask, torch.bfloat16)
+    heads = lambda t: t.view(B, S, 12, 64).transpose(1, 2)  # noqa: E731
+
+    def unfused():
+        q, k, v = (x @ w for w in ws[:3])
+        ctx = F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                             attn_mask=bias)
+        return ctx.transpose(1, 2).reshape(B, S, H) @ ws[3]
+    yield ("attn128", f"#6 bf16 B={B} S={S} H={H}",
+           lambda: a128.fused_block(x, *ws, mask).view(B, S, 12, 64),
+           a128.fused_block_reference(x, *ws, mask).view(B, S, 12, 64),
+           "unfused", unfused)
 
 
 def main() -> int:
@@ -133,7 +174,7 @@ def main() -> int:
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip(jobs, pool.map(lambda j: build(
             j[0], j[1], VARIANTS[j[0]][j[1]], MODULES[j[0]][0].bind,
-            (MODULES[j[0]][1],)), jobs)))
+            MODULES[j[0]][1]), jobs)))
     result = {"device": torch.cuda.get_device_name(0), "cases": []}
     bad = []
     for source, shape, call, want, yard_name, yard in cases():

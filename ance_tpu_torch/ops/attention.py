@@ -40,7 +40,16 @@ import torch
 NEG_INF = -1e9  # additive mask bias; a fully masked row softmaxes uniform
 FUSED_MIN_SEQ, FUSED_MAX_SEQ = 256, 1024  # auto: fused in [256, 1024]
 KERNEL_HEAD_DIM = 64  # every supported encoder: RoBERTa/BERT base and large
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)  # what the kernels take
+
+
+def pieces_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the fp32 pieces routes' split (``split_pieces``: one 16-byte
+    load a thread) reads every row of q, k and v: strides a multiple of 4
+    elements and 16-byte-aligned bases. The encoder's contiguous q/k/v and
+    its ``qkv.chunk`` views at D = 64 have that layout."""
+    return all(s % 4 == 0 for t in (q, k, v) for s in t.stride()[:3]) \
+        and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
 
 
 def mask_to_bias(attention_mask: torch.Tensor,

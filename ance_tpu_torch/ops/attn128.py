@@ -21,7 +21,14 @@ kernel and an output-projection kernel) or raises; there is no fallback.
 (batch row, head) pairs), loads each head's q, k and v as TMA boxes
 through a ring, so the next heads' loads overlap this one's products, and
 runs both products on wgmma with the whole 128-key score row in
-registers; :func:`fused_block`'s two kernels are mma.sync.
+registers. :func:`fused_block`'s two kernels run their projections as
+wgmma products fed by a TMA ring, a block owning two batch rows: the
+first projects x onto one head's q, k and v (three warpgroups, one a
+weight), keeps them in shared memory in bf16 and runs :func:`fused128`'s
+attention on them, so only the context reaches device memory; the second
+is the output projection (it needs every head of a row, which one block's
+head does not have: summing heads across blocks would take atomics and
+change the result from run to run).
 The kernels take bf16, B ≥ 0, 1 ≤ S ≤ 128 (the TPU kernel was S = 128
 only) and H a multiple of 64, shapes read from the tensors. On a CPU
 tensor each runs its plain version, :func:`fused128_reference` or
@@ -112,8 +119,8 @@ def _check(name: str, operands: dict) -> None:
                              f"{shape}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} must be contiguous with a "
-                             "16-byte-aligned base (#5's TMA boxes, #6's "
-                             "16-byte copies)")
+                             "16-byte-aligned base (the kernels' TMA "
+                             "boxes)")
     S = next(iter(operands.values()))[1][1]
     if not 1 <= S <= MAX_SEQ:
         raise ValueError(f"{name}: sequence length {S} outside [1, "

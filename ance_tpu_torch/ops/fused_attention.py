@@ -44,7 +44,7 @@ from typing import Optional
 import torch
 
 from ance_tpu_torch.ops.attention import (kernel_operands, mask_to_bias,
-                                          xla_attention)
+                                          pieces_layout, xla_attention)
 
 # the longest sequence: the wgmma kernels keep the key bias row in shared
 # memory (8 KB), and the CUDA-core fp32 forward a 16-row tile's whole
@@ -115,9 +115,8 @@ def fused_kernel_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kind = "bwd" if backward else "fwd"
     if q.dtype == torch.bfloat16:
         return f"fused_{kind}_bf16"
-    aligned = all(s % 4 == 0 for t in (q, k, v) for s in t.stride()[:3]) \
-        and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
-    return f"fused_{kind}_pieces" if aligned else f"fused_{kind}_f32"
+    return f"fused_{kind}_pieces" if pieces_layout(q, k, v) \
+        else f"fused_{kind}_f32"
 
 
 def _pieces(n_operands: int, q: torch.Tensor) -> torch.Tensor:

@@ -7,10 +7,10 @@ Run from the root of a checkout. It builds the four kernel sources of
 ``ance_tpu_torch/csrc`` (block-max top-k, fused and flash attention, the
 seq-128 attention pair; one nvcc each, all at once), prints ptxas's
 registers and spills and the SASS counts of HGMMA (wgmma) and UTMALDG
-(TMA loads) of the eleven wgmma kernels (the fused forward and its two
-backward passes, on bf16 and on fp32 pieces; the bf16 flash forward,
-seq-128 kernel #5, block-max's bf16 route and its two fp32-query
-kernels), and then:
+(TMA loads) of the fourteen wgmma kernels (the fused forward and its two
+backward passes, on bf16 and on fp32 pieces; the flash forward on bf16
+and on fp32 pieces; seq-128 kernel #5 and kernel #6's two launches;
+block-max's bf16 route and its two fp32-query kernels), and then:
 
   * block-max: the kernel against its plain PyTorch version at the FirstP
     search shapes (1,000,448 × 768 corpus; Q=2048 k=10 and Q=512 k=200) for
@@ -26,11 +26,13 @@ kernels), and then:
     inside their top k, where block-max ids must equal the scan's;
   * attention: each kernel against its plain version at the MaxP shapes
     (fused S = 256 / 300 / 512 / 1024 and the encoder's ``qkv.chunk``
-    views, flash S = 512 / 2048; bf16 and fp32, the fused fp32 forward on
-    its pieces route and, on rows off alignment, its CUDA-core kernel),
-    timed in turns with SDPA (on fp32 operands for flash, whose function
-    is fp32), with the einsum path at S = 256 / 512 / 1024 beside them;
-    the fp32 pieces route also against the function in fp64;
+    views, flash S = 512 / 2048 / 2100; bf16 and fp32, each fp32 forward
+    on its pieces route and, on rows off alignment, its CUDA-core kernel,
+    the route its wrapper names counted), timed in turns with SDPA (on
+    fp32 operands for flash, whose function is fp32); the fp32 pieces
+    routes also against the function in fp64; then the crossover series,
+    bf16 and fp32 at S = 128 to 2048, the einsum paths, fused and flash
+    timed in turns;
   * FirstP serve: RoBERTa-base at full width (seeded random weights, bf16)
     through the ``serve`` CLI in a subprocess and the HTTP server in
     process;
@@ -57,11 +59,14 @@ kernels), and then:
   * MaxP at the CLI's default fp32 (no --bf16): ``cli serve`` in process
     over 512 documents of seq 2048 (the fused forward's pieces route on
     every layer, an fp32 index on ``blockmax_pieces_f32``), every ranking
-    held against a scan of its saved index, an fp32 encode rate, ``cli
-    train`` (4 documents a batch, attention dropout 0, so the pieces
-    forward and backward run on every layer) writing a checkpoint that
-    loads strictly, the launches of each route counted, and both kernels
-    held to their plain versions on the operands this path gave them;
+    held against a scan of its saved index, an fp32 encode rate, the
+    first batches encoded with ``--attention flash`` (the flash kernel's
+    pieces route on every layer, the chunk embeddings against the fused
+    encode's by cosine), ``cli train`` (4 documents a batch, attention
+    dropout 0, so the pieces forward and backward run on every layer)
+    writing a checkpoint that loads strictly, the launches of each route
+    counted, and the kernels held to their plain versions on the operands
+    this path gave them;
   * step parity: 3 steps, dropout off, two layers at full width (init std
     0.05, so no loss saturates): fp32 on the card against the port's CPU
     path, and bf16 (the kernels) against fp32 on the card by loss, update
@@ -70,7 +75,8 @@ kernels), and then:
   * seq-128 attention: kernels #5 (``fused128``) and #6 (``fused_block``)
     against their plain versions at B=128 × S=128 × 768 bf16 (a padding
     tail from 100, one fully masked row), timed in turns with SDPA and the
-    unfused composition; then the experiment's mirror encoder (12 layers,
+    unfused composition, #6's two launches split by ``torch.profiler``;
+    then the experiment's mirror encoder (12 layers,
     FFN 3072, vocabulary 50265, seeded bf16 weights) through its four
     attention variants, each against ``xla`` by per-row cosine, with the
     kernels' launches counted over one forward;
@@ -229,8 +235,8 @@ WGMMA_KERNELS = {
     "fused_attention": ("fused_fwd_bf16", "fused_bwd_rows_bf16",
                         "fused_bwd_keys_bf16", "fused_fwd_pieces",
                         "fused_bwd_rows_pieces", "fused_bwd_keys_pieces"),
-    "flash_attention": ("flash_fwd_bf16",),
-    "attn128": ("attn128_kernel",),
+    "flash_attention": ("flash_fwd_bf16", "flash_fwd_pieces"),
+    "attn128": ("attn128_kernel", "qkv_attend_kernel", "out_proj_kernel"),
     "blockmax": ("blockmax_bf16", "blockmax_pieces_f32",
                  "blockmax_pieces_int8"),
 }
@@ -692,12 +698,17 @@ def exact_attention(q, k, v, mask, do=None):
             torch.einsum("bhqk,bqhd->bkhd", p, dd))
 
 
-def pieces_split(fn) -> dict:
-    """``device_split`` of one call of the fused kernels' fp32 pieces
-    route: device ms of each of its kernels (``split_pieces`` and the
-    wgmma kernels) by their names in ``csrc/fused_attention.cu``."""
-    names = ("split_pieces", "fused_fwd_pieces", "fused_bwd_rows_pieces",
-             "fused_bwd_keys_pieces")
+# the kernels of the attention kernels' fp32 pieces routes and of #6, by
+# their names in csrc/
+PIECES_KERNELS = ("split_pieces", "fused_fwd_pieces", "fused_bwd_rows_pieces",
+                  "fused_bwd_keys_pieces", "flash_fwd_pieces")
+BLOCK_KERNELS = ("qkv_attend_kernel", "out_proj_kernel")
+
+
+def pieces_split(fn, names=PIECES_KERNELS) -> dict:
+    """``device_split`` of one call of ``fn``: device ms of each kernel in
+    ``names`` that it launched (default: the fp32 pieces routes'
+    ``split_pieces`` and wgmma kernels)."""
     split = device_split(fn)["top_kernels_ms"]
     return {n: sum(ms for k, ms in split.items() if n in k) for n in names
             if any(n in k for k in split)}
@@ -760,16 +771,18 @@ def exact_errors(got, plain, exact, mask) -> dict:
 
 def phase_attention():
     """Each attention kernel against its plain version at the MaxP shapes
-    (H = 12, D = 64), both timed; then, at S = 256 / 512 / 1024, the
-    fused kernel beside the einsum path ``auto`` takes below S = 256
-    (bf16 softmax) and the flash kernel, to re-choose the crossovers."""
+    (H = 12, D = 64), each on the route its wrapper names, both timed;
+    then, for bf16 and fp32 at S = 128 to 2048, the fused and flash
+    kernels beside the einsum paths ``auto`` takes below S = 256, timed in
+    turns, to re-choose the crossovers per dtype."""
     import torch
     from ance_tpu_torch.utils.timing import (clocks_text, cuda_ms,
                                              timed_in_turns)
     import torch.nn.functional as F
     from ance_tpu_torch.ops.attention import mask_to_bias, multi_head_attention
     from ance_tpu_torch.ops.flash_attention import (flash_attention,
-                                                    flash_attention_reference)
+                                                    flash_attention_reference,
+                                                    flash_kernel_for)
     from ance_tpu_torch.ops.fused_attention import (fused_attention,
                                                     fused_attention_reference,
                                                     fused_kernel_for)
@@ -786,9 +799,12 @@ def phase_attention():
               ("fused_attention", f32, 32, 512, "qkv.chunk"),
               ("fused_attention", f32, 8, 512, "misaligned"),  # CUDA cores
               ("flash_attention", bf16, 128, 512),
-              ("flash_attention", f32, 128, 512),
+              ("flash_attention", f32, 128, 512),  # fp32 pieces
               ("flash_attention", bf16, 8, 2048),
-              ("flash_attention", f32, 8, 2048)]
+              ("flash_attention", f32, 8, 2048),
+              ("flash_attention", f32, 8, 2048, "qkv.chunk"),
+              ("flash_attention", f32, 4, 2100),  # past fused's MAX_SEQ
+              ("flash_attention", f32, 8, 512, "misaligned")]  # CUDA cores
     cases = []
     for i, (name, dtype, B, S, *layout) in enumerate(shapes):
         kernel, plain = pairs[name]
@@ -796,20 +812,19 @@ def phase_attention():
         strided = layout == "qkv.chunk"
         q, k, v, mask = _attention_inputs(B, S, dtype, seed=i, strided=strided,
                                           misaligned=layout == "misaligned")
-        route = fused_kernel_for(q, k, v) \
-            if name == "fused_attention" else None
-        before = fused_attention.kernel_launches[route]
+        route = (fused_kernel_for if name == "fused_attention"
+                 else flash_kernel_for)(q, k, v)
+        before = kernel.kernel_launches[route]
         got = kernel(q, k, v, mask)
         want = plain(q, k, v, mask).float()
         torch.cuda.synchronize()
-        if route:
-            check(fused_attention.kernel_launches[route] == before + 1,
-                  f"{name} {dtype} B={B} S={S} {layout}: {route} did not "
-                  "launch")
+        check(kernel.kernel_launches[route] == before + 1,
+              f"{name} {dtype} B={B} S={S} {layout}: {route} did not launch")
         exact = split = None
-        if route == "fused_fwd_pieces":  # both against the function in fp64
-            exact = exact_errors(got, want, exact_in_rows(q, k, v, mask),
-                                 mask)
+        pieces = route in ("fused_fwd_pieces", "flash_fwd_pieces")
+        if pieces:  # both against the function in fp64
+            exact = exact_errors(got, want, exact_in_rows(
+                q, k, v, mask, rows=max(1, 8 * 512 // S)), mask)
             split = pieces_split(lambda: kernel(q, k, v, mask))
         check(got.shape == q.shape and got.dtype == dtype
               and bool(torch.isfinite(got).all()),
@@ -859,7 +874,7 @@ def phase_attention():
         io_bytes = 4 * q.numel() * q.element_size() + mask.numel() * 8
         ops = (8.0 if flash_bf16 else 4.0) * B * 12 * S * S * 64
         fp32_rate_ms = None
-        if route == "fused_fwd_pieces":
+        if pieces:
             fp32_rate_ms = bound(io_bytes, ops, "f32")[0]
             b_ms, b_by = bound(io_bytes, FP32_PIECE_PRODUCTS["f32xf32"] * ops, "bf16")
         else:
@@ -875,7 +890,7 @@ def phase_attention():
                       "fp32_rate_bound_ms": fp32_rate_ms, "clocks": sampled})
         print(f"{name} {dt:4s} B={B:3d} S={S:4d}"
               f"{'' if layout == 'contiguous' else ' ' + layout}"
-              f"{f' ({route})' if route else ''}: max|err| {err:.3g} "
+              f" ({route}): max|err| {err:.3g} "
               f"({'fp32 tol 1e-4' if ulps is None else f'{ulps:.3g} slice ulps'})"
               + (f", vs fp64 exact: kernel {exact['kernel_vs_exact']:.3g} "
                  f"plain {exact['plain_vs_exact']:.3g}" if exact else "")
@@ -890,20 +905,27 @@ def phase_attention():
         del q, k, v, mask
         torch.cuda.empty_cache()
 
+    # the crossover series: at each S, every path ``auto`` could take for
+    # that dtype, timed in turns (B·S = 65,536 tokens to S = 512, then
+    # 32 and 8 batch rows): the data to re-choose the thresholds per dtype
     crossover = []
-    for S, B in ((256, 128), (512, 128), (1024, 32)):
-        q, k, v, mask = _attention_inputs(B, S, bf16, seed=S)
-        row = {"S": S, "B": B}
-        for impl in ("xla_bf16", "xla", "fused", "flash"):
-            row[f"{impl}_ms"] = cuda_ms(
-                lambda: multi_head_attention(q, k, v, mask, impl=impl))
-        crossover.append(row)
-        print(f"crossover bf16 B={B} S={S}: einsum bf16 softmax "
-              f"{row['xla_bf16_ms']:.3f} ms, fp32 softmax {row['xla_ms']:.3f}"
-              f" ms, fused {row['fused_ms']:.3f} ms, flash "
-              f"{row['flash_ms']:.3f} ms", flush=True)
-        del q, k, v, mask
-        torch.cuda.empty_cache()
+    for dtype, impls in ((bf16, ("xla_bf16", "xla", "fused", "flash")),
+                         (f32, ("xla", "fused", "flash"))):
+        dt = "bf16" if dtype == bf16 else "f32"
+        for S, B in ((128, 128), (256, 128), (512, 128), (1024, 32),
+                     (2048, 8)):
+            q, k, v, mask = _attention_inputs(B, S, dtype, seed=S)
+            times, sampled = timed_in_turns({
+                f"{impl}_ms": (lambda impl=impl: multi_head_attention(
+                    q, k, v, mask, impl=impl)) for impl in impls})
+            crossover.append({"dtype": dt, "S": S, "B": B, **times,
+                              "clocks": sampled})
+            print(f"crossover {dt} B={B} S={S}: "
+                  + ", ".join(f"{impl} {times[f'{impl}_ms']:.3f} ms"
+                              for impl in impls)
+                  + f"  {clocks_text(sampled)}", flush=True)
+            del q, k, v, mask
+            torch.cuda.empty_cache()
     return cases, crossover
 
 
@@ -1431,13 +1453,17 @@ def phase_maxp(work: Path):
         # 3. the flash kernel on the first batches, the plain path and fp32
         flash_b = body_fn(model("flash"))
         fused_attention.launches = flash_attention.launches = 0
+        flash_attention.kernel_launches.clear()
         n_flash = 4 * DOC_BATCH
         flash_emb, _ = encode_cache_to_device(flash_b, dc, DOC_BATCH,
                                               multichunk=True, stop=n_flash)
         torch.cuda.synchronize()
         flash_launches = flash_attention.launches
-        check(flash_launches == layers * 4 and fused_attention.launches == 0,
-              f"flash encode: {flash_launches} flash launches for 4 batches")
+        check(flash_launches == layers * 4 and fused_attention.launches == 0
+              and dict(flash_attention.kernel_launches)
+              == {"flash_fwd_bf16": flash_launches},
+              f"flash encode: {dict(flash_attention.kernel_launches)} flash "
+              "launches for 4 batches, not all on flash_fwd_bf16")
         cos_flash = _cosines(flash_emb, emb[:n_flash * n_chunks]).min().item()
         _, ids, mask = next(iter_cache_batches(dc, N_CHECK_DOCS))
     got = encode_b(ids, mask)
@@ -1664,15 +1690,17 @@ def _keep_layout(t):
 
 
 @contextlib.contextmanager
-def first_call(direction: str, kept: list):
+def first_call(direction: str, kept: list, function=None):
     """``FusedAttention.forward`` (``direction`` "forward": q, k, v, mask)
-    or ``.backward`` ("backward": q, k, v, mask, do) wrapped so that
-    ``kept`` receives copies of the operands of its first call (floating
-    ones in their own strides); the kernels' wrappers and their launch
-    counts stay as they are."""
+    or ``.backward`` ("backward": q, k, v, mask, do), or that of another
+    autograd ``function`` (``FlashAttention``), wrapped so that ``kept``
+    receives copies of the operands of its first call (floating ones in
+    their own strides); the kernels' wrappers and their launch counts stay
+    as they are."""
     import torch
     from ance_tpu_torch.ops.fused_attention import FusedAttention
-    real = getattr(FusedAttention, direction)
+    function = function or FusedAttention
+    real = getattr(function, direction)
 
     def wrapper(ctx, *args):
         if direction == "backward":
@@ -1685,11 +1713,11 @@ def first_call(direction: str, kept: list):
                         for a in ops)
         return real(ctx, *args)
 
-    setattr(FusedAttention, direction, staticmethod(wrapper))
+    setattr(function, direction, staticmethod(wrapper))
     try:
         yield
     finally:
-        setattr(FusedAttention, direction, staticmethod(real))
+        setattr(function, direction, staticmethod(real))
 
 
 def phase_maxp_fp32(work: Path):
@@ -1711,7 +1739,9 @@ def phase_maxp_fp32(work: Path):
     from ance_tpu_torch.models.registry import get_model_spec
     from ance_tpu_torch.models.weights import load_pretrained
     from ance_tpu_torch.ops import fused_attention as fa
-    from ance_tpu_torch.ops.flash_attention import flash_attention
+    from ance_tpu_torch.ops.flash_attention import (
+        FlashAttention, flash_attention, flash_attention_forward,
+        flash_attention_reference)
     from ance_tpu_torch.ops.topk import blockmax_scores
     from ance_tpu_torch.serve import Retriever
     from ance_tpu_torch.train.encode import (encode_cache_to_device,
@@ -1723,6 +1753,7 @@ def phase_maxp_fp32(work: Path):
             f.launches = 0
             f.kernel_launches.clear()
         flash_attention.launches = 0
+        flash_attention.kernel_launches.clear()
         reset_blockmax_counts()
 
     dev = torch.device("cuda")
@@ -1808,7 +1839,49 @@ def phase_maxp_fp32(work: Path):
           == {"fused_fwd_pieces": layers * n_batches}
           and emb.shape == (n_rows, DIM) and bool(torch.isfinite(emb).all()),
           "fp32 MaxP encode: not finite, or not on fused_fwd_pieces")
-    del model, scan, index, encode_b, emb
+
+    # 3b. the flash kernel's fp32 route on the first batches: the same
+    # weights with --attention flash, against the fused fp32 encode
+    flash_model = get_model_spec("rdot_nll_multi_chunk").build(
+        dtype=torch.float32, attention_impl="flash")
+    load_pretrained(flash_model, str(weights))
+    encode_f = make_encode_fn(flash_model.to(dev),
+                              RobertaDot.body_emb_multichunk, dev)
+    n_flash_batches = 4
+    n_flash = n_flash_batches * DOC_BATCH
+    flash_ops = []
+    with TokenCache(str(docs / "passages")) as dc:
+        reset()
+        with first_call("forward", flash_ops, FlashAttention):
+            flash_emb, _ = encode_cache_to_device(
+                encode_f, dc, DOC_BATCH, multichunk=True, stop=n_flash)
+        torch.cuda.synchronize()
+    flash_fwd = dict(flash_attention.kernel_launches)
+    check(flash_fwd == {"flash_fwd_pieces": layers * n_flash_batches}
+          and not fa.fused_attention.kernel_launches,
+          f"fp32 MaxP flash encode: flash launches {flash_fwd}, fused "
+          f"{dict(fa.fused_attention.kernel_launches)}, not {layers} layers x "
+          f"{n_flash_batches} batches on flash_fwd_pieces alone")
+    cos_flash = _cosines(flash_emb, emb[:n_flash * n_chunks]).min().item()
+    check(cos_flash > 0.999, f"fp32 MaxP chunk embeddings, flash vs fused: "
+          f"per-row cosine {cos_flash}")
+    q, k, v, mask = flash_ops
+    got = flash_attention_forward(q, k, v, mask)
+    plain = flash_attention_reference(q, k, v, mask)
+    flash_err = (got - plain).abs().max().item()
+    flash_exact = exact_errors(got, plain, exact_in_rows(q, k, v, mask),
+                               mask)
+    check(flash_err <= 1e-4, f"flash_fwd_pieces on the fp32 flash encode's "
+          f"operands: max |kernel - plain| {flash_err} > 1e-4")
+    flash_shape = {"shape": list(q.shape), "strides": list(q.stride())}
+    print(f"maxp fp32 flash encode: {n_flash} documents, flash launches "
+          f"{flash_fwd}, chunk embeddings' cosine vs fused >= "
+          f"{cos_flash:.6f}; flash_fwd_pieces on its first call "
+          f"{flash_shape}: max|err| {flash_err:.3g} (tol 1e-4; vs fp64 "
+          f"exact: kernel {flash_exact['kernel_vs_exact']:.3g}, plain "
+          f"{flash_exact['plain_vs_exact']:.3g})", flush=True)
+    del model, scan, index, encode_b, emb, flash_model, encode_f, flash_emb
+    del q, k, v, mask, got, plain, flash_ops
     torch.cuda.empty_cache()
     print(f"maxp fp32 serve CLI: {N_QUERIES * 10} ranking lines == scan in "
           f"{cli_s:.1f} s ({N_F32_DOCS} documents = {n_rows} chunk rows, fp32 "
@@ -1893,6 +1966,9 @@ def phase_maxp_fp32(work: Path):
             "serve_blockmax_kernels": serve_search, "cli_s": cli_s,
             "encode_chunk_rows_per_s": n_rows / enc_s,
             "encode_docs_per_s": N_F32_DOCS / enc_s,
+            "flash_launches": flash_fwd, "cos_flash_vs_fused": cos_flash,
+            "path_flash": dict(flash_shape, max_abs_err=flash_err,
+                               **flash_exact),
             "train_fused_forward_launches": train_fwd,
             "train_fused_backward_launches": train_bwd,
             "train_steps": steps, "train_loss": losses,
@@ -2202,18 +2278,23 @@ def phase_seq128():
         ms = times["ms"]
         library_ms = times.get("library_ms")
         unfused_ms = times.get("unfused_ms")
+        # #6's two launches apart (torch.profiler over one call)
+        split_ms = pieces_split(lambda: kernel(*args), BLOCK_KERNELS) \
+            if name == "fused_block" else None
         cases[name] = {"B": B, "S": S, "H": H, "max_abs_err": err,
                        "tolerance": BF16_SLICE_TOL, "err_slice_ulps": ulps,
                        "ms": ms, "plain_ms": plain_ms,
                        "library_ms": library_ms, "unfused_ms": unfused_ms,
                        "bound_ms": b_ms, "bound_by": b_by,
-                       "clocks": sampled}
+                       "launch_split_ms": split_ms, "clocks": sampled}
         yard_text = (f"sdpa {library_ms:.3f} ms" if library_ms is not None
                      else f"unfused (4 matmul + sdpa) {unfused_ms:.3f} ms")
         print(f"{name} bf16 B={B} S={S} H={H}: max|err| {err:.3g} ({ulps:.3g}"
-              f" slice ulps)  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
-              f"{yard_text}  bound {b_ms:.4f} ms ({b_by})  "
-              f"{clocks_text(sampled)}", flush=True)
+              f" slice ulps)  kernel {ms:.3f} ms"
+              + (f" {({n: round(t, 4) for n, t in split_ms.items()})}"
+                 if split_ms else "")
+              + f"  plain {plain_ms:.3f} ms  {yard_text}  bound {b_ms:.4f} ms"
+              f" ({b_by})  {clocks_text(sampled)}", flush=True)
     del q, k, v, x
     torch.cuda.empty_cache()
     return cases
@@ -2642,6 +2723,7 @@ def main() -> int:
                     "(12 heads of 64)", "attn128", [head])
         if head["unfused_ms"] is not None:
             out["unfused_ms"] = head["unfused_ms"]
+            out["launch_split_ms"] = head["launch_split_ms"]
         return out
 
     # launches: each path's own run — the MaxP serve path for the
@@ -2700,18 +2782,26 @@ def main() -> int:
              [c for c in attn_cases if c["kernel"] == "fused_fwd_pieces"],
              maxp_fp32["serve_fused_launches"]["fused_fwd_pieces"],
              maxp_fp32["path_forward"]),
+            ("flash_attention_f32", "flash_fwd_pieces",
+             "ance_tpu/ops/flash_attention.py:34",
+             [c for c in attn_cases if c["kernel"] == "flash_fwd_pieces"],
+             maxp_fp32["flash_launches"]["flash_fwd_pieces"],
+             maxp_fp32["path_flash"]),
             ("fused_attention_bwd_f32", "fused_bwd_pieces",
              "ance_tpu/ops/fused_attention.py:97",
              [c for c in bwd_cases if c["kernel"] == "fused_bwd_pieces"],
              maxp_fp32["train_fused_backward_launches"]["fused_bwd_pieces"],
              maxp_fp32["path_backward"])):
+        source = "flash_attention" if "flash" in entry_name \
+            else "fused_attention"
+        # the fused routes' head at S = 512, the flash route's at B=8 S=2048
         head = next(c for c in own if c["layout"] == "contiguous"
-                    and c["S"] == 512 and c["B"] in (32, 64))
-        e = entry(entry_name, "fused_attention", replaces, launches,
+                    and (c["S"], c["B"]) in ((512, 32), (512, 64), (2048, 8)))
+        e = entry(entry_name, source, replaces, launches,
                   dict(head, max_abs_err=max([c["max_abs_err"] for c in own]
                                              + [path["max_abs_err"]])),
-                  f"f32 B={head['B']} S=512 H=12 D=64 ({kernel})",
-                  "fused_attention", own)
+                  f"f32 B={head['B']} S={head['S']} H=12 D=64 ({kernel})",
+                  source, own)
         e.update(kernel=kernel, fp32_rate_bound_ms=head["fp32_rate_bound_ms"],
                  exact=head["exact"], path_operands=path)
         fp32_attention.append(e)

@@ -20,7 +20,8 @@ from ance_tpu.ops.fused_attention import _fused_forward as jax_fused_forward
 from ance_tpu_torch.ops.attention import (kernel_operands, mask_to_bias,
                                           multi_head_attention, xla_attention)
 from ance_tpu_torch.ops.flash_attention import (flash_attention,
-                                                flash_attention_reference)
+                                                flash_attention_reference,
+                                                flash_kernel_for)
 from ance_tpu_torch.ops.fused_attention import (fused_attention,
                                                 fused_attention_reference,
                                                 fused_kernel_for)
@@ -352,21 +353,30 @@ def score_tiles(a, b, bias):
     return s * 0.125 + bias
 
 
-def forward_pieces_emulated(q, k, v, mask, fresh=True):
+def forward_pieces_emulated(q, k, v, mask, fresh=True, bias_by_tile=False):
     """What ``fused_fwd_pieces`` computes, on the CPU: per 64-key tile s =
     q·kᵀ, scale and bias (fp32), the online max and rescaled sum (l and
     the total times exp(m − m')), p = exp(s − m') in fp32, p·v as a fresh
     ``tile_product`` added to the total to nearest (``fresh=False``: into
-    the running total); out = total / l. [B, S, H, D] fp32."""
+    the running total); out = total / l. [B, S, H, D] fp32. With
+    ``bias_by_tile``, ``flash_fwd_pieces``' schedule: each tile's scores
+    take only that tile's 64 bias values, as its producer streams them
+    with the K and V tiles (no whole bias row, so S has no cap)."""
     B, S, H, D = q.shape
     bias = ((1.0 - mask.float()) * -1e9)[:, None, None, :]
-    s_all = score_tiles(q, k, bias)
+    if not bias_by_tile:
+        s_all = score_tiles(q, k, bias)
+    qh, kh = q.transpose(1, 2).float(), k.transpose(1, 2).float()
     vh = v.transpose(1, 2).float()
     m = torch.full((B, H, S, 1), -math.inf)
     l = torch.zeros((B, H, S, 1))
     total = torch.zeros((B, H, S, D))
     for t0, t1 in key_tiles(S):
-        s = s_all[..., t0:t1]
+        if bias_by_tile:
+            s = tile_product(qh, kh[:, :, t0:t1].transpose(-1, -2)) \
+                * 0.125 + bias[..., t0:t1]
+        else:
+            s = s_all[..., t0:t1]
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         a = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
@@ -418,6 +428,47 @@ def test_fp32_pieces_forward_needs_a_fresh_accumulator():
     one = forward_pieces_emulated(q, k, v, mask, fresh=False)
     assert float((got - want).abs().max()) < 1e-4 / 2
     assert float((one - want).abs().max()) > 1e-4
+
+
+@pytest.mark.parametrize("S", [65, 300, 2100])
+def test_flash_fp32_pieces_emulated_matches_plain_and_jax(S):
+    """``flash_fwd_pieces``' arithmetic (the fused fp32 route's pieces and
+    fresh truncating accumulators, the bias streamed a 64-key tile at a
+    time) against the plain version and the Pallas kernel (one jitted
+    call in interpret mode, one block of S: the JAX kernel's blocks must
+    divide S) within the JAX attention tests' fp32 bounds; S = 2100 is
+    past the fused kernel's 2048, which the streamed bias lifts. The fully
+    masked row 0 is the mean of v."""
+    from jax.experimental.pallas import tpu as pltpu
+    q, k, v, mask = schedule_inputs(3, S, 1, 64, seed=S, kind="f32",
+                                    strided=False)
+    got = forward_pieces_emulated(q, k, v, mask, bias_by_tile=True)
+    want = flash_attention_reference(q, k, v, mask)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5,
+                               rtol=1e-4)
+    flash = jax.jit(jax_flash, static_argnums=(4, 5))
+    with pltpu.force_tpu_interpret_mode():  # one jitted call, no eager JAX
+        jax_out = flash(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                        jnp.asarray(mask.numpy().astype(np.int32)), S, S)
+    _assert_close(got, jax_out, "f32")
+    torch.testing.assert_close(got[0], v[0].mean(0, keepdim=True).expand(
+        S, 1, 64), atol=1e-5, rtol=0)
+
+
+def test_flash_kernel_for_names_each_route():
+    """bf16 takes ``flash_fwd_bf16``; fp32 ``flash_fwd_pieces`` where every
+    row is 16-byte aligned (contiguous, or the encoder's qkv.chunk
+    views), else the CUDA-core ``flash_fwd_f32``."""
+    def ops(dtype, width=64, lo=0):
+        x = torch.zeros(2, 8, 3, width, dtype=dtype)[..., lo:lo + 64]
+        return x, x, x
+    q, k, v, _ = schedule_inputs(2, 8, 2, 64, seed=0, kind="f32",
+                                 strided=True)
+    assert flash_kernel_for(*ops(torch.bfloat16)) == "flash_fwd_bf16"
+    assert flash_kernel_for(*ops(torch.float32)) == "flash_fwd_pieces"
+    assert flash_kernel_for(q, k, v) == "flash_fwd_pieces"
+    assert flash_kernel_for(*ops(torch.float32, 66, 1)) == "flash_fwd_f32"
+    assert flash_kernel_for(*ops(torch.float32, 66, 2)) == "flash_fwd_f32"
 
 
 def test_fused_kernel_for_names_each_route():
@@ -515,6 +566,28 @@ def test_fused_fp32_routes_on_cuda(layout, S):
     got = fused_attention(q, k, v, mask)
     assert fused_attention.kernel_launches[kernel] == before + 1
     want = fused_attention_reference(q, k, v, mask)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 65, 2048, 2100])
+@pytest.mark.parametrize("layout", ["contiguous", "qkv.chunk", "misaligned"])
+def test_flash_fp32_routes_on_cuda(layout, S):
+    """The flash forward's fp32 route by layout, as ``flash_kernel_for``
+    names it: the pieces kernel for contiguous operands and the encoder's
+    qkv.chunk views (any S: 2100 is past the fused kernel's cap), the
+    CUDA-core kernel for rows off alignment; each launch counted under its
+    kernel, each within 1e-4 of the plain version."""
+    dev = _cuda()
+    q, k, v = fp32_operands(3, S, layout, dev, seed=S)
+    _, _, _, mask = _inputs(3, S, 1, 1, seed=S)
+    mask = torch.as_tensor(mask).to(dev)
+    kernel = "flash_fwd_f32" if layout == "misaligned" else "flash_fwd_pieces"
+    assert flash_kernel_for(q, k, v) == kernel
+    before = flash_attention.kernel_launches[kernel]
+    got = flash_attention(q, k, v, mask)
+    assert flash_attention.kernel_launches[kernel] == before + 1
+    want = flash_attention_reference(q, k, v, mask)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
 

@@ -124,6 +124,78 @@ def test_fused_block_plain_matches_jax_kernel(small):
                                                   torch.as_tensor(mask)))
 
 
+def _toward_zero(x):
+    """fp64 ``x`` rounded to fp32 toward zero, as the tensor cores' fp32
+    accumulation rounds each update."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(),
+                       torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def project_emulated(x, w):
+    """Kernel #6's projection x [..., K] · w [K, N] tile for tile: one fp32
+    accumulator over the whole depth (K / 64 ring stages of four wgmma
+    k-steps), each k-step's 16 bf16 products summed exactly and added to
+    it rounded toward zero (the first update overwrites it); the product
+    rounded to bf16, as the kernel stores q, k, v, the context's
+    projection and the output."""
+    xd, wd = x.double(), w.double()
+    acc = None
+    for k0 in range(0, x.shape[-1], 16):
+        step = xd[..., k0:k0 + 16] @ wd[k0:k0 + 16]
+        acc = _toward_zero(step if acc is None else acc.double() + step)
+    return acc.to(x.dtype)
+
+
+def block_emulated(x, wq, wk, wv, wo, mask):
+    """What ``qkv_attend_kernel`` + ``out_proj_kernel`` compute: q, k, v
+    by ``project_emulated`` (bf16, kept on chip), the attention of kernel
+    #5 on them (its plain version: the kernels share ``attend_head``), the
+    output projection by ``project_emulated``."""
+    q, k, v = (project_emulated(x, w) for w in (wq, wk, wv))
+    return project_emulated(fused128_reference(q, k, v, mask), wo)
+
+
+def test_block_tiling_emulated_matches_plain_and_jax(small):
+    """Kernel #6's tiling (16-deep wgmma steps into one truncating fp32
+    accumulator a projection, q, k, v rounded to bf16) against the plain
+    version and the Pallas kernel in interpret mode, per element under the
+    bf16 slice rule: a truncated update moves a sum by under an fp32 ulp,
+    far below the bf16 rounding that follows."""
+    B, S, H = SMALL["B"], SMALL["S"], SMALL["H"]
+    rs = np.random.RandomState(7)
+    jx, x = _bf16(rs, B, S, H)
+    (jwq, wq), (jwk, wk), (jwv, wv), (jwo, wo) = (
+        _bf16(rs, H, H, std=H ** -0.5) for _ in range(4))
+    mask = _mask(B, S)
+    got = block_emulated(x, wq, wk, wv, wo, torch.as_tensor(mask))
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, H)
+    want = fused_block_reference(x, wq, wk, wv, wo, torch.as_tensor(mask))
+    assert_bf16_slice_close(_heads4(got.float(), B, S),
+                            _heads4(want.float(), B, S), "emulated vs plain")
+    jax_out = _interpret(functools.partial(small.fused_block, group=2), jx,
+                         jwq, jwk, jwv, jwo, jnp.asarray(mask))
+    assert_bf16_slice_close(_heads4(got.float(), B, S),
+                            _heads4(jax_out, B, S), "emulated vs jax")
+
+
+@pytest.mark.parametrize("S", [128, 77])
+def test_block_tiling_emulated_at_full_width_matches_plain(S):
+    """The same at the encoder's width (768-deep sums: 48 truncating
+    updates a projection) and at a ragged S."""
+    B, H = 2, 768
+    rs = np.random.RandomState(S)
+    x = torch.as_tensor(rs.randn(B, S, H).astype(np.float32)).bfloat16()
+    wq, wk, wv, wo = (torch.as_tensor((rs.randn(H, H) * H ** -0.5).astype(
+        np.float32)).bfloat16() for _ in range(4))
+    mask = torch.as_tensor(_mask(B, S))
+    got = block_emulated(x, wq, wk, wv, wo, mask)
+    want = fused_block_reference(x, wq, wk, wv, wo, mask)
+    assert_bf16_slice_close(got.float().reshape(B, S, 12, 64).numpy(),
+                            want.float().reshape(B, S, 12, 64).numpy(),
+                            "emulated vs plain")
+
+
 def _jax_params(small, seed):
     return jax.tree.map(np.asarray,
                         small.make_params(np.random.RandomState(seed)))
