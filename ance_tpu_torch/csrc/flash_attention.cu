@@ -52,17 +52,18 @@
 //
 // float32 inputs (flash_fwd_pieces: wgmma on exact bf16 pieces). TF32
 // stays off, so an fp32 product must keep every bit: one split_pieces
-// launch (hopper.cuh) writes three bf16 pieces of q, k and v, each element
-// exactly x0 + x1 + x2 (hopper::split3), and every product of the function
-// is the six piece products with i + j <= 2 on wgmma, each exact in fp32
-// (the dropped three are below 2^-25 of |a||b|). For fp32 operands this is
-// the function of fused_attention.cu's fused_fwd_pieces (q / 8 is exact,
-// p stays fp32 in both), so the block is that kernel's: 128 query rows of
-// one (b, h), two consumer warpgroups and a producer warpgroup that gives
-// its registers to them (setmaxnreg); the producer streams the K | V piece
-// tiles through a TMA ring of kPieceStages and, as flash_fwd_bf16's does,
-// each tile's 64 bias values by stage, so S has no cap (the fused kernel
-// holds the whole bias row, S <= 2048). Each 64-key tile: s = the six
+// launch (split_pieces.cuh) writes three bf16 pieces of q, k and v, each
+// element exactly x0 + x1 + x2 (hopper::split3), and every product of the
+// function is the six piece products with i + j <= 2 on wgmma, each exact
+// in fp32 (the dropped three are below 2^-25 of |a||b|). For fp32 operands
+// the fused attention's forward is this same function (q / 8 is exact, p
+// stays fp32 in both), so this one kernel is the fp32 forward of both:
+// ops/fused_attention.py launches it for the fused route too. A block is
+// 128 query rows of one (b, h), two consumer warpgroups and a producer
+// warpgroup that gives its registers to them (setmaxnreg); the producer
+// streams the K | V piece tiles through a TMA ring of kPieceStages and,
+// as flash_fwd_bf16's does, each tile's 64 bias values by stage, so S has
+// no cap. Each 64-key tile: s = the six
 // piece products smallest first into a fresh accumulator, the scale-and-
 // bias FMA and the online softmax with expf (ExpExact: p keeps 24 bits),
 // p split into three A fragments in registers, p . v as six piece products
@@ -84,6 +85,7 @@
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
+#include "split_pieces.cuh"
 
 namespace {
 

@@ -641,14 +641,15 @@ __device__ __forceinline__ void store_tile_swizzled(const float (&o)[32],
 
 // ------------------------------------------------------ fp32 as bf16 pieces
 //
-// The fp32 attention routes (fused_attention.cu's fused_*_pieces,
-// flash_attention.cu's flash_fwd_pieces): fp32 q, k, v (and dout) as
-// three bf16 pieces each (x = x0 + x1 + x2 exactly, split3), every product
-// of the function as the six piece products with i + j <= 2 on the bf16
-// wgmma path: each is exact in fp32, and the three dropped ones are below
-// 2^-25 of |a||b|. One split_pieces launch writes each operand's pieces as
-// bf16 [3][B][S][H][64] (split_operands); the kernels read them as
-// [64][64] TMA tiles (pieces_map, load_pieces).
+// The fp32 attention routes (flash_attention.cu's flash_fwd_pieces, the
+// forward of both fp32 attentions, and fused_attention.cu's
+// fused_bwd_*_pieces): fp32 q, k, v (and dout) as three bf16 pieces each
+// (x = x0 + x1 + x2 exactly, split3), every product of the function as the
+// six piece products with i + j <= 2 on the bf16 wgmma path: each is exact
+// in fp32, and the three dropped ones are below 2^-25 of |a||b|. One
+// split_pieces launch (split_pieces.cuh) writes each operand's pieces as
+// bf16 [3][B][S][H][64]; the kernels read them as [64][64] TMA tiles
+// (load_pieces).
 
 // element strides of a [B, S, H, D] operand (the D stride is 1)
 struct Strides {
@@ -757,45 +758,6 @@ __device__ __forceinline__ void load_pieces(bf16 (*dst)[kTileElems],
     tma_load_4d(dst[p], map, 0, h, row0, p * B + b, bar);
 }
 
-// Up to four fp32 operands [B, S, H, 64] (each its strides; 16-byte-
-// aligned rows and base) and their pieces [3][B][S][H][64] (bf16,
-// contiguous). Four slots for every caller: indexed by blockIdx.y, three
-// put the arguments on each thread's stack (120 bytes; the split ran at
-// half its rate on an H100), four stay in the parameter space.
-constexpr int kSplitSlots = 4;
-struct SplitArgs {
-  const float* x[kSplitSlots];
-  bf16* out[kSplitSlots];
-  Strides st[kSplitSlots];
-};
-
-// Each operand (blockIdx.y) as its three bf16 pieces: one 16-byte load
-// and three 8-byte stores a thread a step.
-__global__ void __launch_bounds__(256)
-    split_pieces(const SplitArgs args, int S, int H, long long n4) {
-  const float* x = args.x[blockIdx.y];
-  uint2* out = reinterpret_cast<uint2*>(args.out[blockIdx.y]);
-  const Strides st = args.st[blockIdx.y];
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n4; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int d = 4 * static_cast<int>(i % 16);
-    long long row = i / 16;  // (b * S + s) * H + h
-    const int h = static_cast<int>(row % H);
-    row /= H;
-    const int s = static_cast<int>(row % S);
-    const long long b = row / S;
-    const float4 v = *reinterpret_cast<const float4*>(x + b * st.b +
-                                                      s * st.s + h * st.h + d);
-    uint2 p0, p1, p2;
-    split3(v.x, v.y, p0.x, p1.x, p2.x);
-    split3(v.z, v.w, p0.y, p1.y, p2.y);
-    out[i] = p0;
-    out[i + n4] = p1;
-    out[i + 2 * n4] = p2;
-  }
-}
-
 // ------------------------------------------------------------ host
 
 // The attention kernels fold scale and bias into one FMA (`scaled`),
@@ -877,49 +839,6 @@ inline int encode_matrix(CUtensorMap* map, CUtensorMapDataType type,
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows)};
   return encode_tiled(map, type, base, 2, dims, strides, box, swizzle);
-}
-
-// what split_pieces' float4 loads read: a 16-byte-aligned base and
-// strides of whole 16-byte chunks
-inline bool chunked(const void* p, const Strides& st) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 4 == 0 &&
-         st.s % 4 == 0 && st.h % 4 == 0;
-}
-
-// Split N fp32 operands [B, S, H, 64] into their pieces, operand i at
-// pieces + i * 3 * B * S * H * 64, in one launch on `stream`. Returns a
-// cudaError_t (cudaErrorInvalidValue for an operand split_pieces cannot
-// read).
-template <int N>
-int split_operands(const void* const (&ops)[N], const Strides (&st)[N],
-                   bf16* pieces, int B, int S, int H, cudaStream_t stream) {
-  static_assert(N <= kSplitSlots, "more operands than split_pieces takes");
-  SplitArgs args{};
-  const long long n = static_cast<long long>(B) * S * H * 64;
-  for (int i = 0; i < N; ++i) {
-    if (!chunked(ops[i], st[i])) return static_cast<int>(cudaErrorInvalidValue);
-    args.x[i] = static_cast<const float*>(ops[i]);
-    args.out[i] = pieces + i * kPieces * n;
-    args.st[i] = st[i];
-  }
-  const long long n4 = n / 4;
-  const long long blocks = std::min<long long>((n4 + 255) / 256, 4096);
-  split_pieces<<<dim3(static_cast<unsigned>(blocks), N), 256, 0,
-                 stream>>>(args, S, H, n4);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// operand i's pieces [3][B][S][H][64] as one tensor map of [64][64] tiles
-// (batch coordinate p * B + b: piece p of batch row b). Returns a
-// cudaError_t.
-inline int pieces_map(CUtensorMap* map, const bf16* pieces, int i, int B,
-                      int S, int H) {
-  const long long n = static_cast<long long>(B) * S * H * 64;
-  return encode_bhsd(map, pieces + i * kPieces * n, kPieces * B, S, H,
-                     static_cast<long long>(S) * H * 64,
-                     static_cast<long long>(H) * 64, 64, kTileRows) == 0
-             ? 0
-             : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace hopper

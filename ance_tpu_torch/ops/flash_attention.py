@@ -97,6 +97,19 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
         q, k, v, attention_mask, name="flash_attention",
         align16=q.dtype == torch.bfloat16)
     kernel = flash_kernel_for(q, k, v)
+    out = launch(kernel, q, k, v, bias, (sb, ss, sh))
+    flash_attention.launches += 1
+    flash_attention.kernel_launches[kernel] += 1
+    return out
+
+
+def launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           bias: torch.Tensor, strides: tuple[int, int, int]) -> torch.Tensor:
+    """Launch ``kernel`` of ``csrc/flash_attention.cu`` on CUDA operands
+    that ``kernel_operands`` checked (its bias and shared strides) and
+    return the output, or raise. It counts nothing: each wrapper counts
+    its own launches. ``flash_fwd_pieces`` is also the fused attention's
+    fp32 forward, whose function it is for fp32 operands."""
     B, S, H, D = q.shape
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     # the pieces route's bf16 scratch: three pieces of each operand
@@ -109,13 +122,11 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
         err = lib.flash_attention_launch(
             _KERNEL_CODES[kernel], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr(), out.data_ptr(),
-            None if pieces is None else pieces.data_ptr(), B, S, H, D, sb,
-            ss, sh, 1.0 / math.sqrt(D), stream)
+            None if pieces is None else pieces.data_ptr(), B, S, H, D,
+            *strides, 1.0 / math.sqrt(D), stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel {kernel} launch failed: "
                            f"CUDA error {err} (B={B} S={S} H={H} D={D})")
-    flash_attention.launches += 1
-    flash_attention.kernel_launches[kernel] += 1
     return out
 
 

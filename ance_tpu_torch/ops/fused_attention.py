@@ -20,8 +20,10 @@ deterministic result. fp32 takes the same kernels' blocks on exact bf16
 pieces (the ``pieces`` route): one launch splits q, k, v (and dout) into
 three bf16 pieces each, and every product of the function runs as the six
 piece products with i + j ≤ 2 on wgmma, a fresh accumulator a 64-deep
-tile, each tile's partial sum added to a running fp32 total; the forward
-takes one pass with an online softmax (p is never rounded in fp32). fp32
+tile, each tile's partial sum added to a running fp32 total. In fp32 p is
+never rounded and q/8 is exact, so the forward is the flash forward's
+function, and it launches that kernel, ``flash_fwd_pieces`` of
+``csrc/flash_attention.cu`` (one pass with an online softmax). fp32
 operands whose rows are not 16-byte aligned stay on the CUDA-core kernels
 (TF32 stays off everywhere).
 
@@ -45,6 +47,7 @@ import torch
 
 from ance_tpu_torch.ops.attention import (kernel_operands, mask_to_bias,
                                           pieces_layout, xla_attention)
+from ance_tpu_torch.ops.flash_attention import launch as flash_launch
 
 # the longest sequence: the wgmma kernels keep the key bias row in shared
 # memory (8 KB), and the CUDA-core fp32 forward a 16-row tile's whole
@@ -97,16 +100,16 @@ def _stream(device: torch.device) -> int:
 
 # each kernel's code at csrc/fused_attention.cu's entry points
 _KERNEL_CODES = {"fused_fwd_f32": 0, "fused_bwd_f32": 0, "fused_fwd_bf16": 1,
-                 "fused_bwd_bf16": 1, "fused_fwd_pieces": 2,
-                 "fused_bwd_pieces": 2}
+                 "fused_bwd_bf16": 1, "fused_bwd_pieces": 2}
 
 
 def fused_kernel_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      backward: bool = False) -> str:
-    """The kernel of ``csrc/fused_attention.cu`` (for the backward, the
-    rows and keys pair) that these operands take on the card, chosen by
-    dtype and layout before any launch: bf16 takes ``fused_fwd_bf16`` /
-    ``fused_bwd_bf16``; fp32 takes ``fused_fwd_pieces`` /
+    """The kernel (for the backward, the rows and keys pair of
+    ``csrc/fused_attention.cu``) that these operands take on the card,
+    chosen by dtype and layout before any launch: bf16 takes
+    ``fused_fwd_bf16`` / ``fused_bwd_bf16``; fp32 takes
+    ``csrc/flash_attention.cu``'s ``flash_fwd_pieces`` /
     ``fused_bwd_pieces`` where the split's 16-byte loads read every row
     (strides a multiple of 4 elements, 16-byte-aligned bases), else the
     CUDA-core ``fused_fwd_f32`` / ``fused_bwd_f32``. The encoder's
@@ -115,14 +118,9 @@ def fused_kernel_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kind = "bwd" if backward else "fwd"
     if q.dtype == torch.bfloat16:
         return f"fused_{kind}_bf16"
-    return f"fused_{kind}_pieces" if pieces_layout(q, k, v) \
-        else f"fused_{kind}_f32"
-
-
-def _pieces(n_operands: int, q: torch.Tensor) -> torch.Tensor:
-    """bf16 scratch for the pieces route: three pieces of each operand."""
-    return torch.empty((n_operands, 3, *q.shape), dtype=torch.bfloat16,
-                       device=q.device)
+    if not pieces_layout(q, k, v):
+        return f"fused_{kind}_f32"
+    return "fused_bwd_pieces" if backward else "flash_fwd_pieces"
 
 
 def fused_attention_forward(q: torch.Tensor, k: torch.Tensor,
@@ -141,19 +139,21 @@ def fused_attention_forward(q: torch.Tensor, k: torch.Tensor,
         q, k, v, attention_mask, name="fused_attention", max_seq=MAX_SEQ,
         align16=q.dtype == torch.bfloat16)
     kernel = fused_kernel_for(q, k, v)
-    B, S, H, D = q.shape
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    pieces = _pieces(3, q) if kernel == "fused_fwd_pieces" else None
-    lib = _kernel_library()
-    with torch.cuda.device(q.device):
-        err = lib.fused_attention_launch(
-            _KERNEL_CODES[kernel], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            bias.data_ptr(), out.data_ptr(),
-            None if pieces is None else pieces.data_ptr(), B, S, H, D, sb,
-            ss, sh, 1.0 / math.sqrt(D), _stream(q.device))
-    if err != 0:
-        raise RuntimeError(f"fused attention kernel {kernel} launch failed: "
-                           f"CUDA error {err} (B={B} S={S} H={H} D={D})")
+    if kernel == "flash_fwd_pieces":
+        out = flash_launch(kernel, q, k, v, bias, (sb, ss, sh))
+    else:
+        B, S, H, D = q.shape
+        out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+        lib = _kernel_library()
+        with torch.cuda.device(q.device):
+            err = lib.fused_attention_launch(
+                _KERNEL_CODES[kernel], q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), bias.data_ptr(), out.data_ptr(), B, S, H, D,
+                sb, ss, sh, 1.0 / math.sqrt(D), _stream(q.device))
+        if err != 0:
+            raise RuntimeError(f"fused attention kernel {kernel} launch "
+                               f"failed: CUDA error {err} (B={B} S={S} H={H} "
+                               f"D={D})")
     fused_attention.launches += 1
     fused_attention.kernel_launches[kernel] += 1
     return out
@@ -192,7 +192,10 @@ def fused_attention_backward(q: torch.Tensor, k: torch.Tensor,
     # each row's softmax max, sum, 1/sum and rowsum(dp ⊙ p), in 64-row tiles
     stats = torch.empty(B * H * -(-S // 64) * 4 * 64, dtype=torch.float32,
                         device=q.device)
-    pieces = _pieces(4, q) if kernel == "fused_bwd_pieces" else None
+    # the pieces route's bf16 scratch: three pieces of q, k, v and dout
+    pieces = torch.empty((4, 3, *q.shape), dtype=torch.bfloat16,
+                         device=q.device) \
+        if kernel == "fused_bwd_pieces" else None
     lib = _kernel_library()
     with torch.cuda.device(q.device):
         err = lib.fused_attention_backward_launch(
@@ -252,7 +255,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # every pointer and the stream as c_void_p: an undeclared argument is
     # passed as a 32-bit int and the pointer is cut
     fwd = lib.fused_attention_launch
-    fwd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [
+    fwd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
         ctypes.c_int] * 4 + [ctypes.c_longlong] * 3 + [
         ctypes.c_float, ctypes.c_void_p]
     fwd.restype = ctypes.c_int

@@ -7,9 +7,10 @@ Run from the root of a checkout. It builds the four kernel sources of
 ``ance_tpu_torch/csrc`` (block-max top-k, fused and flash attention, the
 seq-128 attention pair; one nvcc each, all at once), prints ptxas's
 registers and spills and the SASS counts of HGMMA (wgmma) and UTMALDG
-(TMA loads) of the fourteen wgmma kernels (the fused forward and its two
-backward passes, on bf16 and on fp32 pieces; the flash forward on bf16
-and on fp32 pieces; seq-128 kernel #5 and kernel #6's two launches;
+(TMA loads) of the thirteen wgmma kernels (the fused forward and its two
+backward passes on bf16, the two backward passes on fp32 pieces; the
+flash forward on bf16 and on fp32 pieces, the latter also the fused
+attention's fp32 forward; seq-128 kernel #5 and kernel #6's two launches;
 block-max's bf16 route and its two fp32-query kernels), and then:
 
   * block-max: the kernel against its plain PyTorch version at the FirstP
@@ -57,8 +58,8 @@ block-max's bf16 route and its two fp32-query kernels), and then:
     backward run: launches == 12 layers x 2 chunked passes x steps), each
     writing a checkpoint that loads strictly;
   * MaxP at the CLI's default fp32 (no --bf16): ``cli serve`` in process
-    over 512 documents of seq 2048 (the fused forward's pieces route on
-    every layer, an fp32 index on ``blockmax_pieces_f32``), every ranking
+    over 512 documents of seq 2048 (the fused forward's pieces route,
+    ``flash_fwd_pieces``, on every layer, an fp32 index on ``blockmax_pieces_f32``), every ranking
     held against a scan of its saved index, an fp32 encode rate, the
     first batches encoded with ``--attention flash`` (the flash kernel's
     pieces route on every layer, the chunk embeddings against the fused
@@ -233,8 +234,8 @@ def phase_build() -> tuple[dict, dict]:
 # the dynamic shared memory each is launched with, in this order
 WGMMA_KERNELS = {
     "fused_attention": ("fused_fwd_bf16", "fused_bwd_rows_bf16",
-                        "fused_bwd_keys_bf16", "fused_fwd_pieces",
-                        "fused_bwd_rows_pieces", "fused_bwd_keys_pieces"),
+                        "fused_bwd_keys_bf16", "fused_bwd_rows_pieces",
+                        "fused_bwd_keys_pieces"),
     "flash_attention": ("flash_fwd_bf16", "flash_fwd_pieces"),
     "attn128": ("attn128_kernel", "qkv_attend_kernel", "out_proj_kernel"),
     "blockmax": ("blockmax_bf16", "blockmax_pieces_f32",
@@ -700,8 +701,8 @@ def exact_attention(q, k, v, mask, do=None):
 
 # the kernels of the attention kernels' fp32 pieces routes and of #6, by
 # their names in csrc/
-PIECES_KERNELS = ("split_pieces", "fused_fwd_pieces", "fused_bwd_rows_pieces",
-                  "fused_bwd_keys_pieces", "flash_fwd_pieces")
+PIECES_KERNELS = ("split_pieces", "flash_fwd_pieces", "fused_bwd_rows_pieces",
+                  "fused_bwd_keys_pieces")
 BLOCK_KERNELS = ("qkv_attend_kernel", "out_proj_kernel")
 
 
@@ -821,7 +822,7 @@ def phase_attention():
         check(kernel.kernel_launches[route] == before + 1,
               f"{name} {dtype} B={B} S={S} {layout}: {route} did not launch")
         exact = split = None
-        pieces = route in ("fused_fwd_pieces", "flash_fwd_pieces")
+        pieces = route == "flash_fwd_pieces"
         if pieces:  # both against the function in fp64
             exact = exact_errors(got, want, exact_in_rows(
                 q, k, v, mask, rows=max(1, 8 * 512 // S)), mask)
@@ -1785,11 +1786,11 @@ def phase_maxp_fp32(work: Path):
     serve_fwd = dict(fa.fused_attention.kernel_launches)
     serve_search = blockmax_counts()
     layers = 12
-    check(serve_fwd == {"fused_fwd_pieces": layers * n_batches}
+    check(serve_fwd == {"flash_fwd_pieces": layers * n_batches}
           and flash_attention.launches == 0,
           f"fp32 MaxP serve: fused launches {serve_fwd}, flash "
           f"{flash_attention.launches}, not {layers} layers x {n_batches} "
-          "batches on fused_fwd_pieces")
+          "batches on flash_fwd_pieces")
     n_q_batches = -(-N_QUERIES // DOC_BATCH)
     check(serve_search == {"blockmax_pieces_f32": n_q_batches},
           f"fp32 MaxP serve: block-max launches {serve_search}, not "
@@ -1836,9 +1837,9 @@ def phase_maxp_fp32(work: Path):
         torch.cuda.synchronize()
         enc_s = time.perf_counter() - t0
     check(dict(fa.fused_attention.kernel_launches)
-          == {"fused_fwd_pieces": layers * n_batches}
+          == {"flash_fwd_pieces": layers * n_batches}
           and emb.shape == (n_rows, DIM) and bool(torch.isfinite(emb).all()),
-          "fp32 MaxP encode: not finite, or not on fused_fwd_pieces")
+          "fp32 MaxP encode: not finite, or not on flash_fwd_pieces")
 
     # 3b. the flash kernel's fp32 route on the first batches: the same
     # weights with --attention flash, against the fused fp32 encode
@@ -1916,7 +1917,7 @@ def phase_maxp_fp32(work: Path):
     train_fwd = dict(fa.fused_attention.kernel_launches)
     train_bwd = dict(fa.fused_attention_backward.kernel_launches)
     want_n = layers * 2 * steps  # positives and negatives, chunked at S=512
-    check(train_fwd == {"fused_fwd_pieces": want_n}
+    check(train_fwd == {"flash_fwd_pieces": want_n}
           and train_bwd == {"fused_bwd_pieces": want_n},
           f"fp32 MaxP train: fused launches {train_fwd} / {train_bwd}, not "
           f"{want_n} each on the pieces route")
@@ -1938,7 +1939,7 @@ def phase_maxp_fp32(work: Path):
     plain = fa.fused_attention_reference(q, k, v, mask)
     fwd_err = (got - plain).abs().max().item()
     fwd_exact = exact_errors(got, plain, exact_in_rows(q, k, v, mask), mask)
-    check(fwd_err <= 1e-4, f"fused_fwd_pieces on the serve path's operands: "
+    check(fwd_err <= 1e-4, f"flash_fwd_pieces on the serve path's operands: "
           f"max |kernel - plain| {fwd_err} > 1e-4")
     fwd_shape = {"shape": list(q.shape), "strides": list(q.stride())}
     q, k, v, mask, do = bwd_ops
@@ -1953,7 +1954,7 @@ def phase_maxp_fp32(work: Path):
     check(bwd_err <= 1e-5, f"fused_bwd_pieces on the train path's operands: "
           f"max |kernel - fp64 function| {bwd_err} > 1e-5")
     bwd_plain = max((g - w).abs().max().item() for g, w in zip(got, plain))
-    print(f"maxp fp32 path operands: fused_fwd_pieces on the serve encode's "
+    print(f"maxp fp32 path operands: flash_fwd_pieces on the serve encode's "
           f"first call {fwd_shape}: max|err| {fwd_err:.3g} (tol 1e-4; vs "
           f"fp64 exact: kernel {fwd_exact['kernel_vs_exact']:.3g}, plain "
           f"{fwd_exact['plain_vs_exact']:.3g}); fused_bwd_pieces on the "
@@ -2777,14 +2778,16 @@ def main() -> int:
     # own operands
     fp32_attention = []
     for entry_name, kernel, replaces, own, launches, path in (
-            ("fused_attention_f32", "fused_fwd_pieces",
+            ("fused_attention_f32", "flash_fwd_pieces",
              "ance_tpu/ops/fused_attention.py:40",
-             [c for c in attn_cases if c["kernel"] == "fused_fwd_pieces"],
-             maxp_fp32["serve_fused_launches"]["fused_fwd_pieces"],
+             [c for c in attn_cases if c["name"] == "fused_attention"
+              and c["kernel"] == "flash_fwd_pieces"],
+             maxp_fp32["serve_fused_launches"]["flash_fwd_pieces"],
              maxp_fp32["path_forward"]),
             ("flash_attention_f32", "flash_fwd_pieces",
              "ance_tpu/ops/flash_attention.py:34",
-             [c for c in attn_cases if c["kernel"] == "flash_fwd_pieces"],
+             [c for c in attn_cases if c["name"] == "flash_attention"
+              and c["kernel"] == "flash_fwd_pieces"],
              maxp_fp32["flash_launches"]["flash_fwd_pieces"],
              maxp_fp32["path_flash"]),
             ("fused_attention_bwd_f32", "fused_bwd_pieces",
@@ -2792,7 +2795,8 @@ def main() -> int:
              [c for c in bwd_cases if c["kernel"] == "fused_bwd_pieces"],
              maxp_fp32["train_fused_backward_launches"]["fused_bwd_pieces"],
              maxp_fp32["path_backward"])):
-        source = "flash_attention" if "flash" in entry_name \
+        # one kernel, flash_fwd_pieces, is the fp32 forward of both
+        source = "flash_attention" if kernel == "flash_fwd_pieces" \
             else "fused_attention"
         # the fused routes' head at S = 512, the flash route's at B=8 S=2048
         head = next(c for c in own if c["layout"] == "contiguous"

@@ -353,30 +353,25 @@ def score_tiles(a, b, bias):
     return s * 0.125 + bias
 
 
-def forward_pieces_emulated(q, k, v, mask, fresh=True, bias_by_tile=False):
-    """What ``fused_fwd_pieces`` computes, on the CPU: per 64-key tile s =
-    q·kᵀ, scale and bias (fp32), the online max and rescaled sum (l and
-    the total times exp(m − m')), p = exp(s − m') in fp32, p·v as a fresh
-    ``tile_product`` added to the total to nearest (``fresh=False``: into
-    the running total); out = total / l. [B, S, H, D] fp32. With
-    ``bias_by_tile``, ``flash_fwd_pieces``' schedule: each tile's scores
-    take only that tile's 64 bias values, as its producer streams them
-    with the K and V tiles (no whole bias row, so S has no cap)."""
+def forward_pieces_emulated(q, k, v, mask, fresh=True):
+    """What ``flash_fwd_pieces`` (the fp32 forward of both the flash and
+    the fused attention) computes, on the CPU: per 64-key tile s = q·kᵀ,
+    scale and that tile's 64 bias values (fp32; the producer streams them
+    with the K and V tiles, so S has no cap), the online max and rescaled
+    sum (l and the total times exp(m − m')), p = exp(s − m') in fp32, p·v
+    as a fresh ``tile_product`` added to the total to nearest
+    (``fresh=False``: into the running total); out = total / l.
+    [B, S, H, D] fp32."""
     B, S, H, D = q.shape
     bias = ((1.0 - mask.float()) * -1e9)[:, None, None, :]
-    if not bias_by_tile:
-        s_all = score_tiles(q, k, bias)
     qh, kh = q.transpose(1, 2).float(), k.transpose(1, 2).float()
     vh = v.transpose(1, 2).float()
     m = torch.full((B, H, S, 1), -math.inf)
     l = torch.zeros((B, H, S, 1))
     total = torch.zeros((B, H, S, D))
     for t0, t1 in key_tiles(S):
-        if bias_by_tile:
-            s = tile_product(qh, kh[:, :, t0:t1].transpose(-1, -2)) \
-                * 0.125 + bias[..., t0:t1]
-        else:
-            s = s_all[..., t0:t1]
+        s = tile_product(qh, kh[:, :, t0:t1].transpose(-1, -2)) * 0.125 \
+            + bias[..., t0:t1]
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         a = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
@@ -432,17 +427,17 @@ def test_fp32_pieces_forward_needs_a_fresh_accumulator():
 
 @pytest.mark.parametrize("S", [65, 300, 2100])
 def test_flash_fp32_pieces_emulated_matches_plain_and_jax(S):
-    """``flash_fwd_pieces``' arithmetic (the fused fp32 route's pieces and
-    fresh truncating accumulators, the bias streamed a 64-key tile at a
-    time) against the plain version and the Pallas kernel (one jitted
-    call in interpret mode, one block of S: the JAX kernel's blocks must
-    divide S) within the JAX attention tests' fp32 bounds; S = 2100 is
-    past the fused kernel's 2048, which the streamed bias lifts. The fully
+    """``flash_fwd_pieces``' arithmetic (pieces, fresh truncating
+    accumulators, the bias streamed a 64-key tile at a time) against the
+    flash plain version and the Pallas flash kernel (one jitted call in
+    interpret mode, one block of S: the JAX kernel's blocks must divide S)
+    within the JAX attention tests' fp32 bounds; S = 2100 is past the
+    fused attention's 2048, which the streamed bias lifts. The fully
     masked row 0 is the mean of v."""
     from jax.experimental.pallas import tpu as pltpu
     q, k, v, mask = schedule_inputs(3, S, 1, 64, seed=S, kind="f32",
                                     strided=False)
-    got = forward_pieces_emulated(q, k, v, mask, bias_by_tile=True)
+    got = forward_pieces_emulated(q, k, v, mask)
     want = flash_attention_reference(q, k, v, mask)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5,
                                rtol=1e-4)
@@ -474,19 +469,20 @@ def test_flash_kernel_for_names_each_route():
 def test_fused_kernel_for_names_each_route():
     """bf16 takes the bf16 kernels; fp32 the pieces kernels where every
     row is 16-byte aligned (contiguous, or the encoder's qkv.chunk views),
-    else the CUDA-core kernels."""
+    the forward's being the flash kernel ``flash_fwd_pieces``, else the
+    CUDA-core kernels."""
     def ops(dtype, width=64, lo=0):
         x = torch.zeros(2, 8, 3, width, dtype=dtype)[..., lo:lo + 64]
         return x, x, x
     q, k, v, _ = schedule_inputs(2, 8, 2, 64, seed=0, kind="f32",
                                  strided=True)
-    for backward, kind in ((False, "fwd"), (True, "bwd")):
+    for backward, kind, pieces in ((False, "fwd", "flash_fwd_pieces"),
+                                   (True, "bwd", "fused_bwd_pieces")):
         assert fused_kernel_for(*ops(torch.bfloat16),
                                 backward=backward) == f"fused_{kind}_bf16"
         assert fused_kernel_for(*ops(torch.float32),
-                                backward=backward) == f"fused_{kind}_pieces"
-        assert fused_kernel_for(q, k, v,
-                                backward=backward) == f"fused_{kind}_pieces"
+                                backward=backward) == pieces
+        assert fused_kernel_for(q, k, v, backward=backward) == pieces
         assert fused_kernel_for(*ops(torch.float32, 66, 1),
                                 backward=backward) == f"fused_{kind}_f32"
 
@@ -553,18 +549,22 @@ def fp32_operands(B, S, layout, dev, seed, n=3):
 @pytest.mark.parametrize("layout", ["contiguous", "qkv.chunk", "misaligned"])
 def test_fused_fp32_routes_on_cuda(layout, S):
     """The fp32 forward on the route ``fused_kernel_for`` names: the
-    pieces kernels for contiguous operands and the encoder's qkv.chunk
-    views, the CUDA-core kernel for rows off alignment; each launch counted
-    under its kernel, each within 1e-4 of the plain version."""
+    pieces kernel (``flash_fwd_pieces``) for contiguous operands and the
+    encoder's qkv.chunk views, the CUDA-core kernel for rows off
+    alignment; each launch counted under its kernel in
+    ``fused_attention.kernel_launches`` (none in flash's), each within
+    1e-4 of the fused plain version."""
     dev = _cuda()
     q, k, v = fp32_operands(4, S, layout, dev, seed=S)
     _, _, _, mask = _inputs(4, S, 1, 1, seed=S)
     mask = torch.as_tensor(mask).to(dev)
-    kernel = "fused_fwd_f32" if layout == "misaligned" else "fused_fwd_pieces"
+    kernel = "fused_fwd_f32" if layout == "misaligned" else "flash_fwd_pieces"
     assert fused_kernel_for(q, k, v) == kernel
     before = fused_attention.kernel_launches[kernel]
+    flash_before = flash_attention.launches
     got = fused_attention(q, k, v, mask)
     assert fused_attention.kernel_launches[kernel] == before + 1
+    assert flash_attention.launches == flash_before
     want = fused_attention_reference(q, k, v, mask)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 

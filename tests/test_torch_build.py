@@ -42,9 +42,13 @@ def test_editing_an_included_header_changes_the_library_path(tmp_path,
 
 def test_the_package_sources_and_their_headers():
     """Every kernel source includes the Hopper building blocks (block-max
-    for its bf16 route's TMA maps and wgmma)."""
-    for name in ("fused_attention", "flash_attention", "attn128",
-                 "blockmax"):
+    for its bf16 route's TMA maps and wgmma); the two attention sources,
+    whose fp32 routes split their operands, also the split kernel's
+    header, which the others do not build."""
+    for name in ("fused_attention", "flash_attention"):
+        assert [p.name for p in _build.sources(name)] == [
+            f"{name}.cu", "hopper.cuh", "split_pieces.cuh"]
+    for name in ("attn128", "blockmax"):
         assert [p.name for p in _build.sources(name)] == [f"{name}.cu",
                                                           "hopper.cuh"]
 
