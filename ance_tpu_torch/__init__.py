@@ -1,17 +1,26 @@
 """PyTorch port of ``ance_tpu`` for NVIDIA Hopper (H100).
 
-This package holds the FirstP serving path: the RobertaDot encoder, corpus
-encode, the exact ``FlatIPIndex`` (searched through a hand-written CUDA
-block-max top-k kernel, ``csrc/blockmax.cu``), the batch and HTTP
-retrievers and the ``serve`` CLI. ``ance_tpu`` (JAX) stays the reference
-every module here is tested against; this package never imports jax.
+The package holds the ANCE system on one device: the RobertaDot encoders
+(FirstP ``rdot_nll`` and MaxP ``rdot_nll_multi_chunk``), corpus encode,
+the exact ``FlatIPIndex`` (searched through the hand-written CUDA
+block-max top-k kernel, ``csrc/blockmax.cu``), the batch, HTTP and live
+retrievers, the train step with LAMB, the trainer and generator jobs, the
+single-program pipelined refresh (``train/pipelined.py``) and the CLI
+(``serve``, ``train``, ``generate``, ``infer``, ``eval``, ``eval-full``,
+``ance-loop``). The attention kernels are CUDA C++ too (``csrc/``).
+``ance_tpu`` (JAX) stays the reference every module here is tested
+against; this package never imports jax.
 """
 
 import torch
 
 # fp32 matmuls run in full fp32 on the card: the plain phase-1 version the
-# kernel is checked against and the fp32 encoder are fp32 computations, as
-# the JAX package runs them at "highest" precision (tests/conftest.py:30).
-# TF32 keeps ~3 decimal digits and would break both.
+# kernel is checked against and the fp32 encoder are fp32 computations, and
+# the CPU parity tests hold them to the JAX package run at "highest"
+# precision. That precision is pinned only in the JAX package's tests
+# (tests/conftest.py:30) and its loss matmuls (ance_tpu/models/losses.py:
+# 22-24); its encoder's Dense layers run at the platform's default
+# precision (ROADMAP Queue 3, "Differs from the reference"). TF32 keeps ~3
+# decimal digits and would break the kernel checks.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

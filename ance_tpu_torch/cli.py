@@ -1,5 +1,5 @@
 """Command line of the torch port: ``python -m ance_tpu_torch.cli
-{serve,train,generate,infer,eval,eval-full}``.
+{serve,train,generate,infer,eval,eval-full,ance-loop}``.
 
 Counterpart of the same subcommands of ``ance_tpu/cli.py``, with the same
 flags plus ``--device`` (default ``cuda``; asking for CUDA where none
@@ -17,7 +17,11 @@ of the generator job (encode, index, dev NDCG, mining, then
 ``ann_training_data_<n>`` and ``ann_ndcg_<n>``) with the newest complete
 checkpoint under ``--training_dir``; ``infer`` stops after the encode and
 dumps embedding shards, which ``eval-full`` scores; ``eval`` is the
-official MS MARCO scorer.
+official MS MARCO scorer. ``ance-loop`` is the single-program pipelined
+refresh (:mod:`ance_tpu_torch.train.pipelined`): it trains, re-encodes the
+index slice by slice between steps, mines, writes ``refresh.jsonl`` and
+checkpoints to ``--output_dir``, and with ``--http HOST:PORT`` serves the
+live index while it trains; it prints the last three refresh entries.
 """
 
 from __future__ import annotations
@@ -549,6 +553,119 @@ def cmd_generate(args, inference_only: bool = False):
     print(json.dumps(paths))
 
 
+def cmd_ance_loop(args):
+    """The single-program pipelined refresh (``ance ance-loop``) on one
+    device: resume from ``--output_dir`` where a checkpoint is complete,
+    bootstrap, train ``--max_steps`` with a refresh work item every
+    ``--train_steps_per_slice`` steps, optionally serve the live index over
+    HTTP, then save a final checkpoint."""
+    import numpy as np
+    import torch
+    from ance_tpu_torch.data.cache import TokenCache
+    from ance_tpu_torch.models.dot_models import RobertaDot
+    from ance_tpu_torch.train import checkpoint as ckpt
+    from ance_tpu_torch.train.ance_loop import load_offset_qrels
+    from ance_tpu_torch.train.pipelined import PipelineConfig, PipelinedAnce
+    from ance_tpu_torch.utils.device import resolve_device
+    from ance_tpu_torch.utils.observability import MetricsLogger
+
+    device = resolve_device(args.device)
+    spec, model, _, _ = _build_model(args, device, seed=args.seed,
+                                     warn_random=False)
+    state, step = _make_training(args, model, spec)
+    cfg = PipelineConfig(
+        train_steps_per_slice=args.train_steps_per_slice,
+        encode_slice_size=args.encode_slice_size,
+        encode_batch_size=args.per_device_eval_batch_size,
+        batch_size=args.per_device_train_batch_size,
+        topk_training=args.topk_training,
+        negative_sample=args.negative_sample,
+        ann_chunk_factor=args.ann_chunk_factor,
+        search_chunk_queries=args.search_chunk_queries,
+        multichunk=spec.multichunk, shuffle_seed=args.seed,
+        feed_workers=args.feed_workers,
+        index_quantize=args.index_quantize,
+        rewarmup_per_dataset=args.rewarmup_per_dataset,
+        checkpoint_dir=args.output_dir, save_every=args.save_steps,
+        log_trust_ratios=args.log_trust_ratios)
+    train_qrels = load_offset_qrels(args.data_dir + "/train-qrel.tsv")
+    dev_qrels = load_offset_qrels(args.data_dir + "/dev-qrel.tsv")
+    metrics = MetricsLogger(os.path.join(args.output_dir, "refresh.jsonl"))
+    with TokenCache(args.data_dir + "/passages") as pc, \
+            TokenCache(args.data_dir + "/train-query") as tq, \
+            TokenCache(args.data_dir + "/dev-query") as dq:
+        loop = PipelinedAnce(
+            cfg, state=state, train_step=step,
+            generator=torch.Generator().manual_seed(args.seed),
+            query_method=RobertaDot.query_emb,
+            body_method=RobertaDot.body_emb_multichunk if spec.multichunk
+            else RobertaDot.body_emb,
+            passage_cache=pc, train_query_cache=tq, dev_query_cache=dq,
+            train_qrels=train_qrels, dev_qrels=dev_qrels, device=device,
+            metrics_logger=metrics)
+        resumed = loop.resume()
+        remaining = max(0, args.max_steps - resumed)
+        server = None
+        if args.http and remaining <= 0:
+            raise SystemExit(
+                "ance-loop --http: training is already complete (resumed "
+                f"step {resumed} >= max_steps {args.max_steps}) — the "
+                "server would bootstrap a full refresh and then exit "
+                "immediately; use `serve` for the final checkpoint")
+        if args.http:
+            # train and serve in one program: queries answer against the
+            # live refreshing index with the loop's own snapshot
+            from ance_tpu_torch.serve import LoopRetriever
+            from ance_tpu_torch.serve_http import RetrieverHTTPServer
+            if loop.index is None:
+                loop.bootstrap()  # serving needs the initial refresh
+            off2pid = _offset2id_lookup(args.data_dir, "pid2offset")
+            if off2pid is not None:
+                # a stale pid2offset must fail loudly, not IndexError or
+                # serve unretrievable -1 pids
+                if len(off2pid) < len(pc) or \
+                        (off2pid[:len(pc)] < 0).any():
+                    raise SystemExit("pid2offset does not cover the "
+                                     "passages cache — stale preprocess "
+                                     "artifacts under --data_dir?")
+                base = off2pid[np.arange(len(pc))]
+            else:
+                base = np.arange(len(pc))
+            tokenizer = None
+            try:
+                tokenizer = _load_tokenizer(spec.tokenizer_name,
+                                            args.model_name_or_path)
+            except BaseException as e:
+                if isinstance(e, KeyboardInterrupt):
+                    raise
+                print(f"WARNING: no tokenizer ({e}); live serving accepts "
+                      "token arrays only", file=sys.stderr)
+            retriever = LoopRetriever(
+                loop, tokenizer=tokenizer,
+                max_query_length=args.max_query_length,
+                embedding2id=np.repeat(base.astype(np.int64),
+                                       loop._rows_per_record or 1))
+            host, port = _parse_host_port(args.http)
+            server = RetrieverHTTPServer(
+                retriever, host=host, port=port,
+                pid_space="real" if off2pid is not None else "offset",
+                pad_token_id=model.config.pad_token_id).start()
+            addr = server.address
+            print(json.dumps({"live_serving": f"http://{addr[0]}:{addr[1]}",
+                              "ntotal": int(loop.index.ntotal)}), flush=True)
+        try:
+            loop.run(remaining)
+        finally:
+            if server is not None:
+                server.shutdown()
+        loop.flush_checkpoints()
+        ckpt.save_checkpoint(args.output_dir, loop.state.step,
+                             loop.state.model,
+                             loop.state.optimizer.state_dict())
+    metrics.close()
+    print(json.dumps(loop.history[-3:]))
+
+
 def cmd_eval(args):
     from ance_tpu_torch.evaluation.msmarco_eval import \
         compute_metrics_from_files
@@ -738,6 +855,40 @@ def build_parser() -> argparse.ArgumentParser:
                        help="an int8 corpus index (per-dimension scales)")
         p.add_argument("--per_device_eval_batch_size", type=int, default=128)
         p.set_defaults(fn=lambda a, inf=inference: cmd_generate(a, inf))
+
+    p = sub.add_parser("ance-loop",
+                       help="single-program pipelined refresh: train, "
+                            "refresh the index slice by slice, mine, serve")
+    _add_common_model_flags(p)
+    _add_train_flags(p)
+    p.add_argument("--data_dir", required=True,
+                   help="token caches passages, train-query, dev-query "
+                        "and train-qrel.tsv / dev-qrel.tsv")
+    p.add_argument("--output_dir", required=True,
+                   help="checkpoint-<step>/ directories and refresh.jsonl")
+    p.add_argument("--train_steps_per_slice", type=int, default=8)
+    p.add_argument("--encode_slice_size", type=int, default=65536)
+    p.add_argument("--topk_training", type=int, default=500)
+    p.add_argument("--negative_sample", type=int, default=5)
+    p.add_argument("--ann_chunk_factor", type=int, default=5)
+    p.add_argument("--search_chunk_queries", type=int, default=4096,
+                   help="queries per search work item (bounds the gap a "
+                        "search item inserts between train steps)")
+    p.add_argument("--per_device_eval_batch_size", type=int, default=128)
+    p.add_argument("--save_steps", type=int, default=0,
+                   help="mid-run checkpoint cadence (0 = at refresh "
+                        "boundaries only); restarts resume automatically")
+    p.add_argument("--log_trust_ratios", action="store_true",
+                   help="LAMB trust-ratio stats in each refresh entry")
+    p.add_argument("--index_quantize", default=None, choices=["dims"],
+                   help="an int8 index (a quarter of fp32's bytes); its "
+                        "per-dim scales are taken from each cycle's first "
+                        "slice")
+    p.add_argument("--http", default=None, metavar="HOST:PORT",
+                   help="train and serve in one program: answer /search "
+                        "against the live refreshing index with the loop's "
+                        "snapshot weights")
+    p.set_defaults(fn=cmd_ance_loop)
 
     p = sub.add_parser("eval", help="official MS MARCO MRR scorer")
     p.add_argument("reference")

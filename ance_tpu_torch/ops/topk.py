@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -191,13 +192,15 @@ def blockmax_scores(queries: torch.Tensor, corpus: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"blockmax kernel {kernel} launch failed: CUDA "
                            f"error {err}")
-    blockmax_scores.launches += 1
-    blockmax_scores.kernel_launches[kernel] += 1
+    with _COUNT_LOCK:  # a live server's searches run on other threads
+        blockmax_scores.launches += 1
+        blockmax_scores.kernel_launches[kernel] += 1
     return out
 
 
 blockmax_scores.launches = 0
 blockmax_scores.kernel_launches = collections.Counter()  # by kernel name
+_COUNT_LOCK = threading.Lock()
 
 
 def _kernel_library() -> ctypes.CDLL:

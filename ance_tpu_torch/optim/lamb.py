@@ -92,13 +92,37 @@ def lamb_trust_ratios(optimizer: ReferenceLamb,
                       ) -> dict[str, torch.Tensor]:
     """Diagnostic: the per-parameter trust ratio the next step would use
     from the current moments (the reference's log_lamb_rs), weight decay
-    applied to every parameter, as in the JAX diagnostic."""
+    applied to every parameter, as in the JAX diagnostic. A parameter no
+    step has touched yet has zero moments (the JAX state's initial ones),
+    so a zero Adam step."""
     out = {}
     with torch.no_grad():
         for name, p in named_params:
             state = optimizer.state[p]
-            adam_step = state["exp_avg"] / (state["exp_avg_sq"].sqrt() + eps)
+            if state:
+                adam_step = state["exp_avg"] / (state["exp_avg_sq"].sqrt()
+                                                + eps)
+            else:
+                adam_step = torch.zeros_like(p)
             if weight_decay != 0.0:
                 adam_step = adam_step + weight_decay * p
             out[name] = _trust_ratio(p, adam_step)
     return out
+
+
+def trust_ratio_summary(optimizer, named_params, eps: float = 1e-6,
+                        weight_decay: float = 0.0) -> dict | None:
+    """min/mean/max of the per-parameter LAMB trust ratios (the reference
+    plots them as TB histograms, utils/lamb.py:11-22 log_lamb_rs), as
+    ``ance_tpu/optim/lamb.py::trust_ratio_summary`` gives them: with its
+    defaults (eps 1e-6, no weight decay), the mean in fp32. ``optimizer``
+    is a :class:`ReferenceLamb` or the train step's ``Optimizer`` around
+    one; None for any other optimizer (AdamW)."""
+    inner = getattr(optimizer, "inner", optimizer)
+    if not isinstance(inner, ReferenceLamb):
+        return None
+    ratios = torch.stack(list(lamb_trust_ratios(
+        inner, named_params, eps, weight_decay).values())).cpu()
+    return {"trust_ratio_min": float(ratios.min()),
+            "trust_ratio_mean": float(ratios.mean()),
+            "trust_ratio_max": float(ratios.max())}

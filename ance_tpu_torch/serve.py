@@ -1,8 +1,8 @@
 """Online retrieval: query encoder + device-resident index behind one call.
 
-Counterpart of ``ance_tpu/serve.py``. ``LoopRetriever`` (serving from a
-running pipelined training loop) waits for that loop's port (ROADMAP
-Queue 1 #5).
+Counterpart of ``ance_tpu/serve.py``: :class:`Retriever` over a built
+index, and :class:`LoopRetriever` over the live index of a running
+:class:`ance_tpu_torch.train.pipelined.PipelinedAnce`.
 """
 
 from __future__ import annotations
@@ -99,11 +99,19 @@ class Retriever:
         """Token batch → (scores [B, k], passage ids [B, k]) as numpy.
         The depth is bucketed to a power of two (a deeper exact top-k cut
         to k is the top-k); multi-vector rows dedup to unique pids."""
+        return self._to_pids(*self._search_rows(ids, mask, k), k)
+
+    def _search_rows(self, ids, mask, k: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The device part: encode, then search at the bucketed depth."""
         q = self.embed_queries(ids, mask)
         depth = k if self.embedding2id is None else min(
             self.index.ntotal, 4 * k)  # overfetch for multi-vector dedup
         depth = bucket_pow2(depth, self.index.ntotal)
-        scores, rows = self.index.search(q, depth)
+        return self.index.search(q, depth)
+
+    def _to_pids(self, scores: torch.Tensor, rows: torch.Tensor, k: int
+                 ) -> tuple[np.ndarray, np.ndarray]:
         scores, rows = scores.cpu().numpy(), rows.cpu().numpy()
         if self.embedding2id is None:
             return scores[:, :k], rows[:, :k]
@@ -113,3 +121,67 @@ class Retriever:
                ) -> tuple[np.ndarray, np.ndarray]:
         ids, mask = self.tokenize_queries(queries)
         return self.search_tokens(ids, mask, k)
+
+
+class LoopRetriever(Retriever):
+    """Retriever over a running :class:`~ance_tpu_torch.train.pipelined.
+    PipelinedAnce`: train and serve in one program, the index as fresh as
+    the loop's last slice write.
+
+    Queries encode with the loop's current snapshot (the frozen weights
+    the index's slices are encoded with, the encoder/corpus consistency
+    dev eval and mining rely on) and search the live index in place.
+    Mid-cycle the index mixes slices of two consecutive snapshots: the
+    staleness ANCE training itself accepts (reference README.md:21-24).
+
+    Concurrency: the encode and the search run under ``loop.index_lock``,
+    which the loop holds to rebind the index's buffer and scales and to
+    swap the snapshot; both run on the device's default stream, so each
+    slice write lands wholly before or after each search. The search's
+    phase 2 waits for the device, and with it for whatever the loop queued
+    before; the results are copied to the host after the lock is released.
+    ``index`` and ``params`` follow the loop and cannot be set; searching
+    before the loop's first refresh (``bootstrap()``) raises."""
+
+    def __init__(self, loop, **kw):
+        self._loop = loop
+        super().__init__(encode_fn=None, index=None, **kw)
+
+    def search_tokens(self, ids, mask, k: int
+                      ) -> tuple[np.ndarray, np.ndarray]:
+        with self._loop.index_lock:
+            scores, rows = self._search_rows(ids, mask, k)
+        return self._to_pids(scores, rows, k)
+
+    @property
+    def encode_fn(self) -> Callable:
+        return self._loop.qfn
+
+    @encode_fn.setter
+    def encode_fn(self, value):
+        if value is not None:
+            raise AttributeError("LoopRetriever encodes with the loop's "
+                                 "snapshot; its encoder cannot be set")
+
+    @property
+    def params(self):
+        return self._loop.snapshot
+
+    @params.setter
+    def params(self, value):
+        if value is not None:
+            raise AttributeError("LoopRetriever params follow the loop "
+                                 "snapshot; they cannot be set")
+
+    @property
+    def index(self) -> FlatIPIndex:
+        if self._loop.index is None:
+            raise RuntimeError("loop index not built yet — bootstrap() "
+                               "(or resume past it) before serving")
+        return self._loop.index
+
+    @index.setter
+    def index(self, value):
+        if value is not None:
+            raise AttributeError("LoopRetriever serves the loop's live "
+                                 "index; it cannot be swapped")

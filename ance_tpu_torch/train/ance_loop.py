@@ -11,7 +11,8 @@ reference's run_ann.py and run_ann_data_gen.py), on one device.
   2. :func:`run_ance_cycles` — one program alternating generate → train →
      checkpoint, the generator always encoding with the freshest weights.
 
-The pipelined refresh waits for ROADMAP Queue 1 #5.
+The single-program pipelined refresh, training and refreshing the index
+slice by slice on one schedule, is :mod:`ance_tpu_torch.train.pipelined`.
 """
 
 from __future__ import annotations

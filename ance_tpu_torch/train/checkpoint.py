@@ -13,6 +13,8 @@ the JAX package's torch reader (``hf_loader.load_torch_state_dict``) reads
 it as it is, and nothing needs converting for export. The directory is
 written under a temporary name and renamed into place before DONE, so a
 reader that waits for DONE never sees a partial checkpoint.
+:class:`AsyncCheckpointer` writes the same files from a background thread
+and publishes ``meta.json`` and DONE only at its fence (``wait``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import os
 import re
 import shutil
 import tempfile
+import threading
 from typing import Optional
 
 import torch
@@ -39,8 +42,10 @@ def checkpoint_no(path: str) -> int:
 
 
 def _to_cpu(obj):
+    """A host copy of every tensor in ``obj`` (a copy on the CPU too, so
+    later in-place updates of the live tensors do not reach it)."""
     if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu()
+        return obj.detach().to("cpu", copy=True)
     if isinstance(obj, dict):
         return {k: _to_cpu(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -74,6 +79,76 @@ def save_checkpoint(directory: str, step: int, model: torch.nn.Module,
     with open(os.path.join(final, DONE_MARKER), "w") as f:
         f.write(str(step))
     return final
+
+
+class AsyncCheckpointer:
+    """Checkpoints written off the caller's thread (counterpart of
+    ``ance_tpu/train/checkpoint.py::AsyncCheckpointer``, orbax's role
+    there).
+
+    :meth:`save` copies the parameters and the optimizer state to the host
+    at once (so the train steps after it may update the live tensors in
+    place), creates ``checkpoint-<step>/`` and starts a thread that writes
+    ``pytorch_model.bin`` and ``optimizer.pt`` into it; the thread touches
+    no device tensor. :meth:`wait` joins the thread (re-raising what it
+    raised), then writes ``meta.json`` and DONE, so a checkpoint is complete
+    (:func:`is_complete`, :func:`get_latest_checkpoint`) only after its
+    fence, and its files are :func:`save_checkpoint`'s."""
+
+    def __init__(self, directory: str):
+        self.directory = directory
+        self._thread: Optional[threading.Thread] = None
+        self._pending: Optional[tuple] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, step: int, model: torch.nn.Module,
+             optimizer_state: Optional[dict] = None,
+             extra: Optional[dict] = None) -> str:
+        """Start writing ``checkpoint-<step>``; fences an earlier save
+        first. Returns the directory (complete after :meth:`wait`)."""
+        self.wait()
+        params = _to_cpu(model.state_dict())
+        opt = _to_cpu(optimizer_state) if optimizer_state is not None \
+            else None
+        final = os.path.join(self.directory, f"checkpoint-{step}")
+        os.makedirs(self.directory, exist_ok=True)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.makedirs(final)
+        meta = {"step": int(step)}
+        meta.update(extra or {})
+        self._pending = (final, meta)
+
+        def write():
+            try:
+                torch.save(params, os.path.join(final, MODEL_FILE))
+                if opt is not None:
+                    torch.save(opt, os.path.join(final, OPTIMIZER_FILE))
+            except BaseException as e:  # re-raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=write, name="checkpoint",
+                                        daemon=True)
+        self._thread.start()
+        return final
+
+    def wait(self) -> None:
+        """Block until the in-flight save is on disk, then publish its
+        ``meta.json`` and DONE marker."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._pending is None:
+            return
+        final, meta = self._pending
+        self._pending = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
+        with open(os.path.join(final, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        with open(os.path.join(final, DONE_MARKER), "w") as f:
+            f.write(str(meta["step"]))
 
 
 def is_complete(ckpt_dir: str) -> bool:

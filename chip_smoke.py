@@ -90,7 +90,18 @@ block-max's bf16 route and its two fp32-query kernels), and then:
     encoder's embeddings) against the plain version, ``infer`` +
     ``eval-full`` (its NDCG@10 equals generate's),
     ``cli train`` on the file and ``generate --training_dir`` on its
-    checkpoint, then ``run_ance_cycles`` (2 cycles x 3 steps).
+    checkpoint, then ``run_ance_cycles`` (2 cycles x 3 steps);
+  * ance-loop: the pipelined refresh through ``cli ance-loop`` on the
+    generator's data and weights: FirstP over an fp32 index with
+    ``--http`` and a client sending B=1, k=10 searches at 10/s while it
+    trains (bootstrap, a whole cycle of 8 slices of 4,096 passages, 8
+    steps an item, then 8 steps more; its bootstrap dev NDCG equal to
+    ``generate``'s, every mining search equal to a scan of the index as
+    it stood, every live answer 200 and, after the run, equal to
+    ``LoopRetriever.search_tokens``, block-max launches == S and M items
+    plus live searches), over an int8 ``dims`` index, and MaxP (bf16,
+    kernel #2 counted in the encode items, #3 in the steps), each
+    kernel held to its plain version on the loop's own operands.
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. The last two lines are a JSON object of per-kernel results
@@ -442,6 +453,15 @@ def phase_kernel():
             # products each runs a k step (fp32 queries: bf16 pieces)
             products = WGMMA_PRODUCTS.get(dtypes) if shape in SHAPES \
                 else None
+            if dtypes in ("bf16xint8", "int8xint8") and shape in SHAPES:
+                # rate references (no block maxima): cuBLAS's fp32 product
+                # of the widened operands (TF32 off), and torch._int_mm's
+                # int8 product with int32 output
+                if dtypes == "bf16xint8":
+                    qf, cf = qq.float(), cc.float()  # outside the window
+                    kernel["gemm_ms"] = lambda: torch.mm(qf, cf.T)
+                else:
+                    kernel["gemm_ms"] = lambda: torch._int_mm(qq, cc.T)
             if products:
                 # cuBLAS's product of the same operands (fp32 output; for
                 # fp32 queries the fp32 GEMM, TF32 off, of the corpus as
@@ -461,6 +481,9 @@ def phase_kernel():
             ms = times.pop("ms")
             plain_ms = cuda_ms(lambda: blockmax_scores_reference(qq, cc))
             extra = {}
+            if not products and "gemm_ms" in times:
+                extra["gemm_ms"] = times["gemm_ms"]
+                qf = cf = None
             if products:
                 del q64, c64
                 cf = None
@@ -508,7 +531,9 @@ def phase_kernel():
                          f"{extra['tile_fixed_us']:.3f} us fixed + "
                          f"{extra['tile_step_us']:.3f} us a 64-column k step"
                          f" ({extra['tile_step_us_a_product']:.3f} a product)"
-                         if products else "")
+                         if products else
+                         f"  rate reference {extra['gemm_ms']:.3f} ms"
+                         if "gemm_ms" in extra else "")
             fp32_text = (f", fp32 rate {extra['fp32_rate_bound_ms']:.3f} ms"
                          if "fp32_rate_bound_ms" in extra else "")
             print(f"kernel {dtypes:10s} {shape:6s} Q={qq.shape[0]:5d} "
@@ -2659,6 +2684,477 @@ def phase_generate(work: Path):
             "cycles_s": cycles_s, "cycles": history}
 
 
+LOOP_SLICE, LOOP_STEPS_PER_SLICE = 4096, 8  # passages an E item; steps an item
+MAXP_LOOP_SLICE = 128  # documents an E item of the MaxP loop (4 batches)
+IDLE_SEARCHES = 100  # live B=1 searches timed after the run, the loop idle
+LIVE_QPS = 10  # the offered rate of the live client during the run (open
+               # loop: a request every 1/LIVE_QPS s, at once if one is late)
+
+
+@contextlib.contextmanager
+def _loop_probes():
+    """Hooks around the pipelined loop that ``cli ance-loop`` runs
+    through, yielding the dict they fill: the loop object; each work item's
+    tag, host-clock start and end (the loop synchronizes the device before
+    and after an item) and the fused-attention launches inside it; a copy
+    of each mining search's queries, neighbours and index; a copy of the
+    first dev and mining phase-1 operands of the loop's own thread; the HTTP server, whose shutdown is held (``stopped`` is set)
+    until the context exits, so its answers can be compared after the
+    run. The smoke's seeded weights carry no tokenizer files, so the
+    tokenizer load is refused at once (live serving then takes token
+    arrays), never tried against a hub."""
+    import threading
+    import torch
+    from ance_tpu_torch import cli
+    from ance_tpu_torch.index import flat
+    from ance_tpu_torch.ops import fused_attention as fa
+    from ance_tpu_torch.serve_http import RetrieverHTTPServer
+    from ance_tpu_torch.train import pipelined
+
+    probes = {"loops": [], "items": [], "mined": [], "phase1": {},
+              "servers": [], "stopped": threading.Event()}
+    cls = pipelined.PipelinedAnce
+    real = {"init": cls.__init__, "item": cls._run_item,
+            "mine": cls._mine_chunk, "negatives": pipelined.mine_negatives,
+            "topk": flat.topk_blockmax, "tokenizer": cli._load_tokenizer,
+            "start": RetrieverHTTPServer.start,
+            "shutdown": RetrieverHTTPServer.shutdown}
+    caught = {}
+
+    def init(self, *args, **kwargs):
+        real["init"](self, *args, **kwargs)
+        probes["loops"].append(self)
+
+    def run_item(self):
+        tag = self._work[0][0]
+        f0 = (fa.fused_attention.launches, fa.fused_attention_backward.launches)
+        t0 = time.perf_counter()
+        real["item"](self)
+        probes["items"].append({
+            "tag": tag, "start": t0, "end": time.perf_counter(),
+            "forward": fa.fused_attention.launches - f0[0],
+            "backward": fa.fused_attention_backward.launches - f0[1]})
+
+    def negatives(qids, pids, positives, neighbor_ids, *args, **kwargs):
+        caught["neighbors"] = neighbor_ids
+        return real["negatives"](qids, pids, positives, neighbor_ids,
+                                 *args, **kwargs)
+
+    def mine(self, qs, qe, chunk_no):
+        real["mine"](self, qs, qe, chunk_no)
+        index = self.index
+        probes["mined"].append({
+            "queries": self._cyc["tq_emb"][qs:qe].clone(),
+            "neighbors": caught.pop("neighbors"),
+            "emb": index._emb.clone(), "ntotal": index.ntotal,
+            "scales": None if index._scales is None
+            else index._scales.clone(),
+            "k": min(self.cfg.topk_training, index.ntotal)})
+
+    def topk(queries, corpus, **kwargs):
+        seen = probes["phase1"]
+        if threading.current_thread() is threading.main_thread() \
+                and len(seen) < 2:  # a cycle's S items come before its M
+            seen["mining" if seen else "dev"] = (queries.clone(),
+                                                 corpus.clone())
+        return real["topk"](queries, corpus, **kwargs)
+
+    def no_tokenizer(name, model_dir):
+        raise OSError(f"no tokenizer files in {model_dir}")
+
+    def start(self):
+        probes["servers"].append(self)
+        return real["start"](self)
+
+    def shutdown(self):
+        probes["stopped"].set()
+
+    cls.__init__, cls._run_item, cls._mine_chunk = init, run_item, mine
+    pipelined.mine_negatives, flat.topk_blockmax = negatives, topk
+    cli._load_tokenizer = no_tokenizer
+    RetrieverHTTPServer.start, RetrieverHTTPServer.shutdown = start, shutdown
+    try:
+        yield probes
+    finally:
+        cls.__init__, cls._run_item = real["init"], real["item"]
+        cls._mine_chunk = real["mine"]
+        pipelined.mine_negatives = real["negatives"]
+        flat.topk_blockmax = real["topk"]
+        cli._load_tokenizer = real["tokenizer"]
+        RetrieverHTTPServer.start = real["start"]
+        RetrieverHTTPServer.shutdown = real["shutdown"]
+        probes["stopped"].set()
+        for server in probes["servers"]:
+            real["shutdown"](server)
+
+
+def _mining_equals_scan(probes, what: str) -> int:
+    """Every mining search of the run against a scan of the index as it
+    stood then (``FlatIPIndex.search`` with ``method="scan"``), id for id.
+    Returns the number of searches compared."""
+    import copy
+    check(len(probes["mined"]) >= 1, f"{what}: no mining search ran")
+    for m in probes["mined"]:
+        index = copy.copy(probes["loops"][0].index)
+        index._emb, index._scales, index._ntotal = (m["emb"], m["scales"],
+                                                    m["ntotal"])
+        index.method = "scan"
+        _, ids = index.search(m["queries"], m["k"])
+        same = (ids.cpu().numpy() == m["neighbors"]).mean()
+        check(same == 1.0, f"{what}: mining ids equal the scan on "
+              f"{same:.6f} of positions, not all")
+    return len(probes["mined"])
+
+
+def _phase1_on_loop_operands(probes, dtypes: str, what: str) -> list:
+    """Kernel #1's phase 1 against its plain version on the operands the
+    loop's own dev and mining searches gave it."""
+    from ance_tpu_torch.ops.topk import (_pad_rows, blockmax_kernel_for,
+                                         blockmax_scores,
+                                         blockmax_scores_reference)
+    out = []
+    for key in ("dev", "mining"):
+        q, corpus = probes["phase1"][key]
+        q = q.contiguous()
+        c = _pad_rows(corpus, CHUNK_ROWS)
+        kernel = blockmax_kernel_for(q, c)
+        check(kernel == ROUTE_KERNEL[dtypes], f"{what} {key}: phase 1 takes "
+              f"{kernel}")
+        got = blockmax_scores(q, c, chunk_rows=CHUNK_ROWS)
+        want = blockmax_scores_reference(q, c)
+        err = (got - want).abs().max().item()
+        check(err <= FLOAT_ATOL, f"{what} {key}: phase 1 max |err| {err} > "
+              f"{FLOAT_ATOL}")
+        out.append({"dtypes": dtypes, "shape": f"{what} {key}",
+                    "kernel": kernel, "Q": q.shape[0], "N": c.shape[0],
+                    "D": q.shape[1], "max_abs_err": err})
+        print(f"kernel {dtypes:10s} {what} {key:6s} Q={q.shape[0]:5d} "
+              f"N={c.shape[0]} ({kernel}): max|err| {err:.3g} on the loop's "
+              "operands", flush=True)
+    return out
+
+
+def phase_ance_loop(work: Path, generate: dict, train: dict):
+    """The single-program pipelined refresh through ``cli ance-loop`` (in
+    process) at full RoBERTa-base width from the serve phase's seeded
+    weights, on the generator phase's data: (a) FirstP over an fp32 index
+    with ``--http``, a client thread sending B=1, k=10 searches at
+    LIVE_QPS while it trains, bootstrap and a whole cycle plus 8 steps;
+    (b) FirstP over an int8 (``dims``) index without serving, bootstrap
+    and 24 steps; (c) MaxP (bf16, attention dropout 0) over the fp32 MaxP
+    phase's 512 documents of seq 2048, bootstrap and 8 steps. Each run's
+    launch counts are set to 0 just before it and read just after it."""
+    import collections
+    import gc
+    import threading
+    import numpy as np
+    import torch
+    from ance_tpu_torch.data.cache import TokenCache
+    from ance_tpu_torch.models.registry import get_model_spec
+    from ance_tpu_torch.models.weights import load_pretrained
+    from ance_tpu_torch.ops import fused_attention as fa
+    from ance_tpu_torch.train.encode import iter_cache_batches
+
+    weights, data = work / "roberta_base_seeded", work / "gen_data"
+    # 8 slices, then D, S, V, Q, M, F: 256 dev and 1,024 train queries a
+    # search item each
+    cycle = "E" * -(-N_PASSAGES // LOOP_SLICE) + "DSVQMF"
+    first_steps = (len(cycle) + 1) * LOOP_STEPS_PER_SLICE
+
+    def flags(out: str, steps: int, data_dir: Path = data,
+              seq: int = PASSAGE_LEN, eval_batch: int = 128,
+              slice_size: int = LOOP_SLICE, batch: int = TRAIN_BATCH):
+        return ["ance-loop", "--device", "cuda", "--bf16",
+                "--model_name_or_path", str(weights),
+                "--data_dir", str(data_dir), "--output_dir", str(work / out),
+                "--max_steps", str(steps), "--warmup_steps", "2",
+                "--max_seq_length", str(seq),
+                "--max_query_length", str(QUERY_LEN),
+                "--per_device_train_batch_size", str(batch),
+                "--per_device_eval_batch_size", str(eval_batch),
+                "--encode_slice_size", str(slice_size),
+                "--train_steps_per_slice", str(LOOP_STEPS_PER_SLICE),
+                "--topk_training", str(GEN_TOPK),
+                "--negative_sample", str(GEN_NEGATIVES),
+                "--ann_chunk_factor", "1"]
+
+    def run(argv, after=None) -> dict:
+        """``cli ance-loop`` with the counts set to 0 before it; ``after``
+        (the live client's join) runs before they are read."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_blockmax_counts()
+        fa.fused_attention.launches = fa.fused_attention_backward.launches = 0
+        t0 = time.perf_counter()
+        try:
+            _cli(argv)
+        finally:
+            if after is not None:
+                after()
+        torch.cuda.synchronize()
+        return {"wall_s": time.perf_counter() - t0,
+                "blockmax_kernels": blockmax_counts(),
+                "fused_forward": fa.fused_attention.launches,
+                "fused_backward": fa.fused_attention_backward.launches,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    def searches(loop) -> int:
+        return sum(tag in "SM" for tag in loop.schedule_trace)
+
+    def loop_step_ms(probes, boot_items: int) -> list:
+        """ms a train step inside the loop: each run of steps between two
+        items (from one item's end to the next one's start, both after a
+        device synchronize), from the bootstrap's last item on."""
+        items = probes["items"][boot_items - 1:]
+        return [(b["start"] - x["end"]) * 1e3 / LOOP_STEPS_PER_SLICE
+                for x, b in zip(items, items[1:])]
+
+    def release() -> None:
+        gc.collect()  # the loop's work items refer back to it
+        torch.cuda.empty_cache()
+
+    def item_p50(loop) -> dict:
+        return {tag: statistics.median(loop.item_times[tag]) * 1e3
+                for tag in "ESMF" if loop.item_times[tag]}
+
+    def tails(ms: list) -> dict:
+        return {"p50": statistics.median(ms),
+                "p99": float(np.percentile(ms, 99)), "n": len(ms)}
+
+    def one(i: int) -> dict:
+        return {"ids": q_ids[i:i + 1].tolist(),
+                "mask": q_mask[i:i + 1].tolist(), "k": 10}
+
+    with TokenCache(str(data / "dev-query")) as qc:
+        _, q_ids, q_mask = next(iter_cache_batches(qc, N_QUERIES))
+    results = {}
+
+    # (a) FirstP, fp32 index, live HTTP searches during the run
+    during, client_errors, stop = [], [], threading.Event()
+
+    def client(probes):
+        while not probes["servers"]:  # the server starts after bootstrap
+            if stop.wait(0.05):
+                return
+        addr, i = probes["servers"][0].address, 0
+        due = time.perf_counter()
+        while not probes["stopped"].wait(max(0.0, due - time.perf_counter())):
+            try:
+                t0 = time.perf_counter()
+                _post(addr, "/search", one(i % N_QUERIES))
+                during.append((time.perf_counter() - t0) * 1e3)
+            except Exception as e:  # collected, checked after the run
+                client_errors.append(repr(e))
+            i += 1
+            due += 1.0 / LIVE_QPS
+
+    with _loop_probes() as probes:
+        thread = threading.Thread(target=client, args=(probes,))
+        thread.start()
+
+        def join_client():
+            probes["stopped"].set()
+            stop.set()
+            thread.join(timeout=600)
+
+        a = run(flags("loop_a", first_steps) + ["--http", "127.0.0.1:0"],
+                after=join_client)
+        check(not thread.is_alive(), "the live-search client hung")
+        check(not client_errors, f"live searches failed: {client_errors[:3]}")
+        loop, server = probes["loops"][0], probes["servers"][0]
+        n_live = len(during)
+        want = {"blockmax_pieces_f32": searches(loop) + n_live}
+        check(a["blockmax_kernels"] == want, f"ance-loop (a): block-max "
+              f"launches {a['blockmax_kernels']}, not {want} (S + M items "
+              "and live searches, over the fp32 index)")
+        check(n_live >= 10, f"only {n_live} live searches during the run")
+        trace = "".join(loop.schedule_trace)
+        check(trace.replace("T", "") == cycle * 2 + "E"
+              and loop.state.step == first_steps and loop.refresh_no == 2,
+              f"ance-loop (a): schedule {trace.replace('T', '')}, step "
+              f"{loop.state.step}")
+        boot = loop.history[0]["dev_ndcg"]
+        check(abs(boot - generate["dev_ndcg"]) <= 1e-12, f"ance-loop (a): "
+              f"bootstrap dev NDCG {boot!r} vs generate's "
+              f"{generate['dev_ndcg']!r}")
+        mined = _mining_equals_scan(probes, "ance-loop (a)")
+        lines = (work / "loop_a" / "refresh.jsonl").read_text().splitlines()
+        check(len(lines) == 2 and all(
+            {"refresh", "dev_ndcg", "dev_recall", "ann_mrr", "num_triples",
+             "refresh_sec"} <= set(json.loads(x)) for x in lines),
+            f"refresh.jsonl: {lines}")
+        final = work / "loop_a" / f"checkpoint-{first_steps}"
+        check((final / "DONE").exists(), f"no complete {final}")
+        load_pretrained(get_model_spec("rdot_nll").build(), str(final))
+        stats = _get(server.address, "/metrics")
+        check(stats["errors"] == 0 and stats["requests"] == n_live,
+              f"/metrics {stats}")
+        # the loop idle: latencies, then every answer == search_tokens
+        idle = []
+        for i in range(IDLE_SEARCHES):
+            t0 = time.perf_counter()
+            _post(server.address, "/search", one(i % N_QUERIES))
+            idle.append((time.perf_counter() - t0) * 1e3)
+        for i in range(16):
+            body = _post(server.address, "/search", one(i))
+            _, want_p = server.retriever.search_tokens(
+                q_ids[i:i + 1], q_mask[i:i + 1], 10)
+            check([[e["pid"] for e in r] for r in body["results"]]
+                  == want_p.tolist(), f"live answer {i} != search_tokens")
+        kernel_cases = _phase1_on_loop_operands(probes, "f32xf32",
+                                                "ance-loop")
+        step_ms = loop_step_ms(probes, len(cycle))
+        results["firstp"] = {
+            **a, "schedule": trace, "searches": searches(loop),
+            "live_searches": n_live, "mining_searches_vs_scan": mined,
+            "history": loop.history,
+            "refresh_sec": [h["refresh_sec"] for h in loop.history],
+            "item_p50_ms": item_p50(loop),
+            "item_ms": {t: [x * 1e3 for x in v]
+                        for t, v in loop.item_times.items()},
+            "loop_step_ms": step_ms,
+            "loop_step_ms_median": statistics.median(step_ms),
+            "train_step_ms_alone": train["firstp"]["train_step_ms"],
+            "live_qps_offered": LIVE_QPS,
+            "live_ms_during": tails(during), "live_ms_idle": tails(idle),
+            "lock_wait_ms_total": stats["lock_wait_ms_total"],
+            "bootstrap_dev_ndcg": boot,
+            "generate_dev_ndcg": generate["dev_ndcg"]}
+    r = results["firstp"]
+    print(f"ance-loop (a) FirstP, fp32 index, --http: {a['wall_s']:.1f} s; "
+          f"refresh_sec {r['refresh_sec']}; item p50 ms "
+          f"{ {t: round(v, 2) for t, v in r['item_p50_ms'].items()} }; "
+          f"train step in the loop {r['loop_step_ms_median']:.1f} ms "
+          f"(median of {len(step_ms)} runs of {LOOP_STEPS_PER_SLICE}), "
+          f"{r['train_step_ms_alone']:.1f} alone (phase train); live B=1 "
+          f"k=10 at {LIVE_QPS}/s p50/p99 {r['live_ms_during']['p50']:.2f}/"
+          f"{r['live_ms_during']['p99']:.2f} ms during the run ({n_live}, "
+          f"all 200), {r['live_ms_idle']['p50']:.2f}/"
+          f"{r['live_ms_idle']['p99']:.2f} idle; lock_wait_ms_total "
+          f"{stats['lock_wait_ms_total']:.1f}; peak {a['peak_mem_gib']:.2f} "
+          f"GiB; bootstrap dev NDCG {boot!r} == generate's; block-max "
+          f"{a['blockmax_kernels']}; mining == scan in {mined} searches",
+          flush=True)
+    del loop, server, probes
+    release()
+
+    # (b) FirstP over an int8 (dims) index, no serving: 24 steps
+    with _loop_probes() as probes:
+        b = run(flags("loop_b", 3 * LOOP_STEPS_PER_SLICE)
+                + ["--index_quantize", "dims"])
+        loop = probes["loops"][0]
+        want = {"blockmax_pieces_int8": searches(loop)}
+        check(b["blockmax_kernels"] == want, f"ance-loop (b): block-max "
+              f"launches {b['blockmax_kernels']}, not {want}")
+        check(loop.index.quantize == "dims"
+              and loop.index._emb.dtype == torch.int8, "(b) index not int8")
+        mined = _mining_equals_scan(probes, "ance-loop dims")
+        kernel_cases += _phase1_on_loop_operands(probes, "f32xint8",
+                                                 "ance-loop dims")
+        boot = loop.history[0]
+        results["dims"] = {**b, "schedule": "".join(loop.schedule_trace),
+                           "searches": searches(loop),
+                           "mining_searches_vs_scan": mined,
+                           "int8_clip_frac": boot["int8_clip_frac"],
+                           "int8_scale_widenings":
+                           boot["int8_scale_widenings"],
+                           "item_p50_ms": item_p50(loop),
+                           "refresh_sec": boot["refresh_sec"],
+                           "loop_step_ms": loop_step_ms(probes, len(cycle))}
+    print(f"ance-loop (b) dims index: {b['wall_s']:.1f} s; block-max "
+          f"{b['blockmax_kernels']}; int8_clip_frac "
+          f"{boot['int8_clip_frac']!r}, int8_scale_widenings "
+          f"{boot['int8_scale_widenings']}; train step in the loop, no "
+          f"serving: {[round(x, 1) for x in results['dims']['loop_step_ms']]}"
+          f" ms; mining == scan in {mined} searches; peak "
+          f"{b['peak_mem_gib']:.2f} GiB", flush=True)
+    del loop, probes
+    release()
+
+    # (c) MaxP, bf16, attention dropout 0: #2 in the E items, #3 in steps
+    docs = work / "loop_maxp"
+    docs.mkdir()
+    for suffix in ("", "_meta"):
+        os.symlink(work / "maxp_fp32" / f"passages{suffix}",
+                   docs / f"passages{suffix}")
+        for split in ("train-query", "dev-query"):
+            os.symlink(data / f"{split}{suffix}", docs / f"{split}{suffix}")
+    rs = np.random.RandomState(5)
+    for split, n in (("train", GEN_TRAIN_QUERIES), ("dev", N_QUERIES)):
+        with open(docs / f"{split}-qrel.tsv", "w") as f:
+            f.writelines(f"{q}\t{rs.randint(N_F32_DOCS)}\t1\n"
+                         for q in range(n))
+    fwd_ops, bwd_ops = [], []
+    steps = LOOP_STEPS_PER_SLICE
+    with _loop_probes() as probes, first_call("forward", fwd_ops), \
+            first_call("backward", bwd_ops):
+        c = run(flags("loop_c", steps, data_dir=docs, seq=DOC_LEN,
+                      eval_batch=DOC_BATCH, slice_size=MAXP_LOOP_SLICE,
+                      batch=MAXP_TRAIN_BATCH)
+                + ["--model_type", "rdot_nll_multi_chunk",
+                   "--encoder_overrides", '{"attention_dropout": 0.0}'])
+        loop = probes["loops"][0]
+        want = {"blockmax_pieces_f32": searches(loop)}
+        check(c["blockmax_kernels"] == want, f"ance-loop (c): block-max "
+              f"launches {c['blockmax_kernels']}, not {want}")
+        check(loop.index.ntotal == N_F32_DOCS * DOC_LEN // CHUNK_LEN,
+              f"(c) index rows {loop.index.ntotal}")
+        mined = _mining_equals_scan(probes, "ance-loop MaxP")
+        items = probes["items"]
+    per_e = 12 * (MAXP_LOOP_SLICE // DOC_BATCH)
+    in_items = collections.Counter()
+    for it in items:
+        in_items[it["tag"]] += it["forward"]
+        check(it["backward"] == 0, f"(c) item {it['tag']} ran a backward")
+    n_e = loop.schedule_trace.count("E")
+    check(in_items["E"] == per_e * n_e and sum(in_items.values()) ==
+          in_items["E"], f"(c) fused forward launches by item "
+          f"{dict(in_items)}, not {per_e} an E item ({n_e} E items)")
+    step_fwd = c["fused_forward"] - in_items["E"]
+    check(step_fwd == 12 * 2 * steps and c["fused_backward"] == 12 * 2 * steps,
+          f"(c) steps: {step_fwd} fused forward / {c['fused_backward']} "
+          f"backward launches, not {12 * 2 * steps} each")
+    q, k, v, mask = fwd_ops
+    n_bad, fwd_err, fwd_ulps = bf16_slice_excess(
+        fa.fused_attention_forward(q, k, v, mask),
+        fa.fused_attention_reference(q, k, v, mask))
+    check(n_bad == 0, f"(c) #2 on an E item's operands: {n_bad} elements "
+          f"beyond {BF16_SLICE_TOL}")
+    fwd_shape = list(q.shape)
+    q, k, v, mask, do = bwd_ops
+    bwd_err, bwd_ulps = 0.0, 0.0
+    for name, g, w in zip(("dq", "dk", "dv"),
+                          fa.fused_attention_backward(q, k, v, mask, do),
+                          fa.fused_attention_backward_reference(
+                              q, k, v, mask, do)):
+        n_bad, e, u = bf16_slice_excess(g, w)
+        check(n_bad == 0, f"(c) #3 {name} on a step's operands: {n_bad} "
+              f"elements beyond {BF16_SLICE_TOL}")
+        bwd_err, bwd_ulps = max(bwd_err, e), max(bwd_ulps, u)
+    results["maxp"] = {
+        **c, "schedule": "".join(loop.schedule_trace),
+        "searches": searches(loop), "mining_searches_vs_scan": mined,
+        "fused_forward_in_items": dict(in_items),
+        "fused_forward_in_steps": step_fwd,
+        "item_p50_ms": item_p50(loop),
+        "refresh_sec": loop.history[0]["refresh_sec"],
+        "path_forward": {"shape": fwd_shape, "max_abs_err": fwd_err,
+                         "slice_ulps": fwd_ulps},
+        "path_backward": {"shape": list(q.shape), "max_abs_err": bwd_err,
+                          "slice_ulps": bwd_ulps}}
+    print(f"ance-loop (c) MaxP bf16: {c['wall_s']:.1f} s; #2 launches "
+          f"{dict(in_items)} in items + {step_fwd} in steps, #3 "
+          f"{c['fused_backward']}; block-max {c['blockmax_kernels']}; #2 / "
+          f"#3 on the path's operands within {BF16_SLICE_TOL} (max |err| "
+          f"{fwd_err:.3g} / {bwd_err:.3g}); mining == scan in {mined} "
+          f"searches; peak {c['peak_mem_gib']:.2f} GiB", flush=True)
+    del loop, probes, fwd_ops, bwd_ops
+    release()
+    check(no_reference_modules(), "the port imported jax or ance_tpu")
+    results["kernel_cases"] = kernel_cases
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -2691,6 +3187,7 @@ def main() -> int:
         train = phase_train(work)
         maxp_fp32 = phase_maxp_fp32(work)
         generate = phase_generate(work)
+        ance_loop = phase_ance_loop(work, generate, train)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     parity = phase_step_parity()
@@ -2741,7 +3238,8 @@ def main() -> int:
     # the path that runs it (generate over an fp32 / a dims index); the
     # launches of every path by kernel beside the first
     pieces = ("blockmax_pieces_f32", "blockmax_pieces_int8")
-    cases += generate.pop("kernel_cases")  # phase 1 on generate's operands
+    # phase 1 on generate's and the pipelined loop's operands
+    cases += generate.pop("kernel_cases") + ance_loop.pop("kernel_cases")
     own = [c for c in cases if c["kernel"] not in pieces]
     blockmax = entry("blockmax_scores", "blockmax", "ance_tpu/ops/topk.py:90",
                      maxp["blockmax_launches"],
@@ -2756,7 +3254,15 @@ def main() -> int:
         "firstp_serve": serve["blockmax_kernels"],
         "maxp_serve": maxp["blockmax_kernels"],
         "generate": generate["blockmax_kernels"],
-        "generate_index_quantize_dims": generate["dims_blockmax_kernels"]}
+        "generate_index_quantize_dims": generate["dims_blockmax_kernels"],
+        "ance_loop": ance_loop["firstp"]["blockmax_kernels"],
+        "ance_loop_dims": ance_loop["dims"]["blockmax_kernels"],
+        "ance_loop_maxp": ance_loop["maxp"]["blockmax_kernels"]}
+    # bf16 x int8 and int8 x int8 (blockmax_wmma): no path launches them
+    # (only topk_blockmax(phase1_dtype=...) reaches them, and nothing
+    # passes it), so their time, bound and rate reference stand apart
+    unlaunched = [c for c in cases if c["kernel"] == "blockmax_wmma"
+                  and c["shape"] in SHAPES]
     fp32_entries = []
     for kernel, dtypes, launches in (
             ("blockmax_pieces_f32", "f32xf32",
@@ -2809,17 +3315,26 @@ def main() -> int:
         e.update(kernel=kernel, fp32_rate_bound_ms=head["fp32_rate_bound_ms"],
                  exact=head["exact"], path_operands=path)
         fp32_attention.append(e)
+    fused_fwd = attention_entry("fused_attention",
+                                "ance_tpu/ops/fused_attention.py:40", 128,
+                                512, maxp["fused_launches"])
+    fused_fwd["launches_by_path"] = {
+        "maxp_serve": maxp["fused_launches"],
+        "ance_loop_maxp_encode": ance_loop["maxp"]["fused_forward_in_items"],
+        "ance_loop_maxp_steps": ance_loop["maxp"]["fused_forward_in_steps"]}
+    fused_bwd = entry("fused_attention_bwd", "fused_attention",
+                      "ance_tpu/ops/fused_attention.py:97",
+                      train["maxp"]["fused_backward_launches"], bwd_head,
+                      "bf16 B=64 S=512 H=12 D=64", "fused_attention",
+                      bwd_cases)
+    fused_bwd["launches_by_path"] = {
+        "maxp_train": train["maxp"]["fused_backward_launches"],
+        "ance_loop_maxp": ance_loop["maxp"]["fused_backward"]}
     print(json.dumps({"kernels": [
-        blockmax, *fp32_entries,
-        attention_entry("fused_attention", "ance_tpu/ops/fused_attention.py:40",
-                        128, 512, maxp["fused_launches"]),
+        blockmax, *fp32_entries, fused_fwd,
         attention_entry("flash_attention", "ance_tpu/ops/flash_attention.py:34",
                         8, 2048, maxp["flash_launches"]),
-        entry("fused_attention_bwd", "fused_attention",
-              "ance_tpu/ops/fused_attention.py:97",
-              train["maxp"]["fused_backward_launches"], bwd_head,
-              "bf16 B=64 S=512 H=12 D=64", "fused_attention", bwd_cases),
-        *fp32_attention,
+        fused_bwd, *fp32_attention,
         seq128_entry("fused128", "docs/perf_attn128_r3.py:44", "fused128"),
         seq128_entry("fused_block", "docs/perf_attn128_r3.py:88", "block")],
         "fused_function": functions, "machine_code": machine_code,
@@ -2827,7 +3342,8 @@ def main() -> int:
         "crossover": crossover, "serve": serve, "maxp": maxp,
         "train": train, "maxp_fp32": maxp_fp32, "step_parity": parity,
         "mirror_encoder": mirror,
-        "generate": generate}))
+        "generate": generate, "ance_loop": ance_loop,
+        "unlaunched_routes": unlaunched}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

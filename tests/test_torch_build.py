@@ -81,3 +81,26 @@ def test_fused_variants_undo_one_choice_each_in_the_source(experiment,
                    for old, _ in subs if old in text}
         assert {p.name for p, text in zip(paths, texts)
                 if changed[p.name] != text} == holders
+
+
+def test_package_data_ships_every_source_the_build_reads():
+    """A non-editable install builds the kernels from the installed
+    package: every file ``_build.sources`` follows for each kernel (the
+    ``.cu`` and every header it includes) must match one of
+    ``pyproject.toml``'s package-data globs for ``ance_tpu_torch``."""
+    import fnmatch
+    import tomllib
+    from pathlib import Path
+    root = Path(_build.__file__).resolve().parents[2]
+    with open(root / "pyproject.toml", "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "ance_tpu_torch"]
+    package = root / "ance_tpu_torch"
+    kernels = sorted(p.stem for p in (package / "csrc").glob("*.cu"))
+    assert kernels == ["attn128", "blockmax", "flash_attention",
+                       "fused_attention"]
+    followed = {p for name in kernels for p in _build.sources(name)}
+    assert {p.suffix for p in followed} == {".cu", ".cuh"}
+    for path in followed:
+        rel = path.relative_to(package).as_posix()
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), rel

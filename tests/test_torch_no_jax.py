@@ -1,5 +1,6 @@
-"""The torch port never imports jax, nor any module of the JAX package.
-Checked in a fresh interpreter, because this test process already has jax
+"""The torch port never imports jax, nor any module of the JAX package,
+while it serves, trains, generates and runs the pipelined refresh
+(``ance-loop``). Checked in a fresh interpreter, because this test process already has jax
 (tests/conftest.py imports it)."""
 
 import os
@@ -94,6 +95,17 @@ SCRIPT = textwrap.dedent("""
     assert len(open(f"{d}/gen/ann_training_data_1").read().splitlines()) == 5
     assert json.load(open(f"{d}/gen/ann_ndcg_1"))["checkpoint"].endswith(
         "checkpoint-2")
+
+    # the pipelined refresh: bootstrap, 4 steps with an item after each
+    main(["ance-loop", "--device", "cpu", "--encoder_overrides",
+          json.dumps(tiny), "--data_dir", d, "--output_dir", f"{d}/loop",
+          "--max_steps", "4", "--per_device_train_batch_size", "4",
+          "--max_query_length", "6", "--train_steps_per_slice", "1",
+          "--encode_slice_size", "16", "--per_device_eval_batch_size", "8",
+          "--topk_training", "8", "--negative_sample", "2",
+          "--ann_chunk_factor", "1", "--feed_workers", "0"])
+    assert len(open(f"{d}/loop/refresh.jsonl").read().splitlines()) == 1
+    assert os.path.exists(f"{d}/loop/checkpoint-4/DONE")
     from ance_tpu_torch.experiments import perf_attn128 as exp
     params = exp.make_params(rs, layers=1, hidden=128, intermediate=64,
                              seq=8)
