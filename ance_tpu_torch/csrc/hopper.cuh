@@ -23,10 +23,13 @@
 //    from registers. The wide forms m64n256k16 (wgmma_ss_n256; d[128])
 //    and, with A from registers, m64n128k16 (wgmma_rs_n128; d[64]) keep
 //    the same layout with j = 0..31 and j = 0..15.
-//  * blockmax.cu's fp32-query route also reads 32-column tiles: bf16
+//  * blockmax.cu's fp32-query routes also read 32-column tiles: bf16
 //    [rows][32] (64 bytes a row, 64-byte swizzle, desc_sw64), fp32
 //    [rows][32] (128-byte swizzle) and int8 [rows][32] (32-byte swizzle),
-//    each written by TMA (encode_matrix).
+//    each written by TMA (encode_matrix); its int8-corpus routes under
+//    bf16 and int8 queries read int8 [rows][128] tiles, 128 bytes a row
+//    as the bf16 [rows][64] ones (wgmma_ss_n256_s8 takes them as both
+//    operands).
 
 #pragma once
 
@@ -267,6 +270,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 // The same for register A fragments: fenced after the wait that retires
 // their product, they stay live (their registers unused by anything else)
 // while the product reads them.
@@ -328,6 +336,24 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 #define HOPPER_F32(d, i)                                                   \
   HOPPER_F8(d, i), HOPPER_F8(d, i + 8), HOPPER_F8(d, i + 16),              \
       HOPPER_F8(d, i + 24)
+#define HOPPER_R8(d, i)                                                    \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),              \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define HOPPER_R32(d, i)                                                   \
+  HOPPER_R8(d, i), HOPPER_R8(d, i + 8), HOPPER_R8(d, i + 16),              \
+      HOPPER_R8(d, i + 24)
+// the 128 accumulator operands %0 .. %127 of an n256 product
+#define HOPPER_D128                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "  \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "  \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "  \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
+  "%124, %125, %126, %127}"
 
 // d (+)= A . B, m64n256k16 bf16: A [64 x 16] and B [16 x 256] from shared
 // memory, B K-major (its 256 rows one 128-byte-swizzled tile, 8-row groups
@@ -340,19 +366,29 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t a,
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
-      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
-      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
-      "%124, %125, %126, %127}, %128, %129, p, 1, 1, %131, 0;\n}\n"
+      HOPPER_D128 ", %128, %129, p, 1, 1, %131, 0;\n}\n"
       : HOPPER_F32(d, 0), HOPPER_F32(d, 32), HOPPER_F32(d, 64),
         HOPPER_F32(d, 96)
       : "l"(a), "l"(b), "r"(scale_d), "n"(TransA));
+}
+
+// d (+)= A . B, m64n256k32 s8 x s8 -> s32: A [64 x 32] and B [32 x 256]
+// int8 from shared memory, both K-major (the integer wgmma takes no
+// transpose and no negation). A k-step of 32 int8 is 32 bytes, as a bf16
+// k-step of 16 is, so a 128-byte-swizzled [rows][128] int8 tile steps by
+// kKStepK and desc_sw128 describes it; the accumulator d[128] has the
+// f32 layout of the file comment. The sum is exact in int32 (no
+// saturation: |sum| <= 127^2 D stays far below 2^31 for D < 133,000);
+// scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n256_s8(int (&d)[128], uint64_t a,
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      HOPPER_D128 ", %128, %129, p;\n}\n"
+      : HOPPER_R32(d, 0), HOPPER_R32(d, 32), HOPPER_R32(d, 64),
+        HOPPER_R32(d, 96)
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // d (+)= A . B, m64n128k16 bf16: A [64 x 16] from registers (the fragment
@@ -377,6 +413,9 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 
 #undef HOPPER_F8
 #undef HOPPER_F32
+#undef HOPPER_R8
+#undef HOPPER_R32
+#undef HOPPER_D128
 
 // two bf16 in one register, `lo` (the lower column) in the low half
 __device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {

@@ -9,10 +9,13 @@ Counterpart of ``ance_tpu/ops/topk.py``, in three phases:
       ``blockmax_bf16`` on wgmma + TMA for bf16 × bf16;
       ``blockmax_pieces_f32`` / ``blockmax_pieces_int8`` for fp32 queries
       against an fp32 / int8 corpus, exact piece products of bf16 pieces
-      (:func:`split_bf16_pieces`) on wgmma + TMA; ``blockmax_simt`` for the
-      fp32-query shapes a tensor map cannot describe; ``blockmax_wmma`` for
-      bf16 × int8 and int8 × int8. On a CPU tensor it is the plain version
-      :func:`blockmax_scores_reference`.
+      (:func:`split_bf16_pieces`) on wgmma + TMA; ``blockmax_bf16_int8``
+      (the pieces kernel with the bf16 query as its one piece) and
+      ``blockmax_int8`` (``blockmax_bf16``'s block on int8 wgmma, exact
+      int32) for bf16 × int8 and int8 × int8; ``blockmax_simt`` for the
+      fp32-query shapes a tensor map cannot describe and ``blockmax_wmma``
+      for the bf16- and int8-query ones. On a CPU tensor it is the plain
+      version :func:`blockmax_scores_reference`.
   phase 2 — :func:`top_blocks_lower_id_first` picks the k candidate blocks
       with the largest maxima, equal maxima lower block first.
   phase 3 — gather the candidate rows per query, rescore them exactly,
@@ -109,17 +112,22 @@ def blockmax_kernel_for(queries: torch.Tensor, corpus: torch.Tensor) -> str:
     fp32 queries take ``blockmax_pieces_f32`` / ``blockmax_pieces_int8``
     where a tensor map describes the corpus (rows a multiple of 16 bytes:
     D % 4 == 0 for fp32, D % 16 == 0 for int8; a 16-byte-aligned base; at
-    most 2^31 − 1 rows), else ``blockmax_simt`` on the CUDA cores. Every
-    index, search and serve shape of the port (D = 64, 768) takes the
-    pieces kernel."""
+    most 2^31 − 1 rows), else ``blockmax_simt`` on the CUDA cores. bf16 and
+    int8 queries over an int8 corpus take ``blockmax_bf16_int8`` /
+    ``blockmax_int8`` where tensor maps describe both operands (D % 16 ==
+    0, both bases 16-byte aligned, at most 2^31 − 1 rows), else
+    ``blockmax_wmma``. Every index, search and serve shape of the port
+    (D = 64, 768) takes a wgmma kernel."""
     qt, ct = queries.dtype, corpus.dtype
     if qt == torch.bfloat16 and ct == torch.bfloat16:
         return "blockmax_bf16"
-    if qt != torch.float32:
-        return "blockmax_wmma"
     D = queries.shape[1]
     tma = (D * corpus.element_size()) % 16 == 0 \
         and corpus.data_ptr() % 16 == 0 and corpus.shape[0] < 2 ** 31
+    if qt != torch.float32:  # over an int8 corpus
+        if not (tma and queries.data_ptr() % 16 == 0):
+            return "blockmax_wmma"
+        return "blockmax_int8" if qt == torch.int8 else "blockmax_bf16_int8"
     if not tma:
         return "blockmax_simt"
     return "blockmax_pieces_f32" if ct == torch.float32 \
@@ -184,9 +192,11 @@ def blockmax_scores(queries: torch.Tensor, corpus: torch.Tensor, *,
             q_arg = torch.nn.functional.pad(q_arg, (0, -D % 8))
     out = torch.empty((Q, N // block_size),
                       dtype=_out_dtype(queries, corpus), device=queries.device)
+    launch = lib.blockmax_wmma_launch if kernel == "blockmax_wmma" \
+        else lib.blockmax_scores_launch
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream(queries.device).cuda_stream
-        err = lib.blockmax_scores_launch(
+        err = launch(
             q_code, _TYPE_CODES[corpus.dtype], q_arg.data_ptr(),
             corpus.data_ptr(), out.data_ptr(), Q, N, D, block_size, stream)
     if err != 0:
@@ -205,15 +215,20 @@ _COUNT_LOCK = threading.Lock()
 
 def _kernel_library() -> ctypes.CDLL:
     from ance_tpu_torch.ops._build import load_library
-    lib = load_library("blockmax")
-    fn = lib.blockmax_scores_launch
-    # every pointer and the stream as c_void_p: an undeclared argument is
-    # passed as a 32-bit int and the pointer is cut
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    return bind(load_library("blockmax"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument types of a ``blockmax.cu`` library's entry
+    points (also a variant's build of it)."""
+    for fn in (lib.blockmax_scores_launch, lib.blockmax_wmma_launch):
+        # every pointer and the stream as c_void_p: an undeclared argument
+        # is passed as a 32-bit int and the pointer is cut
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -254,6 +269,16 @@ def top_blocks_lower_id_first(bm: torch.Tensor, k: int) -> torch.Tensor:
     return take.nonzero()[:, 1].reshape(bm.shape[0], k)
 
 
+def quantize_query_rows_int8(queries: torch.Tensor) -> torch.Tensor:
+    """Each query row quantized symmetrically to int8 (its own scale
+    127 / max |q|, round half to even, clamp ±127): the int8 phase 1's
+    queries. A positive per-row scale never reorders that query's
+    blocks."""
+    qmax = queries.abs().amax(1, keepdim=True).clamp_min(1e-12)
+    return torch.round(queries * (127.0 / qmax)).clamp(-127, 127).to(
+        torch.int8)
+
+
 def rescore(queries: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """Exact inner products in fp64, rounded once to fp32: queries [..., D]
     × rows [..., C, D] → [..., C] (or [Q, D] × [N, D] → [Q, N])."""
@@ -275,8 +300,8 @@ def topk_blockmax(queries: torch.Tensor, corpus: torch.Tensor, *, k: int,
 
     ``phase1_dtype`` (int8 corpora only) sets the query dtype of phase 1:
     None keeps the queries' own dtype, ``torch.bfloat16`` casts them, and
-    ``torch.int8`` quantizes each query row symmetrically (a positive
-    per-row scale never reorders that query's blocks). Phase 3 always
+    ``torch.int8`` quantizes each query row symmetrically
+    (:func:`quantize_query_rows_int8`). Phase 3 always
     rescores from the queries as given, exactly (fp64, rounded to fp32)."""
     Q, D = queries.shape
     N = corpus.shape[0]
@@ -289,9 +314,7 @@ def topk_blockmax(queries: torch.Tensor, corpus: torch.Tensor, *, k: int,
 
     if corpus.dtype == torch.int8:
         if phase1_dtype == torch.int8:
-            qmax = queries.abs().amax(1, keepdim=True).clamp_min(1e-12)
-            qf = torch.round(queries * (127.0 / qmax)).clamp(
-                -127, 127).to(torch.int8)
+            qf = quantize_query_rows_int8(queries)
         elif phase1_dtype is not None:
             qf = queries.to(phase1_dtype)
         else:

@@ -6,25 +6,36 @@
 Run from the root of a checkout. It builds the four kernel sources of
 ``ance_tpu_torch/csrc`` (block-max top-k, fused and flash attention, the
 seq-128 attention pair; one nvcc each, all at once), prints ptxas's
-registers and spills and the SASS counts of HGMMA (wgmma) and UTMALDG
-(TMA loads) of the thirteen wgmma kernels (the fused forward and its two
+registers and spills and the SASS counts of HGMMA / IGMMA (wgmma on bf16
+or int8) and UTMALDG
+(TMA loads) of the fifteen wgmma kernels (the fused forward and its two
 backward passes on bf16, the two backward passes on fp32 pieces; the
 flash forward on bf16 and on fp32 pieces, the latter also the fused
 attention's fp32 forward; seq-128 kernel #5 and kernel #6's two launches;
-block-max's bf16 route and its two fp32-query kernels), and then:
+block-max's bf16 route, its two fp32-query kernels and its two int8-corpus
+kernels under bf16 and int8 queries), and then:
 
   * block-max: the kernel against its plain PyTorch version at the FirstP
     search shapes (1,000,448 × 768 corpus; Q=2048 k=10 and Q=512 k=200) for
     every dtype pair, the bf16 and fp32-query routes timed in turns with
     cuBLAS's product of the same operands (a rate reference: it takes no
-    maxima) and with the kernel at D=64 (a tile's fixed part); fp32
-    queries over a corpus view 4 bytes off alignment (``blockmax_simt``);
+    maxima) and with the kernel at D=64 (a tile's fixed part), the int8
+    routes with their yardsticks (``torch._int_mm``; cuBLAS's bf16 product
+    of the widened codes) and at D=64 (int8 x int8 bit-equal, bf16 x int8
+    also against the exact fp64 maxima); the int8 routes at D=72
+    (``blockmax_wmma``) and fp32 queries over a corpus view 4 bytes off
+    alignment (``blockmax_simt``), the shapes no tensor map describes;
     ``FlatIPIndex`` block-max ids against the scan for the none / bf16 /
     dims indexes (each search's phase-1 kernel counted), each search's
     device time split by ``torch.profiler``
-    (phase 1 and the largest kernels); and the tie check: a 1,000,448 × 768
-    bf16 index in which every 7th row is one vector that the queries rank
-    inside their top k, where block-max ids must equal the scan's;
+    (phase 1 and the largest kernels); the int8 phase-1 study
+    (``experiments/perf_topk_int8.py``) at 1,000,000 × 768: each search
+    variant's ids against the scan (``phase1_dtype=None`` equal to it),
+    the bf16 and int8 phase 1's agreement, times in turns, and the study's
+    block-max launches held to its calls; and the tie check: a
+    1,000,448 × 768 bf16 index in which every 7th row is one vector that
+    the queries rank inside their top k, where block-max ids must equal
+    the scan's;
   * attention: each kernel against its plain version at the MaxP shapes
     (fused S = 256 / 300 / 512 / 1024 and the encoder's ``qkv.chunk``
     views, flash S = 512 / 2048 / 2100; bf16 and fp32, each fp32 forward
@@ -250,7 +261,8 @@ WGMMA_KERNELS = {
     "flash_attention": ("flash_fwd_bf16", "flash_fwd_pieces"),
     "attn128": ("attn128_kernel", "qkv_attend_kernel", "out_proj_kernel"),
     "blockmax": ("blockmax_bf16", "blockmax_pieces_f32",
-                 "blockmax_pieces_int8"),
+                 "blockmax_pieces_int8", "blockmax_int8",
+                 "blockmax_bf16_int8"),
 }
 # block-max's fp32-query routes run each fp32 product as bf16 piece
 # products on wgmma: the six with i + j <= 2 of three query pieces and
@@ -263,16 +275,30 @@ WGMMA_PRODUCTS = {"bf16xbf16": 1, **FP32_PIECE_PRODUCTS}
 # of each FlatIPIndex kind
 ROUTE_KERNEL = {"f32xf32": "blockmax_pieces_f32", "bf16xbf16": "blockmax_bf16",
                 "f32xint8": "blockmax_pieces_int8",
-                "bf16xint8": "blockmax_wmma", "int8xint8": "blockmax_wmma"}
+                "bf16xint8": "blockmax_bf16_int8", "int8xint8": "blockmax_int8"}
+# the int8 phase-1 study (experiments/perf_topk_int8.py): its search
+# variants' phase-1 kernels, and its calls a timed variant (reps small)
+STUDY_KERNEL = {"bf16_corpus": "blockmax_bf16",
+                "int8_fp32": "blockmax_pieces_int8",
+                "int8_bf16": "blockmax_bf16_int8", "int8_int8": "blockmax_int8"}
+STUDY_REPS = 3
 INDEX_KERNEL = {"none": "blockmax_pieces_f32", "bf16": "blockmax_bf16",
                 "dims": "blockmax_pieces_int8"}
+
+
+def kernel_named(symbol: str, kernels) -> str | None:
+    """The kernel of ``kernels`` a (mangled) symbol names: the longest
+    name it holds, since ``blockmax_bf16_int8``'s also holds
+    ``blockmax_bf16``."""
+    return max((n for n in kernels if n in symbol), key=len, default=None)
 
 
 def phase_machine_code(built: dict) -> dict:
     """For each wgmma kernel (``WGMMA_KERNELS``): ptxas's registers, stack
     and spills (from the build's ``-Xptxas -v`` report, so only when this
     run built the library), the dynamic shared memory it is launched with
-    and, where ``cuobjdump`` exists, the SASS counts of HGMMA (wgmma) and
+    and, where ``cuobjdump`` exists, the SASS counts of HGMMA and IGMMA
+    (wgmma on bf16 and on int8) and
     UTMALDG (TMA tile loads). ``built`` maps each source to (library path,
     nvcc's stderr)."""
     import ctypes
@@ -289,7 +315,7 @@ def phase_machine_code(built: dict) -> dict:
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                current = next((n for n in kernels if n in m.group(1)), None)
+                current = kernel_named(m.group(1), kernels)
                 continue
             if current is None:
                 continue
@@ -310,20 +336,21 @@ def phase_machine_code(built: dict) -> dict:
             for line in sass.splitlines():
                 m = re.search(r"Function : (\S+)", line)
                 if m:
-                    current = next((n for n in kernels if n in m.group(1)),
-                                   None)
+                    current = kernel_named(m.group(1), kernels)
                     if current:
-                        own[current].update(hgmma=0, utmaldg=0)
+                        own[current].update(hgmma=0, igmma=0, utmaldg=0)
                 elif current:
                     own[current]["hgmma"] += "HGMMA" in line
+                    own[current]["igmma"] += "IGMMA" in line
                     own[current]["utmaldg"] += "UTMALDG" in line
         for name, info in own.items():
             print(f"machine code {name}: {info}", flush=True)
             if log:
                 check("registers" in info, f"no ptxas report for {name}")
             if "hgmma" in info:
-                check(info["hgmma"] > 0 and info["utmaldg"] > 0,
-                      f"{name}: no HGMMA / UTMALDG in its SASS")
+                check(info["hgmma"] + info["igmma"] > 0
+                      and info["utmaldg"] > 0,
+                      f"{name}: no HGMMA or IGMMA / UTMALDG in its SASS")
         out.update(own)
     return out
 
@@ -386,7 +413,8 @@ def phase_kernel():
     from ance_tpu_torch.index.flat import FlatIPIndex, quantize_dims_int8
     from ance_tpu_torch.ops.topk import (blockmax_kernel_for,
                                          blockmax_scores,
-                                         blockmax_scores_reference)
+                                         blockmax_scores_reference,
+                                         quantize_query_rows_int8)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -398,10 +426,6 @@ def phase_kernel():
     queries = {name: torch.randn(q, DIM, generator=g, device=dev)
                for name, (q, _) in SHAPES.items()}
 
-    def int8_rows(q):  # per-row symmetric, as topk_blockmax(phase1 int8)
-        qmax = q.abs().amax(1, keepdim=True).clamp_min(1e-12)
-        return torch.round(q * (127.0 / qmax)).clamp(-127, 127).to(torch.int8)
-
     cases = []
     # the 1M search shapes for every dtype pair, and the serve phase's own
     # shape (bf16 index of N_PASSAGES rows, a 256-query request)
@@ -411,8 +435,21 @@ def phase_kernel():
         "bf16xbf16": (q.to(torch.bfloat16), corpus.to(torch.bfloat16)),
         "f32xint8": (q * dim_scales, c8),
         "bf16xint8": ((q * dim_scales).to(torch.bfloat16), c8),
-        "int8xint8": (int8_rows(q), c8),
+        "int8xint8": (quantize_query_rows_int8(q * dim_scales), c8),
     }) for shape, q in queries.items()]
+    # the int8 routes at D = 64 (one half-empty 128-column stage), and at
+    # D = 72, which no tensor map describes (blockmax_wmma), over the
+    # serve phase's row count
+    q_dev = queries["dev"] * dim_scales
+    shapes.append(("d64", {
+        "bf16xint8": (q_dev[:, :64].to(torch.bfloat16), c8[:, :64].clone()),
+        "int8xint8": (quantize_query_rows_int8(q_dev[:, :64]),
+                      c8[:, :64].clone())}))
+    shapes.append(("d72", {
+        "bf16xint8": (q_dev[:N_QUERIES, :72].to(torch.bfloat16),
+                      c8[:N_PASSAGES, :72].clone()),
+        "int8xint8": (quantize_query_rows_int8(q_dev[:N_QUERIES, :72]),
+                      c8[:N_PASSAGES, :72].clone())}))
     shapes.append(("serve", {"bf16xbf16": (
         serve_q, corpus[:N_PASSAGES].to(torch.bfloat16))}))
     # fp32 queries over an fp32 corpus whose base is 4 bytes off 16-byte
@@ -424,8 +461,9 @@ def phase_kernel():
                                              unaligned)}))
     for shape, operands in shapes:
         for dtypes, (qq, cc) in operands.items():
-            kernel_name = "blockmax_simt" if shape == "unaligned" \
-                else ROUTE_KERNEL[dtypes]
+            kernel_name = {"unaligned": "blockmax_simt",
+                           "d72": "blockmax_wmma"}.get(shape,
+                                                       ROUTE_KERNEL[dtypes])
             check(blockmax_kernel_for(qq, cc) == kernel_name, f"{dtypes} "
                   f"{shape}: phase 1 would take "
                   f"{blockmax_kernel_for(qq, cc)}, not {kernel_name}")
@@ -438,6 +476,7 @@ def phase_kernel():
             check(got.shape == want.shape ==
                   (qq.shape[0], cc.shape[0] // 16),
                   f"blockmax shape {tuple(got.shape)}")
+            exact = {}
             if dtypes == "int8xint8":
                 check(got.dtype == torch.int32 and torch.equal(got, want),
                       f"{dtypes} {shape}: int32 block maxima differ")
@@ -446,6 +485,16 @@ def phase_kernel():
                 err = (got - want).abs().max().item()
                 check(err <= FLOAT_ATOL, f"{dtypes} {shape}: max |err| "
                       f"{err} > {FLOAT_ATOL}")
+            if dtypes == "bf16xint8":
+                # both against the exact maxima (fp64) of the first 64
+                # queries: how much of the gap is the kernel's
+                qd = qq[:64].double()
+                x = (qd @ cc.double().T).reshape(qd.shape[0], -1, 16).amax(-1)
+                exact = {"max_abs_err_exact":
+                         (got[:64].double() - x).abs().max().item(),
+                         "plain_max_abs_err_exact":
+                         (want[:64].double() - x).abs().max().item()}
+                del qd, x
             del got, want
             kernel = {"ms": lambda: blockmax_scores(qq, cc,
                                                     chunk_rows=CHUNK_ROWS)}
@@ -454,14 +503,17 @@ def phase_kernel():
             products = WGMMA_PRODUCTS.get(dtypes) if shape in SHAPES \
                 else None
             if dtypes in ("bf16xint8", "int8xint8") and shape in SHAPES:
-                # rate references (no block maxima): cuBLAS's fp32 product
-                # of the widened operands (TF32 off), and torch._int_mm's
-                # int8 product with int32 output
+                # yardsticks: the same product at the library's rate (it
+                # writes the whole score matrix, no block maxima):
+                # torch._int_mm's int8 product with int32 output, and
+                # cuBLAS's bf16 product of the widened codes (exact in
+                # bf16) with fp32 output
                 if dtypes == "bf16xint8":
-                    qf, cf = qq.float(), cc.float()  # outside the window
-                    kernel["gemm_ms"] = lambda: torch.mm(qf, cf.T)
+                    cf = cc.to(torch.bfloat16)  # outside the window
+                    kernel["yardstick_ms"] = lambda: torch.mm(
+                        qq, cf.T, out_dtype=torch.float32)
                 else:
-                    kernel["gemm_ms"] = lambda: torch._int_mm(qq, cc.T)
+                    kernel["yardstick_ms"] = lambda: torch._int_mm(qq, cc.T)
             if products:
                 # cuBLAS's product of the same operands (fp32 output; for
                 # fp32 queries the fp32 GEMM, TF32 off, of the corpus as
@@ -480,10 +532,13 @@ def phase_kernel():
             times, sampled = timed_in_turns(kernel)
             ms = times.pop("ms")
             plain_ms = cuda_ms(lambda: blockmax_scores_reference(qq, cc))
-            extra = {}
-            if not products and "gemm_ms" in times:
-                extra["gemm_ms"] = times["gemm_ms"]
-                qf = cf = None
+            extra = dict(exact)
+            if "yardstick_ms" in times:
+                extra["yardstick_ms"] = times["yardstick_ms"]
+                extra["yardstick"] = (
+                    "torch._int_mm(q8, c8.T)" if dtypes == "int8xint8" else
+                    "torch.mm(q, c8.to(bf16).T, out_dtype=torch.float32)")
+                cf = None
             if products:
                 del q64, c64
                 cf = None
@@ -509,20 +564,20 @@ def phase_kernel():
             # at the rate of the type they run in; fp32 queries run them as
             # bf16 piece products (6 or 3 a product, at the bf16 rate), and
             # beside that the bound at the CUDA cores' fp32 rate
-            nq, nc = qq.shape[0], cc.shape[0]
-            moved = (nq * DIM * qq.element_size()
-                     + nc * DIM * cc.element_size() + nq * (nc // 16) * 4)
+            nq, nc, dim = qq.shape[0], cc.shape[0], qq.shape[1]
+            moved = (nq * dim * qq.element_size()
+                     + nc * dim * cc.element_size() + nq * (nc // 16) * 4)
             qtype = dtypes.split("x")[0]
             if qtype == "f32":
-                b_ms, b_by = bound(moved, 2.0 * nq * nc * DIM
+                b_ms, b_by = bound(moved, 2.0 * nq * nc * dim
                                    * FP32_PIECE_PRODUCTS[dtypes], "bf16")
                 extra["fp32_rate_bound_ms"] = bound(
-                    moved, 2.0 * nq * nc * DIM, "f32")[0]
+                    moved, 2.0 * nq * nc * dim, "f32")[0]
             else:
-                b_ms, b_by = bound(moved, 2.0 * nq * nc * DIM, qtype)
+                b_ms, b_by = bound(moved, 2.0 * nq * nc * dim, qtype)
             cases.append({"dtypes": dtypes, "shape": shape,
                           "kernel": kernel_name,
-                          "Q": nq, "N": nc, "D": DIM,
+                          "Q": nq, "N": nc, "D": dim,
                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": b_ms, "bound_by": b_by,
                           "clocks": sampled, **extra})
@@ -532,12 +587,17 @@ def phase_kernel():
                          f"{extra['tile_step_us']:.3f} us a 64-column k step"
                          f" ({extra['tile_step_us_a_product']:.3f} a product)"
                          if products else
-                         f"  rate reference {extra['gemm_ms']:.3f} ms"
-                         if "gemm_ms" in extra else "")
+                         f"  yardstick {extra['yardstick']} "
+                         f"{extra['yardstick_ms']:.3f} ms"
+                         if "yardstick_ms" in extra else "")
+            if exact:
+                gemm_text += (f"  vs fp64 exact (64 queries): kernel "
+                              f"{exact['max_abs_err_exact']:.3g}, plain "
+                              f"{exact['plain_max_abs_err_exact']:.3g}")
             fp32_text = (f", fp32 rate {extra['fp32_rate_bound_ms']:.3f} ms"
                          if "fp32_rate_bound_ms" in extra else "")
             print(f"kernel {dtypes:10s} {shape:6s} Q={qq.shape[0]:5d} "
-                  f"N={cc.shape[0]} ({cases[-1]['kernel']}): max|err| "
+                  f"N={cc.shape[0]} D={dim} ({cases[-1]['kernel']}): max|err| "
                   f"{err:.3g}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
                   f"{gemm_text}  bound {b_ms:.3f} ms ({b_by}{fp32_text})  "
                   f"{clocks_text(sampled)}", flush=True)
@@ -588,9 +648,60 @@ def phase_kernel():
                   flush=True)
         del index, c_ref
         torch.cuda.empty_cache()
-    del corpus, c8, queries, offset, unaligned
+    del corpus, c8, queries, offset, unaligned, q_dev, shapes
     torch.cuda.empty_cache()
     return cases, searches
+
+
+def phase_topk_int8() -> dict:
+    """The int8 phase-1 study (``experiments/perf_topk_int8.py``, the port
+    of ``docs/perf_topk_int8_r4.py``) at its full shape, 1,000,000 × 768
+    dims-quantized, through its own functions: at Q=2048 k=10 and Q=512
+    k=200 each search variant's ids against the scan over the same int8
+    corpus (``phase1_dtype=None`` must equal it id for id; bf16 and int8
+    agreement printed), times in turns; phase 1 alone at Q=2048. The
+    block-max launches of the whole study, counted from 0, must equal the
+    calls it made of each variant, by the kernel each variant takes."""
+    import collections
+    import torch
+    from ance_tpu_torch.experiments import perf_topk_int8 as study
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    corpus = study.make_corpus(N_CORPUS, DIM, g, dev)
+    rows, expected = [], collections.Counter()
+    reset_blockmax_counts()
+    for tag, n_q, k in study.SHAPES:
+        q, qs = study.make_queries(n_q, corpus["scales"], g)
+        row = study.study_shape(tag, q, qs, k, corpus, reps=STUDY_REPS)
+        for name, kernel in STUDY_KERNEL.items():
+            check(row[f"{name}_kernel"] == kernel, f"study {tag} {name}: "
+                  f"phase 1 takes {row[f'{name}_kernel']}, not {kernel}")
+            expected[kernel] += row["runs"][name]
+        check(row["int8_fp32_equal"], f"study {tag}: phase1_dtype=None ids "
+              "differ from the scan's")
+        rows.append(row)
+        print(f"topk_int8 {tag} Q={n_q} k={k}: scan {row['scan_int8_ms']:.3f}"
+              " ms; " + "; ".join(
+                  f"{name} {row[f'{name}_ms']:.3f} ms ({row[f'{name}_qps']:.0f}"
+                  f" qps) agree {row[f'{name}_agree']:.6f}"
+                  for name in STUDY_KERNEL), flush=True)
+        if tag == "dev":
+            phase1 = study.study_phase1(qs, corpus, reps=STUDY_REPS)
+            for name, info in phase1.items():
+                if name != "phase1_shape":
+                    expected[info["kernel"]] += info["runs"]
+            print("topk_int8 phase 1 " + "; ".join(
+                f"{name} ({info['kernel']}) {info['ms']:.3f} ms "
+                f"{info['tf_s']:.1f} TFLOP/s" for name, info in phase1.items()
+                if name != "phase1_shape"), flush=True)
+        del q, qs
+    launches = blockmax_counts()
+    check(launches == dict(expected), f"the study launched {launches}, its "
+          f"calls were {dict(expected)}")
+    del corpus
+    torch.cuda.empty_cache()
+    return {"shapes": rows, "phase1": phase1, "launches": launches}
 
 
 def phase_ties():
@@ -3175,6 +3286,7 @@ def main() -> int:
     build_s, built = phase_build()
     machine_code = phase_machine_code(built)
     cases, searches = phase_kernel()
+    topk_int8 = phase_topk_int8()
     ties = phase_ties()
     attn_cases, crossover = phase_attention()
     bwd_cases, functions = phase_attention_backward()
@@ -3233,14 +3345,16 @@ def main() -> int:
     # composition is timed instead), so those have no library time.
     bwd_head = next(c for c in bwd_cases if c["dtype"] == "bf16"
                     and c["B"] == 64 and c["S"] == 512 and not c["strided"])
-    # kernel #1: blockmax_bf16 with the WMMA routes' cases,
-    # then the fp32-query routes' two kernels, each with its launches on
-    # the path that runs it (generate over an fp32 / a dims index); the
-    # launches of every path by kernel beside the first
-    pieces = ("blockmax_pieces_f32", "blockmax_pieces_int8")
+    # kernel #1: blockmax_bf16 with the CUDA-core and WMMA routes' cases
+    # (shapes no tensor map describes), then the fp32-query routes' two
+    # kernels and the int8 routes' two, each with its launches on the path
+    # that runs it (generate over an fp32 / a dims index; the int8 phase-1
+    # study); the launches of every path by kernel beside the first
+    apart = ("blockmax_pieces_f32", "blockmax_pieces_int8", "blockmax_int8",
+             "blockmax_bf16_int8")
     # phase 1 on generate's and the pipelined loop's operands
     cases += generate.pop("kernel_cases") + ance_loop.pop("kernel_cases")
-    own = [c for c in cases if c["kernel"] not in pieces]
+    own = [c for c in cases if c["kernel"] not in apart]
     blockmax = entry("blockmax_scores", "blockmax", "ance_tpu/ops/topk.py:90",
                      maxp["blockmax_launches"],
                      dict(headline, max_abs_err=max(c["max_abs_err"]
@@ -3257,12 +3371,8 @@ def main() -> int:
         "generate_index_quantize_dims": generate["dims_blockmax_kernels"],
         "ance_loop": ance_loop["firstp"]["blockmax_kernels"],
         "ance_loop_dims": ance_loop["dims"]["blockmax_kernels"],
-        "ance_loop_maxp": ance_loop["maxp"]["blockmax_kernels"]}
-    # bf16 x int8 and int8 x int8 (blockmax_wmma): no path launches them
-    # (only topk_blockmax(phase1_dtype=...) reaches them, and nothing
-    # passes it), so their time, bound and rate reference stand apart
-    unlaunched = [c for c in cases if c["kernel"] == "blockmax_wmma"
-                  and c["shape"] in SHAPES]
+        "ance_loop_maxp": ance_loop["maxp"]["blockmax_kernels"],
+        "topk_int8_study": topk_int8["launches"]}
     fp32_entries = []
     for kernel, dtypes, launches in (
             ("blockmax_pieces_f32", "f32xf32",
@@ -3278,6 +3388,23 @@ def main() -> int:
         e["gemm_ms"] = head["gemm_ms"]
         e["fp32_rate_bound_ms"] = head["fp32_rate_bound_ms"]
         fp32_entries.append(e)
+    # the int8 routes, with their launches on the int8 phase-1 study's path
+    # and their yardstick (the same product at a library's rate)
+    int8_entries = []
+    for kernel, dtypes in (("blockmax_int8", "int8xint8"),
+                           ("blockmax_bf16_int8", "bf16xint8")):
+        own = [c for c in cases if c["kernel"] == kernel]
+        head = next(c for c in own if c["shape"] == "dev")
+        e = entry(kernel, "blockmax", "ance_tpu/ops/topk.py:90",
+                  topk_int8["launches"].get(kernel, 0),
+                  dict(head, max_abs_err=max(c["max_abs_err"] for c in own)),
+                  f"{dtypes} Q=2048 x N=1000448 x D=768, block 16",
+                  "blockmax", own)
+        e.update(yardstick=head["yardstick"],
+                 yardstick_ms=head["yardstick_ms"])
+        if "max_abs_err_exact" in head:
+            e["max_abs_err_exact"] = max(c["max_abs_err_exact"] for c in own)
+        int8_entries.append(e)
     # the fused kernels' fp32 pieces route: the forward with its launches
     # on the fp32 MaxP serve path, the backward with those of the fp32
     # MaxP train path; max_abs_err over the route's cases and the path's
@@ -3331,7 +3458,7 @@ def main() -> int:
         "maxp_train": train["maxp"]["fused_backward_launches"],
         "ance_loop_maxp": ance_loop["maxp"]["fused_backward"]}
     print(json.dumps({"kernels": [
-        blockmax, *fp32_entries, fused_fwd,
+        blockmax, *fp32_entries, *int8_entries, fused_fwd,
         attention_entry("flash_attention", "ance_tpu/ops/flash_attention.py:34",
                         8, 2048, maxp["flash_launches"]),
         fused_bwd, *fp32_attention,
@@ -3343,7 +3470,7 @@ def main() -> int:
         "train": train, "maxp_fp32": maxp_fp32, "step_parity": parity,
         "mirror_encoder": mirror,
         "generate": generate, "ance_loop": ance_loop,
-        "unlaunched_routes": unlaunched}))
+        "topk_int8": topk_int8}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -55,11 +55,12 @@ def test_the_package_sources_and_their_headers():
 
 @pytest.mark.parametrize("experiment,source", [
     ("fused_variants", "fused_attention"), ("attn_variants", "flash_attention"),
-    ("attn_variants", "attn128")])
+    ("attn_variants", "attn128"), ("blockmax_variants", "blockmax")])
 def test_fused_variants_undo_one_choice_each_in_the_source(experiment,
                                                           source):
-    """``experiments/fused_variants.py`` (kernels #2 and #3) and
-    ``experiments/attn_variants.py`` (#4 and #5) rebuild a kernel source
+    """``experiments/fused_variants.py`` (kernels #2 and #3),
+    ``experiments/attn_variants.py`` (#4 and #5) and
+    ``experiments/blockmax_variants.py`` (#1's pieces kernels) rebuild a kernel source
     with one design choice changed a variant: each substitution must still
     match the source's files (the ``.cu`` and the headers it includes)
     exactly once (else it fails on the card)."""

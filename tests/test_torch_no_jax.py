@@ -113,6 +113,12 @@ SCRIPT = textwrap.dedent("""
     for attn in exp.VARIANTS:
         assert exp.encoder(params, ids, mask, attn=attn,
                            heads=2).shape == (2, 128)
+    from ance_tpu_torch.experiments import perf_topk_int8 as study
+    g = torch.Generator().manual_seed(0)
+    corpus = study.make_corpus(256, 16, g, "cpu")
+    q, qs = study.make_queries(3, corpus["scales"], g)
+    for fn in study.search_fns(q, qs, corpus, 4).values():
+        assert fn()[1].shape == (3, 4)
     assert "jax" not in sys.modules, "the port pulled in jax"
     assert "flax" not in sys.modules
     old = sorted(m for m in sys.modules

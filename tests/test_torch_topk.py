@@ -576,44 +576,55 @@ def _bank_words(addresses, width):
     return max(len(v) for v in words.values())
 
 
-@pytest.mark.parametrize("ck", ["f32", "int8"])
-def test_blockmax_pieces_a_fragment_gather(ck):
+def _stage_offset(r, k, esize, row_bytes):
+    """``PieceStage::offset``: the byte of row r, column k of a corpus
+    tile whose rows are one swizzle span of ``row_bytes``, the 16-byte
+    chunk j of row r at chunk j ^ (r / (128 / row_bytes) % (row_bytes /
+    16))."""
+    at = k * esize
+    swz = (r // (128 // row_bytes)) % (row_bytes // 16)
+    return r * row_bytes + (((at >> 4) ^ swz) << 4) + (at & 15)
+
+
+@pytest.mark.parametrize("ck,cols", [("f32", 32), ("int8", 32),
+                                     ("int8", 128)])
+def test_blockmax_pieces_a_fragment_gather(ck, cols):
     """The consumer's A-fragment reads from the TMA-loaded corpus tile
-    ([128 rows][32 columns]: fp32 128-byte swizzled, the 16-byte chunk j
-    of row r at chunk j ^ (r % 8); int8 32-byte swizzled, chunk j at
-    j ^ (r / 4 % 2)), through ``CorpusTile::offset``: for every warp
-    (rows 16 w .. + 15), lane (g, c) and k step, a[i] holds rows
+    ([128 rows][32 columns] under fp32 queries: fp32 128-byte swizzled,
+    the 16-byte chunk j of row r at chunk j ^ (r % 8); int8 32-byte
+    swizzled, chunk j at j ^ (r / 4 % 2); [128][128] int8 under bf16
+    queries, 128-byte swizzled), through ``PieceStage::offset``: for every
+    warp (rows 16 w .. + 15), lane (g, c) and k step, a[i] holds rows
     16 w + g (+ 8 for i = 1, 3) and columns 16 kk + c, + 1 (+ 8 for i = 2,
     3), the layout of hopper.cuh, and its pieces are the split of those
     values; a warp's loads are served in the fewest wavefronts (fp32:
     8-byte loads, each bank two words; int8: 2-byte loads, one word)."""
     rs = np.random.RandomState(11)
     if ck == "f32":
-        tile = rs.randn(128, 32).astype(np.float32)
-        esize, row_bytes = 4, 128
-        image = np.zeros(128 * row_bytes, np.uint8)
-        for r in range(128):
-            for j in range(8):
-                at = r * 128 + 16 * (j ^ (r % 8))
-                image[at:at + 16] = tile[r, 4 * j:4 * j + 4].view(np.uint8)
-
-        def offset(r, k):
-            return r * 128 + (((k >> 2) ^ (r & 7)) << 4) + ((k & 3) << 2)
+        tile = rs.randn(128, cols).astype(np.float32)
+        esize = 4
     else:
-        tile = rs.randint(-127, 128, (128, 32)).astype(np.int8)
-        esize, row_bytes = 1, 32
-        image = np.zeros(128 * row_bytes, np.uint8)
-        for r in range(128):
-            for j in range(2):
-                at = r * 32 + 16 * (j ^ ((r >> 2) & 1))
-                image[at:at + 16] = tile[r, 16 * j:16 * j + 16].view(np.uint8)
+        tile = rs.randint(-127, 128, (128, cols)).astype(np.int8)
+        esize = 1
+    row_bytes = cols * esize
+    # the image TMA writes: chunk j of row r at chunk j ^ swizzle(r), the
+    # 128-byte swizzle's r % 8 or the 32-byte swizzle's r / 4 % 2
+    swizzle = (lambda r: r % 8) if row_bytes == 128 \
+        else (lambda r: (r >> 2) & 1)
+    image = np.zeros(128 * row_bytes, np.uint8)
+    per_chunk = 16 // esize
+    for r in range(128):
+        for j in range(row_bytes // 16):
+            at = r * row_bytes + 16 * (j ^ swizzle(r))
+            image[at:at + 16] = tile[r, per_chunk * j:per_chunk * (j + 1)
+                                     ].view(np.uint8)
 
-        def offset(r, k):
-            return r * 32 + (((k >> 4) ^ ((r >> 2) & 1)) << 4) + (k & 15)
+    def offset(r, k):
+        return _stage_offset(r, k, esize, row_bytes)
     dtype = np.float32 if ck == "f32" else np.int8
     pieces = split_bf16_pieces(torch.as_tensor(tile).float())
     for warp in range(8):
-        for kk in range(2):
+        for kk in range(cols // 16):
             for i in range(4):
                 addresses = []
                 for lane in range(32):
@@ -634,9 +645,11 @@ def test_blockmax_pieces_a_fragment_gather(ck):
 def test_blockmax_kernel_for_names_each_route():
     """The kernel each operand pair and shape takes on the card, chosen
     before any launch: bf16 x bf16 -> blockmax_bf16; bf16 or int8 queries
-    over int8 -> blockmax_wmma; fp32 queries -> the pieces kernel of the
-    corpus dtype where a tensor map describes the corpus (rows a multiple
-    of 16 bytes, a 16-byte-aligned base), else blockmax_simt."""
+    over int8 at D = 768 -> blockmax_bf16_int8 / blockmax_int8 (the int8
+    routes by shape: test_blockmax_kernel_for_names_the_int8_routes);
+    fp32 queries -> the pieces kernel of the corpus dtype where a tensor
+    map describes the corpus (rows a multiple of 16 bytes, a
+    16-byte-aligned base), else blockmax_simt."""
     f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
 
     def named(qd, cd, dim, shift=0):
@@ -644,7 +657,8 @@ def test_blockmax_kernel_for_names_each_route():
         return blockmax_kernel_for(torch.zeros(2, dim, dtype=qd), c)
 
     assert named(bf16, bf16, 768) == "blockmax_bf16"
-    assert named(bf16, i8, 768) == named(i8, i8, 768) == "blockmax_wmma"
+    assert named(bf16, i8, 768) == "blockmax_bf16_int8"
+    assert named(i8, i8, 768) == "blockmax_int8"
     for dim in (64, 72, 96, 768):
         assert named(f32, f32, dim) == "blockmax_pieces_f32"
     for dim in (64, 768):
@@ -653,6 +667,23 @@ def test_blockmax_kernel_for_names_each_route():
                                (f32, f32, 64, 1), (f32, i8, 72, 0),
                                (f32, i8, 96 + 8, 0), (f32, i8, 64, 8)):
         assert named(qd, cd, dim, shift) == "blockmax_simt", (cd, dim, shift)
+
+
+@pytest.mark.parametrize("dim,shift,want", [
+    (64, 0, "wgmma"), (768, 0, "wgmma"),    # int8 rows of 16-byte multiples
+    (72, 0, "blockmax_wmma"), (104, 0, "blockmax_wmma"),  # D % 16 == 8
+    (64, 8, "blockmax_wmma")])              # a corpus base 8 bytes off
+@pytest.mark.parametrize("qk", ["bf16", "int8"])
+def test_blockmax_kernel_for_names_the_int8_routes(qk, dim, shift, want):
+    """bf16 and int8 queries over an int8 corpus take the wgmma kernels
+    (blockmax_bf16_int8, blockmax_int8) where tensor maps describe both
+    operands (D % 16 == 0, 16-byte-aligned bases), and blockmax_wmma where
+    not; chosen from dtypes, shapes and addresses, with no launch."""
+    c = torch.zeros(64 * dim + shift, dtype=torch.int8)[shift:].view(64, dim)
+    q = torch.zeros(2, dim, dtype=_TORCH[qk])
+    if want == "wgmma":
+        want = "blockmax_int8" if qk == "int8" else "blockmax_bf16_int8"
+    assert blockmax_kernel_for(q, c) == want
 
 
 @pytest.fixture
@@ -775,25 +806,33 @@ def test_blockmax_kernel_matches_plain_on_cuda():
             torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-5)
     # the wgmma routes at the shapes they serve: the 1M search shapes, the
     # serve shapes, ragged Q, D 64 / 72 / 768, block_size 1 / 2 / 4 / 8 /
-    # 16 / 32, for bf16 x bf16 (blockmax_bf16) and fp32 queries against an
+    # 16 / 32, for bf16 x bf16 (blockmax_bf16), fp32 queries against an
     # fp32 or a dims-quantized int8 corpus (blockmax_pieces_*; int8 at D=72
-    # takes blockmax_simt); fp32 sums of exact products in another order:
-    # atol 2e-3 on scores of magnitude ~sqrt(D), as chip_smoke.py
+    # takes blockmax_simt), and bf16 / per-row int8 queries against the
+    # int8 codes (blockmax_bf16_int8, blockmax_int8; at D=72
+    # blockmax_wmma); fp32 sums of exact products in another order: atol
+    # 2e-3 on scores of magnitude ~sqrt(D), as chip_smoke.py; int32 exact
     from ance_tpu_torch.index.flat import quantize_dims_int8
+    from ance_tpu_torch.ops.topk import quantize_query_rows_int8
     g = torch.Generator(device="cuda").manual_seed(8)
     cases = [(Q, 1_000_448, 768, 16) for Q in (2048, 512)]
     cases += [(Q, N, 768, 16) for Q in (1, 64, 256) for N in (16_384, 32_768)]
     cases += [(Q, 4096, D, BS) for Q in (65, 300) for D in (64, 72, 768)
               for BS in (1, 2, 4, 8, 16, 32)]
-    for route in ("bf16xbf16", "f32xf32", "f32xint8"):
+    for route in ("bf16xbf16", "f32xf32", "f32xint8", "bf16xint8",
+                  "int8xint8"):
         for Q, N, D, BS in cases:
             q = torch.randn(Q, D, generator=g, device="cuda")
             c = torch.randn(N, D, generator=g, device="cuda")
             if route == "bf16xbf16":
                 q, c = q.to(torch.bfloat16), c.to(torch.bfloat16)
-            elif route == "f32xint8":
+            elif route.endswith("int8"):
                 c, scales = quantize_dims_int8(c)
                 q = q * scales
+                if route == "bf16xint8":
+                    q = q.to(torch.bfloat16)
+                elif route == "int8xint8":
+                    q = quantize_query_rows_int8(q)
             kernel = blockmax_kernel_for(q, c)
             before = blockmax_scores.kernel_launches[kernel]
             got = blockmax_scores(q, c, block_size=BS)
@@ -802,8 +841,12 @@ def test_blockmax_kernel_matches_plain_on_cuda():
             torch.cuda.synchronize()
             case = (route, kernel, Q, N, D, BS)
             assert got.shape == (Q, N // BS), case
-            torch.testing.assert_close(got, want, atol=2e-3, rtol=0,
-                                       msg=lambda m: f"{case}: {m}")
+            if route == "int8xint8":
+                assert got.dtype == torch.int32 and torch.equal(got, want), \
+                    case
+            else:
+                torch.testing.assert_close(got, want, atol=2e-3, rtol=0,
+                                           msg=lambda m: f"{case}: {m}")
             if kernel.startswith("blockmax_pieces"):
                 # per element, against the exact maxima: the route's own
                 # bound, which grows with sum |q c| where atol does not
@@ -934,3 +977,36 @@ def test_blockmax_launcher_refuses_what_no_fp32_query_kernel_takes():
         assert err == 1, (q_code, c_code, d, bs)  # cudaErrorInvalidValue
     torch.cuda.synchronize()
     assert bool((out == -7.0).all())
+
+
+@pytest.mark.cuda
+def test_blockmax_launchers_refuse_what_the_int8_kernels_cannot_take():
+    """blockmax_int8 and blockmax_bf16_int8 (blockmax_scores_launch with
+    codes (2, 2) and (1, 2)) refuse what their tensor maps cannot describe
+    (D % 16 != 0, a base not 16-byte aligned) with cudaErrorInvalidValue
+    and never hand the call to blockmax_wmma; blockmax_wmma_launch refuses
+    D % 8 != 0 and every pair but those two; nothing is written."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from ance_tpu_torch.ops.topk import _kernel_library
+    lib = _kernel_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.full((4, 64), -7, dtype=torch.int32, device="cuda")
+    q8 = torch.zeros(4, 80, dtype=torch.int8, device="cuda")
+    qb = torch.zeros(4, 80, dtype=torch.bfloat16, device="cuda")
+    c8 = torch.zeros(1024 * 80 + 16, dtype=torch.int8, device="cuda")
+    cb = torch.zeros(1024, 64, dtype=torch.bfloat16, device="cuda")
+    calls = [(lib.blockmax_scores_launch, 2, 2, q8, c8, 72),      # D % 16
+             (lib.blockmax_scores_launch, 1, 2, qb, c8, 72),      # D % 16
+             (lib.blockmax_scores_launch, 2, 2, q8, c8[8:], 64),  # base off
+             (lib.blockmax_scores_launch, 1, 2, qb[:, 1:], c8, 64),
+             (lib.blockmax_wmma_launch, 2, 2, q8, c8, 68),        # D % 8
+             (lib.blockmax_wmma_launch, 2, 2, q8, c8[8:], 64),    # base off
+             (lib.blockmax_wmma_launch, 1, 1, qb, cb, 64),        # bf16 pair
+             (lib.blockmax_wmma_launch, 0, 2, qb, c8, 64)]        # fp32 x int8
+    for launch, q_code, c_code, qq, cc, d in calls:
+        err = launch(q_code, c_code, qq.data_ptr(), cc.data_ptr(),
+                     out.data_ptr(), 4, 1024, d, 16, stream)
+        assert err == 1, (launch.__name__, q_code, c_code, d)
+    torch.cuda.synchronize()
+    assert bool((out == -7).all())
