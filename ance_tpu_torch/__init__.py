@@ -1,15 +1,18 @@
 """PyTorch port of ``ance_tpu`` for NVIDIA Hopper (H100).
 
-The package holds the ANCE system on one device: the RobertaDot encoders
-(FirstP ``rdot_nll`` and MaxP ``rdot_nll_multi_chunk``), corpus encode,
-the exact ``FlatIPIndex`` (searched through the hand-written CUDA
-block-max top-k kernel, ``csrc/blockmax.cu``), the batch, HTTP and live
-retrievers, the train step with LAMB, the trainer and generator jobs, the
-single-program pipelined refresh (``train/pipelined.py``) and the CLI
-(``serve``, ``train``, ``generate``, ``infer``, ``eval``, ``eval-full``,
-``ance-loop``). The attention kernels are CUDA C++ too (``csrc/``).
-``ance_tpu`` (JAX) stays the reference every module here is tested
-against; this package never imports jax.
+The package holds the ANCE system on one device: MS MARCO preprocessing
+(``data/preprocess.py``), the RobertaDot encoders (FirstP ``rdot_nll`` and
+MaxP ``rdot_nll_multi_chunk``), corpus encode, the exact ``FlatIPIndex``
+(searched through the hand-written CUDA block-max top-k kernel,
+``csrc/blockmax.cu``), the batch, HTTP and live retrievers, the train step
+with LAMB, the BM25 warmup, the trainer and generator jobs, the
+single-program pipelined refresh (``train/pipelined.py``), reading the JAX
+package's msgpack checkpoints and exporting HF directories, and the CLI
+(``preprocess``, ``warmup``, ``train``, ``generate``, ``infer``,
+``ance-loop``, ``serve``, ``export-hf``, ``eval``, ``eval-full``). The
+attention kernels are CUDA C++ too (``csrc/``). ``ance_tpu`` (JAX) stays
+the reference every module here is tested against; this package never
+imports jax, flax or msgpack.
 """
 
 import torch

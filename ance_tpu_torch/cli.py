@@ -1,11 +1,24 @@
 """Command line of the torch port: ``python -m ance_tpu_torch.cli
-{serve,train,generate,infer,eval,eval-full,ance-loop}``.
+{preprocess,warmup,train,generate,infer,ance-loop,serve,export-hf,eval,
+eval-full}``.
 
 Counterpart of the same subcommands of ``ance_tpu/cli.py``, with the same
-flags plus ``--device`` (default ``cuda``; asking for CUDA where none
-exists exits, it never carries on on the CPU) and minus the multi-device
-ones (``--tensor_parallel``, the mesh: ROADMAP Queue 1 #11). The other
-subcommands wait for later PRs (ROADMAP Queue 1 #6).
+flags plus ``--device`` where a command computes on a device (default
+``cuda``; asking for CUDA where none exists exits, it never carries on on
+the CPU) and minus the multi-device ones (``--tensor_parallel``, the mesh:
+ROADMAP Queue 1 #11). ``preprocess-dpr``, ``generate-dpr`` and
+``seed-pretrain`` come with DPR and SEED (ROADMAP Queue 1 #8, #9).
+
+``preprocess`` turns raw MS MARCO TSVs into token caches, id maps and
+offset-space qrels over ``--num_processes`` spawned workers and prints the
+map sizes. ``warmup`` is the BM25-triples trainer: it trains off
+``--train_file``, checkpoints into ``--output_dir`` (resuming from its
+newest complete checkpoint), evaluates dev MRR with
+``--evaluate_during_training`` and prints the last three history entries.
+``export-hf`` writes the newest complete checkpoint of ``--training_dir``
+(or ``--init_model_dir``) as an HF ``pytorch_model.bin`` + ``config.json``
+directory. Every command that loads weights reads the port's checkpoints
+and the JAX package's msgpack ones.
 
 ``serve`` batch mode writes ``qid\\tpid\\trank[\\tscore]`` lines in real id
 space, as the JAX CLI does; ``--http HOST:PORT`` serves the JSON API of
@@ -44,6 +57,22 @@ def _load_tokenizer(name: str, model_dir: str | None):
             print(f"note: no tokenizer files in {model_dir}; falling back "
                   f"to {name!r}", file=sys.stderr)
     return AutoTokenizer.from_pretrained(name)
+
+
+class TokenizerFactory:
+    """``factory()`` loads the tokenizer :func:`_load_tokenizer` gives for
+    (``name``, ``model_dir``). A picklable class, not a closure:
+    ``preprocess`` hands it to spawned worker processes."""
+
+    def __init__(self, name: str, model_dir: str | None = None):
+        self.name = name
+        self.model_dir = model_dir
+
+    def __call__(self):
+        if self.name == "seed-wordpiece":
+            raise SystemExit("the seed-wordpiece tokenizer comes with SEED "
+                             "(ROADMAP Queue 1 #9)")
+        return _load_tokenizer(self.name, self.model_dir)
 
 
 def _parse_host_port(spec: str) -> tuple[str, int]:
@@ -111,34 +140,28 @@ def _write_ranking(out, qids, pids, scores, with_scores: bool,
             out.write(line + "\n")
 
 
-def _has_torch_checkpoint(model_dir: str) -> bool:
-    return any(f.endswith((".bin", ".pt")) and f != "training_args.bin"
-               for f in os.listdir(model_dir))
-
-
-def _has_native_checkpoint(model_dir: str) -> bool:
-    return (os.path.exists(os.path.join(model_dir, "params.msgpack"))
-            or os.path.isdir(os.path.join(model_dir, "state"))
-            or any(f.startswith("checkpoint-") for f in os.listdir(model_dir)))
+def _model_spec(model_type: str):
+    from ance_tpu_torch.models.registry import get_model_spec
+    try:
+        return get_model_spec(model_type)
+    except KeyError as e:
+        raise SystemExit(str(e))
 
 
 def _build_model(args, device, seed: int = 0, warn_random: bool = True):
     """Registry model at the requested dtype (seeded init), moved to
-    ``device``. Weights come from the newest complete port checkpoint under
+    ``device``. Weights come from the newest complete checkpoint under
     ``--training_dir`` / ``--init_model_dir`` where the command has them,
-    else from an HF-layout ``--model_name_or_path`` directory (or the
-    newest complete checkpoint of a training directory there, as the JAX
-    CLI warm-starts), else stay random (serve warns). Returns (spec,
-    model, params_source, checkpoint): ``checkpoint`` is the checkpoint
-    directory loaded, or None when the weights came from elsewhere."""
+    else from ``--model_name_or_path``: an HF-layout directory, a
+    checkpoint directory, or a training directory (its newest complete
+    checkpoint, as the JAX CLI warm-starts); else they stay random (serve
+    warns). A checkpoint is the port's or the JAX package's msgpack one
+    (``train/checkpoint.py::load_params``). Returns (spec, model,
+    params_source, checkpoint): ``checkpoint`` is the checkpoint directory
+    loaded, or None when the weights came from elsewhere."""
     import torch
-    from ance_tpu_torch.models.registry import get_model_spec
-    from ance_tpu_torch.models.weights import load_pretrained
     from ance_tpu_torch.train import checkpoint as ckpt
-    try:
-        spec = get_model_spec(args.model_type)
-    except KeyError as e:
-        raise SystemExit(str(e))
+    spec = _model_spec(args.model_type)
     overrides = json.loads(args.encoder_overrides) \
         if args.encoder_overrides else None
     model = spec.build(dtype=torch.bfloat16 if args.bf16 else torch.float32,
@@ -148,25 +171,16 @@ def _build_model(args, device, seed: int = 0, warn_random: bool = True):
         getattr(args, "training_dir", None),
         getattr(args, "init_model_dir", None))
     src = args.model_name_or_path
+    holds_weights = bool(src) and ckpt.holds_weights(src)
     if not (path and ckpt.is_complete(path)) and src and os.path.isdir(src) \
-            and not _has_torch_checkpoint(src):
+            and not holds_weights:
         path, _ = ckpt.get_latest_checkpoint(src)  # a training directory
     if not (path and ckpt.is_complete(path)):
         path = None
     if path:
-        if not os.path.exists(os.path.join(path, ckpt.MODEL_FILE)):
-            raise SystemExit(f"{path} holds no {ckpt.MODEL_FILE}: a native "
-                             "(msgpack/orbax) checkpoint, which the torch "
-                             "port does not read — export it with `ance "
-                             "export-hf`")
-        params_source = load_pretrained(model, path)
-    elif src and os.path.isdir(src) and _has_torch_checkpoint(src):
-        params_source = load_pretrained(model, src)
-    elif src and os.path.isdir(src) and _has_native_checkpoint(src):
-        raise SystemExit(f"{src} holds a native (msgpack/orbax) checkpoint; "
-                         "the torch port loads HF-layout pytorch_model.bin "
-                         "directories only — export it with `ance export-hf` "
-                         "(native checkpoints: ROADMAP Queue 1 #4)")
+        params_source = ckpt.load_params(path, model)
+    elif holds_weights:
+        params_source = ckpt.load_params(src, model)
     else:
         params_source = "<random-init>"
         if warn_random:
@@ -433,6 +447,85 @@ def _make_training(args, model, spec):
     return init_train_state(model, opt), step
 
 
+def cmd_preprocess(args):
+    """Raw MS MARCO TSVs → token caches, id maps and offset-space qrels
+    (``ance preprocess``); prints the size of each id map."""
+    from ance_tpu_torch.data.preprocess import PreprocessConfig, preprocess
+    spec = _model_spec(args.model_type)
+    cfg = PreprocessConfig(
+        data_dir=args.data_dir, out_data_dir=args.out_data_dir,
+        data_type=args.data_type, max_seq_length=args.max_seq_length,
+        max_query_length=args.max_query_length,
+        max_doc_character=args.max_doc_character,
+        num_processes=args.num_processes)
+    result = preprocess(cfg, TokenizerFactory(spec.tokenizer_name,
+                                              args.model_name_or_path))
+    print(json.dumps({k: len(v) if isinstance(v, dict) else v
+                      for k, v in result.items()}))
+
+
+def cmd_warmup(args):
+    """The BM25-triples warmup (``ance warmup``, the reference's
+    run_warmup.py) on one device: resume from the newest complete
+    checkpoint in ``--output_dir``, skipping the batches it trained, train
+    off ``--train_file``, and evaluate dev MRR every ``--eval_steps`` with
+    ``--evaluate_during_training``."""
+    from ance_tpu_torch.models.dot_models import RobertaDot
+    from ance_tpu_torch.train import checkpoint as ckpt
+    from ance_tpu_torch.train.warmup import WarmupConfig, run_warmup
+    from ance_tpu_torch.utils.device import resolve_device
+
+    if args.evaluate_during_training and not args.data_dir:
+        raise SystemExit("--evaluate_during_training needs --data_dir (with "
+                         "collection.tsv, queries.dev.small.tsv, top1000.dev "
+                         "and qrels.dev.small.tsv)")
+    device = resolve_device(args.device)
+    spec, model, _, _ = _build_model(args, device, seed=args.seed,
+                                     warn_random=False)
+    state, step = _make_training(args, model, spec)
+    tokenizer = TokenizerFactory(spec.tokenizer_name,
+                                 args.model_name_or_path)()
+
+    eval_fn = None
+    if args.evaluate_during_training:
+        from ance_tpu_torch.evaluation.mrr_eval import passage_dist_eval
+        from ance_tpu_torch.train.encode import make_encode_fn
+        d = args.data_dir
+
+        def eval_fn(model):
+            model.eval()
+            return passage_dist_eval(
+                query_encode_fn=make_encode_fn(model, RobertaDot.query_emb,
+                                               device),
+                body_encode_fn=make_encode_fn(model, RobertaDot.body_emb,
+                                              device),
+                tokenizer=tokenizer,
+                queries_path=os.path.join(d, "queries.dev.small.tsv"),
+                collection_path=os.path.join(d, "collection.tsv"),
+                top1000_path=os.path.join(d, "top1000.dev"),
+                qrels_path=os.path.join(d, "qrels.dev.small.tsv"),
+                max_query_length=args.max_query_length,
+                max_seq_length=args.max_seq_length, device=device)
+
+    cfg = WarmupConfig(num_epochs=args.num_train_epochs,
+                       batch_size=args.per_device_train_batch_size,
+                       max_seq_length=args.max_seq_length,
+                       max_steps=args.max_steps, save_steps=args.save_steps,
+                       eval_every=args.eval_steps,
+                       checkpoint_dir=args.output_dir,
+                       log_trust_ratios=args.log_trust_ratios)
+    # a preempted warmup resumes instead of restarting (reference
+    # run_warmup.py:144-163)
+    state, start_step = ckpt.resume_train_state(args.output_dir, state)
+    if start_step:
+        print(f"warmup: resuming from step {start_step}", file=sys.stderr)
+    state, history = run_warmup(cfg, state=state, train_step=step,
+                                tokenizer=tokenizer,
+                                triples_path=args.train_file, seed=args.seed,
+                                eval_fn=eval_fn, start_step=start_step)
+    print(json.dumps(history[-3:]))
+
+
 def cmd_train(args):
     """The ANCE trainer job (``ance train``, the reference's run_ann.py):
     poll ``--ann_dir``, train, checkpoint into ``--output_dir``."""
@@ -666,6 +759,40 @@ def cmd_ance_loop(args):
     print(json.dumps(loop.history[-3:]))
 
 
+def cmd_export_hf(args):
+    """Export the newest complete checkpoint under ``--training_dir`` (or
+    the ``--init_model_dir`` checkpoint), the port's or the JAX package's,
+    as an HF ``from_pretrained`` directory (``ance export-hf`` for
+    ``rdot_nll*``); prints what was exported, from where, at which step."""
+    from ance_tpu_torch.models.hf_export import save_hf_checkpoint
+    from ance_tpu_torch.models.transformer import EncoderConfig
+    from ance_tpu_torch.train import checkpoint as ckpt
+    _model_spec(args.model_type)  # DPR and SEED exit: not ported
+    path, step = ckpt.get_latest_checkpoint(args.training_dir or "",
+                                            args.init_model_dir)
+    if path is None or not ckpt.is_complete(path):
+        raise SystemExit(
+            "export-hf: no complete checkpoint under --training_dir/"
+            "--init_model_dir — refusing to export a random init")
+    if step == 0:
+        # --init_model_dir reports step 0: the real one is in meta.json,
+        # else in the directory's name
+        meta_path = os.path.join(path, "meta.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                step = int(json.load(f).get("step", 0))
+        else:
+            step = ckpt.checkpoint_no(path)
+    sd, _ = ckpt.state_dict(path)
+    config = EncoderConfig(**json.loads(args.encoder_overrides or "{}"))
+    try:
+        out = save_hf_checkpoint(args.out_dir, sd, config)
+    except (KeyError, ValueError) as e:
+        raise SystemExit(f"export-hf: {path}: {e}")
+    print(json.dumps({"exported": out, "from": path, "step": step,
+                      "model_type": args.model_type}))
+
+
 def cmd_eval(args):
     from ance_tpu_torch.evaluation.msmarco_eval import \
         compute_metrics_from_files
@@ -719,14 +846,17 @@ def cmd_eval_full(args):
                                  k=args.rerank_depth, device=device)))
 
 
-def _add_common_model_flags(p):
-    p.add_argument("--device", default="cuda",
-                   help="cuda[:N] (default) or cpu (CPU tests only)")
+def _add_common_model_flags(p, device: bool = True):
+    if device:
+        p.add_argument("--device", default="cuda",
+                       help="cuda[:N] (default) or cpu (CPU tests only)")
     p.add_argument("--model_type", default="rdot_nll",
                    help="registry key (rdot_nll | rdot_nll_multi_chunk)")
     p.add_argument("--model_name_or_path", default=None,
-                   help="HF-layout checkpoint dir (pytorch_model.bin) / "
-                        "tokenizer source")
+                   help="weights: an HF-layout dir (pytorch_model.bin), a "
+                        "checkpoint dir or a training dir (the port's or "
+                        "the JAX package's msgpack); and the tokenizer "
+                        "source")
     p.add_argument("--max_seq_length", type=int, default=128)
     p.add_argument("--max_query_length", type=int, default=64)
     p.add_argument("--bf16", action="store_true",
@@ -775,6 +905,38 @@ def _add_train_flags(p):
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="ance_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("preprocess", help="MS MARCO raw TSV → binary caches")
+    _add_common_model_flags(p, device=False)
+    p.add_argument("--data_dir", required=True)
+    p.add_argument("--out_data_dir", required=True)
+    p.add_argument("--data_type", type=int, default=1,
+                   help="0 = doc, 1 = passage (reference flag)")
+    p.add_argument("--max_doc_character", type=int, default=10000)
+    p.add_argument("--num_processes", type=int, default=32,
+                   help="spawned tokenizer workers (1: in this process)")
+    p.set_defaults(fn=cmd_preprocess)
+
+    p = sub.add_parser("warmup", help="BM25-triples warmup training")
+    _add_common_model_flags(p)
+    _add_train_flags(p)
+    p.add_argument("--train_file", required=True,
+                   help="triples.train.small.tsv")
+    p.add_argument("--num_train_epochs", type=int, default=1)
+    p.add_argument("--save_steps", type=int, default=5000)
+    p.add_argument("--output_dir", required=True,
+                   help="checkpoint-<step>/ directories; a rerun resumes "
+                        "from the newest complete one")
+    p.add_argument("--evaluate_during_training", action="store_true")
+    p.add_argument("--eval_steps", type=int, default=0,
+                   help="steps between in-train MRR evals")
+    p.add_argument("--log_trust_ratios", action="store_true",
+                   help="LAMB trust-ratio stats every --eval_steps")
+    p.add_argument("--data_dir", default=None,
+                   help="dir with collection.tsv/queries.dev.small.tsv/"
+                        "top1000.dev/qrels.dev.small.tsv for eval")
+    p.set_defaults(fn=cmd_warmup)
+
     p = sub.add_parser("train", help="ANCE trainer (polls ann_dir)")
     _add_common_model_flags(p)
     _add_train_flags(p)
@@ -796,7 +958,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common_model_flags(p)
     p.add_argument("--training_dir", default=None,
                    help="serve the newest complete checkpoint-<step> "
-                        "(pytorch_model.bin) under this directory")
+                        "(the port's or the JAX package's) under this "
+                        "directory")
     p.add_argument("--init_model_dir", default=None,
                    help="checkpoint directory used when --training_dir "
                         "holds no complete checkpoint")
@@ -890,6 +1053,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "snapshot weights")
     p.set_defaults(fn=cmd_ance_loop)
 
+    p = sub.add_parser("export-hf",
+                       help="export a checkpoint (the port's or the JAX "
+                            "package's) as an HF from_pretrained directory")
+    _add_common_model_flags(p, device=False)
+    p.add_argument("--training_dir", default=None,
+                   help="trainer output dir — exports the LATEST complete "
+                        "checkpoint")
+    p.add_argument("--init_model_dir", default=None,
+                   help="a specific checkpoint dir to export")
+    p.add_argument("--out_dir", required=True)
+    p.set_defaults(fn=cmd_export_hf)
+
     p = sub.add_parser("eval", help="official MS MARCO MRR scorer")
     p.add_argument("reference")
     p.add_argument("candidate")
@@ -920,8 +1095,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    from ance_tpu_torch.train.checkpoint import UnreadableCheckpoint
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    except UnreadableCheckpoint as e:
+        raise SystemExit(str(e))
 
 
 if __name__ == "__main__":

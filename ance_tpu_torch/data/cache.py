@@ -8,13 +8,16 @@ the other's caches:
                       followed by ``embedding_size`` items of ``dtype``
   * ``<base>_meta``   JSON ``{"type": "int32", "total_number": N,
                       "embedding_size": L}``
+
+:func:`merge_split_files` turns the id-prefixed split files that
+preprocessing's workers write into one such cache and an id → offset map.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Sequence
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -96,3 +99,40 @@ class TokenCacheWriter:
 
     def __exit__(self, exc_type, exc, tb) -> None:
         self.close()
+
+
+def iter_split_records(base_path: str, num_splits: int,
+                       record_size: int) -> Iterator[bytes]:
+    """Raw records of ``<base>_split{i}``, split after split
+    (reference utils/util.py:246-254, numbered_byte_file_generator)."""
+    for i in range(num_splits):
+        with open(f"{base_path}_split{i}", "rb") as f:
+            while True:
+                b = f.read(record_size)
+                if not b:
+                    break
+                yield b
+
+
+def merge_split_files(base_path: str, num_splits: int, max_len: int,
+                      dtype: str = "int32",
+                      keep_id: Optional[Callable[[int], bool]] = None
+                      ) -> dict[int, int]:
+    """Merge the split files into the cache ``base_path``; returns the
+    id → offset map.
+
+    A split record is an 8-byte big-endian id, a 4-byte big-endian length
+    and ``max_len`` tokens (reference data/msmarco_data.py:64-89); the
+    cache drops the id. ``keep_id`` drops the records whose id it rejects
+    (queries without a qrel, reference data/msmarco_data.py:68-71)."""
+    record_size = 8 + 4 + max_len * np.dtype(dtype).itemsize
+    id2offset: dict[int, int] = {}
+    with TokenCacheWriter(base_path, max_len, dtype) as w:
+        for record in iter_split_records(base_path, num_splits, record_size):
+            rid = int.from_bytes(record[:8], "big")
+            if keep_id is not None and not keep_id(rid):
+                continue
+            length = int.from_bytes(record[8:12], "big")
+            id2offset[rid] = w.write(length,
+                                     np.frombuffer(record[12:], dtype=dtype))
+    return id2offset

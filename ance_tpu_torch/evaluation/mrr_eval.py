@@ -5,17 +5,18 @@ utils/eval_mrr.py): per-query dedup, unfilled slots = pid 0, the official
 MRR@10 scorer. Where the JAX module searches with ``knn_inner_product``,
 this one searches with the port's exact scan
 (:func:`ance_tpu_torch.index.flat.topk_inner_product`: fp64-exact scores,
-ties to the lower row) on ``device``. ``dual_batches`` is the port's own
-copy of ``ance_tpu/data/process_fn.py``'s.
+ties to the lower row) on ``device``. The texts are tokenized by
+:func:`ance_tpu_torch.data.process_fn.dual_batches`.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Iterator, Mapping, Sequence
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
 
+from ance_tpu_torch.data.process_fn import dual_batches
 from ance_tpu_torch.evaluation.metrics import mrr_at_k, quality_checks
 from ance_tpu_torch.index.flat import topk_inner_product
 
@@ -128,31 +129,6 @@ def combined_eval(query_embs: np.ndarray, query_ids: np.ndarray,
                                 query_ids, ref_dict)
     full_ranking_mrr = compute_mrr(D, I, query_ids, ref_dict)
     return reranking_mrr, full_ranking_mrr
-
-
-def dual_batches(tokenizer, lines: Iterable[str], batch_size: int,
-                 max_len: int) -> Iterator[dict]:
-    """``id\\ttext`` lines → inference batches with ids (dual_process_fn
-    parity, reference process_fn.py:20-45); the final partial batch is
-    emitted unpadded."""
-    from ance_tpu_torch.serve import encode_padded
-    ids_buf, mask_buf, rid_buf = [], [], []
-    for line in lines:
-        cells = line.rstrip("\n").split("\t")
-        if len(cells) != 2:
-            raise ValueError(
-                f"Line doesn't have correct length: {len(cells)}. Expected 2.")
-        ids, mask = encode_padded(tokenizer, cells[1], max_len)
-        ids_buf.append(ids)
-        mask_buf.append(mask)
-        rid_buf.append(int(cells[0]))
-        if len(ids_buf) == batch_size:
-            yield {"ids": np.stack(ids_buf), "mask": np.stack(mask_buf),
-                   "rec_ids": np.asarray(rid_buf, np.int64)}
-            ids_buf, mask_buf, rid_buf = [], [], []
-    if ids_buf:
-        yield {"ids": np.stack(ids_buf), "mask": np.stack(mask_buf),
-               "rec_ids": np.asarray(rid_buf, np.int64)}
 
 
 def embed_text_file(encode_fn, tokenizer, path: str, max_len: int,

@@ -6,7 +6,8 @@
   It is written here because ``ance_tpu.models`` imports jax on import;
   the tests hold it against ``ance_tpu.models.hf_export``.
 * :func:`load_pretrained` loads an HF-layout checkpoint directory (a
-  reference ANCE checkpoint, or one ``ance_tpu`` exported) into a model.
+  reference ANCE checkpoint, or one ``ance_tpu`` exported) into a model,
+  through :func:`load_weights`, which loads a state dict already read.
 """
 
 from __future__ import annotations
@@ -26,12 +27,21 @@ _UNUSED_PREFIXES = ("classifier.", "roberta.pooler.",
                     "roberta.embeddings.position_ids")
 
 
+def _f32(x) -> np.ndarray:
+    """A leaf as an fp32 numpy array: numpy or jax arrays, or the
+    ``torch.bfloat16`` tensors :mod:`ance_tpu_torch.train.flax_msgpack`
+    reads bf16 leaves into."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
 def _t(x) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, np.float32))
+    return torch.from_numpy(np.array(_f32(x)))
 
 
 def _dense(sd: dict, prefix: str, p: Mapping) -> None:
-    sd[prefix + ".weight"] = _t(np.asarray(p["kernel"], np.float32).T)
+    sd[prefix + ".weight"] = _t(_f32(p["kernel"]).T)
     sd[prefix + ".bias"] = _t(p["bias"])
 
 
@@ -42,7 +52,7 @@ def _layer_norm(sd: dict, prefix: str, p: Mapping) -> None:
 
 def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     """flax RobertaDot params (``{"encoder": ..., "embedding_head": ...,
-    "norm": ...}``, numpy or array leaves) → port state dict."""
+    "norm": ...}``; numpy, jax or torch leaves) → port state dict, fp32."""
     sd: dict[str, torch.Tensor] = {}
     enc = params["encoder"]
     emb = enc["embeddings"]
@@ -99,7 +109,15 @@ def load_pretrained(model: nn.Module, model_dir: str) -> str:
     keeps the model's seeded head, as the reference's ``from_pretrained``
     keeps a fresh one. Returns the file loaded."""
     path = checkpoint_file(model_dir)
-    sd = torch.load(path, map_location="cpu", weights_only=True)
+    load_weights(model, torch.load(path, map_location="cpu",
+                                   weights_only=True))
+    return path
+
+
+def load_weights(model: nn.Module, sd: Mapping[str, torch.Tensor]) -> None:
+    """Strictly load a state dict in HF key names into ``model``: the keys
+    the dot model never reads are dropped, and a state dict without the
+    projection head keeps the model's own (see :func:`load_pretrained`)."""
     sd = {k: v for k, v in sd.items() if not k.startswith(_UNUSED_PREFIXES)}
     if "embeddingHead.weight" not in sd:
         own = model.state_dict()
@@ -107,4 +125,3 @@ def load_pretrained(model: nn.Module, model_dir: str) -> str:
                   "norm.weight", "norm.bias"):
             sd[k] = own[k]
     model.load_state_dict(sd, strict=True)
-    return path

@@ -12,6 +12,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ance_tpu_torch.data.process_fn import encode_padded
 from ance_tpu_torch.index.flat import FlatIPIndex
 
 
@@ -39,23 +40,6 @@ def dedup_first_hit(scores: np.ndarray, rows: np.ndarray,
     out_ids[b_idx, rank[sel]] = pids[sel]
     out_scores[b_idx, rank[sel]] = scores[sel]
     return out_scores, out_ids
-
-
-def encode_padded(tokenizer, text: str, max_len: int
-                  ) -> tuple[np.ndarray, np.ndarray]:
-    """One text → (ids [max_len] int32, mask [max_len] int32), truncated
-    and padded with the tokenizer's pad id (as ``ance_tpu.data.process_fn``
-    does)."""
-    ids = tokenizer.encode(text.strip(), add_special_tokens=True,
-                           max_length=max_len)
-    if hasattr(ids, "ids"):
-        ids = ids.ids
-    ids = list(ids)[:max_len]
-    out = np.full(max_len, tokenizer.pad_token_id, np.int32)
-    out[:len(ids)] = ids
-    mask = np.zeros(max_len, np.int32)
-    mask[:len(ids)] = 1
-    return out, mask
 
 
 def bucket_pow2(n: int, cap: int) -> int:

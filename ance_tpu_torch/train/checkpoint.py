@@ -15,6 +15,14 @@ written under a temporary name and renamed into place before DONE, so a
 reader that waits for DONE never sees a partial checkpoint.
 :class:`AsyncCheckpointer` writes the same files from a background thread
 and publishes ``meta.json`` and DONE only at its fence (``wait``).
+
+Checkpoints of the JAX package's trainer (``params.msgpack``, written by
+``flax.serialization``) load too, through :func:`load_raw_params` (a
+reader on the standard library, :mod:`ance_tpu_torch.train.flax_msgpack`)
+and ``models/weights.py::state_dict_from_flax``, strictly; their
+``opt_state.msgpack`` is not read, so a run resumed or warm-started from
+one starts a fresh optimizer. The JAX package's orbax layout (``state/``
+or ``params/`` directories) needs orbax and is refused.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import json
 import os
 import re
 import shutil
+import sys
 import tempfile
 import threading
 from typing import Optional
@@ -32,6 +41,12 @@ import torch
 DONE_MARKER = "DONE"
 MODEL_FILE = "pytorch_model.bin"
 OPTIMIZER_FILE = "optimizer.pt"
+NATIVE_FILE = "params.msgpack"  # the JAX package's parameters
+
+
+class UnreadableCheckpoint(ValueError):
+    """A checkpoint directory the port cannot load; the message names the
+    file or directory. The CLI exits with it."""
 
 
 def checkpoint_no(path: str) -> int:
@@ -175,13 +190,91 @@ def get_latest_checkpoint(training_dir: str,
     return best_path, best_step
 
 
+def is_native(ckpt_dir: str) -> bool:
+    """True for a JAX-package checkpoint: no ``pytorch_model.bin``, but a
+    ``params.msgpack`` or an orbax ``state/`` / ``params/`` directory."""
+    return not os.path.exists(os.path.join(ckpt_dir, MODEL_FILE)) and (
+        os.path.exists(os.path.join(ckpt_dir, NATIVE_FILE))
+        or os.path.isdir(os.path.join(ckpt_dir, "state"))
+        or os.path.isdir(os.path.join(ckpt_dir, "params")))
+
+
+def load_raw_params(ckpt_dir: str) -> dict:
+    """The flax parameter tree of a JAX-package checkpoint in its msgpack
+    layout (counterpart of the read half of ``ance_tpu/train/
+    checkpoint.py::load_raw_params``): nested dicts of numpy arrays, bf16
+    leaves as ``torch.bfloat16`` tensors. Raises
+    :class:`UnreadableCheckpoint` for the orbax layout, a missing file or
+    bytes that are not flax msgpack."""
+    from ance_tpu_torch.train.flax_msgpack import read_msgpack
+    path = os.path.join(ckpt_dir, NATIVE_FILE)
+    if os.path.exists(path):
+        try:
+            return read_msgpack(path)
+        except ValueError as e:
+            raise UnreadableCheckpoint(str(e)) from None
+    for sub in ("state", "params"):
+        if os.path.isdir(os.path.join(ckpt_dir, sub)):
+            raise UnreadableCheckpoint(
+                f"{os.path.join(ckpt_dir, sub)}: an orbax checkpoint (the "
+                "JAX package's AsyncCheckpointer); reading it needs orbax, "
+                "which the port does not use. Write a msgpack checkpoint "
+                "(ance_tpu.train.checkpoint.save_checkpoint) or export it "
+                "with `ance export-hf`")
+    raise UnreadableCheckpoint(f"{ckpt_dir}: neither {MODEL_FILE} nor "
+                               f"{NATIVE_FILE}")
+
+
+def holds_weights(model_dir: str) -> bool:
+    """True for a directory that is itself a checkpoint of either layout:
+    a torch state dict (the port's ``pytorch_model.bin`` or an HF
+    directory's single ``*.bin`` / ``*.pt``, the file rules of
+    ``models/weights.py::checkpoint_file``) or a JAX-package one."""
+    return os.path.isdir(model_dir) and (is_native(model_dir) or any(
+        f.endswith((".bin", ".pt")) and f != "training_args.bin"
+        for f in os.listdir(model_dir)))
+
+
+def state_dict(ckpt_dir: str) -> tuple[dict[str, torch.Tensor], str]:
+    """A checkpoint directory's parameters as a port state dict, whichever
+    layout holds them, and the file they were read from: the torch state
+    dict as saved, or a JAX-package ``params.msgpack`` as fp32 (through
+    :func:`load_raw_params` and ``models/weights.py::
+    state_dict_from_flax``; its optimizer state is not read, and a note
+    on stderr says so)."""
+    from ance_tpu_torch.models.weights import (checkpoint_file,
+                                               state_dict_from_flax)
+    if not is_native(ckpt_dir):
+        path = checkpoint_file(ckpt_dir)
+        return torch.load(path, map_location="cpu", weights_only=True), path
+    path = os.path.join(ckpt_dir, NATIVE_FILE)
+    tree = load_raw_params(ckpt_dir)
+    try:
+        sd = state_dict_from_flax(tree)
+    except (KeyError, TypeError) as e:
+        raise UnreadableCheckpoint(
+            f"{path}: not a RobertaDot parameter tree (missing {e})") from None
+    print(f"note: {ckpt_dir} is a JAX-package checkpoint: its parameters "
+          "are read; its optimizer state is not read (training from it "
+          "starts a fresh optimizer)", file=sys.stderr)
+    return sd, path
+
+
+def load_params(ckpt_dir: str, model: torch.nn.Module) -> str:
+    """Load a checkpoint directory's parameters (:func:`state_dict`)
+    strictly into ``model``. Returns the file loaded."""
+    from ance_tpu_torch.models.weights import load_weights
+    sd, path = state_dict(ckpt_dir)
+    load_weights(model, sd)
+    return path
+
+
 def load_checkpoint(ckpt_dir: str, model: torch.nn.Module
                     ) -> tuple[Optional[dict], dict]:
     """Load the parameters strictly into ``model`` (in place, onto its
-    device). Returns (the optimizer state or None, meta)."""
-    sd = torch.load(os.path.join(ckpt_dir, MODEL_FILE), map_location="cpu",
-                    weights_only=True)
-    model.load_state_dict(sd, strict=True)
+    device). Returns (the optimizer state or None, meta); a JAX-package
+    checkpoint has no ``optimizer.pt``, so it gives none."""
+    load_params(ckpt_dir, model)
     opt_path = os.path.join(ckpt_dir, OPTIMIZER_FILE)
     opt_state = torch.load(opt_path, map_location="cpu", weights_only=True) \
         if os.path.exists(opt_path) else None
@@ -193,8 +286,8 @@ def load_checkpoint(ckpt_dir: str, model: torch.nn.Module
 def resume_train_state(training_dir: str, state):
     """Restore the newest complete checkpoint into a ``TrainState``: the
     parameters, and the optimizer (moments, step count, schedule anchor)
-    when saved. Returns (state, resumed step); (state, 0) when there is
-    nothing complete."""
+    when saved (a JAX-package checkpoint: the parameters only). Returns
+    (state, resumed step); (state, 0) when there is nothing complete."""
     path, step = get_latest_checkpoint(training_dir)
     if path is None or not is_complete(path):
         return state, 0

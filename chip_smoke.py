@@ -102,6 +102,18 @@ kernels under bf16 and int8 queries), and then:
     ``eval-full`` (its NDCG@10 equals generate's),
     ``cli train`` on the file and ``generate --training_dir`` on its
     checkpoint, then ``run_ance_cycles`` (2 cycles x 3 steps);
+  * warmup: the front of the pipeline on raw MS MARCO-format TSVs made
+    from a seed (32,768 passages of 40-120 words, 1,024 train and 256 dev
+    queries with qrels, top1000.dev, 48 x 32 triples), tokenized by a
+    word-hash tokenizer in RoBERTa's id space (no tokenizer files, no
+    hub): ``cli preprocess`` over 4 spawned workers (every record against
+    the tokenizer, the qrels against the rows), ``cli warmup`` at full
+    width (bf16, LAMB 2e-4, batch 32) to step 24 with two in-training
+    evals, a rerun to 48 that resumes, ``cli generate --training_dir`` on
+    the warmup checkpoint (``blockmax_pieces_f32`` launched exactly twice,
+    mining ids == a scan, dev NDCG == ``eval-full``'s), ``cli export-hf``
+    and ``serve`` from the export (rankings byte-equal to serving the
+    checkpoint, embeddings bit-equal);
   * ance-loop: the pipelined refresh through ``cli ance-loop`` on the
     generator's data and weights: FirstP over an fp32 index with
     ``--http`` and a client sending B=1, k=10 searches at 10/s while it
@@ -2795,6 +2807,444 @@ def phase_generate(work: Path):
             "cycles_s": cycles_s, "cycles": history}
 
 
+# the front of the pipeline: raw MS MARCO-format TSVs made from a seed
+WARMUP_PASSAGES = 32_768
+WARMUP_WORDS = (40, 120)  # words a passage
+WARMUP_VOCAB_WORDS = 30_000  # distinct words of the synthetic corpus
+WARMUP_TRAIN_QUERIES, WARMUP_DEV_QUERIES = 1024, 256
+WARMUP_CANDIDATES = 100  # top1000.dev lines a dev query, its positive among
+WARMUP_BATCH, WARMUP_TRIPLE_BATCHES = 32, 48  # triples: 48 x 32 lines
+WARMUP_STEPS, WARMUP_SAVE = 24, 12  # then a resumed run to 2 x WARMUP_STEPS
+PREPROCESS_WORKERS = 4
+ROBERTA_VOCAB = 50265
+WORD_HASH_SEED = 0x5EED
+
+
+class WordHashTokenizer:
+    """A seeded word-hash tokenizer in RoBERTa's id space (``<s>`` 0, pad
+    1, ``</s>`` 2, words crc32-hashed into [3, 50265)) with HF's
+    ``encode(text, add_special_tokens=, max_length=)``, ``pad_token_id``
+    and ``sep_token``; truncation keeps ``<s>`` and ``</s>``, as HF's
+    does. crc32 is the same in every process (``hash`` is not), so
+    spawned preprocessing workers tokenize as this process does. The smoke
+    tokenizes with it because the card may have no tokenizer files and no
+    hub may be tried."""
+    pad_token_id = 1
+    sep_token = "</s>"
+
+    def encode(self, text, add_special_tokens=True, max_length=None):
+        import zlib
+        ids = [3 + zlib.crc32(w.encode(), WORD_HASH_SEED)
+               % (ROBERTA_VOCAB - 3) for w in text.split()]
+        if not add_special_tokens:
+            return ids[:max_length]
+        if max_length is not None:
+            ids = ids[:max_length - 2]
+        return [0] + ids + [2]
+
+
+class WordHashFactory:
+    """Stands in for ``cli.TokenizerFactory`` (same constructor); a
+    module-level class, so spawned workers unpickle it."""
+
+    def __init__(self, name=None, model_dir=None):
+        pass
+
+    def __call__(self):
+        return WordHashTokenizer()
+
+
+def _write_raw_msmarco(raw: Path, rs) -> dict:
+    """collection.tsv, queries.{train,dev.small}.tsv with their qrels,
+    top1000.dev and triples.train.small.tsv in the MS MARCO layouts. A
+    query is 4-8 words of its positive passage; ids are sparse, as MS
+    MARCO's are. Returns the raw pieces the checks need."""
+    import numpy as np
+    raw.mkdir()
+    words = np.array([f"t{i}" for i in range(WARMUP_VOCAB_WORDS)])
+    pids = np.sort(rs.choice(8_841_823, WARMUP_PASSAGES, replace=False))
+    lengths = rs.randint(WARMUP_WORDS[0], WARMUP_WORDS[1] + 1,
+                         WARMUP_PASSAGES)
+    texts = [" ".join(words[rs.randint(0, WARMUP_VOCAB_WORDS, n)])
+             for n in lengths]
+    with open(raw / "collection.tsv", "w") as f:
+        f.writelines(f"{p}\t{t}\n" for p, t in zip(pids, texts))
+    n_q = WARMUP_TRAIN_QUERIES + WARMUP_DEV_QUERIES
+    qids = rs.choice(1_200_000, n_q, replace=False)
+    positives = rs.choice(WARMUP_PASSAGES, n_q, replace=False)
+    queries = []
+    for pos in positives:
+        toks = texts[pos].split()
+        start = rs.randint(0, len(toks) - 8)
+        queries.append(" ".join(toks[start:start + rs.randint(4, 9)]))
+    splits = {"train": slice(0, WARMUP_TRAIN_QUERIES),
+              "dev": slice(WARMUP_TRAIN_QUERIES, n_q)}
+    for split, (qfile, rfile) in {
+            "train": ("queries.train.tsv", "qrels.train.tsv"),
+            "dev": ("queries.dev.small.tsv", "qrels.dev.small.tsv")}.items():
+        sl = splits[split]
+        with open(raw / qfile, "w") as f, open(raw / rfile, "w") as r:
+            for q, text, pos in zip(qids[sl], queries[sl], positives[sl]):
+                f.write(f"{q}\t{text}\n")
+                r.write(f"{q}\t0\t{pids[pos]}\t1\n")
+    with open(raw / "top1000.dev", "w") as f:
+        sl = splits["dev"]
+        for q, text, pos in zip(qids[sl], queries[sl], positives[sl]):
+            others = rs.choice(WARMUP_PASSAGES, WARMUP_CANDIDATES, False)
+            cands = [pos] + [c for c in others if c != pos][
+                :WARMUP_CANDIDATES - 1]
+            f.writelines(f"{q}\t{pids[c]}\t{text}\t{texts[c]}\n"
+                         for c in cands)
+    with open(raw / "triples.train.small.tsv", "w") as f:
+        for i in range(WARMUP_BATCH * WARMUP_TRIPLE_BATCHES):
+            q = i % WARMUP_TRAIN_QUERIES
+            neg = rs.randint(WARMUP_PASSAGES)
+            f.write(f"{queries[q]}\t{texts[positives[q]]}\t{texts[neg]}\n")
+    return {"pids": pids, "texts": texts, "qids": qids, "queries": queries,
+            "positives": positives, "splits": splits}
+
+
+def _check_preprocessed(data: Path, raw: dict) -> None:
+    """Every passage record holds the tokenizer's ids for its raw line (cut
+    to the sequence, padded with 1); every query record its query's; each
+    offset-space qrel points at the rows of its query and its positive."""
+    import numpy as np
+    from ance_tpu_torch.data.cache import TokenCache
+    from ance_tpu_torch.data.preprocess import load_id_map
+    tok = WordHashTokenizer()
+    pid2off = load_id_map(str(data / "pid2offset.pickle"))
+    check(sorted(pid2off) == raw["pids"].tolist()
+          and sorted(pid2off.values()) == list(range(WARMUP_PASSAGES)),
+          "pid2offset does not map every passage id onto the rows")
+    with TokenCache(str(data / "passages")) as pc:
+        lengths, tokens = pc.batch([pid2off[int(p)] for p in raw["pids"]])
+    for text, n, row in zip(raw["texts"], lengths, tokens):
+        ids = tok.encode(text, max_length=PASSAGE_LEN)
+        check(n == len(ids) and row[:n].tolist() == ids
+              and bool((row[n:] == 1).all()),
+              "a passage record is not its line's tokens")
+    for split, n_split in (("train", WARMUP_TRAIN_QUERIES),
+                           ("dev", WARMUP_DEV_QUERIES)):
+        q2off = load_id_map(str(data / f"{split}-query_qid2offset.pickle"))
+        sl = raw["splits"][split]
+        check(len(q2off) == n_split, f"{split}: {len(q2off)} queries mapped")
+        with TokenCache(str(data / f"{split}-query")) as qc:
+            lengths, tokens = qc.batch([q2off[int(q)] for q in raw["qids"][sl]])
+        for text, n, row in zip(raw["queries"][sl], lengths, tokens):
+            ids = tok.encode(text, max_length=QUERY_LEN)
+            check(n == len(ids) and row[:n].tolist() == ids,
+                  f"a {split} query record is not its line's tokens")
+        want = sorted((q2off[int(q)], pid2off[int(raw["pids"][p])])
+                      for q, p in zip(raw["qids"][sl],
+                                      raw["positives"][sl]))
+        got = sorted(tuple(map(int, line.split("\t")[:2])) for line in
+                     (data / f"{split}-qrel.tsv").read_text().splitlines())
+        check(got == want, f"{split}-qrel.tsv does not point at the rows "
+              "of its queries and positives")
+
+
+@contextlib.contextmanager
+def _warmup_probes():
+    """Hooks around ``cli warmup``: the tokenizer factory replaced by
+    :class:`WordHashFactory` (also in spawned workers, which unpickle it;
+    ``_load_tokenizer`` refuses, so no hub is ever tried), each train
+    step's host-clock ms (a device synchronize before it and the loss read
+    after it), each in-training eval's seconds, each run's full history,
+    and the seconds of each tokenization fan-out (the corpus's first)."""
+    import torch
+    from ance_tpu_torch import cli
+    from ance_tpu_torch.data import preprocess
+    from ance_tpu_torch.evaluation import mrr_eval
+    from ance_tpu_torch.train import warmup
+
+    probes = {"step_ms": [], "eval_s": [], "histories": [], "tokenize_s": []}
+    real = {"factory": cli.TokenizerFactory,
+            "tokenize": preprocess.multi_process_tokenize,
+            "tokenizer": cli._load_tokenizer,
+            "make": cli._make_training, "eval": mrr_eval.passage_dist_eval,
+            "run": warmup.run_warmup}
+
+    def no_tokenizer(name, model_dir):
+        raise OSError(f"no tokenizer files in {model_dir}")
+
+    def make_training(*args, **kwargs):
+        state, step = real["make"](*args, **kwargs)
+
+        def timed(state, batch, generator):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, generator)
+            float(metrics["loss"])
+            probes["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            return state, metrics
+        return state, timed
+
+    def evaluate(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real["eval"](*args, **kwargs)
+        probes["eval_s"].append(time.perf_counter() - t0)
+        return out
+
+    def run(*args, **kwargs):
+        state, history = real["run"](*args, **kwargs)
+        probes["histories"].append(history)
+        return state, history
+
+    def tokenize(*args, **kwargs):
+        t0 = time.perf_counter()
+        real["tokenize"](*args, **kwargs)
+        probes["tokenize_s"].append(time.perf_counter() - t0)
+
+    cli.TokenizerFactory, cli._load_tokenizer = WordHashFactory, no_tokenizer
+    cli._make_training, mrr_eval.passage_dist_eval = make_training, evaluate
+    warmup.run_warmup, preprocess.multi_process_tokenize = run, tokenize
+    try:
+        yield probes
+    finally:
+        preprocess.multi_process_tokenize = real["tokenize"]
+        cli.TokenizerFactory = real["factory"]
+        cli._load_tokenizer = real["tokenizer"]
+        cli._make_training = real["make"]
+        mrr_eval.passage_dist_eval = real["eval"]
+        warmup.run_warmup = real["run"]
+
+
+def phase_warmup(work: Path):
+    """The front of the ANCE pipeline as its runbook drives it
+    (``commands/run_msmarco_firstp.sh``: preprocess, BM25 warmup, then the
+    generator from the warmup checkpoint), through the port's CLI in
+    process at full RoBERTa-base width from the serve phase's seeded
+    weights: ``preprocess`` of raw TSVs over PREPROCESS_WORKERS spawned
+    workers; ``warmup`` (bf16, LAMB at 2e-4, batch 32, seq 128) to
+    WARMUP_STEPS with two in-training evals, then a second run to twice
+    that which must resume; ``generate --training_dir`` on the warmup
+    checkpoint (an fp32 index: block-max launches counted from 0 just
+    before it, read just after) with ``infer`` + ``eval-full``;
+    ``export-hf`` and ``serve`` from the export."""
+    import numpy as np
+    import torch
+    from ance_tpu_torch.data.feed import parse_triple_line
+    from ance_tpu_torch.models.dot_models import RobertaDot
+    from ance_tpu_torch.models.registry import get_model_spec
+    from ance_tpu_torch.models.weights import load_pretrained
+    from ance_tpu_torch.train import ann_gen, checkpoint as ckpt
+    from ance_tpu_torch.train.ance_loop import load_offset_qrels
+
+    torch.cuda.reset_peak_memory_stats()
+    weights = work / "roberta_base_seeded"
+    raw_dir, data = work / "warm_raw", work / "warm_data"
+    raw = _write_raw_msmarco(raw_dir, np.random.RandomState(14))
+    seq_flags = ["--max_seq_length", str(PASSAGE_LEN),
+                 "--max_query_length", str(QUERY_LEN)]
+    with _warmup_probes() as probes:
+        # 1. preprocess over spawned workers
+        t0 = time.perf_counter()
+        maps = _cli(["preprocess", "--data_dir", str(raw_dir),
+                     "--out_data_dir", str(data), *seq_flags,
+                     "--num_processes", str(PREPROCESS_WORKERS)])
+        pre_s = time.perf_counter() - t0
+        check(maps == {"pid2offset": WARMUP_PASSAGES,
+                       "train_qid2offset": WARMUP_TRAIN_QUERIES,
+                       "dev_qid2offset": WARMUP_DEV_QUERIES},
+              f"preprocess map sizes {maps}")
+        _check_preprocessed(data, raw)
+        corpus_s = probes["tokenize_s"][0]
+        print(f"preprocess: {WARMUP_PASSAGES} passages, "
+              f"{WARMUP_TRAIN_QUERIES} + {WARMUP_DEV_QUERIES} queries over "
+              f"{PREPROCESS_WORKERS} spawned workers in {pre_s:.2f} s; the "
+              f"corpus's fan-out {corpus_s:.2f} s "
+              f"({WARMUP_PASSAGES / corpus_s:.0f} passages/s, the workers' "
+              "start-up included); every record == the tokenizer's ids for "
+              "its line; qrels point at their rows", flush=True)
+
+        # 2. warmup to WARMUP_STEPS, then a rerun to twice that: a resume
+        warm = work / "warm_ckpt"
+        warm_flags = [
+            "warmup", "--device", "cuda", "--bf16", "--model_name_or_path",
+            str(weights), "--train_file",
+            str(raw_dir / "triples.train.small.tsv"), "--output_dir",
+            str(warm), "--optimizer", "lamb", "--learning_rate", "2e-4",
+            "--warmup_steps", "8", "--save_steps", str(WARMUP_SAVE),
+            "--evaluate_during_training", "--eval_steps", str(WARMUP_SAVE),
+            "--log_trust_ratios", "--data_dir", str(raw_dir),
+            "--per_device_train_batch_size", str(WARMUP_BATCH), *seq_flags]
+        t0 = time.perf_counter()
+        _cli(warm_flags + ["--max_steps", str(WARMUP_STEPS)])
+        _cli(warm_flags + ["--max_steps", str(2 * WARMUP_STEPS)])
+        warm_s = time.perf_counter() - t0
+    first, second = probes["histories"]
+    for history, steps in ((first, range(1, WARMUP_STEPS + 1)),
+                           (second, range(WARMUP_STEPS + 1,
+                                          2 * WARMUP_STEPS + 1))):
+        losses = [h for h in history if "loss" in h]
+        evals = [h for h in history if "reranking_mrr" in h]
+        ratios = [h for h in history if "trust_ratio_mean" in h]
+        check([h["step"] for h in losses] == list(steps),
+              f"warmup trained steps {[h['step'] for h in losses]}")
+        check(all(math.isfinite(h["loss"]) for h in losses),
+              f"warmup losses {[h['loss'] for h in losses]}")
+        check([h["step"] for h in evals] == [steps[WARMUP_SAVE - 1],
+                                             steps[-1]]
+              and all(0.0 <= h[k] <= 1.0 for h in evals
+                      for k in ("reranking_mrr", "full_ranking_mrr")),
+              f"warmup evals {evals}")
+        check([h["step"] for h in ratios] == [h["step"] for h in evals]
+              and all(0 < h["trust_ratio_min"] <= h["trust_ratio_mean"]
+                      <= h["trust_ratio_max"] < math.inf for h in ratios),
+              f"warmup trust ratios {ratios}")
+    final, step = ckpt.get_latest_checkpoint(str(warm))
+    saved = sorted(ckpt.checkpoint_no(d) for d in os.listdir(warm))
+    check(step == 2 * WARMUP_STEPS and ckpt.is_complete(final)
+          and saved == list(range(WARMUP_SAVE, 2 * WARMUP_STEPS + 1,
+                                  WARMUP_SAVE)),
+          f"warmup checkpoints at steps {saved}")
+    model = get_model_spec("rdot_nll").build()
+    load_pretrained(model, final)  # strict
+    start = torch.load(weights / "pytorch_model.bin", weights_only=True)
+    sd = model.state_dict()
+    check(all(bool(torch.isfinite(t).all()) for t in sd.values())
+          and max((sd[k] - start[k]).abs().max().item() for k in sd) > 0,
+          f"{final}: parameters not finite or not moved")
+    del model, sd, start
+    step_ms = statistics.median(probes["step_ms"][TIMED_FROM:])
+    losses = [h["loss"] for h in first + second if "loss" in h]
+    evals = [h for h in first + second if "reranking_mrr" in h]
+    mrrs = [(round(h["reranking_mrr"], 4), round(h["full_ranking_mrr"], 4))
+            for h in evals]
+    ratio_means = [h["trust_ratio_mean"] for h in first + second
+                   if "trust_ratio_mean" in h]
+    print(f"warmup: {2 * WARMUP_STEPS} steps of batch {WARMUP_BATCH} in two "
+          f"runs ({warm_s:.1f} s), the second resumed at step "
+          f"{WARMUP_STEPS}; step {step_ms:.1f} ms (median after the first "
+          f"{TIMED_FROM}); losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"evals {[round(s, 2) for s in probes['eval_s']]} s, MRR@10 "
+          f"rerank / full {mrrs}; trust ratio means {ratio_means}",
+          flush=True)
+
+    # 3. generate from the warmup checkpoint: the fp32 index's phase 1 on
+    #    blockmax_pieces_f32, twice (dev search and mining)
+    flags = ["--device", "cuda", "--bf16", "--model_name_or_path",
+             str(weights), "--data_dir", str(data), "--training_dir",
+             str(warm), *seq_flags, "--topk_training", str(GEN_TOPK),
+             "--negative_sample", str(GEN_NEGATIVES), "--ann_chunk_factor",
+             "1"]
+    results, real = [], ann_gen.generate_new_ann
+
+    def keep(*args, **kwargs):
+        results.append(real(*args, **kwargs))
+        return results[-1]
+
+    ann = work / "warm_ann"
+    ann_gen.generate_new_ann = keep
+    try:
+        torch.cuda.synchronize()
+        reset_blockmax_counts()
+        t0 = time.perf_counter()
+        summary = _cli(["generate", *flags, "--output_dir", str(ann)])
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = blockmax_counts()
+    finally:
+        ann_gen.generate_new_ann = real
+    result = results.pop()
+    check(launches == {"blockmax_pieces_f32": 2}, "generate from the warmup "
+          f"checkpoint launched {launches}, not blockmax_pieces_f32 twice")
+    check(summary["checkpoint"] == final, f"generate loaded "
+          f"{summary['checkpoint']}, not {final}")
+    index = result["index"]
+    index.method = "scan"
+    _, scan_ids = index.search(result["train_query_embedding"], GEN_TOPK)
+    same = (scan_ids.cpu().numpy() == result["train_neighbor_ids"]).mean()
+    check(same == 1.0, f"warmup generate: mining ids equal the scan on "
+          f"{same:.6f} of positions, not all")
+    positives = {q: next(iter(r)) for q, r in load_offset_qrels(
+        str(data / "train-qrel.tsv")).items()}
+    lines = (ann / "ann_training_data_0").read_text().splitlines()
+    check(len(lines) == WARMUP_TRAIN_QUERIES, f"{len(lines)} mined lines")
+    for line in lines:
+        qid, pos, negs = parse_triple_line(line)
+        check(pos == positives[qid] and pos not in negs,
+              f"bad mined line {line!r}")
+    del index, result, scan_ids
+    torch.cuda.empty_cache()
+    emb = work / "warm_emb"
+    _cli(["infer", *flags, "--output_dir", str(emb)])
+    pre = str(emb / "step0")
+    full = _cli(["eval-full", "--device", "cuda",
+                 "--query_prefix", pre + "_dev_query_emb_p_",
+                 "--query_id_prefix", pre + "_dev_query_embid_p_",
+                 "--passage_prefix", pre + "_passage_emb_p_",
+                 "--passage_id_prefix", pre + "_passage_embid_p_",
+                 "--qrels", str(data / "dev-qrel.tsv")])
+    gap = abs(full["ndcg_10"] - summary["dev_ndcg"])
+    check(gap <= 1e-12, f"eval-full ndcg_10 {full['ndcg_10']} vs generate's "
+          f"dev_ndcg {summary['dev_ndcg']}")
+    print(f"generate --training_dir (warmup {final}): {gen_s:.1f} s, "
+          f"{launches} ; mining ids == scan at k={GEN_TOPK}; dev NDCG@10 "
+          f"{summary['dev_ndcg']!r} == eval-full's {full['ndcg_10']!r} "
+          f"(within 1e-12)", flush=True)
+
+    # 4. export-hf, then serve from the export: the same rankings as from
+    #    the checkpoint, and bit-equal embeddings on one batch
+    export = work / "warm_export"
+    t0 = time.perf_counter()
+    exported = _cli(["export-hf", "--training_dir", str(warm), "--out_dir",
+                     str(export)])
+    export_s = time.perf_counter() - t0
+    check(exported["step"] == 2 * WARMUP_STEPS and exported["from"] == final
+          and sorted(os.listdir(export)) == ["config.json",
+                                             "pytorch_model.bin"],
+          f"export-hf: {exported}")
+    serve = ["serve", "--device", "cuda", "--bf16", "--data_dir", str(data),
+             "--query_cache", str(data / "dev-query"), "--topk", "10",
+             "--with_scores", *seq_flags]
+    served = _cli(serve + ["--model_name_or_path", str(export), "--output",
+                           str(work / "warm_rank_export.tsv")])
+    _cli(serve + ["--training_dir", str(warm), "--output",
+                  str(work / "warm_rank_ckpt.tsv")])
+    ranking = (work / "warm_rank_export.tsv").read_text()
+    check(served["params"] == str(export / "pytorch_model.bin")
+          and len(ranking.splitlines()) == WARMUP_DEV_QUERIES * 10
+          and ranking == (work / "warm_rank_ckpt.tsv").read_text(),
+          "serve from the export does not rank as serve from the checkpoint")
+    from ance_tpu_torch.data.cache import TokenCache
+    from ance_tpu_torch.train.encode import make_encode_fn
+    rows = np.arange(min(128, WARMUP_DEV_QUERIES))
+    with TokenCache(str(data / "passages")) as pc:
+        p_ids = pc.batch(rows)[1].copy()
+    with TokenCache(str(data / "dev-query")) as qc:
+        q_ids = qc.batch(rows)[1].copy()
+    embs = []
+    for path in (export, Path(final)):
+        m = get_model_spec("rdot_nll").build(dtype=torch.bfloat16)
+        load_pretrained(m, str(path))  # strict
+        m = m.to("cuda")
+        embs.append([make_encode_fn(m, method, "cuda")(ids, ids != 1)
+                     for method, ids in ((RobertaDot.query_emb, q_ids),
+                                         (RobertaDot.body_emb, p_ids))])
+        del m
+    check(all(torch.equal(a, b) for a, b in zip(*embs)),
+          "the export's embeddings are not bit-equal to the checkpoint's")
+    del embs
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"export-hf: step {exported['step']} in {export_s:.2f} s; serve "
+          "from the export == serve from the checkpoint (rankings byte "
+          f"for byte), query and passage embeddings bit-equal on {len(rows)} "
+          "rows; "
+          f"peak {peak:.2f} GiB", flush=True)
+    check(no_reference_modules(), "the port imported jax or ance_tpu")
+    return {"preprocess_s": pre_s, "tokenize_s": probes["tokenize_s"],
+            "preprocess_passages_per_s": WARMUP_PASSAGES / corpus_s,
+            "warmup_step_ms": step_ms, "warmup_steps_ms": probes["step_ms"],
+            "warmup_losses": losses,
+            "warmup_evals": evals, "eval_s": probes["eval_s"],
+            "generate_s": gen_s, "blockmax_kernels": launches,
+            "dev_ndcg": summary["dev_ndcg"],
+            "eval_full_ndcg_10": full["ndcg_10"], "export_s": export_s,
+            "peak_gib": peak}
+
+
 LOOP_SLICE, LOOP_STEPS_PER_SLICE = 4096, 8  # passages an E item; steps an item
 MAXP_LOOP_SLICE = 128  # documents an E item of the MaxP loop (4 batches)
 IDLE_SEARCHES = 100  # live B=1 searches timed after the run, the loop idle
@@ -3281,6 +3731,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import ance_tpu_torch  # noqa: F401  (TF32 off before any work)
+    # no tokenizer or model is looked up on a hub: the smoke needs no
+    # network (spawned workers inherit this)
+    os.environ["HF_HUB_OFFLINE"] = os.environ["TRANSFORMERS_OFFLINE"] = "1"
 
     name = phase_device()
     build_s, built = phase_build()
@@ -3299,6 +3752,7 @@ def main() -> int:
         train = phase_train(work)
         maxp_fp32 = phase_maxp_fp32(work)
         generate = phase_generate(work)
+        warmup = phase_warmup(work)
         ance_loop = phase_ance_loop(work, generate, train)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3369,6 +3823,7 @@ def main() -> int:
         "maxp_serve": maxp["blockmax_kernels"],
         "generate": generate["blockmax_kernels"],
         "generate_index_quantize_dims": generate["dims_blockmax_kernels"],
+        "warmup_generate": warmup["blockmax_kernels"],
         "ance_loop": ance_loop["firstp"]["blockmax_kernels"],
         "ance_loop_dims": ance_loop["dims"]["blockmax_kernels"],
         "ance_loop_maxp": ance_loop["maxp"]["blockmax_kernels"],
@@ -3387,6 +3842,10 @@ def main() -> int:
                   "blockmax", own)
         e["gemm_ms"] = head["gemm_ms"]
         e["fp32_rate_bound_ms"] = head["fp32_rate_bound_ms"]
+        if kernel == "blockmax_pieces_f32":  # generate from a warmup too
+            e["launches_by_path"] = {
+                "generate": launches,
+                "warmup_generate": warmup["blockmax_kernels"][kernel]}
         fp32_entries.append(e)
     # the int8 routes, with their launches on the int8 phase-1 study's path
     # and their yardstick (the same product at a library's rate)
@@ -3469,7 +3928,7 @@ def main() -> int:
         "crossover": crossover, "serve": serve, "maxp": maxp,
         "train": train, "maxp_fp32": maxp_fp32, "step_parity": parity,
         "mirror_encoder": mirror,
-        "generate": generate, "ance_loop": ance_loop,
+        "generate": generate, "warmup": warmup, "ance_loop": ance_loop,
         "topk_int8": topk_int8}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

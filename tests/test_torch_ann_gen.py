@@ -207,10 +207,11 @@ class _Tok:
 def test_dual_batches_and_embed_text_file_match_jax(tmp_path):
     from ance_tpu.data.process_fn import dual_batches as jax_dual
     from ance_tpu.evaluation import mrr_eval as jax_mrr
+    from ance_tpu_torch.data.process_fn import dual_batches
     from ance_tpu_torch.evaluation import mrr_eval
     lines = [f"{100 + i}\t{' '.join('w' * (j % 5 + 1) for j in range(i))}\n"
              for i in range(11)]
-    for got, want in zip(mrr_eval.dual_batches(_Tok(), lines, 4, 6),
+    for got, want in zip(dual_batches(_Tok(), lines, 4, 6),
                          jax_dual(_Tok(), lines, 4, 6), strict=True):
         assert sorted(got) == sorted(want)
         for key in want:

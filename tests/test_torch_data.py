@@ -17,7 +17,7 @@ from ance_tpu.data.feed import mask_from_lengths as jax_mask
 from ance_tpu.data.process_fn import encode_padded as jax_encode_padded
 from ance_tpu_torch import cli as port_cli
 from ance_tpu_torch.data.cache import TokenCache, TokenCacheWriter
-from ance_tpu_torch.serve import encode_padded
+from ance_tpu_torch.data.process_fn import encode_padded
 from ance_tpu_torch.train.encode import mask_from_lengths
 
 torch.set_num_threads(1)

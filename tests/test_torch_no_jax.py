@@ -1,6 +1,6 @@
-"""The torch port never imports jax, nor any module of the JAX package,
-while it serves, trains, generates and runs the pipelined refresh
-(``ance-loop``). Checked in a fresh interpreter, because this test process already has jax
+"""The torch port never imports jax, flax or msgpack, nor any module of
+the JAX package, while it preprocesses, warms up, exports, serves, trains,
+generates and runs the pipelined refresh (``ance-loop``). Checked in a fresh interpreter, because this test process already has jax
 (tests/conftest.py imports it)."""
 
 import os
@@ -119,8 +119,58 @@ SCRIPT = textwrap.dedent("""
     q, qs = study.make_queries(3, corpus["scales"], g)
     for fn in study.search_fns(q, qs, corpus, 4).values():
         assert fn()[1].shape == (3, 4)
+
+    # the front of the pipeline: preprocess raw TSVs (a word tokenizer in
+    # place of the HF one), warmup with an eval, export-hf, a msgpack read
+    import zlib
+    from ance_tpu_torch import cli
+    from ance_tpu_torch.train.flax_msgpack import msgpack_restore
+
+    class Words:
+        pad_token_id, sep_token = 1, "</s>"
+
+        def encode(self, text, add_special_tokens=True, max_length=None):
+            ids = [0] + [3 + zlib.crc32(w.encode()) % 40
+                         for w in text.split()] + [2]
+            return ids[:max_length]
+
+    cli._load_tokenizer = lambda name, model_dir: Words()
+    raw = f"{d}/raw"
+    os.mkdir(raw)
+    texts = [" ".join(f"w{(7 * i + j) % 13}" for j in range(2 + i % 5))
+             for i in range(10)]
+    with open(f"{raw}/collection.tsv", "w") as f:
+        f.writelines(f"{i}\\t{t}\\n" for i, t in enumerate(texts))
+    for split, qf, rf in (("train", "queries.train.tsv", "qrels.train.tsv"),
+                          ("dev", "queries.dev.small.tsv",
+                           "qrels.dev.small.tsv")):
+        with open(f"{raw}/{qf}", "w") as f, open(f"{raw}/{rf}", "w") as r:
+            for q in range(4):
+                f.write(f"{q}\\t{texts[q][:5]}\\n")
+                r.write(f"{q}\\t0\\t{q}\\t1\\n")
+    with open(f"{raw}/top1000.dev", "w") as f:
+        f.writelines(f"{q}\\t{p}\\tq\\tp\\n" for q in range(4)
+                     for p in range(6))
+    with open(f"{raw}/triples.tsv", "w") as f:
+        f.writelines(f"{texts[i][:5]}\\t{texts[i]}\\t{texts[i + 1]}\\n"
+                     for i in range(8))
+    main(["preprocess", "--data_dir", raw, "--out_data_dir", f"{d}/pre",
+          "--max_seq_length", "12", "--max_query_length", "6",
+          "--num_processes", "1"])
+    assert os.path.exists(f"{d}/pre/dev-qrel.tsv")
+    main(["warmup", "--device", "cpu", "--encoder_overrides",
+          json.dumps(tiny), "--train_file", f"{raw}/triples.tsv",
+          "--output_dir", f"{d}/warm", "--max_steps", "2", "--save_steps",
+          "2", "--per_device_train_batch_size", "4", "--max_seq_length",
+          "12", "--max_query_length", "6", "--evaluate_during_training",
+          "--eval_steps", "2", "--data_dir", raw])
+    main(["export-hf", "--encoder_overrides", json.dumps(tiny),
+          "--training_dir", f"{d}/warm", "--out_dir", f"{d}/hf"])
+    assert os.path.exists(f"{d}/hf/config.json")
+    assert msgpack_restore(b"\\x81\\xa1a\\x01") == {"a": 1}
     assert "jax" not in sys.modules, "the port pulled in jax"
     assert "flax" not in sys.modules
+    assert "msgpack" not in sys.modules
     old = sorted(m for m in sys.modules
                  if m == "ance_tpu" or m.startswith("ance_tpu."))
     assert not old, f"the port imported the JAX package: {old}"

@@ -377,13 +377,15 @@ def test_serve_cli_refuses_missing_cuda_and_unported_paths(slice_inputs):
             port_main(base)
     with pytest.raises(SystemExit, match="ROADMAP"):
         port_main(base + ["--device", "cpu", "--index", "ivf"])
-    # --training_dir reads the port's checkpoints (pytorch_model.bin); a
-    # JAX-native one (params.msgpack) is refused with the way to export it
+    # --training_dir reads the port's checkpoints and the JAX package's
+    # msgpack ones (tests/test_torch_native_checkpoint.py); an empty
+    # params.msgpack is refused, naming the file
     native = root / "native" / "checkpoint-3"
     native.mkdir(parents=True, exist_ok=True)
     (native / "params.msgpack").write_bytes(b"")
     (native / "DONE").write_text("3")
-    with pytest.raises(SystemExit, match="export-hf"):
+    with pytest.raises(SystemExit, match=r"checkpoint-3/params\.msgpack: "
+                       r"not a flax msgpack checkpoint \(empty\)"):
         port_main(base + ["--device", "cpu", "--training_dir",
                           str(root / "native")])
     with pytest.raises(SystemExit, match="not ported"):
