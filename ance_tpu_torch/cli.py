@@ -1,13 +1,13 @@
 """Command line of the torch port: ``python -m ance_tpu_torch.cli
-{preprocess,warmup,train,generate,infer,ance-loop,serve,export-hf,eval,
-eval-full}``.
+{preprocess,preprocess-dpr,warmup,train,generate,generate-dpr,infer,
+ance-loop,serve,export-hf,eval,eval-full}``.
 
 Counterpart of the same subcommands of ``ance_tpu/cli.py``, with the same
 flags plus ``--device`` where a command computes on a device (default
 ``cuda``; asking for CUDA where none exists exits, it never carries on on
 the CPU) and minus the multi-device ones (``--tensor_parallel``, the mesh:
-ROADMAP Queue 1 #11). ``preprocess-dpr``, ``generate-dpr`` and
-``seed-pretrain`` come with DPR and SEED (ROADMAP Queue 1 #8, #9).
+ROADMAP Queue 1 #11). ``seed-pretrain`` comes with SEED (ROADMAP Queue 1
+#9).
 
 ``preprocess`` turns raw MS MARCO TSVs into token caches, id maps and
 offset-space qrels over ``--num_processes`` spawned workers and prints the
@@ -17,15 +17,25 @@ newest complete checkpoint), evaluates dev MRR with
 ``--evaluate_during_training`` and prints the last three history entries.
 ``export-hf`` writes the newest complete checkpoint of ``--training_dir``
 (or ``--init_model_dir``) as an HF ``pytorch_model.bin`` + ``config.json``
-directory. Every command that loads weights reads the port's checkpoints
-and the JAX package's msgpack ones.
+directory, or with ``--model_type dpr`` as a DPR ``CheckpointState`` file.
+Every command that loads weights reads the port's checkpoints and the JAX
+package's msgpack ones (a DPR model also a ``CheckpointState``).
+
+DPR (``--model_type dpr``, the BiEncoder): ``preprocess-dpr`` turns
+``psgs_w100.tsv`` and the NQ / TriviaQA files into caches, ``-ann`` /
+``-data`` files and ``pid2offset``; ``train`` trains with the in-batch
+loss (``--gradient_accumulation_steps`` keeps the global softmax), from
+``--ann_dir`` or for ``--num_epoch`` epochs over ``train-data`` with a
+dev evaluation a epoch (``--dev_data``); ``generate-dpr`` is one pass of
+its generator (answer-validated test searches, answer-filtered mining).
 
 ``serve`` batch mode writes ``qid\\tpid\\trank[\\tscore]`` lines in real id
 space, as the JAX CLI does; ``--http HOST:PORT`` serves the JSON API of
 :mod:`ance_tpu_torch.serve_http` instead. ``train`` is the ANCE trainer
-job: it polls ``--ann_dir`` for ann data and writes ``checkpoint-<step>``
-directories to ``--output_dir``, then prints one JSON line of its
-per-step losses, gradient norms and step times. ``generate`` is one pass
+job: it polls ``--ann_dir`` for ann data (or, for DPR, trains
+``--num_epoch`` epochs) and writes ``checkpoint-<step>`` directories to
+``--output_dir``, then prints one JSON line of its per-step losses,
+gradient norms and step times. ``generate`` is one pass
 of the generator job (encode, index, dev NDCG, mining, then
 ``ann_training_data_<n>`` and ``ann_ndcg_<n>``) with the newest complete
 checkpoint under ``--training_dir``; ``infer`` stops after the encode and
@@ -148,6 +158,13 @@ def _model_spec(model_type: str):
         raise SystemExit(str(e))
 
 
+def _body_method(model, spec):
+    """The unbound method that encodes passages: MaxP's chunked encode, or
+    the model's ``body_emb`` (the BiEncoder's context tower)."""
+    return type(model).body_emb_multichunk if spec.multichunk \
+        else type(model).body_emb
+
+
 def _build_model(args, device, seed: int = 0, warn_random: bool = True):
     """Registry model at the requested dtype (seeded init), moved to
     ``device``. Weights come from the newest complete checkpoint under
@@ -196,7 +213,6 @@ def cmd_serve(args):
     import torch
     from ance_tpu_torch.data.cache import TokenCache
     from ance_tpu_torch.index.flat import FlatIPIndex
-    from ance_tpu_torch.models.dot_models import RobertaDot
     from ance_tpu_torch.train.encode import encode_cache, make_encode_fn
     from ance_tpu_torch.utils.device import resolve_device
 
@@ -238,9 +254,7 @@ def cmd_serve(args):
                              "--emb_id_prefix")
         e2id = e2id.astype(np.int64)
     else:
-        body = RobertaDot.body_emb_multichunk if spec.multichunk \
-            else RobertaDot.body_emb
-        bfn = make_encode_fn(model, body, device)
+        bfn = make_encode_fn(model, _body_method(model, spec), device)
         with TokenCache(args.data_dir + "/passages") as pc:
             emb, e2id = encode_cache(bfn, pc, args.per_device_eval_batch_size,
                                      multichunk=spec.multichunk)
@@ -283,7 +297,6 @@ def cmd_serve(args):
 
 def _serve_with_index(args, spec, model, params_source, index, e2id,
                       pid_space, device):
-    from ance_tpu_torch.models.dot_models import RobertaDot
     from ance_tpu_torch.serve import Retriever
     from ance_tpu_torch.train.encode import make_encode_fn
 
@@ -299,7 +312,8 @@ def _serve_with_index(args, spec, model, params_source, index, e2id,
                 raise
             print(f"WARNING: no tokenizer ({e}); HTTP mode will accept "
                   "token arrays (ids/mask) only", file=sys.stderr)
-    retriever = Retriever(make_encode_fn(model, RobertaDot.query_emb, device),
+    retriever = Retriever(make_encode_fn(model, type(model).query_emb,
+                                         device),
                           index, embedding2id=e2id, tokenizer=tokenizer,
                           max_query_length=args.max_query_length)
 
@@ -412,6 +426,7 @@ def _make_training(args, model, spec):
     """(state, train step) for ``train``, as ``ance_tpu/cli.py``'s
     ``_make_training`` builds them on one device."""
     from ance_tpu_torch.optim.schedules import warmup_cosine, warmup_linear
+    from ance_tpu_torch.train.dpr_trainer import make_dpr_train_step
     from ance_tpu_torch.train.trainer import (init_train_state,
                                               make_optimizer,
                                               make_train_step,
@@ -440,10 +455,17 @@ def _make_training(args, model, spec):
                              eps=args.adam_epsilon,
                              weight_decay=args.weight_decay,
                              max_grad_norm=args.max_grad_norm)
-    step = make_train_step(
-        triplet_loss_fn(multichunk=spec.multichunk,
-                        fused_body=args.fused_body),
-        accum_steps=args.gradient_accumulation_steps)
+    if spec.loss == "dpr_inbatch":
+        # accumulation keeps the global softmax (the GradCache step), so
+        # the published DPR configs' large batches fit in micro-batch
+        # memory (reference run_ann_dpr.py:65, 226)
+        step = make_dpr_train_step(
+            accum_steps=args.gradient_accumulation_steps)
+    else:
+        step = make_train_step(
+            triplet_loss_fn(multichunk=spec.multichunk,
+                            fused_body=args.fused_body),
+            accum_steps=args.gradient_accumulation_steps)
     return init_train_state(model, opt), step
 
 
@@ -470,7 +492,6 @@ def cmd_warmup(args):
     checkpoint in ``--output_dir``, skipping the batches it trained, train
     off ``--train_file``, and evaluate dev MRR every ``--eval_steps`` with
     ``--evaluate_during_training``."""
-    from ance_tpu_torch.models.dot_models import RobertaDot
     from ance_tpu_torch.train import checkpoint as ckpt
     from ance_tpu_torch.train.warmup import WarmupConfig, run_warmup
     from ance_tpu_torch.utils.device import resolve_device
@@ -495,9 +516,9 @@ def cmd_warmup(args):
         def eval_fn(model):
             model.eval()
             return passage_dist_eval(
-                query_encode_fn=make_encode_fn(model, RobertaDot.query_emb,
+                query_encode_fn=make_encode_fn(model, type(model).query_emb,
                                                device),
-                body_encode_fn=make_encode_fn(model, RobertaDot.body_emb,
+                body_encode_fn=make_encode_fn(model, type(model).body_emb,
                                               device),
                 tokenizer=tokenizer,
                 queries_path=os.path.join(d, "queries.dev.small.tsv"),
@@ -527,53 +548,88 @@ def cmd_warmup(args):
 
 
 def cmd_train(args):
-    """The ANCE trainer job (``ance train``, the reference's run_ann.py):
-    poll ``--ann_dir``, train, checkpoint into ``--output_dir``."""
+    """The trainer job (``ance train``, the reference's run_ann.py and, for
+    DPR, run_ann_dpr.py): poll ``--ann_dir``, or train ``--num_epoch``
+    epochs over ``{data_dir}/train-data`` (DPR), and checkpoint into
+    ``--output_dir``."""
     import time
 
     import torch
     from ance_tpu_torch.data.cache import TokenCache
+    from ance_tpu_torch.data.feed import expand_triples, sample_one_neg_triples
     from ance_tpu_torch.train.ance_loop import AnceCycleConfig, run_trainer_job
     from ance_tpu_torch.utils.device import resolve_device
 
-    if args.num_epoch > 0:
+    dpr = _model_spec(args.model_type).loss == "dpr_inbatch"
+    if args.num_epoch > 0 and not dpr:
         raise SystemExit("--num_epoch is the DPR trainer's fixed-epoch mode; "
-                         "DPR is not ported to torch yet (ROADMAP Queue 1 #8)")
-    if not args.ann_dir:
+                         "use --model_type dpr")
+    if args.num_epoch <= 0 and not args.ann_dir:
         raise SystemExit("--ann_dir is required unless --num_epoch > 0")
     device = resolve_device(args.device)
     spec, model, params_source, _ = _build_model(args, device,
                                                  seed=args.seed,
                                                  warn_random=False)
     state, step = _make_training(args, model, spec)
-    history = {"loss": [], "grad_norm": [], "step_ms": []}
+    record = {"loss": [], "grad_norm": [], "step_ms": []}
     last = [time.perf_counter()]
 
-    def on_step(n, metrics):
+    def recorded(state, batch, generator):
+        state, metrics = step(state, batch, generator)
         # reading the loss waits for the step, as the JAX job's per-step
         # read of its step counter does
-        history["loss"].append(float(metrics["loss"]))
-        history["grad_norm"].append(float(metrics["grad_norm"]))
+        record["loss"].append(float(metrics["loss"]))
+        record["grad_norm"].append(float(metrics["grad_norm"]))
         now = time.perf_counter()
-        history["step_ms"].append((now - last[0]) * 1000.0)
+        record["step_ms"].append((now - last[0]) * 1000.0)
         last[0] = now
+        return state, metrics
 
-    cycle_cfg = AnceCycleConfig(batch_size=args.per_device_train_batch_size,
-                                shuffle_seed=args.seed,
-                                feed_workers=args.feed_workers)
+    generator = torch.Generator().manual_seed(args.seed)
+    history = None
     with TokenCache(args.data_dir + "/train-query") as qc, \
             TokenCache(args.data_dir + "/passages") as pc:
-        state = run_trainer_job(
-            cycle_cfg, state=state, train_step=step,
-            generator=torch.Generator().manual_seed(args.seed),
-            query_cache=qc, passage_cache=pc, ann_dir=args.ann_dir,
-            training_dir=args.output_dir, max_steps=args.max_steps,
-            save_every=args.save_steps,
-            rewarmup_per_dataset=args.rewarmup_per_dataset, on_step=on_step)
-    print(json.dumps({"steps": state.step, "params": params_source,
-                      "checkpoint": os.path.join(
-                          args.output_dir, f"checkpoint-{state.step}"),
-                      **history}))
+        if args.num_epoch > 0:
+            # the fixed-epoch alternative to polling (reference
+            # run_ann_dpr.py:179-211)
+            from ance_tpu_torch.train.dpr_trainer import (evaluate_dev,
+                                                          run_dpr_epochs)
+            dev_eval_fn = None
+            if args.dev_data:
+                # the dev triples' qids are offsets into dev-query (the
+                # reference's evaluate_dev opens it); the JAX CLI passes
+                # train-query here (ROADMAP Queue 3)
+                def dev_eval_fn(model):
+                    with TokenCache(args.data_dir + "/dev-query") as dc:
+                        return evaluate_dev(
+                            model, dc, pc, args.dev_data,
+                            batch_size=args.per_device_train_batch_size)
+            state, history = run_dpr_epochs(
+                state=state, train_step=recorded, generator=generator,
+                query_cache=qc, passage_cache=pc,
+                train_data_path=args.data_dir + "/train-data",
+                num_epochs=args.num_epoch,
+                batch_size=args.per_device_train_batch_size,
+                shuffle_seed=args.seed, dev_eval_fn=dev_eval_fn,
+                checkpoint_dir=args.output_dir)
+        else:
+            cycle_cfg = AnceCycleConfig(
+                batch_size=args.per_device_train_batch_size,
+                shuffle_seed=args.seed, feed_workers=args.feed_workers)
+            state = run_trainer_job(
+                cycle_cfg, state=state, train_step=recorded,
+                generator=generator, query_cache=qc, passage_cache=pc,
+                ann_dir=args.ann_dir, training_dir=args.output_dir,
+                max_steps=args.max_steps, save_every=args.save_steps,
+                rewarmup_per_dataset=args.rewarmup_per_dataset,
+                triples_fn=sample_one_neg_triples if dpr else expand_triples)
+    summary = {"steps": state.step, "params": params_source,
+               "checkpoint": os.path.join(args.output_dir,
+                                          f"checkpoint-{state.step}"),
+               **record}
+    if history is not None:
+        summary["history"] = history
+    print(json.dumps(summary))
 
 
 def cmd_generate(args, inference_only: bool = False):
@@ -583,7 +639,6 @@ def cmd_generate(args, inference_only: bool = False):
     ``<init>`` when they came from no checkpoint."""
     import numpy as np
     from ance_tpu_torch.data.cache import TokenCache
-    from ance_tpu_torch.models.dot_models import RobertaDot
     from ance_tpu_torch.train.ance_loop import (load_offset_qrels,
                                                 positives_from_qrels)
     from ance_tpu_torch.train.ann_gen import AnnGenConfig, generate_new_ann
@@ -592,9 +647,8 @@ def cmd_generate(args, inference_only: bool = False):
 
     device = resolve_device(args.device)
     spec, model, _, ckpt_path = _build_model(args, device, warn_random=False)
-    qfn = make_encode_fn(model, RobertaDot.query_emb, device)
-    bfn = make_encode_fn(model, RobertaDot.body_emb_multichunk
-                         if spec.multichunk else RobertaDot.body_emb, device)
+    qfn = make_encode_fn(model, type(model).query_emb, device)
+    bfn = make_encode_fn(model, _body_method(model, spec), device)
     gen_cfg = AnnGenConfig(topk_training=args.topk_training,
                            negative_sample=args.negative_sample,
                            ann_chunk_factor=args.ann_chunk_factor,
@@ -646,6 +700,75 @@ def cmd_generate(args, inference_only: bool = False):
     print(json.dumps(paths))
 
 
+def cmd_preprocess_dpr(args):
+    """psgs_w100.tsv and the NQ / TriviaQA files → caches, ``-ann`` /
+    ``-data`` files and ``pid2offset`` (``ance preprocess-dpr``); prints
+    the count of each split."""
+    from ance_tpu_torch.data.dpr import DprPreprocessConfig, preprocess_dpr
+    spec = _model_spec(args.model_type)
+    cfg = DprPreprocessConfig(
+        wiki_dir=args.wiki_dir, question_dir=args.question_dir,
+        answer_dir=args.answer_dir, out_data_dir=args.out_data_dir,
+        data_type=args.data_type, max_seq_length=args.max_seq_length,
+        num_processes=args.num_processes)
+    result = preprocess_dpr(cfg, TokenizerFactory(spec.tokenizer_name,
+                                                  args.model_name_or_path))
+    print(json.dumps({k: len(v) if isinstance(v, dict) else v
+                      for k, v in result.items()}))
+
+
+def cmd_generate_dpr(args):
+    """One DPR generator pass (``ance generate-dpr``) with the weights
+    :func:`_build_model` loads: the test questions' top-k hit curves, the
+    train questions' answer-filtered negatives, then
+    ``ann_training_data_<n>`` and ``ann_ndcg_<n>``. The test answers come
+    from ``{data_dir}/test-ann`` where it exists, else ``--test_qas``."""
+    from ance_tpu_torch.data.cache import TokenCache
+    from ance_tpu_torch.data.dpr import (load_answers, load_mapping,
+                                         load_passage_texts,
+                                         load_positive_ids, load_qas_answers)
+    from ance_tpu_torch.train.dpr_gen import generate_new_ann_dpr
+    from ance_tpu_torch.train.encode import make_encode_fn
+    from ance_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    spec, model, _, ckpt_path = _build_model(args, device, warn_random=False)
+    pid2offset, _ = load_mapping(args.data_dir, "pid2offset")
+    raw = load_passage_texts(args.wiki_path)
+    passage_texts = {pid2offset[p]: t for p, t in raw.items()
+                     if p in pid2offset}
+    test_ann = args.data_dir + "/test-ann"
+    test_answers = load_answers(test_ann) if os.path.exists(test_ann) \
+        else load_qas_answers(args.test_qas)
+    with TokenCache(args.data_dir + "/train-query") as tq, \
+            TokenCache(args.data_dir + "/test-query") as te, \
+            TokenCache(args.data_dir + "/trivia-test-query") as tr, \
+            TokenCache(args.data_dir + "/passages") as pc:
+        result = generate_new_ann_dpr(
+            output_num=args.output_num,
+            checkpoint_path=ckpt_path or "<init>",
+            query_encode_fn=make_encode_fn(model, type(model).query_emb,
+                                           device),
+            body_encode_fn=make_encode_fn(model, _body_method(model, spec),
+                                          device),
+            train_query_cache=tq, test_query_cache=te,
+            trivia_test_query_cache=tr, passage_cache=pc,
+            passage_texts=passage_texts,
+            train_answers=load_answers(args.data_dir + "/train-ann"),
+            test_answers=test_answers,
+            trivia_test_answers=load_qas_answers(args.trivia_qas),
+            training_query_positive_id=load_positive_ids(
+                args.data_dir + "/train-data"),
+            output_dir=args.output_dir, device=device,
+            topk_training=args.topk_training,
+            negative_sample=args.negative_sample,
+            encode_batch_size=args.per_device_eval_batch_size,
+            index_quantize=args.index_quantize)
+    print(json.dumps({k: result[k] for k in (
+        "top20", "top100", "top20_trivia", "top100_trivia", "data_path",
+        "ndcg_path", "seconds")} | {"checkpoint": ckpt_path or "<init>"}))
+
+
 def cmd_ance_loop(args):
     """The single-program pipelined refresh (``ance ance-loop``) on one
     device: resume from ``--output_dir`` where a checkpoint is complete,
@@ -655,7 +778,6 @@ def cmd_ance_loop(args):
     import numpy as np
     import torch
     from ance_tpu_torch.data.cache import TokenCache
-    from ance_tpu_torch.models.dot_models import RobertaDot
     from ance_tpu_torch.train import checkpoint as ckpt
     from ance_tpu_torch.train.ance_loop import load_offset_qrels
     from ance_tpu_torch.train.pipelined import PipelineConfig, PipelinedAnce
@@ -690,9 +812,8 @@ def cmd_ance_loop(args):
         loop = PipelinedAnce(
             cfg, state=state, train_step=step,
             generator=torch.Generator().manual_seed(args.seed),
-            query_method=RobertaDot.query_emb,
-            body_method=RobertaDot.body_emb_multichunk if spec.multichunk
-            else RobertaDot.body_emb,
+            query_method=type(model).query_emb,
+            body_method=_body_method(model, spec),
             passage_cache=pc, train_query_cache=tq, dev_query_cache=dq,
             train_qrels=train_qrels, dev_qrels=dev_qrels, device=device,
             metrics_logger=metrics)
@@ -762,12 +883,15 @@ def cmd_ance_loop(args):
 def cmd_export_hf(args):
     """Export the newest complete checkpoint under ``--training_dir`` (or
     the ``--init_model_dir`` checkpoint), the port's or the JAX package's,
-    as an HF ``from_pretrained`` directory (``ance export-hf`` for
-    ``rdot_nll*``); prints what was exported, from where, at which step."""
-    from ance_tpu_torch.models.hf_export import save_hf_checkpoint
+    as ``ance export-hf`` does: an HF ``from_pretrained`` directory
+    (``rdot_nll*``) or, for ``dpr``, a ``CheckpointState`` file
+    ``<out_dir>/checkpoint-<step>`` whose ``offset`` is the step; prints
+    what was exported, from where, at which step."""
+    from ance_tpu_torch.models.hf_export import (save_dpr_checkpoint,
+                                                 save_hf_checkpoint)
     from ance_tpu_torch.models.transformer import EncoderConfig
     from ance_tpu_torch.train import checkpoint as ckpt
-    _model_spec(args.model_type)  # DPR and SEED exit: not ported
+    spec = _model_spec(args.model_type)  # SEED exits: not ported
     path, step = ckpt.get_latest_checkpoint(args.training_dir or "",
                                             args.init_model_dir)
     if path is None or not ckpt.is_complete(path):
@@ -784,9 +908,15 @@ def cmd_export_hf(args):
         else:
             step = ckpt.checkpoint_no(path)
     sd, _ = ckpt.state_dict(path)
-    config = EncoderConfig(**json.loads(args.encoder_overrides or "{}"))
     try:
-        out = save_hf_checkpoint(args.out_dir, sd, config)
+        if spec.loss == "dpr_inbatch":
+            out = save_dpr_checkpoint(
+                os.path.join(args.out_dir, f"checkpoint-{step}"), sd,
+                offset=step)
+        else:
+            config = EncoderConfig(**json.loads(args.encoder_overrides
+                                                or "{}"))
+            out = save_hf_checkpoint(args.out_dir, sd, config)
     except (KeyError, ValueError) as e:
         raise SystemExit(f"export-hf: {path}: {e}")
     print(json.dumps({"exported": out, "from": path, "step": step,
@@ -851,7 +981,8 @@ def _add_common_model_flags(p, device: bool = True):
         p.add_argument("--device", default="cuda",
                        help="cuda[:N] (default) or cpu (CPU tests only)")
     p.add_argument("--model_type", default="rdot_nll",
-                   help="registry key (rdot_nll | rdot_nll_multi_chunk)")
+                   help="registry key (rdot_nll | rdot_nll_multi_chunk | "
+                        "dpr)")
     p.add_argument("--model_name_or_path", default=None,
                    help="weights: an HF-layout dir (pytorch_model.bin), a "
                         "checkpoint dir or a training dir (the port's or "
@@ -917,6 +1048,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="spawned tokenizer workers (1: in this process)")
     p.set_defaults(fn=cmd_preprocess)
 
+    p = sub.add_parser("preprocess-dpr",
+                       help="DPR wiki / question files → binary caches")
+    _add_common_model_flags(p, device=False)
+    p.add_argument("--wiki_dir", required=True, help="holds psgs_w100.tsv")
+    p.add_argument("--question_dir", required=True,
+                   help="holds {nq,trivia}-{train,dev}.json")
+    p.add_argument("--answer_dir", required=True,
+                   help="holds nq-test.csv and trivia-test.csv")
+    p.add_argument("--out_data_dir", required=True)
+    p.add_argument("--data_type", type=int, default=0,
+                   help="0 = NQ, 1 = TriviaQA, 2 = both")
+    p.add_argument("--num_processes", type=int, default=16,
+                   help="spawned tokenizer workers (1: in this process)")
+    p.set_defaults(fn=cmd_preprocess_dpr)
+
     p = sub.add_parser("warmup", help="BM25-triples warmup training")
     _add_common_model_flags(p)
     _add_train_flags(p)
@@ -949,8 +1095,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint-<step>/ directories go here")
     p.add_argument("--save_steps", type=int, default=10000)
     p.add_argument("--num_epoch", type=int, default=0,
-                   help="the DPR trainer's fixed-epoch mode: not ported "
-                        "(exits)")
+                   help="DPR fixed-epoch mode: train this many epochs over "
+                        "{data_dir}/train-data instead of polling ann_dir "
+                        "(reference run_ann_dpr.py:179-191)")
+    p.add_argument("--dev_data", default=None,
+                   help="dev triples file for a dev NLL / accuracy "
+                        "evaluation after each epoch, its qids offsets "
+                        "into {data_dir}/dev-query (reference "
+                        "run_ann_dpr.py:196-211)")
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("serve", help="batch retrieval serving: encoder + "
@@ -1019,6 +1171,31 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--per_device_eval_batch_size", type=int, default=128)
         p.set_defaults(fn=lambda a, inf=inference: cmd_generate(a, inf))
 
+    p = sub.add_parser("generate-dpr",
+                       help="DPR ANN generation (answer-filtered mining)")
+    _add_common_model_flags(p)
+    p.add_argument("--data_dir", required=True,
+                   help="preprocess-dpr's output: caches, train-ann, "
+                        "train-data, pid2offset")
+    p.add_argument("--wiki_path", required=True, help="psgs_w100.tsv")
+    p.add_argument("--test_qas", default=None,
+                   help="nq-test.csv: the test answers where "
+                        "{data_dir}/test-ann does not exist")
+    p.add_argument("--trivia_qas", default=None, help="trivia-test.csv")
+    p.add_argument("--training_dir", required=True,
+                   help="encode with the newest complete "
+                        "checkpoint-<step> here")
+    p.add_argument("--init_model_dir", default=None)
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--output_num", type=int, default=0)
+    p.add_argument("--topk_training", type=int, default=100)
+    p.add_argument("--negative_sample", type=int, default=20)
+    p.add_argument("--index_quantize", default=None, choices=["dims"],
+                   help="an int8 corpus index (per-dimension scales): a "
+                        "quarter of the fp32 index's bytes")
+    p.add_argument("--per_device_eval_batch_size", type=int, default=128)
+    p.set_defaults(fn=cmd_generate_dpr)
+
     p = sub.add_parser("ance-loop",
                        help="single-program pipelined refresh: train, "
                             "refresh the index slice by slice, mine, serve")
@@ -1055,7 +1232,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("export-hf",
                        help="export a checkpoint (the port's or the JAX "
-                            "package's) as an HF from_pretrained directory")
+                            "package's) as an HF from_pretrained directory "
+                            "or, for dpr, a CheckpointState file")
     _add_common_model_flags(p, device=False)
     p.add_argument("--training_dir", default=None,
                    help="trainer output dir — exports the LATEST complete "

@@ -2,7 +2,8 @@
 
 The port's own copy of ``ance_tpu/data/feed.py`` (the trainer's part of
 it): a training-data line ``qid \\t pos_pid \\t neg1,neg2,...`` expands into
-one (query, positive, negative) triple per negative, and batches are
+one (query, positive, negative) triple per negative (or, for DPR, one
+triple with a negative drawn at random), and batches are
 vectorised gathers over the memory-mapped caches, attention masks from the
 stored lengths. Batches are the JAX package's, byte for byte, on the same
 caches and seed. The multi-host striping waits for ROADMAP Queue 1 #11.
@@ -36,6 +37,21 @@ def expand_triples(lines: Sequence[str]) -> np.ndarray:
         qid, pos, negs = parse_triple_line(line)
         for neg in negs:
             rows.append((qid, pos, neg))
+    return np.asarray(rows, dtype=np.int64).reshape(-1, 3)
+
+
+def sample_one_neg_triples(lines: Sequence[str], seed: int = 0) -> np.ndarray:
+    """Lines → [T, 3] with ONE negative per line drawn by
+    ``np.random.RandomState(seed)``: the DPR feed (reference
+    DPR_data.py:321-327 shuffles the negatives and takes the first). The
+    JAX function's draws, so both packages pick the same negative."""
+    rs = np.random.RandomState(seed)
+    rows = []
+    for line in lines:
+        if not line.strip():
+            continue
+        qid, pos, negs = parse_triple_line(line)
+        rows.append((qid, pos, negs[rs.randint(len(negs))]))
     return np.asarray(rows, dtype=np.int64).reshape(-1, 3)
 
 

@@ -1,8 +1,8 @@
 """Dual-encoder models (counterpart of ``ance_tpu/models/dot_models.py``).
 
 :class:`RobertaDot` serves both ``rdot_nll`` (FirstP) and
-``rdot_nll_multi_chunk`` (MaxP, :meth:`RobertaDot.body_emb_multichunk`).
-DPR's ``BiEncoder`` waits for its own slice (ROADMAP Queue 1).
+``rdot_nll_multi_chunk`` (MaxP, :meth:`RobertaDot.body_emb_multichunk`);
+:class:`BiEncoder` is DPR's two BERT towers (``dpr``).
 """
 
 from __future__ import annotations
@@ -62,3 +62,45 @@ class RobertaDot(nn.Module):
 
     def forward(self, input_ids, attention_mask, generator=None):
         return self._embed(input_ids, attention_mask, generator)
+
+
+class BertTower(TransformerEncoder):
+    """One BERT tower pooled at CLS, in fp32 (the reference HFBertEncoder,
+    models.py:223-244, returns ``sequence_output[:, 0]``). A
+    :class:`TransformerEncoder`, so its parameters carry the bare
+    ``BertModel`` key names (``embeddings.*``, ``encoder.layer.N.*``)."""
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                generator=None):
+        hidden = super().forward(input_ids, attention_mask, token_type_ids,
+                                 generator)
+        return hidden[:, 0].to(torch.float32)
+
+
+class BiEncoder(nn.Module):
+    """DPR's two-tower encoder with independent parameters (reference
+    models.py:247-271): ``question_model`` encodes queries,
+    ``ctx_model`` passages. Each state-dict key is a reference
+    ``CheckpointState`` ``model_dict`` key (``question_model.embeddings.*``,
+    ``ctx_model.encoder.layer.N.*``) but for the towers' poolers, which the
+    reference computes and discards."""
+
+    def __init__(self, config: EncoderConfig):
+        super().__init__()
+        self.config = config
+        self.question_model = BertTower(config)
+        self.ctx_model = BertTower(config)
+
+    def query_emb(self, input_ids, attention_mask, generator=None):
+        return self.question_model(input_ids, attention_mask,
+                                   generator=generator)
+
+    def body_emb(self, input_ids, attention_mask, generator=None):
+        return self.ctx_model(input_ids, attention_mask, generator=generator)
+
+    def forward(self, query_ids, query_mask, ctx_ids, ctx_mask,
+                generator=None):
+        """(query embeddings, context embeddings), as the reference
+        ``BiEncoder.forward`` returns them (models.py:260-264)."""
+        return (self.query_emb(query_ids, query_mask, generator),
+                self.body_emb(ctx_ids, ctx_mask, generator))

@@ -3,11 +3,13 @@
 * :func:`nll_triplet_loss` — the reference NLL head (FirstP).
 * :func:`multichunk_scores` / :func:`nll_multichunk_loss` — NLL_MultiChunk
   (MaxP): the max over chunk dot products, empty chunks biased by −9999.
+* :func:`dpr_inbatch_loss` / :func:`dpr_inbatch_multichunk_loss` — DPR's
+  in-batch softmax over every query × context score of the batch.
 
 All in fp32 whatever the encoder's compute dtype. The JAX losses pin their
 matmuls to HIGHEST precision; here TF32 is off at package import, so fp32
-products are full fp32 on the card too. The DPR and SEED losses wait for
-their slices (ROADMAP Queue 1 #8, #9).
+products are full fp32 on the card too. The SEED losses wait for its
+slice (ROADMAP Queue 1 #9).
 """
 
 from __future__ import annotations
@@ -48,3 +50,42 @@ def nll_multichunk_loss(q_embs: torch.Tensor, pos_chunk_embs: torch.Tensor,
         [multichunk_scores(q_embs, pos_chunk_embs, pos_mask),
          multichunk_scores(q_embs, neg_chunk_embs, neg_mask)], dim=1)
     return -torch.log_softmax(logits, dim=1)[:, 0].mean()
+
+
+def _inbatch_nll(scores: torch.Tensor, positive_idx: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean −log softmax of each row's positive column, and the number of
+    rows whose argmax is their positive. ``torch.argmax`` takes the first
+    of equal maxima, on the CPU and on CUDA, as ``jnp.argmax`` does."""
+    lsm = torch.log_softmax(scores, dim=1)
+    loss = -lsm.gather(1, positive_idx[:, None]).mean()
+    correct = (torch.argmax(scores, dim=1) == positive_idx).sum()
+    return loss, correct
+
+
+def dpr_inbatch_loss(q_embs: torch.Tensor, ctx_embs: torch.Tensor,
+                     positive_idx: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """In-batch softmax NLL over the [Q, C] score matrix: ``ctx_embs``
+    holds positives and hard negatives interleaved, ``positive_idx`` [Q]
+    each query's positive row (2i in the reference layout,
+    run_ann_dpr.py:356-363). Returns (mean loss, correct count)."""
+    scores = q_embs.to(torch.float32) @ ctx_embs.to(torch.float32).T
+    return _inbatch_nll(scores, positive_idx)
+
+
+def dpr_inbatch_multichunk_loss(q_embs: torch.Tensor,
+                                ctx_chunk_embs: torch.Tensor,
+                                ctx_mask: torch.Tensor,
+                                positive_idx: torch.Tensor
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`dpr_inbatch_loss` over MaxP documents: score(q, doc) is the
+    max over the doc's chunk dot products, a chunk whose first token is
+    padding biased by −9999. ``ctx_chunk_embs`` [C, Cn, D]; ``ctx_mask``
+    [C, Cn·L]. No registry model trains with it, in either package."""
+    C, Cn, _ = ctx_chunk_embs.shape
+    alive = ctx_mask.reshape(C, Cn, -1)[:, :, 0]
+    bias = (1.0 - alive.to(torch.float32)) * EMPTY_CHUNK_BIAS
+    s = torch.einsum("qd,jcd->qjc", q_embs.to(torch.float32),
+                     ctx_chunk_embs.to(torch.float32)) + bias[None]
+    return _inbatch_nll(torch.amax(s, dim=-1), positive_idx)

@@ -72,6 +72,17 @@ class EncoderConfig:
                     "shipped config) and is not ported yet (ROADMAP Queue 1 "
                     "#9, SEED)")
 
+    @staticmethod
+    def bert_base(**kw) -> "EncoderConfig":
+        """BERT-base (DPR's towers): BERT's vocabulary, two token types,
+        pad id 0, LayerNorm eps 1e-12 and positions 0..S−1, the defaults of
+        ``ance_tpu/models/transformer.py:88-93``; ``kw`` overrides any."""
+        defaults = dict(vocab_size=30522, max_position_embeddings=512,
+                        type_vocab_size=2, pad_token_id=0,
+                        layer_norm_eps=1e-12, position_style="bert")
+        defaults.update(kw)
+        return EncoderConfig(**defaults)
+
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
 

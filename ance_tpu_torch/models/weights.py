@@ -1,8 +1,9 @@
 """Weights in and out of the torch port.
 
-* :func:`state_dict_from_flax` maps a (numpy) flax ``RobertaDot`` parameter
-  tree onto this package's state dict — the reference ``RobertaDot_NLL_LN``
-  key names, flax ``[in, out]`` kernels transposed to torch ``[out, in]``.
+* :func:`state_dict_from_flax` maps a (numpy) flax ``RobertaDot`` or
+  ``BiEncoder`` parameter tree onto this package's state dict — the
+  reference ``RobertaDot_NLL_LN`` / DPR ``model_dict`` key names, flax
+  ``[in, out]`` kernels transposed to torch ``[out, in]``.
   It is written here because ``ance_tpu.models`` imports jax on import;
   the tests hold it against ``ance_tpu.models.hf_export``.
 * :func:`load_pretrained` loads an HF-layout checkpoint directory (a
@@ -19,12 +20,15 @@ import numpy as np
 import torch
 from torch import nn
 
-# Keys a reference RobertaDot_NLL_LN checkpoint carries that the dot model
-# never reads: the sequence-classification head, the BERT-style pooler that
-# transformers 2.x RobertaModel always built, and the position-id buffer
-# newer transformers save. Everything else must match exactly.
-_UNUSED_PREFIXES = ("classifier.", "roberta.pooler.",
-                    "roberta.embeddings.position_ids")
+# Keys a reference checkpoint carries that the models never read: the
+# sequence-classification head and the BERT-style pooler that transformers
+# 2.x RobertaModel always built (RobertaDot_NLL_LN), each DPR tower's
+# pooler (HFBertEncoder discards pooled_output, models.py:252-260), and the
+# position-id buffer newer transformers save. Everything else must match
+# exactly.
+_TOWERS = ("roberta", "question_model", "ctx_model")
+_UNUSED_PREFIXES = ("classifier.",) + tuple(
+    f"{t}.{k}" for t in _TOWERS for k in ("pooler.", "embeddings.position_ids"))
 
 
 def _f32(x) -> np.ndarray:
@@ -50,21 +54,19 @@ def _layer_norm(sd: dict, prefix: str, p: Mapping) -> None:
     sd[prefix + ".bias"] = _t(p["bias"])
 
 
-def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
-    """flax RobertaDot params (``{"encoder": ..., "embedding_head": ...,
-    "norm": ...}``; numpy, jax or torch leaves) → port state dict, fp32."""
-    sd: dict[str, torch.Tensor] = {}
-    enc = params["encoder"]
+def _encoder_state_dict(sd: dict, prefix: str, enc: Mapping) -> None:
+    """A flax ``TransformerEncoder`` tree under ``prefix`` (``roberta.``,
+    ``question_model.``): HF ``BertModel`` / ``RobertaModel`` key names."""
     emb = enc["embeddings"]
     for name in ("word_embeddings", "position_embeddings",
                  "token_type_embeddings"):
         if name in emb:
-            sd[f"roberta.embeddings.{name}.weight"] = _t(
+            sd[f"{prefix}embeddings.{name}.weight"] = _t(
                 emb[name]["embedding"])
-    _layer_norm(sd, "roberta.embeddings.LayerNorm", emb["layer_norm"])
+    _layer_norm(sd, f"{prefix}embeddings.LayerNorm", emb["layer_norm"])
     i = 0
     while f"layer_{i}" in enc:
-        layer, lp = enc[f"layer_{i}"], f"roberta.encoder.layer.{i}."
+        layer, lp = enc[f"layer_{i}"], f"{prefix}encoder.layer.{i}."
         attn = layer["attention"]
         for name in ("query", "key", "value"):
             _dense(sd, lp + f"attention.self.{name}", attn[name])
@@ -77,6 +79,19 @@ def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
         i += 1
     if i == 0:
         raise KeyError("no layer_0 in encoder params — wrong tree?")
+
+
+def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """flax params (numpy, jax or torch leaves) → port state dict, fp32:
+    a RobertaDot tree (``{"encoder", "embedding_head", "norm"}``) or a
+    BiEncoder one (``{"question_model": {"encoder"}, "ctx_model":
+    {"encoder"}}``)."""
+    sd: dict[str, torch.Tensor] = {}
+    if "question_model" in params:
+        for tower in ("question_model", "ctx_model"):
+            _encoder_state_dict(sd, f"{tower}.", params[tower]["encoder"])
+        return sd
+    _encoder_state_dict(sd, "roberta.", params["encoder"])
     _dense(sd, "embeddingHead", params["embedding_head"])
     _layer_norm(sd, "norm", params["norm"])
     return sd
@@ -116,11 +131,12 @@ def load_pretrained(model: nn.Module, model_dir: str) -> str:
 
 def load_weights(model: nn.Module, sd: Mapping[str, torch.Tensor]) -> None:
     """Strictly load a state dict in HF key names into ``model``: the keys
-    the dot model never reads are dropped, and a state dict without the
-    projection head keeps the model's own (see :func:`load_pretrained`)."""
+    the models never read are dropped, and a RobertaDot state dict without
+    the projection head keeps the model's own (see
+    :func:`load_pretrained`)."""
     sd = {k: v for k, v in sd.items() if not k.startswith(_UNUSED_PREFIXES)}
-    if "embeddingHead.weight" not in sd:
-        own = model.state_dict()
+    own = model.state_dict()
+    if "embeddingHead.weight" in own and "embeddingHead.weight" not in sd:
         for k in ("embeddingHead.weight", "embeddingHead.bias",
                   "norm.weight", "norm.bias"):
             sd[k] = own[k]

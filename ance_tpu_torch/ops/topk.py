@@ -289,6 +289,26 @@ def rescore(queries: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
         torch.float32)
 
 
+# bytes phases 1 and 2 hold a query a block: the fp32 maxima, the int32
+# prefix counts and the masks of top_blocks_lower_id_first
+PHASE12_BYTES = 12
+
+
+def query_group_rows(n_queries: int, n_blocks: int, q_tile: int,
+                     device: torch.device) -> int:
+    """How many queries go through phases 1 and 2 at once: on the card as
+    many as 60% of the memory left (free, and cached by the allocator but
+    unused) holds at PHASE12_BYTES a block, in whole ``q_tile``s and at
+    least one; on the CPU all of them."""
+    if device.type != "cuda" or n_queries <= q_tile:
+        return n_queries
+    free, _ = torch.cuda.mem_get_info(device)
+    free += (torch.cuda.memory_reserved(device)
+             - torch.cuda.memory_allocated(device))
+    rows = int(0.6 * free) // (PHASE12_BYTES * n_blocks) // q_tile * q_tile
+    return min(n_queries, max(q_tile, rows))
+
+
 def topk_blockmax(queries: torch.Tensor, corpus: torch.Tensor, *, k: int,
                   block_size: int = 16, chunk_rows: int = 1024,
                   q_tile: int = 64, phase1_dtype: Optional[torch.dtype] = None,
@@ -302,17 +322,41 @@ def topk_blockmax(queries: torch.Tensor, corpus: torch.Tensor, *, k: int,
     None keeps the queries' own dtype, ``torch.bfloat16`` casts them, and
     ``torch.int8`` quantizes each query row symmetrically
     (:func:`quantize_query_rows_int8`). Phase 3 always
-    rescores from the queries as given, exactly (fp64, rounded to fp32)."""
-    Q, D = queries.shape
+    rescores from the queries as given, exactly (fp64, rounded to fp32).
+
+    The [Q, N/BS] block maxima of a large corpus outgrow the card (2,048
+    queries over 21M rows take 10.8 GB), so the queries go through
+    phases 1 and 2 in groups of :func:`query_group_rows`, one phase-1
+    launch a group; each query's result is the same in any group."""
+    Q = queries.shape[0]
     N = corpus.shape[0]
     if valid_rows is None:
         valid_rows = N
     # the corpus is padded to whole chunks; the queries need no padding
     # (phase 1 masks the ragged query tile, phase 3 takes a short last tile)
     corpus_p = _pad_rows(corpus, chunk_rows)
+    group = max(1, query_group_rows(Q, corpus_p.shape[0] // block_size,
+                                    q_tile, corpus.device))
+    scores = torch.full((Q, k), NEG_INF, dtype=torch.float32,
+                        device=corpus.device)
+    ids = torch.full((Q, k), -1, dtype=torch.int64, device=corpus.device)
+    for g in range(0, Q, group):
+        _topk_group(queries[g:g + group], corpus_p, scores[g:g + group],
+                    ids[g:g + group], k=k, block_size=block_size,
+                    chunk_rows=chunk_rows, q_tile=q_tile,
+                    phase1_dtype=phase1_dtype, valid_rows=valid_rows)
+    ids = ids.masked_fill(scores <= NEG_INF, -1)
+    return scores, ids
+
+
+def _topk_group(queries, corpus_p, scores, ids, *, k, block_size, chunk_rows,
+                q_tile, phase1_dtype, valid_rows) -> None:
+    """The three phases for one group of queries over the padded corpus,
+    written into that group's rows of ``scores`` / ``ids``."""
+    Q = queries.shape[0]
     padded_n = corpus_p.shape[0]
 
-    if corpus.dtype == torch.int8:
+    if corpus_p.dtype == torch.int8:
         if phase1_dtype == torch.int8:
             qf = quantize_query_rows_int8(queries)
         elif phase1_dtype is not None:
@@ -320,7 +364,7 @@ def topk_blockmax(queries: torch.Tensor, corpus: torch.Tensor, *, k: int,
         else:
             qf = queries
     else:
-        qf = queries.to(corpus.dtype)
+        qf = queries.to(corpus_p.dtype)
     bm = blockmax_scores(qf.contiguous(), corpus_p.contiguous(),
                          block_size=block_size, chunk_rows=chunk_rows)
     n_blocks = padded_n // block_size
@@ -333,11 +377,8 @@ def topk_blockmax(queries: torch.Tensor, corpus: torch.Tensor, *, k: int,
     top_blocks = top_blocks_lower_id_first(bm, k_blocks)  # rows ascending
     del bm
 
-    offsets = torch.arange(block_size, device=corpus.device)
+    offsets = torch.arange(block_size, device=corpus_p.device)
     k_out = min(k, k_blocks * block_size)
-    scores = torch.full((Q, k), NEG_INF, dtype=torch.float32,
-                        device=corpus.device)
-    ids = torch.full((Q, k), -1, dtype=torch.int64, device=corpus.device)
     for t in range(0, Q, q_tile):
         rows = (top_blocks[t:t + q_tile, :, None] * block_size
                 + offsets).reshape(-1, k_blocks * block_size)  # [T, kb·BS]
@@ -346,5 +387,3 @@ def topk_blockmax(queries: torch.Tensor, corpus: torch.Tensor, *, k: int,
         top_s, pos = topk_lower_id_first(s, k_out)
         scores[t:t + q_tile, :k_out] = top_s
         ids[t:t + q_tile, :k_out] = torch.gather(rows, 1, pos)
-    ids = ids.masked_fill(scores <= NEG_INF, -1)
-    return scores, ids

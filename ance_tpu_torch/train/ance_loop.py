@@ -177,16 +177,19 @@ def run_trainer_job(cycle_cfg: AnceCycleConfig, *, state,
                     poll_every: int = 100, save_every: int = 500,
                     poll_interval: float = 5.0,
                     rewarmup_per_dataset: bool = False,
-                    on_step: Optional[Callable] = None):
+                    triples_fn: Callable = expand_triples):
     """Train until ``max_steps``, polling ``ann_dir`` for newer data every
     ``poll_every`` steps and writing a checkpoint (parameters and
     optimizer state) every ``save_every`` steps and at the end.
 
+    ``triples_fn`` turns the file's lines into [T, 3] triples:
+    :func:`ance_tpu_torch.data.feed.sample_one_neg_triples` for DPR (one
+    negative a line), else one triple a negative.
+
     ``rewarmup_per_dataset`` re-anchors the optimizer's
     :class:`RewarmupSchedule` at every data swap, with the new file's line
     count as the decay horizon (the reference's default without
-    ``--single_warmup``). ``on_step(step, metrics)`` sees every step's
-    metrics. Returns the state."""
+    ``--single_warmup``). Returns the state."""
     last_data_no = -1
     it = None
     while state.step < max_steps:
@@ -196,7 +199,7 @@ def run_trainer_job(cycle_cfg: AnceCycleConfig, *, state,
                 with open(data_path) as f:
                     lines = f.read().splitlines()
                 feed = TripletBatches(query_cache, passage_cache,
-                                      expand_triples(lines),
+                                      triples_fn(lines),
                                       batch_size=cycle_cfg.batch_size,
                                       seed=cycle_cfg.shuffle_seed + data_no)
                 it = infinite_batches(feed, workers=cycle_cfg.feed_workers)
@@ -209,8 +212,6 @@ def run_trainer_job(cycle_cfg: AnceCycleConfig, *, state,
                 time.sleep(poll_interval)
                 continue
         state, metrics = train_step(state, next(it), generator)
-        if on_step is not None:
-            on_step(state.step, metrics)
         if state.step % save_every == 0 or state.step >= max_steps:
             ckpt.save_checkpoint(training_dir, state.step, state.model,
                                  state.optimizer.state_dict())

@@ -24,8 +24,7 @@ import dataclasses
 import json
 import os
 import random
-import time
-from typing import Callable, Mapping, Optional, Sequence
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,7 +32,7 @@ import torch
 from ance_tpu_torch.data.cache import TokenCache
 from ance_tpu_torch.evaluation.metrics import eval_dev_ndcg
 from ance_tpu_torch.index.flat import FlatIPIndex
-from ance_tpu_torch.train.encode import encode_cache_to_device
+from ance_tpu_torch.train.encode import encode_cache_to_device, synced_clock
 
 ANN_DATA_PREFIX = "ann_training_data_"
 ANN_NDCG_PREFIX = "ann_ndcg_"
@@ -183,15 +182,6 @@ class AnnGenConfig:
     seed: int = 0
 
 
-def _synced_clock(device: torch.device) -> Callable[[], float]:
-    """perf_counter after the device's queued work has finished."""
-    def now() -> float:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        return time.perf_counter()
-    return now
-
-
 def generate_new_ann(cfg: AnnGenConfig, *,
                      output_num: int,
                      checkpoint_path: str,
@@ -220,7 +210,7 @@ def generate_new_ann(cfg: AnnGenConfig, *,
     mining search's rows, [Q, topk_training]) and ``seconds`` (host clock
     after a device synchronize: passage encode, mining search, total)."""
     device = torch.device(device)
-    now = _synced_clock(device)
+    now = synced_clock(device)
     t_start = now()
     bs = cfg.encode_batch_size
     dev_q_emb, dev_q_ids = encode_cache_to_device(query_encode_fn,

@@ -238,7 +238,9 @@ def holds_weights(model_dir: str) -> bool:
 def state_dict(ckpt_dir: str) -> tuple[dict[str, torch.Tensor], str]:
     """A checkpoint directory's parameters as a port state dict, whichever
     layout holds them, and the file they were read from: the torch state
-    dict as saved, or a JAX-package ``params.msgpack`` as fp32 (through
+    dict as saved (a DPR ``CheckpointState``, the reference's single-file
+    dict, gives its ``model_dict``), or a JAX-package ``params.msgpack``
+    (a RobertaDot or BiEncoder tree) as fp32 (through
     :func:`load_raw_params` and ``models/weights.py::
     state_dict_from_flax``; its optimizer state is not read, and a note
     on stderr says so)."""
@@ -246,14 +248,18 @@ def state_dict(ckpt_dir: str) -> tuple[dict[str, torch.Tensor], str]:
                                                state_dict_from_flax)
     if not is_native(ckpt_dir):
         path = checkpoint_file(ckpt_dir)
-        return torch.load(path, map_location="cpu", weights_only=True), path
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(sd, dict) and "model_dict" in sd:
+            sd = sd["model_dict"]  # run_ann_dpr.py:376-392
+        return sd, path
     path = os.path.join(ckpt_dir, NATIVE_FILE)
     tree = load_raw_params(ckpt_dir)
     try:
         sd = state_dict_from_flax(tree)
     except (KeyError, TypeError) as e:
         raise UnreadableCheckpoint(
-            f"{path}: not a RobertaDot parameter tree (missing {e})") from None
+            f"{path}: not a RobertaDot or BiEncoder parameter tree (missing "
+            f"{e})") from None
     print(f"note: {ckpt_dir} is a JAX-package checkpoint: its parameters "
           "are read; its optimizer state is not read (training from it "
           "starts a fresh optimizer)", file=sys.stderr)

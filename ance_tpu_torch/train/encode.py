@@ -10,12 +10,22 @@ chunk. The mesh waits for a later PR (ROADMAP Queue 1 #11).
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
 
 from ance_tpu_torch.data.cache import TokenCache
+
+
+def synced_clock(device: torch.device) -> Callable[[], float]:
+    """perf_counter after the device's queued work has finished."""
+    def now() -> float:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+    return now
 
 
 def mask_from_lengths(lengths: np.ndarray, max_len: int) -> np.ndarray:

@@ -70,9 +70,9 @@ from ance_tpu_torch.evaluation.metrics import (dedup_ranking, eval_dev_ndcg,
 from ance_tpu_torch.index.flat import FlatIPIndex
 from ance_tpu_torch.optim.schedules import reset_rewarmup
 from ance_tpu_torch.train import checkpoint as ckpt
-from ance_tpu_torch.train.ann_gen import (_synced_clock, mine_negatives,
-                                          query_chunk_range)
-from ance_tpu_torch.train.encode import encode_cache_to_device, make_encode_fn
+from ance_tpu_torch.train.ann_gen import mine_negatives, query_chunk_range
+from ance_tpu_torch.train.encode import (encode_cache_to_device,
+                                         make_encode_fn, synced_clock)
 
 logger = logging.getLogger(__name__)
 
@@ -147,7 +147,7 @@ class PipelinedAnce:
         self.dev_qrels = dev_qrels
         self.metrics_logger = metrics_logger
         self._async_ckptr: Optional[ckpt.AsyncCheckpointer] = None
-        self._now = _synced_clock(self.device)
+        self._now = synced_clock(self.device)
         self.index: Optional[FlatIPIndex] = None
         # guards the index's buffer and scale references and the snapshot
         # (with its encode functions) against live-serving readers

@@ -124,7 +124,29 @@ kernels under bf16 and int8 queries), and then:
     ``LoopRetriever.search_tokens``, block-max launches == S and M items
     plus live searches), over an int8 ``dims`` index, and MaxP (bf16,
     kernel #2 counted in the encode items, #3 in the steps), each
-    kernel held to its plain version on the loop's own operands.
+    kernel held to its plain version on the loop's own operands;
+  * dpr: DPR's BiEncoder (two seeded BERT-base towers, seq 256) as its
+    runbook drives it, over a psgs_w100.tsv-format corpus of 16,384
+    passages and NQ / TriviaQA question files made from a seed and
+    tokenized by a word-hash tokenizer in BERT's id space:
+    ``preprocess-dpr`` over 4 spawned workers (records against the
+    tokenizer), a polling ``train`` at the default dropout (the einsum
+    attention, no #2 / #3 launch), ``train --num_epoch 2 --dev_data``
+    with attention dropout 0 and GradCache accumulation (#2 and #3 at
+    S = 256, launches == 24 a tower pass), the fp32 GradCache step against
+    an unaccumulated step on the card (loss, correct, gradient norm and
+    every gradient; its #2 / #3 pieces launches counted and its first
+    forward and backward held to plain), ``generate-dpr`` in bf16, at the CLI's
+    fp32 and over a ``dims`` index (#1 once a search; mining ids and the
+    test hit curve == a scan; no mined negative holds an answer),
+    ``export-hf --model_type dpr`` (its ``model_dict`` loads strictly and
+    encodes bit for bit as the checkpoint), #1 / #2 / #3 held to their
+    plain versions on the operands each of those paths gave them, and
+    the 21M-passage capacity check: ``FlatIPIndex`` of 21,015,324 x 768
+    rows filled on the card from a seed, as ``dims`` and as fp32, beside
+    the resident encoder, a mining (Q=512 k=200) and a dev (Q=2048 k=100)
+    ``index.search`` each (the search splits its queries as far as the
+    memory left needs), a sample held to a scan, peak memory printed.
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. The last two lines are a JSON object of per-kernel results
@@ -1839,27 +1861,29 @@ def _keep_layout(t):
 
 
 @contextlib.contextmanager
-def first_call(direction: str, kept: list, function=None):
+def picked_calls(direction: str, picks, kept: dict, function=None):
     """``FusedAttention.forward`` (``direction`` "forward": q, k, v, mask)
     or ``.backward`` ("backward": q, k, v, mask, do), or that of another
-    autograd ``function`` (``FlashAttention``), wrapped so that ``kept``
-    receives copies of the operands of its first call (floating ones in
-    their own strides); the kernels' wrappers and their launch counts stay
-    as they are."""
+    autograd ``function`` (``FlashAttention``), wrapped so that ``kept[i]``
+    receives copies of the operands of its call number i (from 0) for each
+    i in ``picks`` (floating ones in their own strides); the kernels'
+    wrappers and their launch counts stay as they are."""
     import torch
     from ance_tpu_torch.ops.fused_attention import FusedAttention
     function = function or FusedAttention
     real = getattr(function, direction)
+    n = [0]
 
     def wrapper(ctx, *args):
         if direction == "backward":
             ops = (*ctx.saved_tensors, *args)
         else:
             ops = args
-        if not kept:
-            kept.extend(a if not torch.is_tensor(a) else _keep_layout(a)
-                        if torch.is_floating_point(a) else a.clone()
-                        for a in ops)
+        if n[0] in picks:
+            kept[n[0]] = [a if not torch.is_tensor(a) else _keep_layout(a)
+                          if torch.is_floating_point(a) else a.clone()
+                          for a in ops]
+        n[0] += 1
         return real(ctx, *args)
 
     setattr(function, direction, staticmethod(wrapper))
@@ -1917,10 +1941,10 @@ def phase_maxp_fp32(work: Path):
 
     # 1. the serve CLI, as a user runs it: no --bf16
     ranking, saved = work / "maxp_fp32_ranking.tsv", work / "maxp_fp32_index"
-    fwd_ops = []
+    fwd_ops = {}
     reset()
     t0 = time.perf_counter()
-    with first_call("forward", fwd_ops):
+    with picked_calls("forward", (0,), fwd_ops):
         summary = _cli(["serve", "--device", "cuda",
                         "--model_type", "rdot_nll_multi_chunk",
                         "--max_seq_length", str(DOC_LEN),
@@ -1998,10 +2022,11 @@ def phase_maxp_fp32(work: Path):
                               RobertaDot.body_emb_multichunk, dev)
     n_flash_batches = 4
     n_flash = n_flash_batches * DOC_BATCH
-    flash_ops = []
+    flash_ops = {}
     with TokenCache(str(docs / "passages")) as dc:
         reset()
-        with first_call("forward", flash_ops, FlashAttention):
+        with picked_calls("forward", (0,), flash_ops,
+                          FlashAttention):
             flash_emb, _ = encode_cache_to_device(
                 encode_f, dc, DOC_BATCH, multichunk=True, stop=n_flash)
         torch.cuda.synchronize()
@@ -2014,7 +2039,7 @@ def phase_maxp_fp32(work: Path):
     cos_flash = _cosines(flash_emb, emb[:n_flash * n_chunks]).min().item()
     check(cos_flash > 0.999, f"fp32 MaxP chunk embeddings, flash vs fused: "
           f"per-row cosine {cos_flash}")
-    q, k, v, mask = flash_ops
+    q, k, v, mask = flash_ops[0]
     got = flash_attention_forward(q, k, v, mask)
     plain = flash_attention_reference(q, k, v, mask)
     flash_err = (got - plain).abs().max().item()
@@ -2042,12 +2067,12 @@ def phase_maxp_fp32(work: Path):
     # 4. cli train, fp32 MaxP through the fused forward and backward
     data = work / "train_maxp"  # phase_train's MaxP caches
     steps = MAXP_F32_TRAIN_STEPS
-    bwd_ops = []
+    bwd_ops = {}
     reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with first_call("backward", bwd_ops):
+    with picked_calls("backward", (0,), bwd_ops):
         train = _cli(["train", "--device", "cuda",
                       "--model_type", "rdot_nll_multi_chunk",
                       "--model_name_or_path", str(weights),
@@ -2082,7 +2107,7 @@ def phase_maxp_fp32(work: Path):
           flush=True)
 
     # 5. the kernels on this path's own operands
-    q, k, v, mask = fwd_ops
+    q, k, v, mask = fwd_ops[0]
     got = fa.fused_attention_forward(q, k, v, mask)
     plain = fa.fused_attention_reference(q, k, v, mask)
     fwd_err = (got - plain).abs().max().item()
@@ -2090,7 +2115,7 @@ def phase_maxp_fp32(work: Path):
     check(fwd_err <= 1e-4, f"flash_fwd_pieces on the serve path's operands: "
           f"max |kernel - plain| {fwd_err} > 1e-4")
     fwd_shape = {"shape": list(q.shape), "strides": list(q.stride())}
-    q, k, v, mask, do = bwd_ops
+    q, k, v, mask, do = bwd_ops[0]
     got = fa.fused_attention_backward(q, k, v, mask, do)
     again = fa.fused_attention_backward(q, k, v, mask, do)
     plain = fa.fused_attention_backward_reference(q, k, v, mask, do)
@@ -2546,6 +2571,56 @@ def _write_generate_data(data: Path, gen: Path, rs) -> None:
             f.write(f"{q}\t{p}\t2\n{q}\t{rs.randint(N_PASSAGES)}\t1\n")
 
 
+def phase1_against_plain(searched: list, dtypes: str, what: str,
+                         names=("dev", "mining")) -> list:
+    """Phase 1 on the operands a path's searches gave it (recorded through
+    ``index.flat.topk_blockmax``: its queries against its index, the
+    encoder's embeddings, not randn), the kernel against the plain version
+    within FLOAT_ATOL and both against the exact fp64 maxima. Run after
+    the path's launches were read, so not counted in them; empties
+    ``searched``."""
+    import torch
+    from ance_tpu_torch.ops.topk import (_pad_rows, blockmax_kernel_for,
+                                         blockmax_scores,
+                                         blockmax_scores_reference)
+    check(len(searched) == len(names), f"{what} searched "
+          f"{len(searched)} times through block-max, not {len(names)}")
+    out = []
+    for name, (q, corpus) in zip(names, searched):
+        q = q.contiguous()
+        c = _pad_rows(corpus, CHUNK_ROWS)  # as topk_blockmax pads
+        kernel = blockmax_kernel_for(q, c)
+        check(kernel == ROUTE_KERNEL[dtypes], f"{what} {name}: phase 1 "
+              f"takes {kernel}")
+        got = blockmax_scores(q, c, chunk_rows=CHUNK_ROWS)
+        want = blockmax_scores_reference(q, c)
+        err = (got - want).abs().max().item()
+        top = want.abs().max().item()
+        check(err <= FLOAT_ATOL, f"{dtypes} {what} {name}: max |err| {err} > "
+              f"{FLOAT_ATOL} (block maxima up to {top})")
+        # both against the exact maxima (fp64): how much of the gap is the
+        # kernel's and how much cuBLAS's fp32 sum
+        exact = (q.double() @ c.double().T).reshape(
+            q.shape[0], -1, 16).amax(-1)
+        k_err = (got.double() - exact).abs().max().item()
+        p_err = (want.double() - exact).abs().max().item()
+        out.append({"dtypes": dtypes, "shape": f"{what} {name}",
+                    "kernel": kernel, "Q": q.shape[0], "N": c.shape[0],
+                    "D": q.shape[1], "max_abs_err": err,
+                    "max_abs_err_exact": k_err,
+                    "plain_max_abs_err_exact": p_err,
+                    "max_abs_block_max": top})
+        print(f"kernel {dtypes:10s} {what} {name:6s} Q={q.shape[0]:5d} "
+              f"N={c.shape[0]} ({kernel}): max|err| {err:.3g} on the "
+              f"encoder's embeddings (block maxima up to {top:.1f}); "
+              f"against the exact maxima: kernel {k_err:.3g}, plain "
+              f"{p_err:.3g}", flush=True)
+        del got, want, exact, c
+    searched.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_generate(work: Path):
     """The generator job at full RoBERTa-base width from the serve phase's
     seeded weights, over its passages (``_write_generate_data``). Block-max
@@ -2559,9 +2634,7 @@ def phase_generate(work: Path):
     from ance_tpu_torch.models.registry import get_model_spec
     from ance_tpu_torch.models.weights import load_pretrained
     from ance_tpu_torch.index import flat
-    from ance_tpu_torch.ops.topk import (_pad_rows, blockmax_kernel_for,
-                                         blockmax_scores,
-                                         blockmax_scores_reference)
+    from ance_tpu_torch.ops.topk import blockmax_scores
     from ance_tpu_torch.optim.schedules import warmup_linear
     from ance_tpu_torch.train import ann_gen, trainer
     from ance_tpu_torch.train.ance_loop import (AnceCycleConfig,
@@ -2608,49 +2681,8 @@ def phase_generate(work: Path):
         return (summary, results.pop(), seconds, blockmax_scores.launches,
                 blockmax_counts())
 
-    def phase1_against_plain(dtypes: str) -> list:
-        """Phase 1 on the operands generate's searches gave it (its dev
-        queries, then its mining queries, against its index: the encoder's
-        embeddings, not randn), the kernel against the plain version. Run
-        after the path's launches were read, so not counted in them."""
-        check(len(searched) == 2, f"generate searched {len(searched)} "
-              "times through block-max, not twice")
-        out = []
-        for what, (q, corpus) in zip(("dev", "mining"), searched):
-            q = q.contiguous()
-            c = _pad_rows(corpus, CHUNK_ROWS)  # as topk_blockmax pads
-            kernel = blockmax_kernel_for(q, c)
-            check(kernel == ROUTE_KERNEL[dtypes], f"generate {what}: phase 1 "
-                  f"takes {kernel}")
-            got = blockmax_scores(q, c, chunk_rows=CHUNK_ROWS)
-            want = blockmax_scores_reference(q, c)
-            err = (got - want).abs().max().item()
-            top = want.abs().max().item()
-            check(err <= FLOAT_ATOL, f"{dtypes} generate {what}: max |err| "
-                  f"{err} > {FLOAT_ATOL} (block maxima up to {top})")
-            # both against the exact maxima (fp64): how much of the gap
-            # is the kernel's and how much cuBLAS's fp32 sum
-            exact = (q.double() @ c.double().T).reshape(
-                q.shape[0], -1, 16).amax(-1)
-            k_err = (got.double() - exact).abs().max().item()
-            p_err = (want.double() - exact).abs().max().item()
-            out.append({"dtypes": dtypes, "shape": f"generate {what}",
-                        "kernel": kernel, "Q": q.shape[0], "N": c.shape[0],
-                        "D": q.shape[1], "max_abs_err": err,
-                        "max_abs_err_exact": k_err,
-                        "plain_max_abs_err_exact": p_err,
-                        "max_abs_block_max": top})
-            print(f"kernel {dtypes:10s} generate {what:6s} Q={q.shape[0]:5d} "
-                  f"N={c.shape[0]} ({kernel}): max|err| {err:.3g} on the "
-                  f"encoder's embeddings (block maxima up to {top:.1f}); "
-                  f"against the exact maxima: kernel {k_err:.3g}, plain "
-                  f"{p_err:.3g}", flush=True)
-            del got, want, exact, c
-        searched.clear()
-        return out
-
     summary, result, gen_s, launches, by_kernel = generate(ann)
-    kernel_cases = phase1_against_plain("f32xf32")
+    kernel_cases = phase1_against_plain(searched, "f32xf32", "generate")
     data_path, ndcg_path = ann / "ann_training_data_0", ann / "ann_ndcg_0"
     check(data_path.exists() and ndcg_path.exists()
           and ndcg_path.stat().st_mtime_ns >= data_path.stat().st_mtime_ns,
@@ -2695,7 +2727,7 @@ def phase_generate(work: Path):
     #     blockmax_pieces_int8, mining ids equal a scan of that index
     _, dims, dims_s, dims_launches, dims_kernels = generate(
         work / "gen_ann_dims", "--index_quantize", "dims")
-    kernel_cases += phase1_against_plain("f32xint8")
+    kernel_cases += phase1_against_plain(searched, "f32xint8", "generate")
     check(dims_launches > 0
           and dims_kernels == {"blockmax_pieces_int8": dims_launches},
           f"generate's dims index launched {dims_kernels}, not only "
@@ -3645,10 +3677,10 @@ def phase_ance_loop(work: Path, generate: dict, train: dict):
         with open(docs / f"{split}-qrel.tsv", "w") as f:
             f.writelines(f"{q}\t{rs.randint(N_F32_DOCS)}\t1\n"
                          for q in range(n))
-    fwd_ops, bwd_ops = [], []
+    fwd_ops, bwd_ops = {}, {}
     steps = LOOP_STEPS_PER_SLICE
-    with _loop_probes() as probes, first_call("forward", fwd_ops), \
-            first_call("backward", bwd_ops):
+    with _loop_probes() as probes, picked_calls("forward", (0,), fwd_ops), \
+            picked_calls("backward", (0,), bwd_ops):
         c = run(flags("loop_c", steps, data_dir=docs, seq=DOC_LEN,
                       eval_batch=DOC_BATCH, slice_size=MAXP_LOOP_SLICE,
                       batch=MAXP_TRAIN_BATCH)
@@ -3675,14 +3707,14 @@ def phase_ance_loop(work: Path, generate: dict, train: dict):
     check(step_fwd == 12 * 2 * steps and c["fused_backward"] == 12 * 2 * steps,
           f"(c) steps: {step_fwd} fused forward / {c['fused_backward']} "
           f"backward launches, not {12 * 2 * steps} each")
-    q, k, v, mask = fwd_ops
+    q, k, v, mask = fwd_ops[0]
     n_bad, fwd_err, fwd_ulps = bf16_slice_excess(
         fa.fused_attention_forward(q, k, v, mask),
         fa.fused_attention_reference(q, k, v, mask))
     check(n_bad == 0, f"(c) #2 on an E item's operands: {n_bad} elements "
           f"beyond {BF16_SLICE_TOL}")
     fwd_shape = list(q.shape)
-    q, k, v, mask, do = bwd_ops
+    q, k, v, mask, do = bwd_ops[0]
     bwd_err, bwd_ulps = 0.0, 0.0
     for name, g, w in zip(("dq", "dk", "dv"),
                           fa.fused_attention_backward(q, k, v, mask, do),
@@ -3714,6 +3746,762 @@ def phase_ance_loop(work: Path, generate: dict, train: dict):
     check(no_reference_modules(), "the port imported jax or ance_tpu")
     results["kernel_cases"] = kernel_cases
     return results
+
+
+# DPR (NQ open-QA) at BERT-base width, as the runbook drives it
+# (commands/run_train_dpr.sh, commands/run_ann_data_gen_dpr.sh): a
+# psgs_w100.tsv-format corpus, the DPR question files and the test CSVs,
+# made from a seed
+DPR_PASSAGES = 16_384
+DPR_WORDS = (90, 110)  # words a passage (psgs_w100's are 100)
+DPR_LONG_EVERY = 97  # every 97th passage 320 words: cut to the sequence
+DPR_TRAIN_Q, DPR_DEV_Q, DPR_TRIVIA_DEV_Q, DPR_TEST_Q = 256, 64, 32, 512
+DPR_HARD_NEGATIVES = 3
+DPR_SEQ, DPR_BATCH, DPR_LR = 256, 16, "1e-5"
+DPR_TOPK, DPR_NEGATIVES = 200, 100  # --topk_training / --negative_sample
+DPR_POLL_STEPS, DPR_EPOCHS, DPR_ACCUM = 4, 2, 2
+DPR_EVAL_BATCH = 128
+BERT_VOCAB, BERT_CLS, BERT_SEP = 30522, 101, 102
+# the 21M capacity check: psgs_w100.tsv's row count, filled on the card
+WIKI_ROWS = 21_015_324
+CAPACITY_SLICE = 65_536
+CAPACITY_SEARCHES = {"mining": (512, 200), "dev": (2048, 100)}
+CAPACITY_SCAN_Q = 64  # queries of each capacity search held to a scan
+CAPACITY_SEED = 21
+
+
+class BertWordHashTokenizer:
+    """:class:`WordHashTokenizer` in BERT's id space, with the pair
+    encoding DPR's passages use: ``[CLS]`` 101, ``[SEP]`` 102, pad 0, words
+    crc32-hashed into [1000, 30522) (clear of BERT's special ids);
+    ``encode(text, text_pair=)`` gives ``[CLS] text [SEP] pair [SEP]``, cut
+    to ``max_length`` where one is given (DPR's preprocessing cuts, and
+    restores the SEP, itself)."""
+    pad_token_id, sep_token_id = 0, BERT_SEP
+
+    @staticmethod
+    def _ids(text):
+        import zlib
+        return [1000 + zlib.crc32(w.encode(), WORD_HASH_SEED)
+                % (BERT_VOCAB - 1000) for w in text.split()]
+
+    def encode(self, text, text_pair=None, add_special_tokens=True,
+               max_length=None):
+        ids = [BERT_CLS] + self._ids(text) + [BERT_SEP]
+        if text_pair is not None:
+            ids += self._ids(text_pair) + [BERT_SEP]
+        return ids[:max_length] if max_length is not None else ids
+
+
+class BertWordHashFactory(WordHashFactory):
+    """Stands in for ``cli.TokenizerFactory``; module level, so spawned
+    workers unpickle it."""
+
+    def __call__(self):
+        return BertWordHashTokenizer()
+
+
+def _write_raw_dpr(raw: Path, rs) -> dict:
+    """psgs_w100.tsv (header, ids in psgs_w100's range, the text field
+    quoted as the real file's is), nq-train / nq-dev / trivia-dev JSON in
+    DPR's layout and nq-test / trivia-test CSVs. A question is 4-8 words of
+    its positive passage; its answer another two words of that passage
+    (so a passage that holds it is rarely another); two train entries
+    without positives are dropped by preprocessing. Returns what the
+    checks need."""
+    import numpy as np
+    raw.mkdir()
+    words = np.array([f"t{i}" for i in range(WARMUP_VOCAB_WORDS)])
+    pids = np.sort(rs.choice(WIKI_ROWS, DPR_PASSAGES, replace=False)) + 1
+    lengths = rs.randint(DPR_WORDS[0], DPR_WORDS[1] + 1, DPR_PASSAGES)
+    lengths[::DPR_LONG_EVERY] = 320
+    texts = [" ".join(words[rs.randint(0, WARMUP_VOCAB_WORDS, n)])
+             for n in lengths]
+    titles = [" ".join(words[rs.randint(0, WARMUP_VOCAB_WORDS,
+                                        rs.randint(1, 4))])
+              for _ in range(DPR_PASSAGES)]
+    with open(raw / "psgs_w100.tsv", "w") as f:
+        f.write("id\ttext\ttitle\n")
+        f.writelines(f'{p}\t"{t}"\t{h}\n'
+                     for p, t, h in zip(pids, texts, titles))
+
+    def question(key):
+        pos = rs.randint(DPR_PASSAGES)
+        toks = texts[pos].split()
+        start = rs.randint(0, len(toks) - 8)
+        q = " ".join(toks[start:start + rs.randint(4, 9)])
+        a = rs.randint(0, len(toks) - 2)
+        negs = [n for n in rs.choice(DPR_PASSAGES, DPR_HARD_NEGATIVES + 1,
+                                     replace=False) if n != pos]
+        return {"question": q + "?", "answers": [" ".join(toks[a:a + 2])],
+                "positive_ctxs": [{key: str(pids[pos])}],
+                "hard_negative_ctxs": [{key: str(pids[n])}
+                                       for n in negs[:DPR_HARD_NEGATIVES]]}
+
+    split = {}
+    for name, key, n in (("nq-train", "passage_id", DPR_TRAIN_Q),
+                         ("nq-dev", "passage_id", DPR_DEV_Q),
+                         ("trivia-dev", "psg_id", DPR_TRIVIA_DEV_Q)):
+        split[name] = [question(key) for _ in range(n)]
+        dropped = [dict(question(key), positive_ctxs=[])
+                   for _ in range(2 if name == "nq-train" else 0)]
+        with open(raw / f"{name}.json", "w") as f:
+            json.dump(split[name][:5] + dropped + split[name][5:], f)
+    for name in ("nq-test", "trivia-test"):
+        split[name] = [question("passage_id") for _ in range(DPR_TEST_Q)]
+        with open(raw / f"{name}.csv", "w") as f:
+            f.writelines(f"{s['question']}\t{s['answers']!r}\n"
+                         for s in split[name])
+    return {"pids": pids, "texts": texts, "titles": titles, **split}
+
+
+def _check_dpr_preprocessed(data: Path, raw: dict) -> None:
+    """Every 8th passage record (and every cut one) is the tokenizer's
+    pair encoding of its row, cut to DPR_SEQ with the SEP restored; every
+    train question's record and train-data line are its own."""
+    import numpy as np
+    from ance_tpu_torch.data import dpr
+    from ance_tpu_torch.data.cache import TokenCache
+    tok = BertWordHashTokenizer()
+    pid2off, _ = dpr.load_mapping(str(data), "pid2offset")
+    check(sorted(pid2off) == raw["pids"].tolist()
+          and sorted(pid2off.values()) == list(range(DPR_PASSAGES)),
+          "pid2offset does not map every passage id onto the rows")
+    rows = sorted(set(range(0, DPR_PASSAGES, 8))
+                  | set(range(0, DPR_PASSAGES, DPR_LONG_EVERY)))
+    with TokenCache(str(data / "passages")) as pc:
+        lengths, tokens = pc.batch([pid2off[int(raw["pids"][i])]
+                                    for i in rows])
+    for i, n, row in zip(rows, lengths, tokens):
+        full, ids = dpr._encode_fixed(tok, DPR_SEQ, raw["titles"][i],
+                                      raw["texts"][i])
+        check(n == min(full, DPR_SEQ) and row.tolist() == ids,
+              f"passage record {i} is not its row's pair encoding")
+    check(any(dpr._encode_fixed(tok, DPR_SEQ, raw["titles"][i],
+                                raw["texts"][i])[0] > DPR_SEQ for i in rows),
+          "no passage was cut to the sequence")
+    with TokenCache(str(data / "train-query")) as qc:
+        lengths, tokens = qc.batch(np.arange(DPR_TRAIN_Q))
+    lines = (data / "train-data").read_text().splitlines()
+    check(len(lines) == DPR_TRAIN_Q, f"{len(lines)} train-data lines")
+    for qid, (s, n, row, line) in enumerate(zip(raw["nq-train"], lengths,
+                                               tokens, lines)):
+        full, ids = dpr._encode_fixed(tok, DPR_SEQ,
+                                      dpr.normalize_question(s["question"]))
+        pos = pid2off[int(s["positive_ctxs"][0]["passage_id"])]
+        negs = ",".join(str(pid2off[int(c["passage_id"])])
+                        for c in s["hard_negative_ctxs"])
+        check(n == full and row.tolist() == ids
+              and line == f"{qid}\t{pos}\t{negs}",
+              f"train question {qid}: record or train-data line not its own")
+
+
+def _reset_attention_counts() -> None:
+    from ance_tpu_torch.ops import fused_attention as fa
+    for f in (fa.fused_attention, fa.fused_attention_backward):
+        f.launches = 0
+        f.kernel_launches.clear()
+
+
+def _attention_counts() -> tuple[dict, dict]:
+    from ance_tpu_torch.ops import fused_attention as fa
+    return (dict(fa.fused_attention.kernel_launches),
+            dict(fa.fused_attention_backward.kernel_launches))
+
+
+def _dpr_attention_on_operands(fwd: dict, bwd: dict, what: str) -> dict:
+    """#2 (and #3) against their plain versions on the operands recorded
+    on a DPR path: bf16 per element within BF16_SLICE_TOL; the fp32
+    forward within 1e-4 of plain, the fp32 backward within 1e-5 of the
+    function in fp64 (FP32_BACKWARD_YARDSTICK), each beside both
+    distances to the fp64 function."""
+    import torch
+    from ance_tpu_torch.ops import fused_attention as fa
+    out = {"forward": [], "backward": []}
+    for i, (q, k, v, mask) in sorted(fwd.items()):
+        got = fa.fused_attention_forward(q, k, v, mask)
+        plain = fa.fused_attention_reference(q, k, v, mask)
+        case = {"call": i, "shape": list(q.shape), "dtype": str(q.dtype),
+                "kernel": fa.fused_kernel_for(q, k, v),
+                "max_abs_err": (got - plain).abs().max().item()}
+        if q.dtype == torch.bfloat16:
+            n_bad, _, case["slice_ulps"] = bf16_slice_excess(got, plain)
+            check(n_bad == 0, f"{what}: #2 call {i} {list(q.shape)}: {n_bad} "
+                  f"elements beyond {BF16_SLICE_TOL}")
+        else:
+            case.update(exact_errors(got, plain,
+                                     exact_in_rows(q, k, v, mask), mask))
+            check(case["max_abs_err"] <= 1e-4, f"{what}: #2 call {i}: max "
+                  f"|kernel - plain| {case['max_abs_err']} > 1e-4")
+        out["forward"].append(case)
+    for i, (q, k, v, mask, do) in sorted(bwd.items()):
+        if q.dtype == torch.float32:  # FP32_BACKWARD_YARDSTICK
+            got = fa.fused_attention_backward(q, k, v, mask, do)
+            plain = fa.fused_attention_backward_reference(q, k, v, mask, do)
+            case = {"call": i, "shape": list(q.shape),
+                    "kernel": fa.fused_kernel_for(q, k, v, backward=True),
+                    "max_abs_err": max((g - w).abs().max().item()
+                                       for g, w in zip(got, plain))}
+            case.update(exact_errors(
+                got, plain, exact_in_rows(q, k, v, mask, do), mask))
+            check(case["kernel_vs_exact"] <= 1e-5, f"{what}: #3 call {i}: "
+                  f"max |kernel - fp64 function| {case['kernel_vs_exact']} "
+                  "> 1e-5")
+            out["backward"].append(case)
+            continue
+        errs, ulps = [], []
+        for name, g, w in zip(("dq", "dk", "dv"),
+                              fa.fused_attention_backward(q, k, v, mask, do),
+                              fa.fused_attention_backward_reference(
+                                  q, k, v, mask, do)):
+            n_bad, e, u = bf16_slice_excess(g, w)
+            check(n_bad == 0, f"{what}: #3 {name} call {i} {list(q.shape)}: "
+                  f"{n_bad} elements beyond {BF16_SLICE_TOL}")
+            errs.append(e)
+            ulps.append(u)
+        out["backward"].append({"call": i, "shape": list(q.shape),
+                                "kernel": fa.fused_kernel_for(
+                                    q, k, v, backward=True),
+                                "max_abs_err": max(errs),
+                                "slice_ulps": max(ulps)})
+    torch.cuda.empty_cache()
+    return out
+
+
+def _capacity_21m(quantize: str, queries, scale: float) -> dict:
+    """A FlatIPIndex of psgs_w100's WIKI_ROWS x 768 rows, filled slice by
+    slice on the card from seeded randn (times ``scale``, the DPR passage
+    embeddings' RMS), beside the resident encoder: the mining search (Q=512
+    k=200) and the dev search (Q=2048 k=100), each one ``index.search``
+    through #1, which splits its queries only as far as the memory left
+    beside the index needs (one launch a group of
+    ``topk.query_group_rows``); the first CAPACITY_SCAN_Q of each held to a
+    scan of the same index. An index that does not fit fails the phase,
+    its bytes printed."""
+    import torch
+    from ance_tpu_torch.index.flat import FlatIPIndex
+
+    def fill(s, n):
+        g = torch.Generator(device="cuda").manual_seed(CAPACITY_SEED + s)
+        return torch.randn((n, DIM), generator=g, device="cuda") * scale
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    index = FlatIPIndex(DIM, device="cuda", chunk_rows=131_072,
+                        quantize="dims" if quantize == "dims" else False)
+    starts = range(0, WIKI_ROWS, CAPACITY_SLICE)
+    rows = -(-WIKI_ROWS // CAPACITY_SLICE) * CAPACITY_SLICE
+    need = rows * DIM * (1 if quantize == "dims" else 4)
+    t0 = time.perf_counter()
+    scales = None
+    if quantize == "dims":  # the corpus-global per-dimension maxima
+        amax = torch.zeros(DIM, device="cuda")
+        for s in starts:
+            amax = torch.maximum(amax, fill(s, min(CAPACITY_SLICE,
+                                                   WIKI_ROWS - s))
+                                 .abs().amax(0))
+        scales = amax.clamp_min(1e-12) / 127.0
+    try:
+        index.allocate(WIKI_ROWS, DIM, slice_rows=CAPACITY_SLICE,
+                       scales=scales)
+    except torch.cuda.OutOfMemoryError:
+        free, total = torch.cuda.mem_get_info()
+        raise AssertionError(
+            f"21M {quantize} index: {need} bytes ({need / 2**30:.2f} GiB) do "
+            f"not fit beside the encoder's {base} bytes ({free} of {total} "
+            "free)") from None
+    for s in starts:
+        index.update_slice(s, fill(s, min(CAPACITY_SLICE, WIKI_ROWS - s)))
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+    out = {"quantize": quantize, "rows": WIKI_ROWS, "index_bytes": need,
+           "fill_s": fill_s, "resident_gib": resident / 2**30,
+           "searches": {}}
+    kernel = "blockmax_pieces_int8" if quantize == "dims" \
+        else "blockmax_pieces_f32"
+    for name, (Q, k) in CAPACITY_SEARCHES.items():
+        q = queries[:Q]
+        index.method = "auto"
+        reset_blockmax_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = index.search(q, k)[1]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = blockmax_counts()
+        check(set(launches) == {kernel}
+              and 1 <= launches[kernel] <= -(-Q // 64),
+              f"21M {quantize} {name}: block-max launches {launches}")
+        index.method = "scan"
+        _, scan = index.search(q[:CAPACITY_SCAN_Q], k)
+        same = (scan == ids[:CAPACITY_SCAN_Q]).float().mean().item()
+        check(same == 1.0, f"21M {quantize} {name}: ids equal the scan on "
+              f"{same:.6f} of the sampled positions")
+        out["searches"][name] = {"Q": Q, "k": k, "ms": ms,
+                                 "launches": launches[kernel]}
+        del ids, scan
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"21M capacity, {quantize} index: {WIKI_ROWS} x {DIM} "
+          f"({need / 2**30:.2f} GiB) filled in {fill_s:.1f} s beside "
+          f"{base / 2**30:.2f} GiB resident; searches "
+          f"{ {n: round(s['ms'], 1) for n, s in out['searches'].items()} } "
+          f"ms ({kernel} launches "
+          f"{ {n: s['launches'] for n, s in out['searches'].items()} }); "
+          f"the first "
+          f"{CAPACITY_SCAN_Q} queries of each == a scan; peak "
+          f"{out['peak_gib']:.2f} GiB", flush=True)
+    del index
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dpr(work: Path):
+    """DPR through the port's CLI in process at BERT-base width (two seeded
+    towers, seq 256), as its runbook drives it: ``preprocess-dpr`` over
+    PREPROCESS_WORKERS spawned workers; a polling ``train --ann_dir`` at
+    the default dropout (attention dropout 0.1 takes the einsum path in
+    both packages, ``ance_tpu/ops/attention.py:102-103``, so no #2 or #3
+    launch); ``train --num_epoch 2 --dev_data`` with attention dropout 0
+    and ``--gradient_accumulation_steps 2`` (#2 and #3 at S = 256 inside
+    the GradCache step), and the GradCache loss against an unaccumulated
+    step on one batch; ``generate-dpr`` in bf16, at the CLI's fp32 and
+    over a ``dims`` index (#1 once a search; mining and the test hit
+    curve held to a scan); ``export-hf --model_type dpr``; each kernel on
+    the operands its path gave it; then the 21M-passage capacity check
+    beside the resident encoder. Every path's launches are counted from 0
+    just before it and read just after."""
+    import numpy as np
+    import torch
+    from ance_tpu_torch import cli
+    from ance_tpu_torch.data import dpr
+    from ance_tpu_torch.data.cache import TokenCache
+    from ance_tpu_torch.data.feed import parse_triple_line
+    from ance_tpu_torch.evaluation.qa_validation import has_answer
+    from ance_tpu_torch.index import flat
+    from ance_tpu_torch.models.registry import get_model_spec
+    from ance_tpu_torch.models.weights import load_weights
+    from ance_tpu_torch.train import checkpoint as ckpt
+    from ance_tpu_torch.train import dpr_gen, dpr_trainer, trainer
+    from ance_tpu_torch.train.encode import make_encode_fn
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # argmax ties (the in-batch loss's correct count): the first maximum
+    # on the card too, as on the CPU and in jnp.argmax
+    rs = np.random.RandomState(0)
+    for shape in ((512, 1024), (4, 300_001)):
+        scores = rs.randint(0, 3, shape).astype(np.float32)
+        got = torch.argmax(torch.as_tensor(scores, device="cuda"), 1)
+        check(got.cpu().numpy().tolist() == scores.argmax(1).tolist(),
+              f"torch.argmax on the card does not take the first of equal "
+              f"maxima at {shape}")
+    raw_dir, data = work / "dpr_raw", work / "dpr_data"
+    raw = _write_raw_dpr(raw_dir, np.random.RandomState(15))
+    weights = work / "dpr_bert_base_seeded"
+    weights.mkdir()
+    torch.save(get_model_spec("dpr").build(seed=0).state_dict(),
+               weights / "pytorch_model.bin")
+    seq = ["--max_seq_length", str(DPR_SEQ), "--max_query_length",
+           str(DPR_SEQ)]
+    model_flags = ["--device", "cuda", "--model_type", "dpr",
+                   "--model_name_or_path", str(weights), *seq]
+    train_flags = ["train", *model_flags, "--bf16", "--data_dir", str(data),
+                   "--per_device_train_batch_size", str(DPR_BATCH),
+                   "--optimizer", "lamb", "--learning_rate", DPR_LR,
+                   "--warmup_steps", "4"]
+
+    def no_tokenizer(name, model_dir):
+        raise OSError(f"no tokenizer files in {model_dir}")
+
+    real = {"factory": cli.TokenizerFactory, "tokenizer": cli._load_tokenizer,
+            "make": cli._make_training, "gen": dpr_gen.generate_new_ann_dpr,
+            "topk": flat.topk_blockmax}
+    step_ms, results, searched = [], [], []
+
+    def make_training(*args, **kwargs):
+        state, step = real["make"](*args, **kwargs)
+
+        def timed(state, batch, generator):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, generator)
+            float(metrics["loss"])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return state, metrics
+        return state, timed
+
+    def keep(*args, **kwargs):
+        results.append(real["gen"](*args, **kwargs))
+        return results[-1]
+
+    def recorded(queries, corpus, **kwargs):
+        searched.append((queries, corpus))
+        return real["topk"](queries, corpus, **kwargs)
+
+    cli.TokenizerFactory, cli._load_tokenizer = BertWordHashFactory, \
+        no_tokenizer
+    cli._make_training = make_training
+    dpr_gen.generate_new_ann_dpr, flat.topk_blockmax = keep, recorded
+    try:
+        # 1. preprocess-dpr over spawned workers
+        t0 = time.perf_counter()
+        counts = _cli(["preprocess-dpr", "--model_type", "dpr", "--wiki_dir",
+                       str(raw_dir), "--question_dir", str(raw_dir),
+                       "--answer_dir", str(raw_dir), "--out_data_dir",
+                       str(data), "--max_seq_length", str(DPR_SEQ),
+                       "--num_processes", str(PREPROCESS_WORKERS)])
+        pre_s = time.perf_counter() - t0
+        check(counts == {"pid2offset": DPR_PASSAGES, "train": DPR_TRAIN_Q,
+                         "dev": DPR_DEV_Q, "dev_trivia": DPR_TRIVIA_DEV_Q,
+                         "test": DPR_TEST_Q, "test_trivia": DPR_TEST_Q},
+              f"preprocess-dpr counts {counts}")
+        _check_dpr_preprocessed(data, raw)
+        print(f"preprocess-dpr: {DPR_PASSAGES} passages (title + text pairs "
+              f"at seq {DPR_SEQ}), {counts} over {PREPROCESS_WORKERS} "
+              f"spawned workers in {pre_s:.2f} s; records == the "
+              "tokenizer's, the two entries without positives dropped",
+              flush=True)
+
+        # 2. the polling trainer at the default dropout: the einsum path
+        ann0 = work / "dpr_ann0"
+        ann0.mkdir()
+        shutil.copy(data / "train-data", ann0 / "ann_training_data_0")
+        (ann0 / "ann_ndcg_0").write_text(json.dumps({"top20": 0.0}))
+        _reset_attention_counts()
+        step_ms.clear()
+        poll = _cli([*train_flags, "--ann_dir", str(ann0), "--output_dir",
+                     str(work / "dpr_poll"), "--max_steps",
+                     str(DPR_POLL_STEPS), "--save_steps",
+                     str(DPR_POLL_STEPS)])
+        poll_launches = _attention_counts()
+        check(poll_launches == ({}, {}), "polling DPR train at attention "
+              f"dropout 0.1 launched #2 / #3 {poll_launches}")
+        check(poll["steps"] == DPR_POLL_STEPS
+              and all(math.isfinite(x) for x in poll["loss"]),
+              f"polling DPR train: {poll}")
+        m = get_model_spec("dpr").build()
+        ckpt.load_params(poll["checkpoint"], m)  # strict
+        poll_ms = statistics.median(step_ms[1:])
+        print(f"train dpr --ann_dir: {DPR_POLL_STEPS} steps of batch "
+              f"{DPR_BATCH} at the default dropout, losses "
+              f"{[round(x, 4) for x in poll['loss']]}, step {poll_ms:.1f} ms "
+              "(median after the first); #2 / #3 launches 0: attention "
+              "dropout 0.1 takes the einsum path, the JAX package's rule "
+              f"(not a fallback); {poll['checkpoint']} loads strictly",
+              flush=True)
+
+        # 3. train --num_epoch 2 --dev_data: the GradCache step, #2 and #3
+        fwd_ops, bwd_ops = {}, {}
+        _reset_attention_counts()
+        step_ms.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with picked_calls("forward", (0, 12), fwd_ops), \
+                picked_calls("backward", (0, 12), bwd_ops):
+            epochs = _cli([*train_flags, "--num_epoch", str(DPR_EPOCHS),
+                           "--dev_data", str(data / "dev-data"),
+                           "--gradient_accumulation_steps", str(DPR_ACCUM),
+                           "--encoder_overrides",
+                           '{"attention_dropout": 0.0}', "--output_dir",
+                           str(work / "dpr_ckpt")])
+        torch.cuda.synchronize()
+        epochs_s = time.perf_counter() - t0
+        train_peak = torch.cuda.max_memory_allocated() / 2**30
+        train_fwd, train_bwd = _attention_counts()
+        steps = DPR_EPOCHS * (DPR_TRAIN_Q // DPR_BATCH)
+        towers = 2 * 12  # two towers of 12 layers a pass
+        dev_passes = DPR_EPOCHS * (DPR_DEV_Q // DPR_BATCH)
+        want_fwd = steps * 2 * DPR_ACCUM * towers + dev_passes * towers
+        want_bwd = steps * DPR_ACCUM * towers
+        check(train_fwd == {"fused_fwd_bf16": want_fwd}
+              and train_bwd == {"fused_bwd_bf16": want_bwd},
+              f"train dpr --num_epoch: #2 {train_fwd} / #3 {train_bwd}, not "
+              f"{want_fwd} / {want_bwd} (each micro-batch encoded twice, "
+              "the dev passes once)")
+        history = epochs["history"]
+        check([(h["epoch"], h["step"]) for h in history]
+              == [(e, (e + 1) * steps // DPR_EPOCHS)
+                  for e in range(DPR_EPOCHS)]
+              and all(math.isfinite(h["loss"]) and math.isfinite(h["dev_nll"])
+                      and 0.0 <= h["dev_correct_ratio"] <= 1.0
+                      for h in history), f"train dpr history {history}")
+        final = str(work / "dpr_ckpt" / f"checkpoint-{steps}")
+        m = get_model_spec("dpr").build()
+        ckpt.load_params(final, m)  # strict
+        dpr_step_ms = statistics.median(step_ms[TIMED_FROM:])
+        print(f"train dpr --num_epoch {DPR_EPOCHS} --dev_data, accumulation "
+              f"{DPR_ACCUM} (GradCache): {steps} steps in {epochs_s:.1f} s, "
+              f"step {dpr_step_ms:.1f} ms (median after the first "
+              f"{TIMED_FROM}); history {history}; #2 {train_fwd}, #3 "
+              f"{train_bwd}; peak {train_peak:.2f} GiB; {final} loads "
+              "strictly", flush=True)
+        # calls 0 and 12 of each direction: one from each tower, whose
+        # micro-batches differ in rows (queries m, contexts 2m)
+        check(all(sorted(ops[0].shape[0] for ops in kept.values())
+                  == [DPR_BATCH // DPR_ACCUM, 2 * DPR_BATCH // DPR_ACCUM]
+                  for kept in (fwd_ops, bwd_ops)),
+              "train dpr: the recorded #2 / #3 calls are not one a tower")
+        train_path = _dpr_attention_on_operands(fwd_ops, bwd_ops,
+                                                "train dpr")
+        del fwd_ops, bwd_ops
+
+        # 4. the GradCache step against the unaccumulated one on one batch
+        #    (fp32, dropout off, no clipping, lr 0): the CPU test's bounds on
+        #    the loss, correct, the gradient norm and every gradient; the
+        #    GradCache step's fp32 #2 / #3 launches counted from 0 and its
+        #    first forward and backward held to plain
+        gc, grads = {}, {}
+        model = get_model_spec("dpr").build(config_overrides={
+            "hidden_dropout": 0.0, "attention_dropout": 0.0})
+        ckpt.load_params(final, model)
+        model = model.to("cuda")
+        with TokenCache(str(data / "train-query")) as qc, \
+                TokenCache(str(data / "passages")) as pc:
+            batch = next(dpr_trainer.dpr_dev_batches(
+                qc, pc, str(data / "train-data"), DPR_BATCH))
+        gc_fwd, gc_bwd = {}, {}
+        for accum in (1, DPR_ACCUM):
+            state = trainer.init_train_state(model, trainer.make_optimizer(
+                model, "lamb", 0.0, max_grad_norm=0.0))
+            _reset_attention_counts()
+            with picked_calls("forward", (0,) if accum > 1 else (), gc_fwd), \
+                    picked_calls("backward", (0,) if accum > 1 else (),
+                                 gc_bwd):
+                _, metrics = dpr_trainer.make_dpr_train_step(accum)(
+                    state, batch, torch.Generator().manual_seed(0))
+            torch.cuda.synchronize()
+            gc[accum] = {k: float(v) for k, v in metrics.items()}
+            gc[accum]["launches"] = _attention_counts()
+            grads[accum] = {n: p.grad.clone()
+                            for n, p in model.named_parameters()}
+            del state
+        passes = 2 * 12  # two towers of 12 layers
+        check(gc[DPR_ACCUM]["launches"]
+              == ({"flash_fwd_pieces": 2 * DPR_ACCUM * passes},
+                  {"fused_bwd_pieces": DPR_ACCUM * passes}),
+              f"GradCache fp32 step: #2 / #3 launches "
+              f"{gc[DPR_ACCUM]['launches']}, not each micro-batch encoded "
+              "twice and pulled back once on the pieces routes")
+        rel = abs(gc[DPR_ACCUM]["loss"] - gc[1]["loss"]) / abs(gc[1]["loss"])
+        norm_rel = abs(gc[DPR_ACCUM]["grad_norm"] - gc[1]["grad_norm"]) \
+            / gc[1]["grad_norm"]
+        # the CPU test's element bound (atol 1e-6 + rtol 1e-5) does not
+        # hold at full width: the context tower's embedding gradients sum
+        # 8,192 token rows in fp32, in another order when the two
+        # micro-batches' sums are added (worst element 26.6x outside it,
+        # PERF.md). Each tensor is held normwise instead; a fault in the
+        # pull-back (rows, masks, a micro-batch) moves a tensor by O(1).
+        total = math.sqrt(sum(g.norm().item() ** 2 for g in grads[1].values()))
+        per_tensor = sorted(
+            ((grads[DPR_ACCUM][n] - g).norm().item()
+             / (1e-4 * g.norm().item() + 1e-6 * total), n)
+            for n, g in grads[1].items())
+        grad_excess, worst_tensor = per_tensor[-1]
+        element_excess = max(
+            ((grads[DPR_ACCUM][n] - g).abs() / (1e-6 + 1e-5 * g.abs()))
+            .max().item() for n, g in grads[1].items())
+        check(rel <= 1e-6 and gc[DPR_ACCUM]["correct"] == gc[1]["correct"]
+              and norm_rel <= 1e-5 and grad_excess <= 1.0,
+              f"GradCache on the card: {gc[DPR_ACCUM]} against the "
+              f"unaccumulated step's {gc[1]} (loss rel {rel}, grad norm rel "
+              f"{norm_rel}, {worst_tensor} at {grad_excess} of its bound)")
+        gc_path = _dpr_attention_on_operands(gc_fwd, gc_bwd,
+                                             "GradCache fp32 step")
+        print(f"GradCache (accumulation {DPR_ACCUM}) vs one pass, fp32, one "
+              f"batch of {DPR_BATCH}: loss {gc[DPR_ACCUM]['loss']!r} / "
+              f"{gc[1]['loss']!r} (rel {rel:.3g}, bound 1e-6), correct "
+              f"{gc[DPR_ACCUM]['correct']:.0f} / {gc[1]['correct']:.0f}, grad "
+              f"norm {gc[DPR_ACCUM]['grad_norm']:.9g} / "
+              f"{gc[1]['grad_norm']:.9g} (rel {norm_rel:.3g}, bound 1e-5), "
+              f"every gradient tensor within 1e-4 of its norm + 1e-6 of the "
+              f"whole gradient's (worst {worst_tensor} at "
+              f"{grad_excess:.3g} of it; the CPU test's element bound "
+              f"exceeded {element_excess:.3g}x); #2 / #3 launches "
+              f"{gc[DPR_ACCUM]['launches']}; its first forward and backward "
+              f"against plain {gc_path}", flush=True)
+        del model, batch, grads, gc_fwd, gc_bwd
+        torch.cuda.empty_cache()
+
+        # 5. generate-dpr: bf16, the CLI's fp32, and a dims index
+        pid2offset, _ = dpr.load_mapping(str(data), "pid2offset")
+        texts = {pid2offset[p]: t for p, t in dpr.load_passage_texts(
+            str(raw_dir / "psgs_w100.tsv")).items()}
+        test_answers = dpr.load_qas_answers(str(raw_dir / "nq-test.csv"))
+        train_answers = dpr.load_answers(str(data / "train-ann"))
+        n_query_batches = sum(-(-n // DPR_EVAL_BATCH) for n in (
+            DPR_TRAIN_Q, DPR_TEST_Q, DPR_TEST_Q))
+        gen_fwd = towers // 2 * (n_query_batches
+                                 + DPR_PASSAGES // DPR_EVAL_BATCH)
+        gens = {}
+        kernel_cases = []
+        for name, extra, dtypes in (
+                ("dpr_generate", ["--bf16"], "f32xf32"),
+                ("dpr_generate_fp32", [], "f32xf32"),
+                ("dpr_generate_dims", ["--bf16", "--index_quantize", "dims"],
+                 "f32xint8")):
+            out = work / name
+            fwd_ops = {}
+            _reset_attention_counts()
+            reset_blockmax_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with picked_calls("forward", (0, 12 * n_query_batches), fwd_ops):
+                summary = _cli(["generate-dpr", *model_flags, *extra,
+                                "--data_dir", str(data), "--wiki_path",
+                                str(raw_dir / "psgs_w100.tsv"),
+                                "--test_qas", str(raw_dir / "nq-test.csv"),
+                                "--trivia_qas",
+                                str(raw_dir / "trivia-test.csv"),
+                                "--training_dir", str(work / "dpr_ckpt"),
+                                "--output_dir", str(out), "--topk_training",
+                                str(DPR_TOPK), "--negative_sample",
+                                str(DPR_NEGATIVES),
+                                "--per_device_eval_batch_size",
+                                str(DPR_EVAL_BATCH)])
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+            blockmax = blockmax_counts()
+            fused, _ = _attention_counts()
+            result = results.pop()
+            route = "fused_fwd_bf16" if "--bf16" in extra \
+                else "flash_fwd_pieces"
+            kernel = ROUTE_KERNEL[dtypes]
+            check(blockmax == {kernel: 3}, f"{name}: block-max {blockmax}, "
+                  f"not {kernel} once a search (test, trivia, mining)")
+            check(fused == {route: gen_fwd}, f"{name}: #2 {fused}, not "
+                  f"{gen_fwd} on {route}")
+            check(summary["checkpoint"] == final, f"{name} loaded "
+                  f"{summary['checkpoint']}, not {final}")
+            side = json.loads((out / "ann_ndcg_0").read_text())
+            check(set(side) == {"top20", "top100", "top20_trivia",
+                                "top100_trivia", "checkpoint"}
+                  and (out / "ann_ndcg_0").stat().st_mtime_ns
+                  >= (out / "ann_training_data_0").stat().st_mtime_ns,
+                  f"{name}: sidecar {side}")
+            index = result["index"]
+            check(index.quantize == ("dims" if "dims" in extra else None),
+                  f"{name}: a {index.quantize} index")
+            index.method = "scan"
+            _, scan = index.search(result["train_query_embedding"], DPR_TOPK)
+            same = (scan.cpu().numpy() == result["train_neighbor_ids"]).mean()
+            check(same == 1.0, f"{name}: mining ids equal the scan on "
+                  f"{same:.6f} of positions")
+            _, scan_test = index.search(result["test_query_embedding"], 100)
+            scan_hits = dpr_gen.validate(
+                texts, test_answers, scan_test.cpu().numpy(),
+                np.arange(DPR_TEST_Q), result["passage_embedding2id"])
+            check(scan_hits == result["top_k_hits"], f"{name}: the top-k hit "
+                  "curve of the kernel search is not the scan's")
+            lines = (out / "ann_training_data_0").read_text().splitlines()
+            for line in lines:
+                qid, pos, negs = parse_triple_line(line)
+                check(pos not in negs and len(negs) <= DPR_NEGATIVES
+                      and not any(has_answer(train_answers[qid], texts[n][0])
+                                  for n in negs),
+                      f"{name}: bad mined line {line[:80]!r}")
+            secs = result["seconds"]
+            gens[name] = {
+                "s": gen_s, "seconds": secs, "blockmax_kernels": blockmax,
+                "fused_forward": fused, "lines": len(lines),
+                "encode_passages_per_s":
+                    DPR_PASSAGES / secs["encode_passages"],
+                "search_ms": {k[7:]: v * 1e3 for k, v in secs.items()
+                              if k.startswith("search_")},
+                **{k: side[k] for k in ("top20", "top100", "top20_trivia",
+                                        "top100_trivia")}}
+            print(f"generate-dpr {' '.join(extra) or '(fp32)'}: {gen_s:.1f} s "
+                  f"(encode {DPR_PASSAGES} passages at "
+                  f"{gens[name]['encode_passages_per_s']:.0f} passages/s); "
+                  f"search ms {gens[name]['search_ms']}; block-max "
+                  f"{blockmax}, #2 {fused}; top20 / top100 {side['top20']} / "
+                  f"{side['top100']} (trivia {side['top20_trivia']} / "
+                  f"{side['top100_trivia']}); {len(lines)} mined lines, no "
+                  f"negative holds an answer; mining ids and the test hit "
+                  f"curve == the scan's", flush=True)
+            gens[name]["path_forward"] = _dpr_attention_on_operands(
+                fwd_ops, {}, name)["forward"]
+            if name == "dpr_generate":
+                test_queries = result["test_query_embedding"]
+            del index, scan, scan_test, fwd_ops, result
+            kernel_cases += phase1_against_plain(
+                searched, dtypes, name, ("test", "trivia", "mining"))
+        torch.cuda.empty_cache()
+
+        # 6. export-hf --model_type dpr: the model_dict loads strictly into a
+        #    fresh BiEncoder and encodes bit for bit as the checkpoint does
+        export = work / "dpr_export"
+        exported = _cli(["export-hf", "--model_type", "dpr",
+                         "--training_dir", str(work / "dpr_ckpt"),
+                         "--out_dir", str(export)])
+        check(exported["step"] == steps and exported["exported"]
+              == str(export / f"checkpoint-{steps}"), f"export: {exported}")
+        state_file = torch.load(exported["exported"], weights_only=True)
+        check(state_file["offset"] == steps
+              and all(f"{t}.pooler.dense.weight" in state_file["model_dict"]
+                      for t in ("question_model", "ctx_model")),
+              "the export is not a CheckpointState of the step")
+        with TokenCache(str(data / "passages")) as pc, \
+                TokenCache(str(data / "test-query")) as tc:
+            p_ids = torch.as_tensor(pc.batch(np.arange(64))[1]).long()
+            q_ids = torch.as_tensor(tc.batch(np.arange(64))[1]).long()
+        embs = []
+        for source in ("export", "checkpoint"):
+            m = get_model_spec("dpr").build(dtype=torch.bfloat16)
+            if source == "export":
+                load_weights(m, state_file["model_dict"])  # strict
+            else:
+                ckpt.load_params(final, m)
+            m = m.to("cuda")
+            embs.append([make_encode_fn(m, method, "cuda")(ids, ids != 0)
+                         for method, ids in ((type(m).query_emb, q_ids),
+                                             (type(m).body_emb, p_ids))])
+            del m
+        check(all(torch.equal(a, b) for a, b in zip(*embs)),
+              "the export's embeddings are not bit-equal to the checkpoint's")
+        print(f"export-hf --model_type dpr: {exported['exported']} (offset "
+              f"{steps}); its model_dict loads strictly into a fresh "
+              "BiEncoder, query and passage embeddings bit-equal on 64 rows",
+              flush=True)
+        del embs, state_file
+    finally:
+        cli.TokenizerFactory = real["factory"]
+        cli._load_tokenizer = real["tokenizer"]
+        cli._make_training = real["make"]
+        dpr_gen.generate_new_ann_dpr = real["gen"]
+        flat.topk_blockmax = real["topk"]
+    phase_peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # 7. 21M passages on one card, the encoder resident
+    encoder = get_model_spec("dpr").build(dtype=torch.bfloat16)
+    ckpt.load_params(final, encoder)
+    encoder = encoder.to("cuda")
+    with torch.inference_mode():
+        passages = make_encode_fn(encoder, type(encoder).body_emb, "cuda")(
+            p_ids, p_ids != 0)
+    scale = passages.pow(2).mean().sqrt().item()
+    queries = torch.cat([test_queries] * 4)[:2048]
+    del test_queries, passages
+    capacity = {q: _capacity_21m(q, queries, scale) for q in ("dims", "fp32")}
+    del encoder, queries
+    torch.cuda.empty_cache()
+    check(no_reference_modules(), "the port imported jax or ance_tpu")
+    return {"preprocess_s": pre_s, "poll_steps": poll["steps"],
+            "poll_step_ms": poll_ms, "poll_launches": poll_launches,
+            "train_steps": steps, "train_step_ms": dpr_step_ms,
+            "train_steps_ms": list(step_ms), "train_s": epochs_s,
+            "train_history": history, "train_peak_gib": train_peak,
+            "train_fused_forward": train_fwd,
+            "train_fused_backward": train_bwd, "train_path": train_path,
+            "gradcache_vs_one_pass": gc, "gradcache_loss_rel": rel,
+            "gradcache_grad_norm_rel": norm_rel,
+            "gradcache_worst_tensor": [worst_tensor, grad_excess],
+            "gradcache_worst_element_vs_cpu_bound": element_excess,
+            "gradcache_path": gc_path,
+            "generate": gens, "kernel_cases": kernel_cases,
+            "phase_peak_gib": phase_peak, "capacity_21m": capacity}
 
 
 def main() -> int:
@@ -3754,6 +4542,7 @@ def main() -> int:
         generate = phase_generate(work)
         warmup = phase_warmup(work)
         ance_loop = phase_ance_loop(work, generate, train)
+        dpr = phase_dpr(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     parity = phase_step_parity()
@@ -3807,7 +4596,8 @@ def main() -> int:
     apart = ("blockmax_pieces_f32", "blockmax_pieces_int8", "blockmax_int8",
              "blockmax_bf16_int8")
     # phase 1 on generate's and the pipelined loop's operands
-    cases += generate.pop("kernel_cases") + ance_loop.pop("kernel_cases")
+    cases += generate.pop("kernel_cases") + ance_loop.pop("kernel_cases") \
+        + dpr.pop("kernel_cases")
     own = [c for c in cases if c["kernel"] not in apart]
     blockmax = entry("blockmax_scores", "blockmax", "ance_tpu/ops/topk.py:90",
                      maxp["blockmax_launches"],
@@ -3827,7 +4617,9 @@ def main() -> int:
         "ance_loop": ance_loop["firstp"]["blockmax_kernels"],
         "ance_loop_dims": ance_loop["dims"]["blockmax_kernels"],
         "ance_loop_maxp": ance_loop["maxp"]["blockmax_kernels"],
-        "topk_int8_study": topk_int8["launches"]}
+        "topk_int8_study": topk_int8["launches"],
+        **{name: g["blockmax_kernels"]
+           for name, g in dpr["generate"].items()}}
     fp32_entries = []
     for kernel, dtypes, launches in (
             ("blockmax_pieces_f32", "f32xf32",
@@ -3842,10 +4634,13 @@ def main() -> int:
                   "blockmax", own)
         e["gemm_ms"] = head["gemm_ms"]
         e["fp32_rate_bound_ms"] = head["fp32_rate_bound_ms"]
-        if kernel == "blockmax_pieces_f32":  # generate from a warmup too
-            e["launches_by_path"] = {
-                "generate": launches,
-                "warmup_generate": warmup["blockmax_kernels"][kernel]}
+        # generate from a warmup and generate-dpr too
+        e["launches_by_path"] = {"generate": launches, **{
+            name: g["blockmax_kernels"].get(kernel, 0)
+            for name, g in dpr["generate"].items()}}
+        if kernel == "blockmax_pieces_f32":
+            e["launches_by_path"]["warmup_generate"] = \
+                warmup["blockmax_kernels"][kernel]
         fp32_entries.append(e)
     # the int8 routes, with their launches on the int8 phase-1 study's path
     # and their yardstick (the same product at a library's rate)
@@ -3900,6 +4695,20 @@ def main() -> int:
                   source, own)
         e.update(kernel=kernel, fp32_rate_bound_ms=head["fp32_rate_bound_ms"],
                  exact=head["exact"], path_operands=path)
+        gc_fwd, gc_bwd = dpr["gradcache_vs_one_pass"][DPR_ACCUM]["launches"]
+        if entry_name == "fused_attention_f32":
+            e["launches_by_path"] = {
+                "maxp_fp32_serve": launches,
+                "dpr_generate_fp32": dpr["generate"]["dpr_generate_fp32"][
+                    "fused_forward"][kernel],
+                "dpr_gradcache_fp32": gc_fwd[kernel]}
+            e["dpr_path_operands"] = dpr["generate"]["dpr_generate_fp32"][
+                "path_forward"]
+            e["dpr_gradcache_operands"] = dpr["gradcache_path"]["forward"]
+        elif entry_name == "fused_attention_bwd_f32":
+            e["launches_by_path"] = {"maxp_fp32_train": launches,
+                                     "dpr_gradcache_fp32": gc_bwd[kernel]}
+            e["dpr_gradcache_operands"] = dpr["gradcache_path"]["backward"]
         fp32_attention.append(e)
     fused_fwd = attention_entry("fused_attention",
                                 "ance_tpu/ops/fused_attention.py:40", 128,
@@ -3907,7 +4716,13 @@ def main() -> int:
     fused_fwd["launches_by_path"] = {
         "maxp_serve": maxp["fused_launches"],
         "ance_loop_maxp_encode": ance_loop["maxp"]["fused_forward_in_items"],
-        "ance_loop_maxp_steps": ance_loop["maxp"]["fused_forward_in_steps"]}
+        "ance_loop_maxp_steps": ance_loop["maxp"]["fused_forward_in_steps"],
+        "dpr_train": dpr["train_fused_forward"]["fused_fwd_bf16"],
+        "dpr_generate": dpr["generate"]["dpr_generate"]["fused_forward"][
+            "fused_fwd_bf16"],
+        "dpr_generate_dims": dpr["generate"]["dpr_generate_dims"][
+            "fused_forward"]["fused_fwd_bf16"]}
+    fused_fwd["dpr_path_operands"] = dpr["train_path"]["forward"]
     fused_bwd = entry("fused_attention_bwd", "fused_attention",
                       "ance_tpu/ops/fused_attention.py:97",
                       train["maxp"]["fused_backward_launches"], bwd_head,
@@ -3915,7 +4730,9 @@ def main() -> int:
                       bwd_cases)
     fused_bwd["launches_by_path"] = {
         "maxp_train": train["maxp"]["fused_backward_launches"],
-        "ance_loop_maxp": ance_loop["maxp"]["fused_backward"]}
+        "ance_loop_maxp": ance_loop["maxp"]["fused_backward"],
+        "dpr_train": dpr["train_fused_backward"]["fused_bwd_bf16"]}
+    fused_bwd["dpr_path_operands"] = dpr["train_path"]["backward"]
     print(json.dumps({"kernels": [
         blockmax, *fp32_entries, *int8_entries, fused_fwd,
         attention_entry("flash_attention", "ance_tpu/ops/flash_attention.py:34",
@@ -3929,7 +4746,7 @@ def main() -> int:
         "train": train, "maxp_fp32": maxp_fp32, "step_parity": parity,
         "mirror_encoder": mirror,
         "generate": generate, "warmup": warmup, "ance_loop": ance_loop,
-        "topk_int8": topk_int8}))
+        "dpr": dpr, "topk_int8": topk_int8}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

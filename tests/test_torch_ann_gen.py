@@ -470,7 +470,7 @@ def test_cli_generate_refuses_missing_cuda(gen_inputs, tmp_path):
                        str(root / "port_train"), "--output_dir",
                        str(tmp_path)])
     with pytest.raises(SystemExit, match="not ported"):
-        port_main(["infer", *_cli_flags(data), "--model_type", "dpr",
+        port_main(["infer", *_cli_flags(data), "--model_type", "seeddot_nll",
                    "--device", "cpu", "--training_dir", str(tmp_path),
                    "--output_dir", str(tmp_path)])
 

@@ -127,8 +127,9 @@ def test_export_loads_strictly_and_encodes_as_the_checkpoint(runs, tmp_path,
 
 
 def test_export_hf_refuses(runs, tmp_path):
-    """No complete checkpoint (a random init), DPR, SEED, and a config
-    whose geometry disagrees with the checkpoint: each exits."""
+    """No complete checkpoint (a random init), a DPR export of a RobertaDot
+    checkpoint, SEED, and a config whose geometry disagrees with the
+    checkpoint: each exits."""
     from ance_tpu_torch.cli import main
     out = ["--out_dir", str(tmp_path / "out")]
     os.makedirs(tmp_path / "empty" / "checkpoint-3")  # no DONE
@@ -136,7 +137,7 @@ def test_export_hf_refuses(runs, tmp_path):
         main(["export-hf", "--training_dir", str(tmp_path / "empty"), *out])
     with pytest.raises(SystemExit, match="refusing to export a random init"):
         main(["export-hf", *out])
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 #8"):
+    with pytest.raises(SystemExit, match="not a BiEncoder checkpoint"):
         main(["export-hf", "--model_type", "dpr", "--training_dir",
               str(runs / "port"), *out])
     with pytest.raises(SystemExit, match="ROADMAP Queue 1 #9"):

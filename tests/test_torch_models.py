@@ -157,7 +157,7 @@ def test_load_pretrained_reads_an_hf_export_dir(tmp_path):
 
 def test_registry_names_unported_models():
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_model_spec("dpr")
+        get_model_spec("seeddot_nll")
     with pytest.raises(NotImplementedError, match="SEED"):
         get_model_spec("rdot_nll").build(
             config_overrides=dict(TINY, layerdrop_rate=0.1))

@@ -1,6 +1,8 @@
-"""The torch port never imports jax, flax or msgpack, nor any module of
-the JAX package, while it preprocesses, warms up, exports, serves, trains,
-generates and runs the pipelined refresh (``ance-loop``). Checked in a fresh interpreter, because this test process already has jax
+"""The torch port never imports jax, flax, msgpack or regex, nor any module
+of the JAX package, while it preprocesses, warms up, exports, serves,
+trains, generates, runs the pipelined refresh (``ance-loop``) and the DPR
+commands (``preprocess-dpr``, ``train --num_epoch``, ``generate-dpr``,
+``export-hf --model_type dpr``). Checked in a fresh interpreter, because this test process already has jax
 (tests/conftest.py imports it)."""
 
 import os
@@ -168,9 +170,67 @@ SCRIPT = textwrap.dedent("""
           "--training_dir", f"{d}/warm", "--out_dir", f"{d}/hf"])
     assert os.path.exists(f"{d}/hf/config.json")
     assert msgpack_restore(b"\\x81\\xa1a\\x01") == {"a": 1}
+
+    # DPR: preprocess-dpr (a BERT-style word tokenizer), train --num_epoch
+    # with a dev evaluation and GradCache accumulation, generate-dpr and
+    # export-hf --model_type dpr
+    class BertWords:
+        pad_token_id, sep_token_id = 0, 3
+
+        def encode(self, text, text_pair=None, add_special_tokens=True,
+                   max_length=None):
+            ids = [2] + [4 + zlib.crc32(w.encode()) % 40
+                         for w in text.split()] + [3]
+            if text_pair is not None:
+                ids += [4 + zlib.crc32(w.encode()) % 40
+                        for w in text_pair.split()] + [3]
+            return ids
+
+    cli._load_tokenizer = lambda name, model_dir: BertWords()
+    w = f"{d}/dpr_raw"
+    os.mkdir(w)
+    with open(f"{w}/psgs_w100.tsv", "w") as f:
+        f.write("id\\ttext\\ttitle\\n")
+        f.writelines(f"{i + 1}\\t{texts[i]}\\tT{i}\\n" for i in range(10))
+    def sample(i, key):
+        return {"question": texts[i][:5] + "?", "answers": [texts[i][:2]],
+                "positive_ctxs": [{key: str(i + 1)}],
+                "hard_negative_ctxs": [{key: str((i + 3) % 10 + 1)}]}
+    for name, key, n in (("nq-train", "passage_id", 8),
+                         ("nq-dev", "passage_id", 4),
+                         ("trivia-dev", "psg_id", 2)):
+        with open(f"{w}/{name}.json", "w") as f:
+            json.dump([sample(i, key) for i in range(n)], f)
+    for name in ("nq-test", "trivia-test"):
+        with open(f"{w}/{name}.csv", "w") as f:
+            f.writelines(f"{texts[i][:5]}?\\t['{texts[i][:2]}']\\n"
+                         for i in range(3))
+    main(["preprocess-dpr", "--model_type", "dpr", "--wiki_dir", w,
+          "--question_dir", w, "--answer_dir", w, "--out_data_dir",
+          f"{d}/dpr", "--max_seq_length", "12", "--num_processes", "1"])
+    dpr_tiny = json.dumps(dict(tiny, hidden_dropout=0.0,
+                               attention_dropout=0.0))
+    flags = ["--device", "cpu", "--model_type", "dpr", "--encoder_overrides",
+             dpr_tiny, "--data_dir", f"{d}/dpr"]
+    main(["train", *flags, "--output_dir", f"{d}/dpr_ckpt", "--num_epoch",
+          "1", "--dev_data", f"{d}/dpr/dev-data",
+          "--per_device_train_batch_size", "4",
+          "--gradient_accumulation_steps", "2"])
+    assert os.path.exists(f"{d}/dpr_ckpt/checkpoint-2/DONE")
+    main(["generate-dpr", *flags, "--wiki_path", f"{w}/psgs_w100.tsv",
+          "--test_qas", f"{w}/nq-test.csv", "--trivia_qas",
+          f"{w}/trivia-test.csv", "--training_dir", f"{d}/dpr_ckpt",
+          "--output_dir", f"{d}/dpr_ann", "--topk_training", "5",
+          "--negative_sample", "2"])
+    assert "top20" in json.load(open(f"{d}/dpr_ann/ann_ndcg_0"))
+    main(["export-hf", "--model_type", "dpr", "--training_dir",
+          f"{d}/dpr_ckpt", "--out_dir", f"{d}/dpr_export"])
+    assert "model_dict" in torch.load(f"{d}/dpr_export/checkpoint-2",
+                                      weights_only=True)
     assert "jax" not in sys.modules, "the port pulled in jax"
     assert "flax" not in sys.modules
     assert "msgpack" not in sys.modules
+    assert "regex" not in sys.modules
     old = sorted(m for m in sys.modules
                  if m == "ance_tpu" or m.startswith("ance_tpu."))
     assert not old, f"the port imported the JAX package: {old}"

@@ -691,7 +691,7 @@ def test_loop_searches_launch_the_blockmax_kernel_on_cuda(tmp_path):
                           **dict(SMALL, index_quantize=quantize))
         loop.device = torch.device("cuda")
         loop.state.model.to("cuda")
-        loop._now = pipelined._synced_clock(loop.device)
+        loop._now = pipelined.synced_clock(loop.device)
         loop._take_snapshot()
         blockmax_scores.launches = 0
         blockmax_scores.kernel_launches.clear()

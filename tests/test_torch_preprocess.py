@@ -215,7 +215,8 @@ def test_cli_preprocess_matches_ance_preprocess(tmp_path, capsys,
     """``cli preprocess`` against ``ance preprocess`` with the tokenizer
     factory of each replaced by the word tokenizer: the same printed map
     sizes and the same files; the port's factory pickles (spawned workers
-    rebuild it) and the SEED tokenizer exits naming its queue item."""
+    rebuild it) and the SEED tokenizer and model exit naming their queue
+    item."""
     from ance_tpu import cli as jax_cli
     from ance_tpu_torch import cli as port_cli
 
@@ -238,6 +239,7 @@ def test_cli_preprocess_matches_ance_preprocess(tmp_path, capsys,
     assert isinstance(factory(), WordTokenizer)
     with pytest.raises(SystemExit, match="Queue 1 #9"):
         port_cli.TokenizerFactory("seed-wordpiece", None)()
-    with pytest.raises(SystemExit, match="Queue 1 #8"):
-        port_cli.main(["preprocess", "--model_type", "dpr", "--data_dir", raw,
-                       "--out_data_dir", str(tmp_path / "dpr")])
+    with pytest.raises(SystemExit, match="Queue 1 #9"):
+        port_cli.main(["preprocess", "--model_type", "seeddot_nll",
+                       "--data_dir", raw, "--out_data_dir",
+                       str(tmp_path / "seed")])

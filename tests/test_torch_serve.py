@@ -389,7 +389,7 @@ def test_serve_cli_refuses_missing_cuda_and_unported_paths(slice_inputs):
         port_main(base + ["--device", "cpu", "--training_dir",
                           str(root / "native")])
     with pytest.raises(SystemExit, match="not ported"):
-        port_main(base + ["--device", "cpu", "--model_type", "dpr"])
+        port_main(base + ["--device", "cpu", "--model_type", "seeddot_nll"])
 
 
 def test_serve_from_embedding_shards_matches_jax_cli(slice_inputs):

@@ -100,6 +100,35 @@ def test_topk_blockmax_matches_jax(n, k):
     np.testing.assert_allclose(ps, js, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("group", [1, 3, 8, 13])
+def test_topk_blockmax_query_groups_match_jax(monkeypatch, group):
+    """The queries through phases 1 and 2 in groups of ``group`` (what
+    ``query_group_rows`` gives on the card when the block maxima of all of
+    them do not fit; a ragged last group, padding rows in the corpus):
+    one phase-1 call a group, and the ids and scores of one pass through
+    JAX. On the CPU there is one group."""
+    from ance_tpu_torch.ops import topk
+    assert topk.query_group_rows(500, 10**6, 64, torch.device("cpu")) == 500
+    calls = []
+    real = topk.blockmax_scores
+
+    def counted(q, c, **kw):
+        calls.append(q.shape[0])
+        return real(q, c, **kw)
+
+    monkeypatch.setattr(topk, "blockmax_scores", counted)
+    monkeypatch.setattr(topk, "query_group_rows",
+                        lambda n, n_blocks, q_tile, device: group)
+    rs = np.random.RandomState(9)
+    q = rs.randn(13, 16).astype(np.float32)
+    c = rs.randn(250, 16).astype(np.float32)  # pads to 256
+    (js, ji), (ps, pi) = _jax_and_port(q, c, 9, block_size=8, chunk_rows=64,
+                                       q_tile=4)
+    assert len(calls) == -(-13 // group) and sum(calls) == 13
+    np.testing.assert_array_equal(pi, ji)
+    np.testing.assert_allclose(ps, js, atol=1e-5, rtol=0)
+
+
 def test_topk_blockmax_all_negative_scores_with_padding():
     """Padded rows score 0 and would beat all-negative real scores unless
     their blocks are masked."""

@@ -295,7 +295,7 @@ def test_cli_train_refuses_what_is_not_ported(job_inputs, tmp_path):
         with pytest.raises(SystemExit, match="CUDA is not available"):
             port_main([a for a in base if a not in ("--device", "cpu")]
                       + ["--ann_dir", ann])
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 #8"):
+    with pytest.raises(SystemExit, match="use --model_type dpr"):
         port_main(base + ["--num_epoch", "1"])
     with pytest.raises(SystemExit, match="--ann_dir is required"):
         port_main(base)
@@ -303,7 +303,7 @@ def test_cli_train_refuses_what_is_not_ported(job_inputs, tmp_path):
         port_main(base + ["--ann_dir", ann, "--rewarmup_per_dataset",
                           "--single_warmup"])
     with pytest.raises(SystemExit, match="not ported"):
-        port_main(base + ["--ann_dir", ann, "--model_type", "dpr"])
+        port_main(base + ["--ann_dir", ann, "--model_type", "seeddot_nll"])
 
 
 def test_ann_dir_and_qrels_helpers_match_jax(tmp_path):
