@@ -7,9 +7,18 @@ MaxP ``rdot_nll_multi_chunk``), corpus encode, the exact ``FlatIPIndex``
 ``csrc/blockmax.cu``), the batch, HTTP and live retrievers, the train step
 with LAMB, the BM25 warmup, the trainer and generator jobs, the
 single-program pipelined refresh (``train/pipelined.py``), reading the JAX
-package's msgpack checkpoints and exporting HF directories, and the CLI
-(``preprocess``, ``warmup``, ``train``, ``generate``, ``infer``,
-``ance-loop``, ``serve``, ``export-hf``, ``eval``, ``eval-full``). The
+package's msgpack checkpoints and exporting HF directories. DPR:
+``models/dot_models.py::BiEncoder``, ``data/dpr.py``,
+``train/dpr_trainer.py`` (the in-batch step, GradCache accumulation),
+``train/dpr_gen.py`` and ``evaluation/qa_validation.py``. SEED:
+``models/seed.py`` (SeedForMaskedLM, the windowed decoder and its
+incremental decode), ``train/seed_pretrain.py``, ``ops/quant_noise.py``,
+``data/wordpiece.py`` with its C++ core (``native/wordpiece.cpp``, built
+by ``utils/native_build.py``), the fairseq import and export
+(``models/weights.py``, ``models/hf_export.py``). The CLI has the JAX
+CLI's 13 subcommands: ``preprocess``, ``preprocess-dpr``, ``warmup``,
+``train``, ``generate``, ``generate-dpr``, ``infer``, ``ance-loop``,
+``seed-pretrain``, ``serve``, ``export-hf``, ``eval``, ``eval-full``. The
 attention kernels are CUDA C++ too (``csrc/``). ``ance_tpu`` (JAX) stays
 the reference every module here is tested against; this package never
 imports jax, flax or msgpack.

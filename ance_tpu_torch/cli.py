@@ -1,13 +1,14 @@
 """Command line of the torch port: ``python -m ance_tpu_torch.cli
 {preprocess,preprocess-dpr,warmup,train,generate,generate-dpr,infer,
-ance-loop,serve,export-hf,eval,eval-full}``.
+ance-loop,seed-pretrain,serve,export-hf,eval,eval-full}``: the JAX CLI's
+13 subcommands.
 
 Counterpart of the same subcommands of ``ance_tpu/cli.py``, with the same
 flags plus ``--device`` where a command computes on a device (default
 ``cuda``; asking for CUDA where none exists exits, it never carries on on
-the CPU) and minus the multi-device ones (``--tensor_parallel``, the mesh:
-ROADMAP Queue 1 #11). ``seed-pretrain`` comes with SEED (ROADMAP Queue 1
-#9).
+the CPU) and minus the multi-device ones (``--tensor_parallel``, the
+multi-host flags, the mesh: ROADMAP Queue 1 #11) and ``serve
+--nlist/--nprobe`` (IVF, #10).
 
 ``preprocess`` turns raw MS MARCO TSVs into token caches, id maps and
 offset-space qrels over ``--num_processes`` spawned workers and prints the
@@ -20,6 +21,16 @@ newest complete checkpoint), evaluates dev MRR with
 directory, or with ``--model_type dpr`` as a DPR ``CheckpointState`` file.
 Every command that loads weights reads the port's checkpoints and the JAX
 package's msgpack ones (a DPR model also a ``CheckpointState``).
+
+SEED (``--model_type seeddot_nll``, RobertaDot over the SEED encoder, and
+the ``seed-wordpiece`` tokenizer over ``--model_name_or_path``'s
+``vocab.txt``): ``seed-pretrain`` trains SeedForMaskedLM (MLM + the
+CLS-bottleneck decoder) over ``{data_dir}/passages`` and prints the last
+three history entries; ``train``, ``generate``, ``infer`` and ``serve``
+warm-start ``seeddot_nll`` from a ``seed-pretrain`` checkpoint (the
+port's or the JAX package's: its encoder, the head keeping its seeded
+init) or from a fairseq SEED ``pytorch_model.bin``; ``export-hf`` writes
+either kind of checkpoint in the reference's fairseq names.
 
 DPR (``--model_type dpr``, the BiEncoder): ``preprocess-dpr`` turns
 ``psgs_w100.tsv`` and the NQ / TriviaQA files into caches, ``-ann`` /
@@ -57,8 +68,16 @@ import sys
 
 
 def _load_tokenizer(name: str, model_dir: str | None):
-    """HF tokenizer from ``model_dir``, else the registry's ``name``
-    (a weights-only directory carries no tokenizer files)."""
+    """The port's WordPiece over ``model_dir``'s ``vocab.txt`` for
+    ``seed-wordpiece`` (``ance_tpu/cli.py:40-45``); else the HF tokenizer
+    from ``model_dir``, else the registry's ``name`` (a weights-only
+    directory carries no tokenizer files)."""
+    if name == "seed-wordpiece":
+        from ance_tpu_torch.data.wordpiece import WordPieceTokenizer
+        if not model_dir:
+            raise SystemExit("seed tokenizer requires --model_name_or_path "
+                             "pointing at a vocab.txt directory")
+        return WordPieceTokenizer.from_vocab_file(model_dir)
     from transformers import AutoTokenizer
     if model_dir:
         try:
@@ -79,9 +98,6 @@ class TokenizerFactory:
         self.model_dir = model_dir
 
     def __call__(self):
-        if self.name == "seed-wordpiece":
-            raise SystemExit("the seed-wordpiece tokenizer comes with SEED "
-                             "(ROADMAP Queue 1 #9)")
         return _load_tokenizer(self.name, self.model_dir)
 
 
@@ -195,9 +211,9 @@ def _build_model(args, device, seed: int = 0, warn_random: bool = True):
     if not (path and ckpt.is_complete(path)):
         path = None
     if path:
-        params_source = ckpt.load_params(path, model)
+        params_source = ckpt.load_params(path, model, spec.adapt_weights)
     elif holds_weights:
-        params_source = ckpt.load_params(src, model)
+        params_source = ckpt.load_params(src, model, spec.adapt_weights)
     else:
         params_source = "<random-init>"
         if warn_random:
@@ -880,18 +896,88 @@ def cmd_ance_loop(args):
     print(json.dumps(loop.history[-3:]))
 
 
+def cmd_seed_pretrain(args):
+    """SEED-Encoder pretraining (``ance seed-pretrain``): MLM + the
+    CLS-bottleneck decoder over ``{data_dir}/passages`` on one device,
+    checkpoints into ``--output_dir``; prints the last three history
+    entries. The tokenizer's pad id is the model's, as in the JAX CLI."""
+    import torch
+    from ance_tpu_torch.data.cache import TokenCache
+    from ance_tpu_torch.data.wordpiece import SeedTokenizer
+    from ance_tpu_torch.models.seed import (SeedDecoderConfig,
+                                            SeedForMaskedLM,
+                                            seed_encoder_config)
+    from ance_tpu_torch.models.transformer import init_weights
+    from ance_tpu_torch.optim.schedules import warmup_cosine, warmup_linear
+    from ance_tpu_torch.train.seed_pretrain import (SeedPretrainConfig,
+                                                    make_seed_pretrain_step,
+                                                    run_seed_pretrain)
+    from ance_tpu_torch.train.trainer import init_train_state, make_optimizer
+    from ance_tpu_torch.utils.device import resolve_device
+
+    if not args.model_name_or_path:
+        raise SystemExit("seed-pretrain needs --model_name_or_path: the "
+                         "directory of its vocab.txt")
+    if args.rewarmup_per_dataset or args.gradient_accumulation_steps != 1:
+        raise SystemExit("seed-pretrain takes one schedule and one step a "
+                         "batch (no --rewarmup_per_dataset or "
+                         "--gradient_accumulation_steps), as `ance "
+                         "seed-pretrain`")
+    device = resolve_device(args.device)
+    tok = SeedTokenizer.from_vocab_file(args.model_name_or_path)
+    vocab_size = len(tok.vocab)
+    overrides = json.loads(args.encoder_overrides) \
+        if args.encoder_overrides else {}
+    ecfg = seed_encoder_config(
+        vocab_size, dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        attention_impl=args.attention, pad_token_id=tok.pad_token_id,
+        **overrides)
+    dcfg = SeedDecoderConfig(
+        num_layers=args.decoder_layers,
+        attention_window=args.decoder_atten_window,
+        hidden_size=ecfg.hidden_size, num_heads=ecfg.num_heads,
+        intermediate_size=ecfg.intermediate_size)
+    model = SeedForMaskedLM(ecfg, dcfg)
+    init_weights(model, ecfg, torch.Generator().manual_seed(args.seed))
+    model = model.to(device)
+    sched_fn = warmup_cosine if args.lr_style == "cosine" else warmup_linear
+    opt = make_optimizer(model, args.optimizer,
+                         sched_fn(args.learning_rate, args.warmup_steps,
+                                  args.max_steps),
+                         eps=args.adam_epsilon,
+                         weight_decay=args.weight_decay,
+                         max_grad_norm=args.max_grad_norm)
+    ratio = tuple(float(x) for x in args.train_ratio.split(":"))
+    cfg = SeedPretrainConfig(
+        num_epochs=args.num_train_epochs,
+        batch_size=args.per_device_train_batch_size,
+        mask_prob=args.mask_prob, max_steps=args.max_steps,
+        save_steps=args.save_steps, log_every=args.log_every,
+        checkpoint_dir=args.output_dir, seed=args.seed)
+    special_ids = [tok.cls_token_id, tok.sep_token_id, tok.pad_token_id,
+                   tok.unk_token_id, tok.mask_token_id]
+    with TokenCache(args.data_dir + "/passages") as cache:
+        _, history = run_seed_pretrain(
+            cfg, state=init_train_state(model, opt),
+            train_step=make_seed_pretrain_step(ratio), cache=cache,
+            generator=torch.Generator().manual_seed(args.seed),
+            mask_token_id=tok.mask_token_id, vocab_size=vocab_size,
+            special_ids=special_ids, pad_token_id=tok.pad_token_id)
+    print(json.dumps(history[-3:]))
+
+
 def cmd_export_hf(args):
     """Export the newest complete checkpoint under ``--training_dir`` (or
     the ``--init_model_dir`` checkpoint), the port's or the JAX package's,
     as ``ance export-hf`` does: an HF ``from_pretrained`` directory
-    (``rdot_nll*``) or, for ``dpr``, a ``CheckpointState`` file
-    ``<out_dir>/checkpoint-<step>`` whose ``offset`` is the step; prints
-    what was exported, from where, at which step."""
-    from ance_tpu_torch.models.hf_export import (save_dpr_checkpoint,
-                                                 save_hf_checkpoint)
-    from ance_tpu_torch.models.transformer import EncoderConfig
+    (``rdot_nll*``); for ``dpr``, a ``CheckpointState`` file
+    ``<out_dir>/checkpoint-<step>`` whose ``offset`` is the step; for
+    ``seeddot_nll``, ``<out_dir>/pytorch_model.bin`` in the reference's
+    fairseq names, of a ``seeddot_nll`` checkpoint or of a
+    ``seed-pretrain`` one (then with its decoder and LM head). Prints what
+    was exported, from where, at which step."""
     from ance_tpu_torch.train import checkpoint as ckpt
-    spec = _model_spec(args.model_type)  # SEED exits: not ported
+    spec = _model_spec(args.model_type)
     path, step = ckpt.get_latest_checkpoint(args.training_dir or "",
                                             args.init_model_dir)
     if path is None or not ckpt.is_complete(path):
@@ -909,14 +995,8 @@ def cmd_export_hf(args):
             step = ckpt.checkpoint_no(path)
     sd, _ = ckpt.state_dict(path)
     try:
-        if spec.loss == "dpr_inbatch":
-            out = save_dpr_checkpoint(
-                os.path.join(args.out_dir, f"checkpoint-{step}"), sd,
-                offset=step)
-        else:
-            config = EncoderConfig(**json.loads(args.encoder_overrides
-                                                or "{}"))
-            out = save_hf_checkpoint(args.out_dir, sd, config)
+        out = spec.export(args.out_dir, sd, step,
+                          json.loads(args.encoder_overrides or "{}"))
     except (KeyError, ValueError) as e:
         raise SystemExit(f"export-hf: {path}: {e}")
     print(json.dumps({"exported": out, "from": path, "step": step,
@@ -982,7 +1062,7 @@ def _add_common_model_flags(p, device: bool = True):
                        help="cuda[:N] (default) or cpu (CPU tests only)")
     p.add_argument("--model_type", default="rdot_nll",
                    help="registry key (rdot_nll | rdot_nll_multi_chunk | "
-                        "dpr)")
+                        "dpr | seeddot_nll)")
     p.add_argument("--model_name_or_path", default=None,
                    help="weights: an HF-layout dir (pytorch_model.bin), a "
                         "checkpoint dir or a training dir (the port's or "
@@ -1230,10 +1310,33 @@ def build_parser() -> argparse.ArgumentParser:
                         "snapshot weights")
     p.set_defaults(fn=cmd_ance_loop)
 
+    p = sub.add_parser("seed-pretrain",
+                       help="SEED-Encoder pretraining: MLM + CLS-bottleneck "
+                            "decoder over {data_dir}/passages")
+    _add_common_model_flags(p)
+    _add_train_flags(p)
+    p.add_argument("--data_dir", required=True,
+                   help="preprocessed dir whose passages cache is the "
+                        "pretraining corpus")
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--num_train_epochs", type=int, default=1)
+    p.add_argument("--save_steps", type=int, default=10000)
+    p.add_argument("--mask_prob", type=float, default=0.15)
+    p.add_argument("--train_ratio", default="0.5:0.5",
+                   help="MLM:decoder loss weights "
+                        "(configuration_seed_encoder.py:92)")
+    p.add_argument("--decoder_layers", type=int, default=3,
+                   help="1 or 3 (shipped SEED configs)")
+    p.add_argument("--decoder_atten_window", type=int, default=2,
+                   help="decoder local-attention span (2 or 8)")
+    p.add_argument("--log_every", type=int, default=100)
+    p.set_defaults(fn=cmd_seed_pretrain)
+
     p = sub.add_parser("export-hf",
                        help="export a checkpoint (the port's or the JAX "
-                            "package's) as an HF from_pretrained directory "
-                            "or, for dpr, a CheckpointState file")
+                            "package's) as an HF from_pretrained directory; "
+                            "for dpr a CheckpointState file; for seeddot_nll "
+                            "a fairseq-named pytorch_model.bin")
     _add_common_model_flags(p, device=False)
     p.add_argument("--training_dir", default=None,
                    help="trainer output dir — exports the LATEST complete "

@@ -9,7 +9,13 @@
   ``model_dict`` holds the towers' ``BertModel`` keys as the port names
   them, plus each tower's pooler.
 
-The SEED fairseq export comes with its model (ROADMAP Queue 1 #9).
+* SEED (``seeddot_nll`` and ``seed-pretrain``'s SeedForMaskedLM) → the
+  reference's fairseq names: the encoder under
+  ``seed_encoder.encoder.sentence_encoder.``, the position table cut back
+  to fairseq's 514 rows, ``embeddingHead`` / ``norm``, or the decoder
+  (``decoder.*``) and LM head (``lm_head.*``), whose names the port keeps
+  (``torch_seed*_state_dict``, the inverse of ``models/weights.py``'s
+  import).
 """
 
 from __future__ import annotations
@@ -20,6 +26,11 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+from ance_tpu_torch.models.weights import (SEED_ATTENTION,
+                                           SEED_ENCODER_LAYER,
+                                           SEED_LAYER_NORMS, SEED_MLM_MODULES,
+                                           SEED_PROJECTIONS)
 
 
 def _host_f32(t: torch.Tensor) -> torch.Tensor:
@@ -110,4 +121,109 @@ def save_dpr_checkpoint(path: str | os.PathLike,
     torch.save({"model_dict": model_dict,
                 "optimizer_dict": {}, "scheduler_dict": {},
                 "offset": offset, "epoch": 0, "encoder_params": {}}, path)
+    return path
+
+
+SEED_PREFIX = "seed_encoder.encoder.sentence_encoder."
+# fairseq allocates max_positions + pad + 1 position rows
+FAIRSEQ_POSITION_ROWS = 514
+
+
+def torch_seed_encoder_state_dict(state_dict: Mapping[str, torch.Tensor]
+                                  ) -> dict[str, torch.Tensor]:
+    """The port's SEED encoder (``roberta.*``) → fairseq
+    TransformerSentenceEncoder keys under :data:`SEED_PREFIX` (the
+    HF-saved SEED layout, modeling_seed_encoder.py:115-135), fp32; the
+    inverse of
+    ``models/weights.py::seed_encoder_state_dict_from_fairseq``
+    (``ance_tpu/models/hf_export.py:95-173``).
+
+    fairseq allocates :data:`FAIRSEQ_POSITION_ROWS` (514) position rows;
+    the SEED config keeps 516, which the import zero-pads, so the export
+    cuts the table back to 514 (rows ≥ 514 are never indexed at seq ≤
+    512). More than 2 rows past it look trained, not headroom, and raise
+    ValueError."""
+    sd = {k[len("roberta."):]: v for k, v in state_dict.items()
+          if k.startswith("roberta.")}
+    if "embeddings.word_embeddings.weight" not in sd:
+        raise KeyError("no roberta.embeddings.word_embeddings.weight: not a "
+                       "SEED checkpoint")
+    p = SEED_PREFIX
+    out = {p + "embed_tokens.weight":
+           _host_f32(sd["embeddings.word_embeddings.weight"])}
+    pos = _host_f32(sd["embeddings.position_embeddings.weight"])
+    if pos.shape[0] > FAIRSEQ_POSITION_ROWS + 2:
+        raise ValueError(
+            f"position table has {pos.shape[0]} rows — more than the "
+            f"import headroom over fairseq's {FAIRSEQ_POSITION_ROWS}; rows "
+            "past them look trained, not padding")
+    pos = pos[:FAIRSEQ_POSITION_ROWS].contiguous()
+    out[p + "embed_positions.weight"] = pos
+    for part in ("weight", "bias"):
+        out[f"{p}emb_layer_norm.{part}"] = _host_f32(
+            sd[f"embeddings.LayerNorm.{part}"])
+    i = 0
+    while f"encoder.layer.{i}.attention.self.query.weight" in sd:
+        for src, dst in SEED_ENCODER_LAYER:
+            for part in ("weight", "bias"):
+                out[f"{p}layers.{i}.{src}.{part}"] = _host_f32(
+                    sd[f"encoder.layer.{i}.{dst}.{part}"])
+        i += 1
+    if i == 0:
+        raise KeyError("no roberta.encoder.layer.0: not a SEED checkpoint")
+    return out
+
+
+def _copy_f32(out: dict, state_dict: Mapping, prefix: str) -> None:
+    for part in ("weight", "bias"):
+        out[f"{prefix}.{part}"] = _host_f32(state_dict[f"{prefix}.{part}"])
+
+
+def torch_seeddot_state_dict(state_dict: Mapping[str, torch.Tensor]
+                             ) -> dict[str, torch.Tensor]:
+    """A ``seeddot_nll`` state dict → the reference SEEDEncoderDot_NLL_LN
+    state dict: the fairseq encoder and ``embeddingHead`` / ``norm``
+    (reference models.py:201-221)."""
+    out = torch_seed_encoder_state_dict(state_dict)
+    if "embeddingHead.weight" in state_dict:
+        _copy_f32(out, state_dict, "embeddingHead")
+        _copy_f32(out, state_dict, "norm")
+    return out
+
+
+def torch_seed_mlm_state_dict(state_dict: Mapping[str, torch.Tensor]
+                              ) -> dict[str, torch.Tensor]:
+    """A SeedForMaskedLM state dict (``seed-pretrain``'s) → an HF-saved SEED
+    checkpoint: the fairseq encoder, the decoder under ``decoder.`` and
+    the LM head at ``lm_head.*`` (reference modeling_seed_encoder.py:
+    136-183), so a model pretrained here can go on in the reference's
+    stack."""
+    out = torch_seed_encoder_state_dict(state_dict)
+    i = 0
+    while f"decoder.layers.{i}.fc1.weight" in state_dict:
+        lp = f"decoder.layers.{i}."
+        for attn in SEED_ATTENTION:
+            for _, proj in SEED_PROJECTIONS:
+                _copy_f32(out, state_dict, f"{lp}{attn}.{proj}")
+        for name in (*SEED_LAYER_NORMS, "fc1", "fc2"):
+            _copy_f32(out, state_dict, lp + name)
+        i += 1
+    out["decoder.embed_positions.weight"] = _host_f32(
+        state_dict["decoder.embed_positions.weight"])
+    for _, prefix in SEED_MLM_MODULES:
+        _copy_f32(out, state_dict, prefix)
+    out["lm_head.bias"] = _host_f32(state_dict["lm_head.bias"])
+    return out
+
+
+def save_seed_checkpoint(out_dir: str,
+                         state_dict: Mapping[str, torch.Tensor]) -> str:
+    """``<out_dir>/pytorch_model.bin`` in the reference's fairseq names: a
+    ``seed-pretrain`` state dict (it holds ``lm_head.bias``) with its
+    decoder and LM head, else a ``seeddot_nll`` one. Returns the path."""
+    to_fairseq = torch_seed_mlm_state_dict if "lm_head.bias" in state_dict \
+        else torch_seeddot_state_dict
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "pytorch_model.bin")
+    torch.save(to_fairseq(state_dict), path)
     return path

@@ -5,11 +5,12 @@
   (MaxP): the max over chunk dot products, empty chunks biased by −9999.
 * :func:`dpr_inbatch_loss` / :func:`dpr_inbatch_multichunk_loss` — DPR's
   in-batch softmax over every query × context score of the batch.
+* :func:`masked_lm_loss` / :func:`seed_pretrain_loss` — SEED pretraining:
+  the MLM term and the CLS-bottleneck decoder's LM term, weighted.
 
 All in fp32 whatever the encoder's compute dtype. The JAX losses pin their
 matmuls to HIGHEST precision; here TF32 is off at package import, so fp32
-products are full fp32 on the card too. The SEED losses wait for its
-slice (ROADMAP Queue 1 #9).
+products are full fp32 on the card too.
 """
 
 from __future__ import annotations
@@ -89,3 +90,27 @@ def dpr_inbatch_multichunk_loss(q_embs: torch.Tensor,
     s = torch.einsum("qd,jcd->qjc", q_embs.to(torch.float32),
                      ctx_chunk_embs.to(torch.float32)) + bias[None]
     return _inbatch_nll(torch.amax(s, dim=-1), positive_idx)
+
+
+def masked_lm_loss(logits: torch.Tensor, targets: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over the positions where ``mask`` is 1 (0 when
+    none is), in fp32."""
+    lsm = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -lsm.gather(-1, targets.to(torch.int64)[..., None])[..., 0]
+    m = mask.to(torch.float32)
+    return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def seed_pretrain_loss(mlm_logits: torch.Tensor, mlm_targets: torch.Tensor,
+                       mlm_mask: torch.Tensor, dec_logits: torch.Tensor,
+                       dec_targets: torch.Tensor, dec_mask: torch.Tensor,
+                       train_ratio: tuple[float, float] = (0.5, 0.5)
+                       ) -> tuple[torch.Tensor, dict]:
+    """``train_ratio``-weighted MLM + decoder LM loss (reference
+    configuration_seed_encoder.py:92, '0.5:0.5'). Returns (total,
+    {"mlm_loss", "decoder_loss"})."""
+    mlm = masked_lm_loss(mlm_logits, mlm_targets, mlm_mask)
+    dec = masked_lm_loss(dec_logits, dec_targets, dec_mask)
+    total = train_ratio[0] * mlm + train_ratio[1] * dec
+    return total, {"mlm_loss": mlm, "decoder_loss": dec}

@@ -1,22 +1,52 @@
 """Model registry (counterpart of ``ance_tpu/models/registry.py``).
 
 ``rdot_nll`` (FirstP), ``rdot_nll_multi_chunk`` (MaxP: the same
-RobertaDot, bodies encoded as 512-token chunks) and ``dpr`` (BiEncoder,
-trained with the in-batch loss) are ported; ``seeddot_nll`` names a later
-ROADMAP item.
+RobertaDot, bodies encoded as 512-token chunks), ``dpr`` (BiEncoder,
+trained with the in-batch loss) and ``seeddot_nll`` (RobertaDot over the
+SEED encoder, CLS pooling, the ``seed-wordpiece`` tokenizer): every entry
+of the JAX registry.
+
+``seeddot_nll`` keeps ``seed_encoder_config``'s pad id 1, as the JAX
+registry does, while a ``vocab.txt`` that starts with ``[PAD]`` pads with
+id 0 (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+import os
+from typing import Callable, Optional
 
 import torch
 
 from torch import nn
 
 from ance_tpu_torch.models.dot_models import BiEncoder, RobertaDot
+from ance_tpu_torch.models.hf_export import (save_dpr_checkpoint,
+                                             save_hf_checkpoint,
+                                             save_seed_checkpoint)
+from ance_tpu_torch.models.seed import seed_dot_model
 from ance_tpu_torch.models.transformer import EncoderConfig, init_weights
+from ance_tpu_torch.models.weights import seeddot_warm_start
+
+
+def _export_hf(out_dir, state_dict, step, config_overrides) -> str:
+    """An HF ``from_pretrained`` directory (RobertaDot)."""
+    return save_hf_checkpoint(out_dir, state_dict,
+                              EncoderConfig(**config_overrides))
+
+
+def _export_dpr(out_dir, state_dict, step, config_overrides) -> str:
+    """The DPR ``CheckpointState`` file ``<out_dir>/checkpoint-<step>``,
+    whose ``offset`` is the step."""
+    return save_dpr_checkpoint(os.path.join(out_dir, f"checkpoint-{step}"),
+                               state_dict, offset=step)
+
+
+def _export_seed(out_dir, state_dict, step, config_overrides) -> str:
+    """``<out_dir>/pytorch_model.bin`` in fairseq names: a ``seeddot_nll``
+    or a ``seed-pretrain`` checkpoint."""
+    return save_seed_checkpoint(out_dir, state_dict)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +56,12 @@ class ModelSpec:
     tokenizer_name: str
     multichunk: bool = False           # MaxP body encoding
     loss: str = "nll"                  # nll | dpr_inbatch: the train step
+    # (state dict, model) → the state dict the model loads strictly from a
+    # checkpoint of its family in another layout; None: as it is
+    adapt_weights: Optional[Callable[[dict, nn.Module], dict]] = None
+    # (out_dir, state dict, step, encoder overrides) → the path that
+    # export-hf wrote, in the reference's checkpoint format for the family
+    export: Callable[[str, dict, int, dict], str] = _export_hf
 
 
 def _rdot(dtype=torch.float32, attention_impl="auto", config_overrides=None,
@@ -49,6 +85,16 @@ def _dpr(dtype=torch.float32, attention_impl="auto", config_overrides=None,
     return model.eval()
 
 
+def _seeddot(dtype=torch.float32, attention_impl="auto",
+             config_overrides=None, seed: int = 0) -> RobertaDot:
+    """``seeddot_nll``: RobertaDot over ``seed_encoder_config`` (vocabulary
+    32,769 unless the overrides say otherwise), seeded as :func:`_rdot`."""
+    model = seed_dot_model(config_overrides=config_overrides, dtype=dtype,
+                           attention_impl=attention_impl)
+    init_weights(model, model.config, torch.Generator().manual_seed(seed))
+    return model.eval()
+
+
 REGISTRY: dict[str, ModelSpec] = {
     # reference models.py:300-303
     "rdot_nll": ModelSpec(name="rdot_nll", build=_rdot,
@@ -60,19 +106,19 @@ REGISTRY: dict[str, ModelSpec] = {
         tokenizer_name="roberta-base", multichunk=True),
     # reference models.py:308-313
     "dpr": ModelSpec(name="dpr", build=_dpr,
-                     tokenizer_name="bert-base-uncased", loss="dpr_inbatch"),
-}
-
-_NOT_YET = {
-    "seeddot_nll": "SEED (ROADMAP Queue 1 #9)",
+                     tokenizer_name="bert-base-uncased", loss="dpr_inbatch",
+                     export=_export_dpr),
+    # reference models.py:314-319
+    # (a fairseq SEED checkpoint imported; a seed-pretrain one's encoder)
+    "seeddot_nll": ModelSpec(name="seeddot_nll", build=_seeddot,
+                             tokenizer_name="seed-wordpiece",
+                             adapt_weights=seeddot_warm_start,
+                             export=_export_seed),
 }
 
 
 def get_model_spec(name: str) -> ModelSpec:
     if name in REGISTRY:
         return REGISTRY[name]
-    if name in _NOT_YET:
-        raise KeyError(f"model type {name!r} is not ported to torch yet: "
-                       f"{_NOT_YET[name]}")
     raise KeyError(f"unknown model type {name!r}; available: "
                    f"{sorted(REGISTRY)}")

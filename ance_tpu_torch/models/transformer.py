@@ -16,8 +16,13 @@ output; ``ance_tpu/models/transformer.py:135, 198-203, 212, 231``) with
 uniforms drawn from the ``torch.Generator`` its caller passes, and
 ``remat`` recomputes each layer in the backward
 (``torch.utils.checkpoint``). In ``eval()`` mode nothing is dropped.
-LayerDrop and Quant-Noise (``layerdrop_rate``, ``quant_noise_p``) belong
-to SEED, dormant in every shipped config, and raise until its slice.
+SEED's two training features, dormant in every shipped config, run in
+``train()`` mode only: LayerDrop (``layerdrop_rate``: each layer skipped
+for the whole batch with that probability, no rescale of the others;
+``ance_tpu/models/transformer.py:274-286``) and Quant-Noise
+(``quant_noise_p``: block DropConnect on the Q/K/V and output projection
+weights, ``ops/quant_noise.py``; ``:169-209``). Rate 0 or ``eval()``
+leaves the forward as it is.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ance_tpu_torch.ops.attention import multi_head_attention
+from ance_tpu_torch.ops.quant_noise import quant_noise
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,22 +61,13 @@ class EncoderConfig:
     remat: bool = False
     fp32_layernorm: bool = True
     fused_qkv: bool = False
-    layerdrop_rate: float = 0.0
-    quant_noise_p: float = 0.0
-    quant_noise_block: int = 8
+    layerdrop_rate: float = 0.0       # LayerDrop: see the module docstring
+    quant_noise_p: float = 0.0        # Quant-Noise on the attention
+    quant_noise_block: int = 8        # projections (ops/quant_noise.py)
     # None = AUTO: tanh gelu iff the compute dtype is bf16 (the JAX rule,
     # ance_tpu/models/transformer.py:226-228), so both packages compute
     # the same function; re-choosing it on the H100 is open (PERF.md)
     gelu_approx: Optional[bool] = None
-
-    def __post_init__(self):
-        for name, bad in (("layerdrop_rate", self.layerdrop_rate > 0.0),
-                          ("quant_noise_p", self.quant_noise_p > 0.0)):
-            if bad:
-                raise NotImplementedError(
-                    f"{name} is a SEED training feature (dormant in every "
-                    "shipped config) and is not ported yet (ROADMAP Queue 1 "
-                    "#9, SEED)")
 
     @staticmethod
     def bert_base(**kw) -> "EncoderConfig":
@@ -183,22 +180,29 @@ class SelfAttention(nn.Module):
         cfg = self.cfg
         B, S, _ = x.shape
         H, D = cfg.num_heads, cfg.head_dim()
-        p = self.self
+        lins = (self.self.query, self.self.key, self.self.value,
+                self.output.dense)
+        w = [lin.weight for lin in lins]
+        if generator is not None and cfg.quant_noise_p > 0.0:
+            # training only: the noised weights, drawn q, k, v, out
+            w = [quant_noise(wi, cfg.quant_noise_p, cfg.quant_noise_block,
+                             generator) for wi in w]
+        w = [wi.to(cfg.dtype) for wi in w]
+        b = [lin.bias.to(cfg.dtype) for lin in lins]
+        x = x.to(cfg.dtype)
         if cfg.fused_qkv:
             # one [H, 3H] GEMM: the activations are read once, not three times
-            w = torch.cat([p.query.weight, p.key.weight, p.value.weight])
-            b = torch.cat([p.query.bias, p.key.bias, p.value.bias])
-            qkv = F.linear(x.to(cfg.dtype), w.to(cfg.dtype), b.to(cfg.dtype))
+            qkv = F.linear(x, torch.cat(w[:3]), torch.cat(b[:3]))
             q, k, v = (y.reshape(B, S, H, D) for y in qkv.chunk(3, dim=-1))
         else:
-            q, k, v = (_dense(x, lin, cfg.dtype).reshape(B, S, H, D)
-                       for lin in (p.query, p.key, p.value))
+            q, k, v = (F.linear(x, wi, bi).reshape(B, S, H, D)
+                       for wi, bi in zip(w[:3], b[:3]))
         ctx = multi_head_attention(
             q, k, v, attention_mask, impl=cfg.attention_impl,
             dropout_rate=0.0 if generator is None else cfg.attention_dropout,
             generator=generator)
-        out = _dense(ctx.reshape(B, S, cfg.hidden_size), self.output.dense,
-                     cfg.dtype)
+        out = F.linear(ctx.reshape(B, S, cfg.hidden_size).to(cfg.dtype),
+                       w[3], b[3])
         return dropout(out, cfg.hidden_dropout, generator)
 
 
@@ -274,12 +278,26 @@ class TransformerEncoder(nn.Module):
         if not self.training:
             generator = None
         x = self.embeddings(input_ids, token_type_ids, generator=generator)
+        rate = self.config.layerdrop_rate
         for layer in self.encoder.layer:
             if self.config.remat and self.training:
-                x = _remat(layer, x, attention_mask, generator)
+                y = _remat(layer, x, attention_mask, generator)
             else:
-                x = layer(x, attention_mask, generator)
+                y = layer(x, attention_mask, generator)
+            if generator is not None and rate > 0.0:
+                # LayerDrop: the layer is computed and its output dropped
+                # for the whole batch, as in the JAX package (no host read
+                # of the draw, so no device synchronize)
+                x = torch.where(layer_dropped(rate, generator), x, y)
+            else:
+                x = y
         return x
+
+
+def layer_dropped(rate: float, generator: torch.Generator) -> torch.Tensor:
+    """One LayerDrop draw: a bool scalar, True with probability ``rate``."""
+    return torch.rand((), generator=generator, device=generator.device) \
+        < rate
 
 
 def _remat(layer: nn.Module, x: torch.Tensor, attention_mask: torch.Tensor,

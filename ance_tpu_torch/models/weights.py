@@ -1,11 +1,18 @@
 """Weights in and out of the torch port.
 
-* :func:`state_dict_from_flax` maps a (numpy) flax ``RobertaDot`` or
-  ``BiEncoder`` parameter tree onto this package's state dict — the
-  reference ``RobertaDot_NLL_LN`` / DPR ``model_dict`` key names, flax
-  ``[in, out]`` kernels transposed to torch ``[out, in]``.
-  It is written here because ``ance_tpu.models`` imports jax on import;
-  the tests hold it against ``ance_tpu.models.hf_export``.
+* :func:`state_dict_from_flax` maps a (numpy) flax ``RobertaDot``,
+  ``BiEncoder`` or ``SeedForMaskedLM`` parameter tree onto this package's
+  state dict — the reference ``RobertaDot_NLL_LN`` / DPR ``model_dict``
+  key names, and for SEED's pretraining model the fairseq decoder and LM
+  head names (``models/seed.py``), flax ``[in, out]`` kernels transposed
+  to torch ``[out, in]``. It is written here because ``ance_tpu.models``
+  imports jax on import; the tests hold it against
+  ``ance_tpu.models.hf_export``.
+* :func:`seeddot_state_dict_from_fairseq` /
+  :func:`seed_mlm_state_dict_from_fairseq` import a SEED checkpoint in the
+  reference's fairseq names (``ance_tpu/models/hf_loader.py:123-245``);
+  :func:`seeddot_warm_start` is what a ``seeddot_nll`` model loads from
+  any SEED state dict.
 * :func:`load_pretrained` loads an HF-layout checkpoint directory (a
   reference ANCE checkpoint, or one ``ance_tpu`` exported) into a model,
   through :func:`load_weights`, which loads a state dict already read.
@@ -81,20 +88,183 @@ def _encoder_state_dict(sd: dict, prefix: str, enc: Mapping) -> None:
         raise KeyError("no layer_0 in encoder params — wrong tree?")
 
 
+SEED_ATTENTION = ("self_attn", "encoder_attn")
+SEED_PROJECTIONS = (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                    ("out", "out_proj"))
+SEED_LAYER_NORMS = ("self_attn_layer_norm", "encoder_attn_layer_norm",
+                    "final_layer_norm")
+# the SeedForMaskedLM leaves outside the decoder layers: flax name → port
+# prefix (ance_tpu/models/seed.py:331-352)
+SEED_MLM_MODULES = (("decoder_embed_norm", "decoder.layernorm_embedding"),
+                    ("decoder_final_norm", "decoder.layer_norm"),
+                    ("lm_dense", "lm_head.dense"),
+                    ("lm_norm", "lm_head.layer_norm"))
+
+
+def _seed_mlm_state_dict(sd: dict, params: Mapping) -> None:
+    """The decoder and LM head of a flax ``SeedForMaskedLM`` tree."""
+    i = 0
+    while f"decoder_layer_{i}" in params:
+        layer, lp = params[f"decoder_layer_{i}"], f"decoder.layers.{i}."
+        for attn in SEED_ATTENTION:
+            for part, proj in SEED_PROJECTIONS:
+                _dense(sd, f"{lp}{attn}.{proj}", layer[f"{attn}_{part}"])
+        for name in SEED_LAYER_NORMS:
+            _layer_norm(sd, lp + name, layer[name])
+        _dense(sd, lp + "fc1", layer["fc1"])
+        _dense(sd, lp + "fc2", layer["fc2"])
+        i += 1
+    if "decoder_pos" in params:  # absent with the sinusoidal table
+        sd["decoder.embed_positions.weight"] = _t(
+            params["decoder_pos"]["embedding"])
+    for flax_name, prefix in SEED_MLM_MODULES:
+        (_dense if "dense" in flax_name else _layer_norm)(
+            sd, prefix, params[flax_name])
+    sd["lm_head.bias"] = _t(params["lm_bias"])
+
+
 def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     """flax params (numpy, jax or torch leaves) → port state dict, fp32:
-    a RobertaDot tree (``{"encoder", "embedding_head", "norm"}``) or a
+    a RobertaDot tree (``{"encoder", "embedding_head", "norm"}``), a
     BiEncoder one (``{"question_model": {"encoder"}, "ctx_model":
-    {"encoder"}}``)."""
+    {"encoder"}}``) or a SeedForMaskedLM one (``{"encoder",
+    "decoder_layer_<i>", "decoder_pos", "decoder_embed_norm",
+    "decoder_final_norm", "lm_dense", "lm_norm", "lm_bias"}``)."""
     sd: dict[str, torch.Tensor] = {}
     if "question_model" in params:
         for tower in ("question_model", "ctx_model"):
             _encoder_state_dict(sd, f"{tower}.", params[tower]["encoder"])
         return sd
     _encoder_state_dict(sd, "roberta.", params["encoder"])
+    if "lm_dense" in params:
+        _seed_mlm_state_dict(sd, params)
+        return sd
     _dense(sd, "embeddingHead", params["embedding_head"])
     _layer_norm(sd, "norm", params["norm"])
     return sd
+
+
+def find_seed_prefix(sd: Mapping) -> str:
+    """The fairseq sentence-encoder prefix of a SEED state dict:
+    ``seed_encoder.encoder.sentence_encoder.`` in HF-saved checkpoints
+    (reference modeling_seed_encoder.py:115-135), ``encoder.sentence_
+    encoder.`` in raw fairseq ones. KeyError when there is none."""
+    marker = "sentence_encoder."
+    for k in sd:
+        idx = k.find(marker)
+        if idx >= 0 and k.endswith("embed_tokens.weight"):
+            return k[:idx + len(marker)]
+    raise KeyError("no fairseq sentence_encoder found in state dict")
+
+
+def pad_position_table(table: torch.Tensor, rows: int) -> torch.Tensor:
+    """fairseq allocates max_positions + pad + 1 position rows (514); the
+    SEED config keeps 516. Rows past the table are never indexed at seq ≤
+    max_positions, so zero rows are exact."""
+    if table.shape[0] > rows:
+        raise ValueError(f"position table {table.shape[0]} rows exceeds the "
+                         f"model's {rows}")
+    pad = torch.zeros(rows - table.shape[0], table.shape[1],
+                      dtype=table.dtype)
+    return torch.cat([table, pad])
+
+
+def _num_layers(sd: Mapping, prefix: str) -> int:
+    """One more than the largest layer index under ``prefix``."""
+    ids = [k[len(prefix):].split(".", 1)[0] for k in sd
+           if k.startswith(prefix)]
+    ids = [int(i) for i in ids if i.isdigit()]
+    if not ids:
+        raise KeyError(f"no layers under {prefix!r} in state dict")
+    return max(ids) + 1
+
+
+# the fairseq encoder layer's modules and the port's (HF) names for them
+SEED_ENCODER_LAYER = (("self_attn.q_proj", "attention.self.query"),
+                      ("self_attn.k_proj", "attention.self.key"),
+                      ("self_attn.v_proj", "attention.self.value"),
+                      ("self_attn.out_proj", "attention.output.dense"),
+                      ("self_attn_layer_norm", "attention.output.LayerNorm"),
+                      ("fc1", "intermediate.dense"),
+                      ("fc2", "output.dense"),
+                      ("final_layer_norm", "output.LayerNorm"))
+
+
+def _copy(out: dict, dst: str, sd: Mapping, src: str) -> None:
+    for part in ("weight", "bias"):
+        out[f"{dst}.{part}"] = _t(sd[f"{src}.{part}"])
+
+
+def seed_encoder_state_dict_from_fairseq(
+        sd: Mapping, max_position_embeddings: int = 516
+) -> dict[str, torch.Tensor]:
+    """A fairseq TransformerSentenceEncoder (reference
+    transformer_sentence_encoder.py:695-925) → the port's ``roberta.*``
+    keys: ``embed_tokens`` / ``embed_positions`` (zero-padded to
+    ``max_position_embeddings`` rows) / ``emb_layer_norm``, then each
+    layer's projections, FFN and post-LN norms
+    (``hf_loader.seed_encoder_params_from_torch``)."""
+    p = find_seed_prefix(sd)
+    out = {"roberta.embeddings.word_embeddings.weight":
+           _t(sd[p + "embed_tokens.weight"]),
+           "roberta.embeddings.position_embeddings.weight":
+           pad_position_table(_t(sd[p + "embed_positions.weight"]),
+                              max_position_embeddings)}
+    _copy(out, "roberta.embeddings.LayerNorm", sd, p + "emb_layer_norm")
+    for i in range(_num_layers(sd, p + "layers.")):
+        for src, dst in SEED_ENCODER_LAYER:
+            _copy(out, f"roberta.encoder.layer.{i}.{dst}", sd,
+                  f"{p}layers.{i}.{src}")
+    return out
+
+
+def seeddot_state_dict_from_fairseq(
+        sd: Mapping, max_position_embeddings: int = 516
+) -> dict[str, torch.Tensor]:
+    """A SEED checkpoint (pretrained SEEDEncoderForMaskedLM, or a
+    fine-tuned SEEDEncoderDot_NLL_LN with ``embeddingHead`` / ``norm``) →
+    a ``seeddot_nll`` state dict (``hf_loader.seeddot_params_from_torch``);
+    without a head the model keeps its own (:func:`load_weights`)."""
+    out = seed_encoder_state_dict_from_fairseq(sd, max_position_embeddings)
+    if "embeddingHead.weight" in sd:
+        _copy(out, "embeddingHead", sd, "embeddingHead")
+        _copy(out, "norm", sd, "norm")
+    return out
+
+
+def seed_mlm_state_dict_from_fairseq(
+        sd: Mapping, max_position_embeddings: int = 516
+) -> dict[str, torch.Tensor]:
+    """A pretrained SEED checkpoint → a :class:`SeedForMaskedLM` state
+    dict: the encoder as :func:`seed_encoder_state_dict_from_fairseq`, the
+    decoder (``decoder.*``) and LM head (``lm_head.*``), whose fairseq
+    names the port keeps (``hf_loader.seed_mlm_params_from_torch``)."""
+    out = seed_encoder_state_dict_from_fairseq(sd, max_position_embeddings)
+    for i in range(_num_layers(sd, "decoder.layers.")):
+        lp = f"decoder.layers.{i}."
+        names = [f"{attn}.{proj}" for attn in SEED_ATTENTION
+                 for _, proj in SEED_PROJECTIONS]
+        for name in names + list(SEED_LAYER_NORMS) + ["fc1", "fc2"]:
+            _copy(out, lp + name, sd, lp + name)
+    out["decoder.embed_positions.weight"] = _t(
+        sd["decoder.embed_positions.weight"])
+    for _, prefix in SEED_MLM_MODULES:
+        _copy(out, prefix, sd, prefix)
+    out["lm_head.bias"] = _t(sd["lm_head.bias"])
+    return out
+
+
+def seeddot_warm_start(sd: Mapping, model: nn.Module) -> dict:
+    """What a ``seeddot_nll`` model loads from a SEED state dict: fairseq
+    names imported (:func:`seeddot_state_dict_from_fairseq`), and a
+    pretraining checkpoint's decoder and LM head dropped, so the encoder
+    warm-starts and the head keeps its seeded init
+    (``ance_tpu/cli.py:212-225``)."""
+    if any("sentence_encoder." in k for k in sd):
+        sd = seeddot_state_dict_from_fairseq(
+            sd, model.config.max_position_embeddings)
+    return {k: v for k, v in sd.items()
+            if not k.startswith(("decoder.", "lm_head."))}
 
 
 def checkpoint_file(model_dir: str) -> str:

@@ -240,7 +240,7 @@ def state_dict(ckpt_dir: str) -> tuple[dict[str, torch.Tensor], str]:
     layout holds them, and the file they were read from: the torch state
     dict as saved (a DPR ``CheckpointState``, the reference's single-file
     dict, gives its ``model_dict``), or a JAX-package ``params.msgpack``
-    (a RobertaDot or BiEncoder tree) as fp32 (through
+    (a RobertaDot, BiEncoder or SeedForMaskedLM tree) as fp32 (through
     :func:`load_raw_params` and ``models/weights.py::
     state_dict_from_flax``; its optimizer state is not read, and a note
     on stderr says so)."""
@@ -258,19 +258,25 @@ def state_dict(ckpt_dir: str) -> tuple[dict[str, torch.Tensor], str]:
         sd = state_dict_from_flax(tree)
     except (KeyError, TypeError) as e:
         raise UnreadableCheckpoint(
-            f"{path}: not a RobertaDot or BiEncoder parameter tree (missing "
-            f"{e})") from None
+            f"{path}: not a RobertaDot, BiEncoder or SeedForMaskedLM "
+            f"parameter tree (missing {e})") from None
     print(f"note: {ckpt_dir} is a JAX-package checkpoint: its parameters "
           "are read; its optimizer state is not read (training from it "
           "starts a fresh optimizer)", file=sys.stderr)
     return sd, path
 
 
-def load_params(ckpt_dir: str, model: torch.nn.Module) -> str:
+def load_params(ckpt_dir: str, model: torch.nn.Module,
+                adapt=None) -> str:
     """Load a checkpoint directory's parameters (:func:`state_dict`)
-    strictly into ``model``. Returns the file loaded."""
+    strictly into ``model``, through ``adapt(state_dict, model)`` first
+    where the model's registry entry has one (``seeddot_nll``: a fairseq
+    SEED checkpoint imported, a ``seed-pretrain`` one's encoder alone).
+    Returns the file loaded."""
     from ance_tpu_torch.models.weights import load_weights
     sd, path = state_dict(ckpt_dir)
+    if adapt is not None:
+        sd = adapt(sd, model)
     load_weights(model, sd)
     return path
 

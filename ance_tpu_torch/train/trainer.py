@@ -198,7 +198,7 @@ def make_train_step(loss_fn: Callable, accum_steps: int = 1) -> Callable:
         model.train()
         for p in model.parameters():
             p.grad = None
-        n = batch["query_ids"].shape[0]
+        n = next(iter(batch.values())).shape[0]
         if n % accum_steps:
             raise ValueError(f"batch {n} does not split into {accum_steps} "
                              "micro-batches")

@@ -146,7 +146,21 @@ kernels under bf16 and int8 queries), and then:
     rows filled on the card from a seed, as ``dims`` and as fp32, beside
     the resident encoder, a mining (Q=512 k=200) and a dev (Q=2048 k=100)
     ``index.search`` each (the search splits its queries as far as the
-    memory left needs), a sample held to a scan, peak memory printed.
+    memory left needs), a sample held to a scan, peak memory printed;
+  * seed: SEED at ``seed_encoder_config``'s width (12 layers, 768,
+    vocabulary 32,769; a 3-layer window-2 decoder) from a seed: a
+    32,768-line vocab.txt, ``preprocess --model_type seeddot_nll`` of the
+    warmup phase's kind of raw TSVs over 4 spawned workers on the C++
+    WordPiece core (every record against the Python path),
+    ``seed-pretrain`` (B=16 x S=512, bf16, attention dropout 0: #2 and #3
+    launched 12 a step, held to plain on the operands it gave them), a
+    two-layer step parity (fp32 card vs CPU, bf16 vs fp32),
+    ``greedy_decode`` against the teacher-forced decoder, ``train
+    --model_type seeddot_nll`` warm-started from the pretrain
+    checkpoint's encoder (bit-equal before step 1), ``generate`` (#1 on
+    an fp32 index, twice) with ``infer`` + ``eval-full``, ``export-hf``
+    of both checkpoints re-imported bit for bit, and ``serve --bf16``
+    from the export (rankings byte-equal to serving the checkpoint).
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. The last two lines are a JSON object of per-kernel results
@@ -194,6 +208,7 @@ KERNELS = ("blockmax", "fused_attention", "flash_attention",
 # fp32 sums of 768 products (|score| up to ~150, ulp ~1.5e-5) taken in
 # another order than cuBLAS's: the drift stays well under 2e-3
 FLOAT_ATOL = 2e-3
+FLOAT_ATOL_SCORE = 150.0  # the |score| that FLOAT_ATOL was set for
 N_ORACLE = 256  # queries per search held against a plain torch.topk
 # H100 SXM: HBM bytes/s and dense peaks by operation type (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -2155,17 +2170,28 @@ def phase_maxp_fp32(work: Path):
                                   **bwd_exact)}
 
 
+ZERO_GRADIENT = ("attention.self.key.bias",)
+# SEED's decoder: its self-attention key biases, and the cross-attention's
+# query and key projections (a softmax over the one memory token is 1
+# whatever its logit)
+SEED_ZERO_GRADIENT = ZERO_GRADIENT + (
+    "self_attn.k_proj.bias", "encoder_attn.q_proj.weight",
+    "encoder_attn.q_proj.bias", "encoder_attn.k_proj.weight",
+    "encoder_attn.k_proj.bias")
+
+
 def _params_close(got: dict, want: dict, atol: float, lr_sum: float,
-                  share: float) -> None:
+                  share: float, zero_gradient=ZERO_GRADIENT) -> None:
     """All but ``share`` of the parameter entries within ``atol`` (the
-    attention key biases aside: their true gradient is 0, so Adam/LAMB
-    turn rounding noise into steps of up to ~3.2 x lr) and every entry
-    within twice that step over the rates' sum."""
+    ``zero_gradient`` tensors aside, the attention key biases: their true
+    gradient is 0, so Adam/LAMB turn rounding noise into steps of up to
+    ~3.2 x lr) and every entry within twice that step over the rates'
+    sum."""
     outside = total = 0
     for key, w in want.items():
         diff = (got[key].float().cpu() - w.float().cpu()).abs()
         check(diff.max().item() <= 2 * 3.2 * lr_sum, f"{key} moved apart")
-        if not key.endswith("attention.self.key.bias"):
+        if not key.endswith(zero_gradient):
             outside += int((diff > atol).sum())
             total += diff.numel()
     check(outside <= share * total, f"{outside} of {total} entries differ "
@@ -2246,15 +2272,16 @@ def _cos(a, b) -> float:
     return (a @ b / (a.norm() * b.norm())).item()
 
 
-def bf16_readings(start: dict, ref, run) -> dict:
+def bf16_readings(start: dict, ref, run,
+                  zero_gradient=ZERO_GRADIENT) -> dict:
     """How far a bf16 ``parity_run`` is from the fp32 one ``ref``: the
     largest |loss − loss_ref| / max(1, |loss_ref|) over the steps, the
     cosine of the two parameter updates, and the least per-tensor cosine of
-    the first step's gradients (the attention key biases aside: their true
-    gradient is 0)."""
+    the first step's gradients (the ``zero_gradient`` tensors aside, the
+    attention key biases: their true gradient is 0)."""
     import torch
     (l_ref, p_ref, g_ref), (l, p, g) = ref, run
-    keys = [k for k in g_ref if not k.endswith("attention.self.key.bias")]
+    keys = [k for k in g_ref if not k.endswith(zero_gradient)]
     return {"loss": max(abs(a - b) / max(1.0, abs(b))
                         for a, b in zip(l, l_ref)),
             "update_cosine": _cos(
@@ -2572,13 +2599,21 @@ def _write_generate_data(data: Path, gen: Path, rs) -> None:
 
 
 def phase1_against_plain(searched: list, dtypes: str, what: str,
-                         names=("dev", "mining")) -> list:
+                         names=("dev", "mining"), scaled: bool = False
+                         ) -> list:
     """Phase 1 on the operands a path's searches gave it (recorded through
     ``index.flat.topk_blockmax``: its queries against its index, the
     encoder's embeddings, not randn), the kernel against the plain version
     within FLOAT_ATOL and both against the exact fp64 maxima. Run after
     the path's launches were read, so not counted in them; empties
-    ``searched``."""
+    ``searched``.
+
+    ``scaled`` (SEED's operands, whose block maxima reach ~750, five times
+    FLOAT_ATOL_SCORE): two fp32 sums in different orders drift apart in
+    proportion to the maxima, so the kernel is held to plain within
+    FLOAT_ATOL × max(1, maxima / FLOAT_ATOL_SCORE), the same bound in ulps
+    of the largest maximum, and to the exact fp64 maxima within
+    FLOAT_ATOL itself."""
     import torch
     from ance_tpu_torch.ops.topk import (_pad_rows, blockmax_kernel_for,
                                          blockmax_scores,
@@ -2596,8 +2631,8 @@ def phase1_against_plain(searched: list, dtypes: str, what: str,
         want = blockmax_scores_reference(q, c)
         err = (got - want).abs().max().item()
         top = want.abs().max().item()
-        check(err <= FLOAT_ATOL, f"{dtypes} {what} {name}: max |err| {err} > "
-              f"{FLOAT_ATOL} (block maxima up to {top})")
+        tol = FLOAT_ATOL * max(1.0, top / FLOAT_ATOL_SCORE) if scaled \
+            else FLOAT_ATOL
         # both against the exact maxima (fp64): how much of the gap is the
         # kernel's and how much cuBLAS's fp32 sum
         exact = (q.double() @ c.double().T).reshape(
@@ -2606,15 +2641,19 @@ def phase1_against_plain(searched: list, dtypes: str, what: str,
         p_err = (want.double() - exact).abs().max().item()
         out.append({"dtypes": dtypes, "shape": f"{what} {name}",
                     "kernel": kernel, "Q": q.shape[0], "N": c.shape[0],
-                    "D": q.shape[1], "max_abs_err": err,
+                    "D": q.shape[1], "max_abs_err": err, "tolerance": tol,
                     "max_abs_err_exact": k_err,
                     "plain_max_abs_err_exact": p_err,
                     "max_abs_block_max": top})
         print(f"kernel {dtypes:10s} {what} {name:6s} Q={q.shape[0]:5d} "
-              f"N={c.shape[0]} ({kernel}): max|err| {err:.3g} on the "
-              f"encoder's embeddings (block maxima up to {top:.1f}); "
-              f"against the exact maxima: kernel {k_err:.3g}, plain "
-              f"{p_err:.3g}", flush=True)
+              f"N={c.shape[0]} ({kernel}): max|err| {err:.3g} (bound "
+              f"{tol:.3g}) on the encoder's embeddings (block maxima up to "
+              f"{top:.1f}); against the exact maxima: kernel {k_err:.3g}, "
+              f"plain {p_err:.3g}", flush=True)
+        check(err <= tol, f"{dtypes} {what} {name}: max |err| {err} > "
+              f"{tol} (block maxima up to {top})")
+        check(not scaled or k_err <= FLOAT_ATOL, f"{dtypes} {what} {name}: "
+              f"the kernel is {k_err} from the exact maxima, > {FLOAT_ATOL}")
         del got, want, exact, c
     searched.clear()
     torch.cuda.empty_cache()
@@ -2936,25 +2975,34 @@ def _write_raw_msmarco(raw: Path, rs) -> dict:
             "positives": positives, "splits": splits}
 
 
-def _check_preprocessed(data: Path, raw: dict) -> None:
+def _check_preprocessed(data: Path, raw: dict, encode=None,
+                        pad: int = 1) -> int:
     """Every passage record holds the tokenizer's ids for its raw line (cut
-    to the sequence, padded with 1); every query record its query's; each
-    offset-space qrel points at the rows of its query and its positive."""
+    to the sequence, padded with ``pad``); every query record its query's;
+    each offset-space qrel points at the rows of its query and its
+    positive. ``encode(texts, max_length)`` gives the ids, by default
+    :class:`WordHashTokenizer`'s. Returns the number of passage ids."""
     import numpy as np
     from ance_tpu_torch.data.cache import TokenCache
     from ance_tpu_torch.data.preprocess import load_id_map
-    tok = WordHashTokenizer()
+    if encode is None:
+        tok = WordHashTokenizer()
+
+        def encode(texts, max_length):
+            return [tok.encode(t, max_length=max_length) for t in texts]
     pid2off = load_id_map(str(data / "pid2offset.pickle"))
     check(sorted(pid2off) == raw["pids"].tolist()
           and sorted(pid2off.values()) == list(range(WARMUP_PASSAGES)),
           "pid2offset does not map every passage id onto the rows")
     with TokenCache(str(data / "passages")) as pc:
         lengths, tokens = pc.batch([pid2off[int(p)] for p in raw["pids"]])
-    for text, n, row in zip(raw["texts"], lengths, tokens):
-        ids = tok.encode(text, max_length=PASSAGE_LEN)
+    n_ids = 0
+    for ids, n, row in zip(encode(raw["texts"], PASSAGE_LEN), lengths,
+                           tokens):
         check(n == len(ids) and row[:n].tolist() == ids
-              and bool((row[n:] == 1).all()),
+              and bool((row[n:] == pad).all()),
               "a passage record is not its line's tokens")
+        n_ids += n
     for split, n_split in (("train", WARMUP_TRAIN_QUERIES),
                            ("dev", WARMUP_DEV_QUERIES)):
         q2off = load_id_map(str(data / f"{split}-query_qid2offset.pickle"))
@@ -2962,8 +3010,8 @@ def _check_preprocessed(data: Path, raw: dict) -> None:
         check(len(q2off) == n_split, f"{split}: {len(q2off)} queries mapped")
         with TokenCache(str(data / f"{split}-query")) as qc:
             lengths, tokens = qc.batch([q2off[int(q)] for q in raw["qids"][sl]])
-        for text, n, row in zip(raw["queries"][sl], lengths, tokens):
-            ids = tok.encode(text, max_length=QUERY_LEN)
+        for ids, n, row in zip(encode(raw["queries"][sl], QUERY_LEN),
+                               lengths, tokens):
             check(n == len(ids) and row[:n].tolist() == ids,
                   f"a {split} query record is not its line's tokens")
         want = sorted((q2off[int(q)], pid2off[int(raw["pids"][p])])
@@ -2973,6 +3021,7 @@ def _check_preprocessed(data: Path, raw: dict) -> None:
                      (data / f"{split}-qrel.tsv").read_text().splitlines())
         check(got == want, f"{split}-qrel.tsv does not point at the rows "
               "of its queries and positives")
+    return n_ids
 
 
 @contextlib.contextmanager
@@ -3909,9 +3958,9 @@ def _attention_counts() -> tuple[dict, dict]:
             dict(fa.fused_attention_backward.kernel_launches))
 
 
-def _dpr_attention_on_operands(fwd: dict, bwd: dict, what: str) -> dict:
+def _attention_on_operands(fwd: dict, bwd: dict, what: str) -> dict:
     """#2 (and #3) against their plain versions on the operands recorded
-    on a DPR path: bf16 per element within BF16_SLICE_TOL; the fp32
+    on a path (DPR's, SEED's): bf16 per element within BF16_SLICE_TOL; the fp32
     forward within 1e-4 of plain, the fp32 backward within 1e-5 of the
     function in fp64 (FP32_BACKWARD_YARDSTICK), each beside both
     distances to the fp64 function."""
@@ -4244,7 +4293,7 @@ def phase_dpr(work: Path):
                   == [DPR_BATCH // DPR_ACCUM, 2 * DPR_BATCH // DPR_ACCUM]
                   for kept in (fwd_ops, bwd_ops)),
               "train dpr: the recorded #2 / #3 calls are not one a tower")
-        train_path = _dpr_attention_on_operands(fwd_ops, bwd_ops,
+        train_path = _attention_on_operands(fwd_ops, bwd_ops,
                                                 "train dpr")
         del fwd_ops, bwd_ops
 
@@ -4308,7 +4357,7 @@ def phase_dpr(work: Path):
               f"GradCache on the card: {gc[DPR_ACCUM]} against the "
               f"unaccumulated step's {gc[1]} (loss rel {rel}, grad norm rel "
               f"{norm_rel}, {worst_tensor} at {grad_excess} of its bound)")
-        gc_path = _dpr_attention_on_operands(gc_fwd, gc_bwd,
+        gc_path = _attention_on_operands(gc_fwd, gc_bwd,
                                              "GradCache fp32 step")
         print(f"GradCache (accumulation {DPR_ACCUM}) vs one pass, fp32, one "
               f"batch of {DPR_BATCH}: loss {gc[DPR_ACCUM]['loss']!r} / "
@@ -4421,7 +4470,7 @@ def phase_dpr(work: Path):
                   f"{side['top100_trivia']}); {len(lines)} mined lines, no "
                   f"negative holds an answer; mining ids and the test hit "
                   f"curve == the scan's", flush=True)
-            gens[name]["path_forward"] = _dpr_attention_on_operands(
+            gens[name]["path_forward"] = _attention_on_operands(
                 fwd_ops, {}, name)["forward"]
             if name == "dpr_generate":
                 test_queries = result["test_query_embedding"]
@@ -4504,6 +4553,608 @@ def phase_dpr(work: Path):
             "phase_peak_gib": phase_peak, "capacity_21m": capacity}
 
 
+SEED_VOCAB_LINES = 32_768  # vocab.txt; SeedTokenizer's <mask> makes 32,769
+SEED_WORDS = 20_000  # t0 .. t19999 whole; t20000 .. split into t2000 + ##d
+SEED_SEQ, SEED_BATCH, SEED_STEPS = 512, 16, 8  # seed-pretrain
+SEED_PRETRAIN_ROWS = SEED_BATCH * SEED_STEPS
+SEED_DECODE_BATCH, SEED_DECODE_STEPS = 16, 32
+SEED_TRAIN_BATCH, SEED_TRAIN_STEPS = 32, 8
+SEED_PARITY_BATCH, SEED_PARITY_SEQ, SEED_PARITY_STEPS = 2, 256, 3
+CHECK_WORKERS = 8  # forked processes for the Python tokenizer's check
+
+
+def _write_seed_vocab(path: Path, rs) -> list[str]:
+    """``vocab.txt`` of SEED_VOCAB_LINES lines from a seed: ``[PAD] [UNK]
+    [CLS] [SEP] [MASK]``, the raw corpus's words t0 .. t{SEED_WORDS-1}
+    (the rest of its words split into a prefix and a ``##`` digit), the
+    ten ``##`` digits, then seeded six-letter words, every third a ``##``
+    piece."""
+    import numpy as np
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    vocab += [f"t{i}" for i in range(SEED_WORDS)]
+    vocab += [f"##{d}" for d in range(10)]
+    seen = set(vocab)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    while len(vocab) < SEED_VOCAB_LINES:
+        word = "".join(rs.choice(letters, 6))
+        word = ("##" + word) if len(vocab) % 3 == 0 else word
+        if word not in seen:
+            seen.add(word)
+            vocab.append(word)
+    path.mkdir()
+    (path / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    return vocab
+
+
+_PYTHON_TOKENIZER = None
+
+
+def _python_ids(job):
+    """A forked worker's share of the records check: the port's Python
+    WordPiece path (no C++ core) on each text, cut to ``max_length``."""
+    texts, max_length = job
+    return [_PYTHON_TOKENIZER.encode(t, max_length=max_length)
+            for t in texts]
+
+
+def _seed_preprocess_ids(vocab_dir: Path, texts: list, max_length: int):
+    """Every text's ids on the Python path, over CHECK_WORKERS forked
+    processes (the parent holds a CUDA context; the children only run
+    Python)."""
+    import multiprocessing
+    from ance_tpu_torch.data.wordpiece import WordPieceTokenizer
+    global _PYTHON_TOKENIZER
+    _PYTHON_TOKENIZER = WordPieceTokenizer.from_vocab_file(vocab_dir,
+                                                           native=False)
+    check(_PYTHON_TOKENIZER.core == "python", "not the Python path")
+    step = -(-len(texts) // CHECK_WORKERS)
+    jobs = [(texts[i:i + step], max_length)
+            for i in range(0, len(texts), step)]
+    with multiprocessing.get_context("fork").Pool(CHECK_WORKERS) as pool:
+        return [ids for part in pool.map(_python_ids, jobs) for ids in part]
+
+
+def _write_seed_pretrain_cache(path: Path, rs) -> None:
+    """SEED_PRETRAIN_ROWS rows at SEED_SEQ in the vocabulary's id space:
+    ``[CLS]`` 2, words from 5, ``[SEP]`` 3 last, ``[PAD]`` 0 past a
+    length from 256."""
+    import numpy as np
+    from ance_tpu_torch.data.cache import TokenCacheWriter
+    lengths = rs.randint(256, SEED_SEQ + 1, SEED_PRETRAIN_ROWS)
+    with TokenCacheWriter(str(path), SEED_SEQ) as w:
+        for n in lengths:
+            row = np.zeros(SEED_SEQ, np.int32)
+            row[:n] = rs.randint(5, SEED_VOCAB_LINES, n)
+            row[0], row[n - 1] = 2, 3
+            w.write(int(n), row)
+
+
+def _seed_mlm(dtype, overrides: dict, decoder: dict | None = None):
+    """A SeedForMaskedLM at full width (pad id 0, the vocabulary's) with
+    ``overrides`` on the encoder config and ``decoder`` on the decoder's."""
+    from ance_tpu_torch.models.seed import (SeedDecoderConfig,
+                                            SeedForMaskedLM,
+                                            seed_encoder_config)
+    ecfg = seed_encoder_config(pad_token_id=0, dtype=dtype, **overrides)
+    return SeedForMaskedLM(ecfg, SeedDecoderConfig(**(decoder or {})))
+
+
+def _seed_step_parity(vocab_dir: Path, cache_path: Path) -> dict:
+    """SEED_PARITY_STEPS pretrain steps of a two-layer, full-width
+    SeedForMaskedLM from the same weights (init std 0.05) and batches,
+    dropout 0 in both configs: fp32 on the card against the port's CPU
+    path (losses, every parameter after), and bf16 (the encoder's
+    attention on #2 / #3 at S = SEED_PARITY_SEQ) against fp32 on the card
+    by loss, update cosine and least step-1 gradient cosine."""
+    import numpy as np
+    import torch
+    from ance_tpu_torch.data.cache import TokenCache
+    from ance_tpu_torch.data.wordpiece import SeedTokenizer
+    from ance_tpu_torch.ops.fused_attention import (fused_attention,
+                                                    fused_attention_backward)
+    from ance_tpu_torch.optim.schedules import warmup_linear
+    from ance_tpu_torch.train import trainer
+    from ance_tpu_torch.train.seed_pretrain import (make_seed_pretrain_step,
+                                                    seed_pretrain_batches)
+    from ance_tpu_torch.models.transformer import init_weights
+    overrides = {"num_layers": 2, "hidden_dropout": 0.0,
+                 "attention_dropout": 0.0, "initializer_range": 0.05}
+    decoder = {"dropout": 0.0}
+    start = _seed_mlm(torch.float32, overrides, decoder)
+    init_weights(start, start.encoder_config,
+                 torch.Generator().manual_seed(5))
+    start = start.state_dict()
+    tok = SeedTokenizer.from_vocab_file(vocab_dir)
+    with TokenCache(str(cache_path)) as cache:
+        batches = []
+        for b in seed_pretrain_batches(
+                cache, SEED_PARITY_BATCH, mask_token_id=tok.mask_token_id,
+                vocab_size=len(tok.vocab), special_ids=[0, 1, 2, 3, 4,
+                                                        tok.mask_token_id],
+                pad_token_id=0, seed=6):
+            batches.append({k: v[:, :SEED_PARITY_SEQ] for k, v in b.items()})
+            if len(batches) == SEED_PARITY_STEPS:
+                break
+
+    def run(device, dtype):
+        model = _seed_mlm(dtype, overrides, decoder)
+        model.load_state_dict(start)
+        model = model.to(device)
+        state = trainer.init_train_state(model, trainer.make_optimizer(
+            model, "lamb", warmup_linear(1e-4, 1, 10), weight_decay=0.01))
+        step = make_seed_pretrain_step()
+        gen = torch.Generator().manual_seed(0)
+        losses, grads = [], None
+        for b in batches:
+            state, metrics = step(state, b, gen)
+            losses.append(metrics["loss"].item())
+            if grads is None:
+                grads = {n: p.grad.detach().float().cpu()
+                         for n, p in model.named_parameters()
+                         if p.grad is not None}
+        return losses, {k: v.detach().float().cpu()
+                        for k, v in model.state_dict().items()}, grads
+
+    res, launches = {}, {}
+    for name, args in (("cpu", ("cpu", torch.float32)),
+                       ("f32", ("cuda", torch.float32)),
+                       ("bf16", ("cuda", torch.bfloat16))):
+        fused_attention.launches = fused_attention_backward.launches = 0
+        res[name] = run(*args)
+        launches[name] = (fused_attention.launches,
+                          fused_attention_backward.launches)
+    want = 2 * SEED_PARITY_STEPS  # two layers a step
+    check(launches["bf16"] == (want, want), f"SEED parity: #2 / #3 "
+          f"launches {launches['bf16']}, not {want} each")
+    cpu_l, cpu_p, _ = res["cpu"]
+    f32_l, f32_p, _ = res["f32"]
+    check(np.allclose(f32_l, cpu_l, atol=2e-3, rtol=1e-3),
+          f"SEED fp32 cuda vs cpu losses {f32_l} vs {cpu_l}")
+    lr_sum = 2e-4  # warmup_linear(1e-4, 1, 10): 0, 1e-4, 8/9 1e-4
+    _params_close(f32_p, cpu_p, 1e-5, lr_sum, 1e-3, SEED_ZERO_GRADIENT)
+    worst = max((f32_p[k] - cpu_p[k]).abs().max().item() for k in start
+                if not k.endswith(SEED_ZERO_GRADIENT))
+    b16 = bf16_readings(start, res["f32"], res["bf16"], SEED_ZERO_GRADIENT)
+    check(b16["loss"] <= 0.1 and b16["update_cosine"] >= 0.95
+          and b16["grad_cosine"] >= 0.98,
+          f"SEED bf16 vs fp32 on the card: {b16}")
+    print(f"seed parity (2 layers, full width, B={SEED_PARITY_BATCH} "
+          f"S={SEED_PARITY_SEQ}): fp32 cuda vs cpu losses {f32_l} vs "
+          f"{cpu_l}, max param diff {worst:.3g} (zero-gradient tensors "
+          f"aside); bf16 losses {res['bf16'][0]} (#2 / #3 launches "
+          f"{launches['bf16']}): within {b16['loss']:.3g} of fp32's, update "
+          f"cosine {b16['update_cosine']:.5f}, least step-1 gradient cosine "
+          f"{b16['grad_cosine']:.5f}", flush=True)
+    return {"cpu_loss": cpu_l, "cuda_f32_loss": f32_l,
+            "cuda_bf16_loss": res["bf16"][0], "f32_max_param_diff": worst,
+            "bf16_vs_f32": b16, "bf16_launches": launches["bf16"]}
+
+
+def phase_seed(work: Path):
+    """SEED as its runbook would drive it, at full width from seeded
+    weights, through the port's CLI in process: a vocab.txt from a seed
+    (SeedTokenizer's ``<mask>`` makes 32,769); ``preprocess --model_type
+    seeddot_nll`` of raw MS MARCO-format TSVs over PREPROCESS_WORKERS
+    spawned workers on the C++ WordPiece core (every record held to the
+    Python path); ``seed-pretrain`` (bf16, attention dropout 0, B=16 at
+    S=512: #2 / #3 launched 12 a step each and held to their plain
+    versions on the operands it gave them); a two-layer SeedForMaskedLM's
+    step parity; ``greedy_decode`` from the pretrain checkpoint against
+    the teacher-forced decoder; ``train --model_type seeddot_nll``
+    warm-started from that checkpoint's encoder; ``generate`` (#1 on an
+    fp32 index, twice) with ``infer`` + ``eval-full``; ``export-hf`` of
+    both checkpoints, re-imported bit for bit; ``serve --bf16`` from the
+    export against serving the checkpoint. Launch counts are set to 0 just
+    before each path and read just after."""
+    import numpy as np
+    import torch
+    from ance_tpu_torch import cli
+    from ance_tpu_torch.data.cache import TokenCache
+    from ance_tpu_torch.data.feed import parse_triple_line
+    from ance_tpu_torch.index import flat
+    from ance_tpu_torch.models import weights
+    from ance_tpu_torch.models.registry import get_model_spec
+    from ance_tpu_torch.models.seed import greedy_decode
+    from ance_tpu_torch.ops.fused_attention import (fused_attention,
+                                                    fused_attention_backward)
+    from ance_tpu_torch.train import ann_gen, checkpoint as ckpt
+    from ance_tpu_torch.train import seed_pretrain
+    from ance_tpu_torch.train.ance_loop import load_offset_qrels
+    from ance_tpu_torch.utils import native_build
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    vocab_dir, raw_dir = work / "seed_vocab", work / "seed_raw"
+    data = work / "seed_data"
+    rs = np.random.RandomState(16)
+    _write_seed_vocab(vocab_dir, rs)
+    raw = _write_raw_msmarco(raw_dir, rs)
+    seq_flags = ["--max_seq_length", str(PASSAGE_LEN),
+                 "--max_query_length", str(QUERY_LEN)]
+
+    # 1. preprocess over spawned workers, on the C++ core; every record
+    #    against the Python path
+    lib = native_build.library_path("wordpiece")
+    t0 = time.perf_counter()
+    maps = _cli(["preprocess", "--model_type", "seeddot_nll",
+                 "--model_name_or_path", str(vocab_dir), "--data_dir",
+                 str(raw_dir), "--out_data_dir", str(data), *seq_flags,
+                 "--num_processes", str(PREPROCESS_WORKERS)])
+    pre_s = time.perf_counter() - t0
+    check(maps == {"pid2offset": WARMUP_PASSAGES,
+                   "train_qid2offset": WARMUP_TRAIN_QUERIES,
+                   "dev_qid2offset": WARMUP_DEV_QUERIES},
+          f"seed preprocess map sizes {maps}")
+    tok = cli.TokenizerFactory("seed-wordpiece", str(vocab_dir))()
+    check(tok.core == "native" and lib.exists(), "the seed tokenizer does "
+          f"not run its C++ core ({tok.core}; {lib} built: {lib.exists()})")
+    t0 = time.perf_counter()
+    n_pieces = _check_preprocessed(
+        data, raw, pad=tok.pad_token_id,
+        encode=lambda texts, n: _seed_preprocess_ids(vocab_dir, texts, n))
+    check_s = time.perf_counter() - t0
+    print(f"seed preprocess: {WARMUP_PASSAGES} passages, "
+          f"{WARMUP_TRAIN_QUERIES} + {WARMUP_DEV_QUERIES} queries over "
+          f"{PREPROCESS_WORKERS} spawned workers in {pre_s:.2f} s on the "
+          f"C++ WordPiece core ({lib.name}); every record == the Python "
+          f"path's ids ({n_pieces} word pieces, checked in {check_s:.1f} s "
+          f"over {CHECK_WORKERS} forked processes); qrels point at their "
+          "rows", flush=True)
+
+    # 2. seed-pretrain at full width: #2 / #3 12 a step each, each held to
+    #    its plain version on the first call's operands
+    pre_data, pre_ckpt = work / "seed_pre_data", work / "seed_pre_ckpt"
+    pre_data.mkdir()
+    _write_seed_pretrain_cache(pre_data / "passages", rs)
+    step_ms, step_tokens = [], []
+    real_make = seed_pretrain.make_seed_pretrain_step
+
+    def timed_step(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def run(state, batch, generator):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, generator)
+            float(metrics["loss"])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            step_tokens.append(int(batch["attention_mask"].sum()))
+            return state, metrics
+        return run
+
+    fwd_ops, bwd_ops = {}, {}
+    _reset_attention_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seed_pretrain.make_seed_pretrain_step = timed_step
+    try:
+        with picked_calls("forward", (0,), fwd_ops), \
+                picked_calls("backward", (0,), bwd_ops):
+            history = _cli([
+                "seed-pretrain", "--device", "cuda", "--bf16",
+                "--model_name_or_path", str(vocab_dir),
+                "--encoder_overrides", '{"attention_dropout": 0.0}',
+                "--data_dir", str(pre_data), "--output_dir", str(pre_ckpt),
+                "--per_device_train_batch_size", str(SEED_BATCH),
+                "--max_steps", str(SEED_STEPS), "--save_steps",
+                str(SEED_STEPS), "--log_every", "1", "--learning_rate",
+                "1e-4", "--warmup_steps", "2"])
+    finally:
+        seed_pretrain.make_seed_pretrain_step = real_make
+    torch.cuda.synchronize()
+    pre_peak = torch.cuda.max_memory_allocated() / 2**30
+    pre_fwd, pre_bwd = _attention_counts()
+    want = 12 * SEED_STEPS
+    check(pre_fwd == {"fused_fwd_bf16": want}
+          and pre_bwd == {"fused_bwd_bf16": want},
+          f"seed-pretrain: #2 {pre_fwd} / #3 {pre_bwd}, not {want} each")
+    check(fwd_ops[0][0].shape == (SEED_BATCH, SEED_SEQ, 12, 64),
+          f"seed-pretrain's #2 operands {fwd_ops[0][0].shape}")
+    pre_path = _attention_on_operands(fwd_ops, bwd_ops, "seed-pretrain")
+    del fwd_ops, bwd_ops
+    check([h["step"] for h in history] == list(range(SEED_STEPS - 2,
+                                                      SEED_STEPS + 1))
+          and all(math.isfinite(h[k]) for h in history
+                  for k in ("loss", "mlm_loss", "decoder_loss")),
+          f"seed-pretrain history {history}")
+    pre_final = pre_ckpt / f"checkpoint-{SEED_STEPS}"
+    check(ckpt.is_complete(str(pre_final)), f"no complete {pre_final}")
+    mlm = _seed_mlm(torch.float32, {})
+    pre_sd = torch.load(pre_final / "pytorch_model.bin", weights_only=True)
+    mlm.load_state_dict(pre_sd, strict=True)
+    check(all(bool(torch.isfinite(t).all()) for t in pre_sd.values()),
+          f"{pre_final}: parameters not finite")
+    pre_ms = statistics.median(step_ms[TIMED_FROM:])
+    # the rows hold 256-512 tokens: the rate counts the real (non-pad)
+    # tokens of the timed steps, positions/s counts every padded position
+    tokens_per_s = sum(step_tokens[TIMED_FROM:]) \
+        / (sum(step_ms[TIMED_FROM:]) / 1e3)
+    positions_per_s = SEED_BATCH * SEED_SEQ / (pre_ms / 1e3)
+    print(f"seed-pretrain: {SEED_STEPS} steps of B={SEED_BATCH} x S="
+          f"{SEED_SEQ} at full width (12 layers, 768, vocabulary 32,769; "
+          f"decoder 3 layers, window 2), bf16, attention dropout 0: losses "
+          f"{[round(h['loss'], 4) for h in history]}, step {pre_ms:.1f} ms "
+          f"(median after the first {TIMED_FROM}), {tokens_per_s:.0f} "
+          f"tokens/s (non-pad; {positions_per_s:.0f} positions/s), peak "
+          f"{pre_peak:.2f} GiB; #2 {pre_fwd}, #3 {pre_bwd}, "
+          f"on its operands {pre_path}; {pre_final} loads strictly",
+          flush=True)
+
+    # 3. the step parity of a two-layer full-width SeedForMaskedLM
+    parity = _seed_step_parity(vocab_dir, pre_data / "passages")
+
+    # 4. greedy decode from the pretrain checkpoint, fp32: every token the
+    #    argmax of the teacher-forced decoder on the decoded prefix
+    mlm = mlm.to("cuda").eval()
+    with TokenCache(str(pre_data / "passages")) as pc:
+        lengths, src = pc.batch(np.arange(SEED_DECODE_BATCH))
+    src = torch.as_tensor(np.array(src), dtype=torch.int64, device="cuda")
+    mask = (torch.arange(SEED_SEQ, device="cuda")[None]
+            < torch.as_tensor(lengths, device="cuda")[:, None]).long()
+    t0 = time.perf_counter()
+    toks = greedy_decode(mlm, src, mask, SEED_DECODE_STEPS, bos_token=2)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    with torch.no_grad():
+        prev = torch.cat([torch.full_like(toks[:, :1], 2), toks[:, :-1]], 1)
+        _, dec = mlm(src, mask, prev)
+    top2 = torch.topk(dec, 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    # the teacher-forced positions skip pad ids: a row is compared up to
+    # the first pad it emitted (decode_step counts every position)
+    before_pad = torch.cumsum((toks == 0).long(), 1) == 0
+    before_pad = torch.cat([torch.ones_like(before_pad[:, :1]),
+                            before_pad[:, :-1]], 1)
+    clear = before_pad & (margin > 1e-4)
+    agree = (dec.argmax(-1) == toks)
+    check(bool(agree[clear].all()), f"greedy_decode: "
+          f"{int((~agree & clear).sum())} tokens are not the teacher-forced "
+          "argmax")
+    print(f"greedy_decode: B={SEED_DECODE_BATCH} x {SEED_DECODE_STEPS} steps "
+          f"(fp32, window-2 ring cache) in {decode_s:.2f} s; every token == "
+          f"the teacher-forced decoder's argmax ({int(clear.sum())} of "
+          f"{toks.numel()} positions compared: before a pad id, top-2 "
+          f"margin > 1e-4; {int((agree & before_pad).sum())} agree of "
+          f"{int(before_pad.sum())} before a pad)", flush=True)
+    del mlm, dec
+    torch.cuda.empty_cache()
+
+    # 5. warm start from the pretrain checkpoint's encoder, then train
+    ann = work / "seed_ann"
+    _write_ann(ann, WARMUP_TRAIN_QUERIES, WARMUP_PASSAGES, rs)
+    train_ms, start_sd, real_train = [], {}, cli._make_training
+
+    def make_training(args, model, spec):
+        start_sd.update({k: v.detach().cpu().clone()
+                         for k, v in model.state_dict().items()})
+        state, step = real_train(args, model, spec)
+
+        def timed(state, batch, generator):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, generator)
+            float(metrics["loss"])
+            train_ms.append((time.perf_counter() - t0) * 1e3)
+            return state, metrics
+        return state, timed
+
+    cli._make_training = make_training
+    try:
+        summary = _cli([
+            "train", "--device", "cuda", "--bf16", "--model_type",
+            "seeddot_nll", "--model_name_or_path", str(pre_ckpt),
+            "--data_dir", str(data), "--ann_dir", str(ann), "--output_dir",
+            str(work / "seed_train"), "--max_steps", str(SEED_TRAIN_STEPS),
+            "--save_steps", str(SEED_TRAIN_STEPS), "--warmup_steps", "2",
+            "--per_device_train_batch_size", str(SEED_TRAIN_BATCH),
+            "--seed", "42", *seq_flags])
+    finally:
+        cli._make_training = real_train
+    encoder = {k: v for k, v in pre_sd.items() if k.startswith("roberta.")}
+    check(summary["params"] == str(pre_final / "pytorch_model.bin")
+          and all(torch.equal(start_sd[k], v) for k, v in encoder.items())
+          and not any(k.startswith(("decoder.", "lm_head."))
+                      for k in start_sd),
+          "train: the encoder before step 1 is not the pretrain "
+          "checkpoint's bit for bit")
+    seeded = get_model_spec("seeddot_nll").build(seed=42)  # --seed
+    check(all(torch.equal(start_sd[k], seeded.state_dict()[k])
+              for k in start_sd if not k.startswith("roberta.")),
+          "train: the head is not the seeded one")
+    del seeded
+    train_final = Path(summary["checkpoint"])
+    check(summary["steps"] == SEED_TRAIN_STEPS
+          and all(math.isfinite(x) for x in summary["loss"])
+          and ckpt.is_complete(str(train_final)),
+          f"seeddot train: {summary}")
+    train_sd = torch.load(train_final / "pytorch_model.bin",
+                          weights_only=True)
+    get_model_spec("seeddot_nll").build().load_state_dict(train_sd,
+                                                          strict=True)
+    seed_train_ms = statistics.median(train_ms[TIMED_FROM:])
+    print(f"train seeddot_nll from {pre_final} (its encoder bit-equal "
+          f"before step 1, the head seeded): {SEED_TRAIN_STEPS} steps of "
+          f"batch {SEED_TRAIN_BATCH}, bf16, losses "
+          f"{[round(x, 4) for x in summary['loss']]}, step "
+          f"{seed_train_ms:.1f} ms (median after the first {TIMED_FROM}); "
+          f"{train_final} loads strictly", flush=True)
+
+    # 6. generate on the trained checkpoint: an fp32 index, #1 twice
+    flags = ["--device", "cuda", "--bf16", "--model_type", "seeddot_nll",
+             "--data_dir", str(data), "--training_dir",
+             str(work / "seed_train"), *seq_flags, "--topk_training",
+             str(GEN_TOPK), "--negative_sample", str(GEN_NEGATIVES),
+             "--ann_chunk_factor", "1"]
+    results, real_gen = [], ann_gen.generate_new_ann
+    searched, served, real_topk = [], [], flat.topk_blockmax
+
+    def keep(*args, **kwargs):
+        results.append(real_gen(*args, **kwargs))
+        return results[-1]
+
+    def recorded(queries, corpus, **kwargs):  # each search's operands
+        searched.append((queries, corpus))
+        out = real_topk(queries, corpus, **kwargs)
+        served.append((queries, corpus, kwargs, out))
+        return out
+
+    ann_gen.generate_new_ann, flat.topk_blockmax = keep, recorded
+    try:
+        torch.cuda.synchronize()
+        reset_blockmax_counts()
+        t0 = time.perf_counter()
+        gen = _cli(["generate", *flags, "--output_dir",
+                    str(work / "seed_gen")])
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        gen_launches = blockmax_counts()
+    finally:
+        ann_gen.generate_new_ann, flat.topk_blockmax = real_gen, real_topk
+    served.clear()
+    result = results.pop()
+    check(gen_launches == {"blockmax_pieces_f32": 2}, "seeddot generate "
+          f"launched {gen_launches}, not blockmax_pieces_f32 twice")
+    check(gen["checkpoint"] == str(train_final), f"generate loaded "
+          f"{gen['checkpoint']}, not {train_final}")
+    index = result["index"]
+    index.method = "scan"
+    _, scan_ids = index.search(result["train_query_embedding"], GEN_TOPK)
+    same = (scan_ids.cpu().numpy() == result["train_neighbor_ids"]).mean()
+    check(same == 1.0, f"seeddot generate: mining ids equal the scan on "
+          f"{same:.6f} of positions, not all")
+    positives = {q: next(iter(r)) for q, r in load_offset_qrels(
+        str(data / "train-qrel.tsv")).items()}
+    for line in (work / "seed_gen" / "ann_training_data_0").read_text() \
+            .splitlines():
+        qid, pos, negs = parse_triple_line(line)
+        check(pos == positives[qid] and pos not in negs,
+              f"bad mined line {line!r}")
+    del index, result, scan_ids
+    # #1 on the operands this generate gave it (dev, then mining)
+    kernel_cases = phase1_against_plain(searched, "f32xf32", "seed generate",
+                                        scaled=True)
+    emb = work / "seed_emb"
+    _cli(["infer", *flags, "--output_dir", str(emb)])
+    pre = str(emb / "step0")
+    full = _cli(["eval-full", "--device", "cuda",
+                 "--query_prefix", pre + "_dev_query_emb_p_",
+                 "--query_id_prefix", pre + "_dev_query_embid_p_",
+                 "--passage_prefix", pre + "_passage_emb_p_",
+                 "--passage_id_prefix", pre + "_passage_embid_p_",
+                 "--qrels", str(data / "dev-qrel.tsv")])
+    check(abs(full["ndcg_10"] - gen["dev_ndcg"]) <= 1e-12,
+          f"eval-full ndcg_10 {full['ndcg_10']} vs generate's dev_ndcg "
+          f"{gen['dev_ndcg']}")
+    print(f"generate --model_type seeddot_nll --training_dir: {gen_s:.1f} "
+          f"s, {gen_launches}; mining ids == scan at k={GEN_TOPK}; dev "
+          f"NDCG@10 {gen['dev_ndcg']!r} == eval-full's {full['ndcg_10']!r} "
+          "(within 1e-12)", flush=True)
+
+    # 7. export-hf of both checkpoints, re-imported bit for bit; serve from
+    #    the export against serving the checkpoint
+    exports = {}
+    for name, training_dir, sd, back in (
+            ("pretrain", pre_ckpt, pre_sd,
+             weights.seed_mlm_state_dict_from_fairseq),
+            ("train", work / "seed_train", train_sd,
+             weights.seeddot_state_dict_from_fairseq)):
+        out = work / f"seed_export_{name}"
+        exported = _cli(["export-hf", "--model_type", "seeddot_nll",
+                         "--training_dir", str(training_dir), "--out_dir",
+                         str(out)])
+        fair = torch.load(out / "pytorch_model.bin", weights_only=True)
+        again = back(fair)
+        pos = "roberta.embeddings.position_embeddings.weight"
+        check(sorted(again) == sorted(sd)
+              and all(torch.equal(again[k], v) for k, v in sd.items()
+                      if k != pos)
+              and torch.equal(again[pos][:514], sd[pos][:514])
+              and not again[pos][514:].any()
+              and fair["seed_encoder.encoder.sentence_encoder."
+                       "embed_positions.weight"].shape[0] == 514,
+              f"export-hf {name}: the re-import is not the checkpoint")
+        exports[name] = {"keys": len(fair), "step": exported["step"]}
+    serve = ["serve", "--device", "cuda", "--bf16", "--model_type",
+             "seeddot_nll", "--data_dir", str(data), "--query_cache",
+             str(data / "dev-query"), "--topk", "10", "--with_scores",
+             *seq_flags]
+    serve_launches = {}
+    for name, where in (("export", ["--model_name_or_path",
+                                    str(work / "seed_export_train")]),
+                        ("checkpoint", ["--training_dir",
+                                        str(work / "seed_train")])):
+        flat.topk_blockmax = recorded if name == "export" else real_topk
+        try:
+            reset_blockmax_counts()
+            served_out = _cli(serve + where + [
+                "--output", str(work / f"seed_rank_{name}.tsv")])
+            serve_launches[name] = blockmax_counts()
+        finally:
+            flat.topk_blockmax = real_topk
+    ranking = (work / "seed_rank_export.tsv").read_text()
+    check(served_out["params"].endswith("pytorch_model.bin")
+          and len(ranking.splitlines()) == WARMUP_DEV_QUERIES * 10
+          and ranking == (work / "seed_rank_checkpoint.tsv").read_text(),
+          "serve from the seeddot export does not rank as serve from the "
+          "checkpoint")
+    check(serve_launches["export"] == serve_launches["checkpoint"]
+          and serve_launches["export"] == {"blockmax_bf16": len(served)},
+          f"seeddot serve launches {serve_launches} for {len(served)} "
+          "searches")
+    # the served rows and scores against a scan of the same operands (exact
+    # fp32 scores, ties to the lower row in both); the ranking file's
+    # scores are the searches' first 10 in order
+    file_scores = [line.split("\t")[3] for line in ranking.splitlines()]
+    kept_scores = []
+    for q, corpus, kwargs, (scores, rows) in served:
+        scan_s, scan_rows = flat.topk_inner_product(
+            q, corpus, k=kwargs["k"], valid_rows=kwargs["valid_rows"])
+        check(torch.equal(scan_rows, rows) and torch.equal(scan_s, scores),
+              f"seeddot serve: a search of {q.shape[0]} queries differs "
+              f"from the scan on {int((scan_rows != rows).sum())} rows")
+        kept_scores += [f"{float(x):.6f}" for x in scores[:, :10].flatten()]
+    check(kept_scores == file_scores, "seeddot serve: the ranking file's "
+          "scores are not the searches' top 10")
+    serve_rows = sum(q.shape[0] for q, *_ in served)
+    served.clear()
+    # #1 on the operands this serve gave it
+    kernel_cases += phase1_against_plain(
+        searched, "bf16xbf16", "seed serve",
+        tuple(f"batch {i}" for i in range(len(searched))), scaled=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"export-hf seeddot_nll: pretrain ({exports['pretrain']['keys']} "
+          f"fairseq keys) and train ({exports['train']['keys']}), each "
+          "re-imported bit for bit (the position table on its 514 rows); "
+          "serve --bf16 from the export == serve --training_dir (rankings "
+          f"byte for byte), #1 {serve_launches['export']} each; the "
+          f"{serve_rows} queries' rows and scores == a scan's", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(f"seed numbers ({smi}): preprocess {pre_s:.2f} s; pretrain step "
+          f"{pre_ms:.1f} ms, {tokens_per_s:.0f} tokens/s (non-pad; "
+          f"{positions_per_s:.0f} positions/s), peak "
+          f"{pre_peak:.2f} GiB; train step {seed_train_ms:.1f} ms; generate "
+          f"{gen_s:.1f} s; the phase {phase_s:.1f} s", flush=True)
+    check(no_reference_modules(), "the port imported jax or ance_tpu")
+    return {"device": smi, "preprocess_s": pre_s, "check_s": check_s,
+            "pretrain_step_ms": pre_ms, "pretrain_steps_ms": step_ms,
+            "pretrain_tokens_per_s": tokens_per_s,
+            "pretrain_positions_per_s": positions_per_s,
+            "pretrain_steps_tokens": step_tokens,
+            "pretrain_peak_gib": pre_peak, "pretrain_history": history,
+            "pretrain_fused_forward": pre_fwd,
+            "pretrain_fused_backward": pre_bwd, "pretrain_path": pre_path,
+            "step_parity": parity, "decode_s": decode_s,
+            "decode_compared": int(clear.sum()),
+            "train_step_ms": seed_train_ms, "train_steps_ms": train_ms,
+            "train_loss": summary["loss"], "generate_s": gen_s,
+            "blockmax_kernels": gen_launches, "dev_ndcg": gen["dev_ndcg"],
+            "serve_blockmax_kernels": serve_launches["export"],
+            "kernel_cases": kernel_cases,
+            "exports": exports, "phase_s": phase_s}
+
+
 def main() -> int:
     try:
         import torch
@@ -4543,6 +5194,7 @@ def main() -> int:
         warmup = phase_warmup(work)
         ance_loop = phase_ance_loop(work, generate, train)
         dpr = phase_dpr(work)
+        seed = phase_seed(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     parity = phase_step_parity()
@@ -4597,7 +5249,7 @@ def main() -> int:
              "blockmax_bf16_int8")
     # phase 1 on generate's and the pipelined loop's operands
     cases += generate.pop("kernel_cases") + ance_loop.pop("kernel_cases") \
-        + dpr.pop("kernel_cases")
+        + dpr.pop("kernel_cases") + seed.pop("kernel_cases")
     own = [c for c in cases if c["kernel"] not in apart]
     blockmax = entry("blockmax_scores", "blockmax", "ance_tpu/ops/topk.py:90",
                      maxp["blockmax_launches"],
@@ -4619,7 +5271,8 @@ def main() -> int:
         "ance_loop_maxp": ance_loop["maxp"]["blockmax_kernels"],
         "topk_int8_study": topk_int8["launches"],
         **{name: g["blockmax_kernels"]
-           for name, g in dpr["generate"].items()}}
+           for name, g in dpr["generate"].items()},
+        "seed_serve": seed["serve_blockmax_kernels"]}
     fp32_entries = []
     for kernel, dtypes, launches in (
             ("blockmax_pieces_f32", "f32xf32",
@@ -4641,6 +5294,8 @@ def main() -> int:
         if kernel == "blockmax_pieces_f32":
             e["launches_by_path"]["warmup_generate"] = \
                 warmup["blockmax_kernels"][kernel]
+            e["launches_by_path"]["seed_generate"] = \
+                seed["blockmax_kernels"][kernel]
         fp32_entries.append(e)
     # the int8 routes, with their launches on the int8 phase-1 study's path
     # and their yardstick (the same product at a library's rate)
@@ -4721,8 +5376,10 @@ def main() -> int:
         "dpr_generate": dpr["generate"]["dpr_generate"]["fused_forward"][
             "fused_fwd_bf16"],
         "dpr_generate_dims": dpr["generate"]["dpr_generate_dims"][
-            "fused_forward"]["fused_fwd_bf16"]}
+            "fused_forward"]["fused_fwd_bf16"],
+        "seed_pretrain": seed["pretrain_fused_forward"]["fused_fwd_bf16"]}
     fused_fwd["dpr_path_operands"] = dpr["train_path"]["forward"]
+    fused_fwd["seed_path_operands"] = seed["pretrain_path"]["forward"]
     fused_bwd = entry("fused_attention_bwd", "fused_attention",
                       "ance_tpu/ops/fused_attention.py:97",
                       train["maxp"]["fused_backward_launches"], bwd_head,
@@ -4731,8 +5388,10 @@ def main() -> int:
     fused_bwd["launches_by_path"] = {
         "maxp_train": train["maxp"]["fused_backward_launches"],
         "ance_loop_maxp": ance_loop["maxp"]["fused_backward"],
-        "dpr_train": dpr["train_fused_backward"]["fused_bwd_bf16"]}
+        "dpr_train": dpr["train_fused_backward"]["fused_bwd_bf16"],
+        "seed_pretrain": seed["pretrain_fused_backward"]["fused_bwd_bf16"]}
     fused_bwd["dpr_path_operands"] = dpr["train_path"]["backward"]
+    fused_bwd["seed_path_operands"] = seed["pretrain_path"]["backward"]
     print(json.dumps({"kernels": [
         blockmax, *fp32_entries, *int8_entries, fused_fwd,
         attention_entry("flash_attention", "ance_tpu/ops/flash_attention.py:34",
@@ -4746,7 +5405,7 @@ def main() -> int:
         "train": train, "maxp_fp32": maxp_fp32, "step_parity": parity,
         "mirror_encoder": mirror,
         "generate": generate, "warmup": warmup, "ance_loop": ance_loop,
-        "dpr": dpr, "topk_int8": topk_int8}))
+        "dpr": dpr, "seed": seed, "topk_int8": topk_int8}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -469,10 +469,34 @@ def test_cli_generate_refuses_missing_cuda(gen_inputs, tmp_path):
             port_main(["generate", *_cli_flags(data), "--training_dir",
                        str(root / "port_train"), "--output_dir",
                        str(tmp_path)])
-    with pytest.raises(SystemExit, match="not ported"):
-        port_main(["infer", *_cli_flags(data), "--model_type", "seeddot_nll",
-                   "--device", "cpu", "--training_dir", str(tmp_path),
-                   "--output_dir", str(tmp_path)])
+    # seeddot_nll, refused before its slice: ``generate`` from a JAX
+    # checkpoint and from its port twin writes ``ance generate``'s handoff
+    # files byte for byte
+    from ance_tpu.cli import main as jax_main
+    from ance_tpu.models.seed import seed_dot_model
+    from ance_tpu.train import checkpoint as jax_ckpt
+    from ance_tpu_torch.models.registry import get_model_spec
+    model = seed_dot_model(out_dim=768,
+                           **dict(TINY, initializer_range=0.5))
+    ids = jnp.ones((2, 8), jnp.int32)
+    params = jax.tree.map(np.asarray, jax.jit(model.init)(
+        jax.random.PRNGKey(8), ids, ids)["params"])
+    jax_ckpt.save_checkpoint(str(tmp_path / "jax_seed"), 4, params)
+    port_model = get_model_spec("seeddot_nll").build(config_overrides=TINY)
+    port_model.load_state_dict(state_dict_from_flax(params))
+    ckpt.save_checkpoint(str(tmp_path / "port_seed"), 4, port_model)
+    dev_ndcg = {}
+    for who, main, extra in (("jax", jax_main, []),
+                             ("port", port_main, ["--device", "cpu"])):
+        flags = _cli_flags(data, ["--training_dir",
+                                  str(tmp_path / f"{who}_seed"), *extra])
+        flags[1] = "seeddot_nll"
+        main(["generate", *flags, "--output_dir", str(tmp_path / who)])
+        dev_ndcg[who] = json.loads(
+            (tmp_path / who / "ann_ndcg_0").read_text())["ndcg"]
+    assert (tmp_path / "port" / "ann_training_data_0").read_bytes() == \
+        (tmp_path / "jax" / "ann_training_data_0").read_bytes()
+    assert dev_ndcg["port"] == dev_ndcg["jax"]
 
 
 def test_cli_generate_cites_the_checkpoint_it_loaded(gen_inputs, tmp_path,

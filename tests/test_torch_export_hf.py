@@ -128,8 +128,9 @@ def test_export_loads_strictly_and_encodes_as_the_checkpoint(runs, tmp_path,
 
 def test_export_hf_refuses(runs, tmp_path):
     """No complete checkpoint (a random init), a DPR export of a RobertaDot
-    checkpoint, SEED, and a config whose geometry disagrees with the
-    checkpoint: each exits."""
+    checkpoint and a config whose geometry disagrees with the checkpoint:
+    each exits. The SEED export, which exited before its slice, equals the
+    JAX CLI's."""
     from ance_tpu_torch.cli import main
     out = ["--out_dir", str(tmp_path / "out")]
     os.makedirs(tmp_path / "empty" / "checkpoint-3")  # no DONE
@@ -140,12 +141,22 @@ def test_export_hf_refuses(runs, tmp_path):
     with pytest.raises(SystemExit, match="not a BiEncoder checkpoint"):
         main(["export-hf", "--model_type", "dpr", "--training_dir",
               str(runs / "port"), *out])
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 #9"):
-        main(["export-hf", "--model_type", "seeddot_nll", "--training_dir",
-              str(runs / "port"), *out])
     for source in ("port", "native"):
         with pytest.raises(SystemExit, match="geometry"):
             main(["export-hf", "--encoder_overrides",
                   json.dumps(dict(TINY, num_layers=3)), "--training_dir",
                   str(runs / source), *out])
     assert not (tmp_path / "out").exists()
+    # SEED, refused before its slice: the fairseq-named export of the same
+    # parameters is ``ance export-hf --model_type seeddot_nll``'s
+    from ance_tpu.cli import main as jax_main
+    for name, run, source in (("port_seed", main, "port"),
+                              ("jax_seed", jax_main, "native")):
+        run(["export-hf", "--model_type", "seeddot_nll", "--training_dir",
+             str(runs / source), "--out_dir", str(tmp_path / name)])
+    a, b = (torch.load(tmp_path / name / "pytorch_model.bin",
+                       weights_only=True)
+            for name in ("port_seed", "jax_seed"))
+    assert sorted(a) == sorted(b) and \
+        "seed_encoder.encoder.sentence_encoder.embed_tokens.weight" in a
+    assert all(torch.equal(a[k], b[k]) for k in b)

@@ -156,11 +156,35 @@ def test_load_pretrained_reads_an_hf_export_dir(tmp_path):
 
 
 def test_registry_names_unported_models():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_model_spec("seeddot_nll")
-    with pytest.raises(NotImplementedError, match="SEED"):
-        get_model_spec("rdot_nll").build(
-            config_overrides=dict(TINY, layerdrop_rate=0.1))
+    """No model type is left unported: ``seeddot_nll`` builds JAX's SEED
+    encoder config and embeds as the JAX model on the same weights (atol
+    1e-4, as the fp32 case below), and SEED's training features, which
+    raised before their slice, leave the eval forward as it is."""
+    import dataclasses
+    from ance_tpu.models.hf_export import torch_seeddot_state_dict
+    jm = jax_spec("seeddot_nll").build(config_overrides=TINY)
+    model = get_model_spec("seeddot_nll").build(config_overrides=TINY)
+    want = dataclasses.asdict(jm.config)
+    got = dataclasses.asdict(model.config)
+    assert {k: got[k] for k in want if k != "dtype"} == \
+        {k: v for k, v in want.items() if k != "dtype"}
+    ids, mask = _ragged_tokens()
+    ids[:, 1] = 1  # SEED zeroes the embeddings of pad id 1, in-length too
+    params = jax.tree.map(np.asarray, jm.init(
+        jax.random.PRNGKey(5), jnp.asarray(ids), jnp.asarray(mask))["params"])
+    assert "sentence_encoder" in "".join(torch_seeddot_state_dict(params))
+    model.load_state_dict(state_dict_from_flax(params), strict=True)
+    got = model.query_emb(torch.as_tensor(ids, dtype=torch.int64),
+                          torch.as_tensor(mask, dtype=torch.int64))
+    np.testing.assert_allclose(got.detach().numpy(),
+                               _jax_emb(jm, params, ids, mask), atol=1e-4)
+    plain = get_model_spec("rdot_nll").build(config_overrides=TINY, seed=3)
+    noisy = get_model_spec("rdot_nll").build(
+        config_overrides=dict(TINY, layerdrop_rate=0.1, quant_noise_p=0.1),
+        seed=3)
+    t = (torch.as_tensor(ids, dtype=torch.int64),
+         torch.as_tensor(mask, dtype=torch.int64))
+    assert torch.equal(plain.query_emb(*t), noisy.query_emb(*t))
 
 
 def test_query_emb_matches_jax_bf16():

@@ -1,9 +1,11 @@
 """The torch port never imports jax, flax, msgpack or regex, nor any module
 of the JAX package, while it preprocesses, warms up, exports, serves,
-trains, generates, runs the pipelined refresh (``ance-loop``) and the DPR
+trains, generates, runs the pipelined refresh (``ance-loop``), the DPR
 commands (``preprocess-dpr``, ``train --num_epoch``, ``generate-dpr``,
-``export-hf --model_type dpr``). Checked in a fresh interpreter, because this test process already has jax
-(tests/conftest.py imports it)."""
+``export-hf --model_type dpr``) and SEED's (the seed-wordpiece tokenizer,
+``preprocess --model_type seeddot_nll``, ``seed-pretrain``, ``export-hf
+--model_type seeddot_nll``). Checked in a fresh interpreter, because
+this test process already has jax (tests/conftest.py imports it)."""
 
 import os
 import subprocess
@@ -121,6 +123,45 @@ SCRIPT = textwrap.dedent("""
     q, qs = study.make_queries(3, corpus["scales"], g)
     for fn in study.search_fns(q, qs, corpus, 4).values():
         assert fn()[1].shape == (3, 4)
+
+    # SEED: the seed-wordpiece tokenizer (its C++ core), preprocess with
+    # seeddot_nll, a tiny seed-pretrain and its fairseq export
+    from ance_tpu_torch.data.wordpiece import SeedTokenizer
+    s = f"{d}/seed"
+    os.makedirs(f"{s}/raw")
+    words = [f"s{i}" for i in range(20)]
+    with open(f"{s}/vocab.txt", "w") as f:
+        f.write("\\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+                           + words) + "\\n")
+    tok = SeedTokenizer.from_vocab_file(s)
+    assert tok.core == "native"
+    assert tok.encode("S1 s2 zz") == [2, 6, 7, 1, 3]
+    with open(f"{s}/raw/collection.tsv", "w") as f:
+        f.writelines(f"{i}\\t" + " ".join(words[(i + j) % 20]
+                                           for j in range(6)) + "\\n"
+                     for i in range(20))
+    for qf, rf in (("queries.train.tsv", "qrels.train.tsv"),
+                   ("queries.dev.small.tsv", "qrels.dev.small.tsv")):
+        with open(f"{s}/raw/{qf}", "w") as f, open(f"{s}/raw/{rf}", "w") as r:
+            for q in range(4):
+                f.write(f"{q}\\t{words[q]} {words[q + 1]}\\n")
+                r.write(f"{q}\\t0\\t{q}\\t1\\n")
+    main(["preprocess", "--model_type", "seeddot_nll", "--model_name_or_path",
+          s, "--data_dir", f"{s}/raw", "--out_data_dir", f"{s}/data",
+          "--max_seq_length", "12", "--max_query_length", "6",
+          "--num_processes", "1"])
+    main(["seed-pretrain", "--device", "cpu", "--model_name_or_path", s,
+          "--encoder_overrides", json.dumps({
+              "num_layers": 1, "hidden_size": 16, "num_heads": 2,
+              "intermediate_size": 32, "max_position_embeddings": 20}),
+          "--data_dir", f"{s}/data", "--output_dir", f"{s}/pre",
+          "--max_steps", "2", "--per_device_train_batch_size", "4",
+          "--decoder_layers", "1"])
+    assert os.path.exists(f"{s}/pre/checkpoint-2/DONE")
+    main(["export-hf", "--model_type", "seeddot_nll", "--training_dir",
+          f"{s}/pre", "--out_dir", f"{s}/hf"])
+    assert "lm_head.bias" in torch.load(f"{s}/hf/pytorch_model.bin",
+                                        weights_only=True)
 
     # the front of the pipeline: preprocess raw TSVs (a word tokenizer in
     # place of the HF one), warmup with an eval, export-hf, a msgpack read

@@ -215,8 +215,9 @@ def test_cli_preprocess_matches_ance_preprocess(tmp_path, capsys,
     """``cli preprocess`` against ``ance preprocess`` with the tokenizer
     factory of each replaced by the word tokenizer: the same printed map
     sizes and the same files; the port's factory pickles (spawned workers
-    rebuild it) and the SEED tokenizer and model exit naming their queue
-    item."""
+    rebuild it); and with ``--model_type seeddot_nll`` the port's
+    seed-wordpiece tokenizer (its C++ core) writes ``ance preprocess``'s
+    files byte for byte."""
     from ance_tpu import cli as jax_cli
     from ance_tpu_torch import cli as port_cli
 
@@ -237,9 +238,27 @@ def test_cli_preprocess_matches_ance_preprocess(tmp_path, capsys,
     factory = pickle.loads(pickle.dumps(
         port_cli.TokenizerFactory("roberta-base", None)))
     assert isinstance(factory(), WordTokenizer)
-    with pytest.raises(SystemExit, match="Queue 1 #9"):
+    # SEED: the seed-wordpiece tokenizer over a vocab.txt (the factory
+    # pickles, so spawned workers rebuild it: chip_smoke.py runs four),
+    # the same files as ``ance preprocess``'s
+    monkeypatch.undo()
+    vocab = tmp_path / "vocab"
+    vocab.mkdir()
+    (vocab / "vocab.txt").write_text("\n".join(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+        + [f"w{i}" for i in range(50)] + ["w", "##5", "##7"]) + "\n")
+    with pytest.raises(SystemExit, match="pointing at a vocab.txt"):
         port_cli.TokenizerFactory("seed-wordpiece", None)()
-    with pytest.raises(SystemExit, match="Queue 1 #9"):
-        port_cli.main(["preprocess", "--model_type", "seeddot_nll",
-                       "--data_dir", raw, "--out_data_dir",
-                       str(tmp_path / "seed")])
+    seed_tok = pickle.loads(pickle.dumps(
+        port_cli.TokenizerFactory("seed-wordpiece", str(vocab))))()
+    assert seed_tok.core == "native" and seed_tok.pad_token_id == 0
+    for name, main in (("seed_port", port_cli.main),
+                       ("seed_jax", jax_cli.main)):
+        main(["preprocess", "--model_type", "seeddot_nll",
+              "--model_name_or_path", str(vocab), "--data_dir", raw,
+              "--out_data_dir", str(tmp_path / name), "--max_seq_length",
+              "12", "--max_query_length", "6", "--num_processes", "1"])
+        printed[name] = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert printed["seed_port"] == printed["seed_jax"] == printed["jax"]
+    assert _tree_bytes(tmp_path / "seed_port") == \
+        _tree_bytes(tmp_path / "seed_jax")

@@ -388,8 +388,38 @@ def test_serve_cli_refuses_missing_cuda_and_unported_paths(slice_inputs):
                        r"not a flax msgpack checkpoint \(empty\)"):
         port_main(base + ["--device", "cpu", "--training_dir",
                           str(root / "native")])
-    with pytest.raises(SystemExit, match="not ported"):
-        port_main(base + ["--device", "cpu", "--model_type", "seeddot_nll"])
+    # seeddot_nll, refused before its slice: served from a fairseq SEED
+    # pytorch_model.bin (the import), the rankings are ``ance serve``'s.
+    # The SEED position table keeps its 516 rows: the JAX import pads to
+    # 516 whatever the config says
+    import jax
+    import jax.numpy as jnp
+    from ance_tpu.cli import main as jax_main
+    from ance_tpu.models.hf_export import torch_seeddot_state_dict
+    from ance_tpu.models.seed import seed_dot_model
+    seed_geom = dict(TINY, max_position_embeddings=516)
+    model = seed_dot_model(out_dim=768,
+                           **dict(seed_geom, initializer_range=0.5))
+    ids = jnp.ones((2, 8), jnp.int32)
+    params = jax.tree.map(np.asarray, model.init(
+        jax.random.PRNGKey(9), ids, ids)["params"])
+    seed_dir = root / "seed_fairseq"
+    seed_dir.mkdir(exist_ok=True)
+    torch.save(torch_seeddot_state_dict(params),
+               seed_dir / "pytorch_model.bin")
+    common = ["serve", "--model_type", "seeddot_nll", "--model_name_or_path",
+              str(seed_dir), "--encoder_overrides", json.dumps(seed_geom),
+              "--data_dir", data, "--query_cache", data + "/dev-query",
+              "--max_seq_length", "16", "--max_query_length", "8",
+              "--topk", "10", "--with_scores"]
+    jax_main(common + ["--output", str(root / "seed_jax.tsv")])
+    port_main(common + ["--device", "cpu", "--output",
+                        str(root / "seed_port.tsv")])
+    jax_rank, jax_scores = _read_ranking(str(root / "seed_jax.tsv"))
+    port_rank, port_scores = _read_ranking(str(root / "seed_port.tsv"))
+    assert -np.diff(jax_scores.reshape(16, 10), axis=1).min() > 1e-3
+    assert port_rank == jax_rank and len(port_rank) == 160
+    np.testing.assert_allclose(port_scores, jax_scores, atol=1e-4, rtol=2e-6)
 
 
 def test_serve_from_embedding_shards_matches_jax_cli(slice_inputs):

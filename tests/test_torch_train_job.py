@@ -302,8 +302,42 @@ def test_cli_train_refuses_what_is_not_ported(job_inputs, tmp_path):
     with pytest.raises(SystemExit, match="mutually exclusive"):
         port_main(base + ["--ann_dir", ann, "--rewarmup_per_dataset",
                           "--single_warmup"])
-    with pytest.raises(SystemExit, match="not ported"):
-        port_main(base + ["--ann_dir", ann, "--model_type", "seeddot_nll"])
+    # seeddot_nll, refused before its slice: warm-started from a fairseq
+    # SEED checkpoint with its head (both CLIs load every tensor), 3 steps
+    # give ``ance train``'s losses and parameters (the bounds of
+    # test_cli_train_matches_ance_train). The position table keeps 516
+    # rows: the JAX import pads to 516 whatever the config says
+    from ance_tpu.cli import main as jax_main
+    from ance_tpu.models.hf_export import torch_seeddot_state_dict
+    from ance_tpu.models.seed import seed_dot_model
+    from ance_tpu.train import checkpoint as jax_ckpt
+    geom = dict(TINY_514, max_position_embeddings=516)
+    model = seed_dot_model(out_dim=768, **dict(geom, initializer_range=0.2))
+    ids = jnp.ones((2, 8), jnp.int32)
+    params = jax.tree.map(np.asarray, jax.jit(model.init)(
+        jax.random.PRNGKey(2), ids, ids)["params"])
+    (tmp_path / "seed").mkdir()
+    torch.save(torch_seeddot_state_dict(params),
+               tmp_path / "seed" / "pytorch_model.bin")
+    common = ["train", "--model_type", "seeddot_nll", "--model_name_or_path",
+              str(tmp_path / "seed"), "--encoder_overrides",
+              json.dumps(geom), "--data_dir", str(root / "psg"),
+              "--ann_dir", ann, "--max_steps", "3", "--save_steps", "3",
+              "--warmup_steps", "1", "--learning_rate", "2e-3",
+              "--per_device_train_batch_size", "4",
+              "--max_query_length", "8", "--feed_workers", "2"]
+    jax_main(common + ["--output_dir", str(tmp_path / "jax"),
+                       "--no_data_parallel"])
+    port_main(common + ["--output_dir", str(tmp_path / "port"),
+                        "--device", "cpu"])
+    jax_path, _ = jax_ckpt.get_latest_checkpoint(str(tmp_path / "jax"))
+    port_path, step = ckpt.get_latest_checkpoint(str(tmp_path / "port"))
+    assert step == 3
+    _assert_params_close(
+        torch.load(os.path.join(port_path, "pytorch_model.bin"),
+                   weights_only=True),
+        state_dict_from_flax(jax_ckpt.load_raw_params(jax_path)),
+        lr_sum=2e-3 * 3, share=1e-3)
 
 
 def test_ann_dir_and_qrels_helpers_match_jax(tmp_path):
