@@ -7,8 +7,9 @@ Counterpart of the same subcommands of ``ance_tpu/cli.py``, with the same
 flags plus ``--device`` where a command computes on a device (default
 ``cuda``; asking for CUDA where none exists exits, it never carries on on
 the CPU) and minus the multi-device ones (``--tensor_parallel``, the
-multi-host flags, the mesh: ROADMAP Queue 1 #11) and ``serve
---nlist/--nprobe`` (IVF, #10).
+multi-host flags, the mesh: ROADMAP Queue 1 #11). ``serve --index ivf``
+builds the approximate IVF index (``--nlist`` clusters, ``--nprobe``
+searched a query) on the device.
 
 ``preprocess`` turns raw MS MARCO TSVs into token caches, id maps and
 offset-space qrels over ``--num_processes`` spawned workers and prints the
@@ -229,12 +230,10 @@ def cmd_serve(args):
     import torch
     from ance_tpu_torch.data.cache import TokenCache
     from ance_tpu_torch.index.flat import FlatIPIndex
+    from ance_tpu_torch.index.ivf import IVFIPIndex
     from ance_tpu_torch.train.encode import encode_cache, make_encode_fn
     from ance_tpu_torch.utils.device import resolve_device
 
-    if args.index == "ivf":
-        raise SystemExit("--index ivf is not yet ported to torch (ROADMAP "
-                         "Queue 1 #10); use --index flat")
     if not args.queries and not args.query_cache and not args.http:
         raise SystemExit("serve needs a query source: --queries (raw TSV), "
                          "--query_cache (tokenized cache), or --http "
@@ -243,18 +242,28 @@ def cmd_serve(args):
         raise SystemExit("serve needs a corpus source: --emb_prefix (infer "
                          "dump), --data_dir (token cache to encode), or "
                          "--load_index (saved index)")
+    if args.index != "ivf" and (args.nlist is not None or args.nprobe != 8):
+        raise SystemExit("--nlist/--nprobe apply to --index ivf only")
+    if args.index == "ivf" and args.quantize == "rows":
+        raise SystemExit("--quantize rows applies to the flat index only "
+                         "(per-row scales cannot fold into the query); use "
+                         "--quantize dims with ivf")
 
     device = resolve_device(args.device)
     spec, model, params_source, _ = _build_model(args, device)
 
     if args.load_index:
+        # the file carries its own kind (flat: 'emb', ivf: 'bins_emb')
         lp = args.load_index if args.load_index.endswith(".npz") \
             else args.load_index + ".npz"
         with np.load(lp, allow_pickle=False) as z:
-            if "bins_emb" in z.files:
-                raise SystemExit(f"{lp} is an IVF index, not yet ported to "
-                                 "torch (ROADMAP Queue 1 #10)")
-        index = FlatIPIndex.load(args.load_index, device=device)
+            is_ivf = "bins_emb" in z.files
+        if is_ivf:
+            index = IVFIPIndex.load(
+                args.load_index, device=device,
+                nprobe=args.nprobe if args.nprobe != 8 else None)
+        else:
+            index = FlatIPIndex.load(args.load_index, device=device)
         e2id = np.load(args.load_index + ".ids.npy").astype(np.int64)
         if len(e2id) != index.ntotal:
             raise SystemExit("saved index and its .ids.npy sidecar disagree")
@@ -294,14 +303,20 @@ def cmd_serve(args):
               "collection ids are already 0..N-1 in file order)",
               file=sys.stderr)
 
-    index = FlatIPIndex(
-        dim=emb.shape[1], device=device,
-        dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        quantize=False if args.quantize == "none" else args.quantize)
-    if args.quantize == "rows":
-        index.add(emb)  # per-row scales need the corpus-global pass
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    quantize = False if args.quantize == "none" else args.quantize
+    if args.index == "ivf":
+        index = IVFIPIndex(dim=emb.shape[1], nlist=args.nlist,
+                           nprobe=args.nprobe, dtype=dtype, device=device,
+                           quantize=quantize)
+        index.add(emb)  # streams the corpus in chunks
     else:
-        index.add_chunked(emb)  # never stages the whole fp32 corpus
+        index = FlatIPIndex(dim=emb.shape[1], device=device, dtype=dtype,
+                            quantize=quantize)
+        if args.quantize == "rows":
+            index.add(emb)  # per-row scales need the corpus-global pass
+        else:
+            index.add_chunked(emb)  # never stages the whole fp32 corpus
     if args.save_index:
         index.save(args.save_index)
         np.save(args.save_index + ".ids.npy", np.asarray(e2id, np.int64))
@@ -1207,13 +1222,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="pre-tokenized query cache (offsets become qids)")
     p.add_argument("--topk", type=int, default=10)
     p.add_argument("--index", default="flat", choices=["flat", "ivf"],
-                   help="flat = exact search (ivf is not ported yet)")
+                   help="flat = exact search; ivf = approximate (clustered) "
+                        "search over the probed clusters")
+    p.add_argument("--nlist", type=int, default=None,
+                   help="IVF cluster count (default √N)")
+    p.add_argument("--nprobe", type=int, default=8,
+                   help="IVF clusters searched per query (recall/speed knob)")
     p.add_argument("--quantize", default="none",
                    choices=["none", "dims", "rows"],
                    help="int8 corpus storage (dims folds scales into the "
                         "query; rows searches by scan)")
     p.add_argument("--save_index", default=None,
-                   help="persist the built flat index (+ .ids.npy sidecar)")
+                   help="persist the built index (+ .ids.npy sidecar)")
     p.add_argument("--load_index", default=None,
                    help="serve from a saved index (either package's)")
     p.add_argument("--with_scores", action="store_true")

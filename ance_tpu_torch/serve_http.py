@@ -11,8 +11,8 @@ Counterpart of ``ance_tpu/serve_http.py``, with the same JSON API (stdlib
                   {"ids": [[...]], "mask": [[...]], "k": 10}
                   → {"results": [[{"pid", "score"}, ...]], "k", "latency_ms"}
   POST /reload    {"index": "/path/saved_index"[, "gap": true]} — hot-swap a
-                  saved flat index (+ its .ids.npy sidecar) under the device
-                  lock; only with ``allow_reload=True``. Hot mode holds both
+                  saved flat or IVF index (+ its .ids.npy sidecar) under
+                  the device lock; only with ``allow_reload=True``. Hot mode holds both
                   indexes on the device for a moment; gap mode frees the old
                   one first and searches queue during the load.
 
@@ -168,13 +168,15 @@ class RetrieverHTTPServer:
             yield
 
     def _reload(self, req: dict) -> dict:
-        """Hot-swap a saved flat index (the serve CLI's --save_index
-        artifact, ids in real pid space) onto the live index's device."""
+        """Hot-swap a saved index (the serve CLI's --save_index artifact,
+        flat or IVF by the file's own keys, ids in real pid space) onto the
+        live index's device."""
         if not self.allow_reload:
             raise _BadRequest("reload disabled on this server")
         if not isinstance(req, dict) or not isinstance(req.get("index"), str):
             raise _BadRequest("need {'index': '/path/to/saved_index'}")
         from ance_tpu_torch.index.flat import FlatIPIndex
+        from ance_tpu_torch.index.ivf import IVFIPIndex
         path = req["index"]
         old = self.retriever.index
         device, old_dim = self._index_device, self._index_dim
@@ -183,9 +185,7 @@ class RetrieverHTTPServer:
                    ) + ".ids.npy"
         try:
             with np.load(lp, allow_pickle=False) as z:
-                if "bins_emb" in z.files:
-                    raise _BadRequest("IVF indexes are not yet ported to "
-                                      "torch (ROADMAP Queue 1 #10)")
+                is_ivf = "bins_emb" in z.files
                 saved_n = int(z["ntotal"]) if "ntotal" in z.files else None
             e2id = np.load(sidecar).astype(np.int64)
             if saved_n is not None and len(e2id) != saved_n:
@@ -193,7 +193,8 @@ class RetrieverHTTPServer:
                     "saved index and its .ids.npy sidecar disagree")
 
             def load_new():
-                idx = FlatIPIndex.load(lp, device=device)
+                idx = (IVFIPIndex if is_ivf else FlatIPIndex).load(
+                    lp, device=device)
                 if idx.dim != old_dim:
                     raise _BadRequest(
                         f"index dim {idx.dim} != encoder dim {old_dim}")
@@ -221,7 +222,7 @@ class RetrieverHTTPServer:
         except (OSError, ValueError, KeyError) as e:
             raise _BadRequest(f"cannot load index {path!r}: {e}")
         self._count(reloads=1)
-        return {"reloaded": path, "kind": "flat",
+        return {"reloaded": path, "kind": "ivf" if is_ivf else "flat",
                 "ntotal": int(new_index.ntotal)}
 
     def _search(self, req: dict) -> dict:

@@ -42,18 +42,24 @@ def load_native(name: str) -> ctypes.CDLL:
             return _cache[name]
         out = library_path(name)
         if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = ["g++", *CXX_FLAGS, str(NATIVE_DIR / f"{name}.cpp"), "-o",
-                   str(tmp)]
-            try:
-                proc = subprocess.run(cmd, capture_output=True, text=True)
-            except OSError as e:  # no g++ at all
-                raise RuntimeError(f"building native/{name}.cpp: {e}") from e
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"g++ failed ({proc.returncode}) building "
-                                   f"native/{name}.cpp:\n{proc.stderr}")
-            os.replace(tmp, out)
+            build(NATIVE_DIR / f"{name}.cpp", out)
         _cache[name] = ctypes.CDLL(str(out))
         return _cache[name]
+
+
+def build(source: Path, out: Path) -> None:
+    """Compile ``source`` with ``CXX_FLAGS`` into the library ``out``,
+    renamed into place once whole; raises ``RuntimeError`` with g++'s
+    stderr on failure."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = ["g++", *CXX_FLAGS, str(source), "-o", str(tmp)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:  # no g++ at all
+        raise RuntimeError(f"building {source.name}: {e}") from e
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed ({proc.returncode}) building "
+                           f"{source.name}:\n{proc.stderr}")
+    os.replace(tmp, out)

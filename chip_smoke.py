@@ -48,6 +48,16 @@ kernels under bf16 and int8 queries), and then:
   * FirstP serve: RoBERTa-base at full width (seeded random weights, bf16)
     through the ``serve`` CLI in a subprocess and the HTTP server in
     process;
+  * IVF and HNSW: ``IVFIPIndex`` over a clustered 262,144 × 768 corpus
+    made on the card (nlist 512; fp32, bf16 and ``dims`` bins): two builds
+    bit-equal, an exhaustive probe equal to the exact fp32 index (kernel
+    #1), bf16 bins scoring in fp32, recall@10 at nprobe 8, times at B 1 to
+    256 in turns with the exact bf16 and ``dims`` indexes, the build
+    split; ``serve --index ivf`` over the FirstP passages (ranking as
+    ``--index flat`` at nprobe = nlist, a saved ``dims`` artifact through
+    ``--load_index --nprobe`` and ``POST /reload``); the HNSW indexer on
+    the port's C++ core over 10,000 of the rows, its recall@10 against the
+    exact search on the card;
   * MaxP serve: the same weights as ``rdot_nll_multi_chunk`` over 4,096
     documents of seq 2048 (16,384 chunk rows of 512): the ``serve`` CLI,
     an in-process encode through the fused kernel (and a slice of it
@@ -1526,6 +1536,281 @@ def phase_serve(work: Path):
             "latency_ms": {f"B{b}_k{k}": ms
                            for (b, k), ms in zip(requests, latency)},
             "peak_mem_gib": peak / 2**30, "cli_s": cli_s}
+
+
+# IVF (ROADMAP Queue 1 #10): docs/perf_ivf.py's clustered corpus at full
+# width, cut in depth to a quarter million rows (nlist √N = 512)
+IVF_ROWS, IVF_CENTRES, IVF_NLIST, IVF_QUERIES = 262_144, 1024, 512, 256
+IVF_RECALL_FLOOR = 0.9  # recall@10 at nprobe 8, B = 1 and 16
+IVF_SCORE_ATOL = 1e-4  # fp32 IVF scores against fp64, |score| ≲ 1.3
+IVF_BF16_RTOL = 1e-3  # bf16 bins' fp32 scores against fp64 of the operands
+IVF_REPS = 7
+IVF_SERVE_BATCH = 8  # queries a batch where nprobe must matter: 8 x 4 < 181
+HNSW_ROWS, HNSW_EF, HNSW_RECALL_FLOOR = 10_000, 256, 0.85
+
+
+def _ranking(path: Path) -> dict:
+    """qid → [(pid, score)] in rank order, from a ``--with_scores`` TSV."""
+    out: dict = {}
+    for line in path.read_text().splitlines():
+        qid, pid, _, score = line.split("\t")
+        out.setdefault(int(qid), []).append((int(pid), float(score)))
+    return out
+
+
+def _swaps_within(got: dict, want: dict, slack: float) -> int:
+    """Positions where ``got`` ranks another pid than ``want``; raises
+    unless every such position is a near-tie: the score of the pid ``got``
+    put there (``want``'s where it ranks it, else ``got``'s) within
+    ``slack`` of ``want``'s score at that position."""
+    check(got.keys() == want.keys(), "rankings cover other queries")
+    swaps = 0
+    for qid, rows in want.items():
+        score_of = dict(got[qid]) | dict(rows)
+        for (p_got, _), (p_want, s_want) in zip(got[qid], rows):
+            if p_got != p_want:
+                swaps += 1
+                check(abs(score_of[p_got] - s_want) <= slack,
+                      f"query {qid}: {p_got} in place of {p_want} at a "
+                      f"score gap past {slack}")
+    return swaps
+
+
+def phase_ivf(work: Path) -> dict:
+    """``IVFIPIndex`` on the card over ``experiments/perf_ivf.py``'s
+    clustered corpus (262,144 × 768, 1,024 centres, nlist 512, slack 1.3,
+    10 k-means iterations; fp32, bf16 and ``dims`` bins): (a) two fp32
+    builds from one seed bit-equal; (b) nprobe = nlist on fp32 bins: each
+    query's top-10 id set the exact fp32 ``FlatIPIndex``'s (kernel #1),
+    each score within IVF_SCORE_ATOL of fp64; (c) bf16 bins give fp32
+    scores within IVF_BF16_RTOL of fp64 on the bf16 operands; (d) recall@10
+    at nprobe 8 ≥ IVF_RECALL_FLOOR for bf16 and ``dims`` at B = 1 and 16.
+    Times at B 1 / 16 / 64 / 256, nprobe 4 / 8, in turns with the exact
+    bf16 and ``dims`` indexes; the build split. Then ``serve --index ivf``
+    over the FirstP serve phase's 32,768 passages (its index as an
+    ``infer``-style dump): at nprobe = nlist it ranks as ``--index flat``;
+    a saved ``dims`` artifact served by ``--load_index --nprobe 4`` ranks
+    as the index loaded in process; ``POST /reload`` of it answers
+    ``"kind": "ivf"`` and then the in-process index's rows. Last the HNSW
+    indexer (the port's C++ core, built by g++ here) over 10,000 rows of
+    the corpus: recall@10 at ef 256 against the exact search on the card,
+    and its inserts/s."""
+    import numpy as np
+    import torch
+    from ance_tpu_torch.data.cache import TokenCache
+    from ance_tpu_torch.experiments import perf_ivf as exp
+    from ance_tpu_torch.index.flat import FlatIPIndex
+    from ance_tpu_torch.index.hnsw import DenseHnswIndexer
+    from ance_tpu_torch.index.ivf import IVFIPIndex
+    from ance_tpu_torch.models.dot_models import RobertaDot
+    from ance_tpu_torch.models.registry import get_model_spec
+    from ance_tpu_torch.models.weights import load_pretrained
+    from ance_tpu_torch.ops.topk import rescore
+    from ance_tpu_torch.serve import Retriever
+    from ance_tpu_torch.serve_http import RetrieverHTTPServer
+    from ance_tpu_torch.train.encode import (iter_cache_batches,
+                                             make_encode_fn)
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    reset_blockmax_counts()
+    g = torch.Generator(device=dev).manual_seed(17)
+    corpus = exp.make_corpus(IVF_ROWS, DIM, IVF_CENTRES, g, dev)
+    queries = exp.make_queries(corpus, IVF_QUERIES, g)
+    exact = {}
+    for name, dtype, quantize in (("fp32", torch.float32, False),
+                                  ("bf16", torch.bfloat16, False),
+                                  ("dims", torch.float32, "dims")):
+        exact[name] = FlatIPIndex(dim=DIM, device=dev, dtype=dtype,
+                                  quantize=quantize)
+        exact[name].add_chunked(corpus)
+    _, truth = exact["fp32"].search(queries, 10)
+    ivf, builds = {}, {}
+    for name, dtype, quantize in (("fp32", torch.float32, False),
+                                  ("bf16", torch.bfloat16, False),
+                                  ("dims", torch.float32, "dims")):
+        ivf[name], seconds = exp.build_ivf(corpus, IVF_NLIST, dtype, quantize)
+        builds[name] = {"s": seconds, **ivf[name].build_seconds}
+        print(f"ivf build {name}: {seconds:.2f} s (" + ", ".join(
+            f"{k} {v:.3f}" for k, v in ivf[name].build_seconds.items())
+            + f"), capacity {ivf[name].capacity}", flush=True)
+    again, _ = exp.build_ivf(corpus, IVF_NLIST, torch.float32, False)
+    check(torch.equal(again.centroids, ivf["fp32"].centroids)
+          and torch.equal(again._bins_ids, ivf["fp32"]._bins_ids)
+          and torch.equal(again._bins_emb, ivf["fp32"]._bins_emb),
+          "(a) two fp32 IVF builds from one seed differ")
+    del again
+
+    scores, ids = ivf["fp32"].search(queries, 10, nprobe=IVF_NLIST)
+    check(all(set(a) == set(b) for a, b in zip(ids.tolist(),
+                                                truth.tolist())),
+          "(b) nprobe = nlist: top-10 id sets differ from the exact index")
+    err_b = (scores - rescore(queries, corpus[ids])).abs().max().item()
+    check(err_b <= IVF_SCORE_ATOL, f"(b) fp32 IVF scores {err_b} from fp64")
+    scores, ids = ivf["bf16"].search(queries, 10, nprobe=IVF_NLIST)
+    want = rescore(queries.to(torch.bfloat16), corpus[ids].to(torch.bfloat16))
+    rel_c = ((scores - want).abs() / want.abs()).max().item()
+    # a bf16 output would hold only bf16 values; an fp32 one almost none
+    bf16_valued = (scores.to(torch.bfloat16).float() == scores).float() \
+        .mean().item()
+    check(scores.dtype == torch.float32 and rel_c <= IVF_BF16_RTOL,
+          f"(c) bf16 bins: scores {scores.dtype}, {rel_c} relative from "
+          "fp64 of the bf16 operands")
+    print(f"ivf checks: (a) builds bit-equal; (b) nprobe {IVF_NLIST} ids == "
+          f"exact fp32, max |score - fp64| {err_b:.3e}; (c) bf16 bins fp32 "
+          f"scores, max rel {rel_c:.3e}, bf16-valued share {bf16_valued:.4f}",
+          flush=True)
+
+    rows = exp.sweep({"bf16": exact["bf16"], "dims": exact["dims"]},
+                     {"bf16": ivf["bf16"], "dims": ivf["dims"]}, queries,
+                     truth, reps=IVF_REPS)
+    for row in rows:
+        print(f"ivf B={row['batch']:3d} nprobe {row['nprobe']} union "
+              f"{row['union']:3d}: exact bf16 {row['exact_bf16_ms']:.3f} ms, "
+              f"dims {row['exact_dims_ms']:.3f}; " + "; ".join(
+                  f"ivf {n} {row[f'ivf_{n}_ms']:.3f} ms "
+                  f"({row[f'ivf_{n}_qps']:.0f} qps, "
+                  f"{row[f'ivf_{n}_speedup_vs_exact_bf16']:.2f}x exact bf16;"
+                  f" enqueue {row[f'ivf_{n}_enqueue_ms']:.3f}, wall "
+                  f"{row[f'ivf_{n}_wall_ms']:.3f}) recall@10 "
+                  f"{row[f'ivf_{n}_recall_at_10']:.4f}"
+                  for n in ("bf16", "dims")), flush=True)
+        if row["nprobe"] == 8 and row["batch"] in (1, 16):
+            for n in ("bf16", "dims"):
+                check(row[f"ivf_{n}_recall_at_10"] >= IVF_RECALL_FLOOR,
+                      f"(d) {n} B={row['batch']} recall@10 "
+                      f"{row[f'ivf_{n}_recall_at_10']}")
+    in_process = blockmax_counts()
+
+    # HNSW on the host over the corpus's first rows
+    hnsw_rows = corpus[:HNSW_ROWS].cpu().numpy()
+    hnsw_q = exp.make_queries(corpus[:HNSW_ROWS], IVF_QUERIES, g)
+    hnsw_exact = FlatIPIndex(dim=DIM, device=dev)
+    hnsw_exact.add(corpus[:HNSW_ROWS])
+    _, hnsw_truth = hnsw_exact.search(hnsw_q, 10)
+    indexer = DenseHnswIndexer(DIM, ef_search=HNSW_EF)
+    t0 = time.perf_counter()
+    indexer.index_data(np.arange(HNSW_ROWS), hnsw_rows)
+    hnsw_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    found = indexer.search_knn(hnsw_q.cpu().numpy(), 10)
+    hnsw_qps = IVF_QUERIES / (time.perf_counter() - t0)
+    hnsw_recall = float(np.mean([len(set(got) & set(want)) / 10 for
+                                 (got, _), want in zip(found,
+                                                       hnsw_truth.tolist())]))
+    check(hnsw_recall >= HNSW_RECALL_FLOOR,
+          f"HNSW recall@10 {hnsw_recall} at ef {HNSW_EF}")
+    print(f"hnsw: {HNSW_ROWS} rows x {DIM + 1} in {hnsw_build:.2f} s "
+          f"({HNSW_ROWS / hnsw_build:.0f} inserts/s, one host thread); "
+          f"ef {HNSW_EF}: recall@10 {hnsw_recall:.4f} against the exact "
+          f"index on the card, {hnsw_qps:.0f} qps", flush=True)
+    del corpus, queries, exact, ivf, hnsw_exact
+    torch.cuda.empty_cache()
+
+    # serve --index ivf over the FirstP serve phase's passages
+    weights, data, saved = work / "roberta_base_seeded", work / "data", \
+        work / "index"
+    flat = FlatIPIndex.load(str(saved), device=dev)
+    e2id = np.load(str(saved) + ".ids.npy")
+    dump = work / "ivf_dump"
+    dump.mkdir()
+    np.save(dump / "emb_data_obj_0.npy",
+            flat._emb[:flat.ntotal].float().cpu().numpy())
+    np.save(dump / "embid_data_obj_0.npy", e2id)
+    nlist = int(round(N_PASSAGES ** 0.5))
+    base = ["serve", "--bf16", "--model_name_or_path", str(weights),
+            "--emb_prefix", str(dump / "emb"),
+            "--emb_id_prefix", str(dump / "embid"),
+            "--query_cache", str(data / "dev-query"), "--topk", "10",
+            "--max_query_length", str(QUERY_LEN), "--with_scores"]
+    t0 = time.perf_counter()
+    _cli(base + ["--output", str(work / "flat.tsv")])
+    _cli(base + ["--index", "ivf", "--nlist", str(nlist), "--nprobe",
+                 str(nlist), "--output", str(work / "ivf_all.tsv")])
+    artifact = work / "ivf_dims"
+    _cli(base + ["--index", "ivf", "--quantize", "dims", "--save_index",
+                 str(artifact), "--output", str(work / "ivf_dims.tsv")])
+    _cli(base[:base.index("--emb_prefix")] + base[base.index(
+        "--query_cache"):] + ["--load_index", str(artifact), "--index", "ivf",
+                              "--nprobe", "4", "--per_device_eval_batch_size",
+                              str(IVF_SERVE_BATCH), "--output",
+                              str(work / "ivf_load.tsv")])
+    cli_s = time.perf_counter() - t0
+    flat_rank, ivf_rank = (_ranking(work / f"{n}.tsv")
+                           for n in ("flat", "ivf_all"))
+    top = max(abs(s) for rows_ in flat_rank.values() for _, s in rows_)
+    # the worst fp32 rounding of a 768-term sum at this magnitude
+    swaps = _swaps_within(ivf_rank, flat_rank, DIM * 2.0 ** -24 * top)
+    check(len(flat_rank) == N_QUERIES, "serve wrote too few queries")
+    dims_rank = _ranking(work / "ivf_dims.tsv")
+    dims_recall = float(np.mean([len({p for p, _ in dims_rank[q]}
+                               & {p for p, _ in rows_}) / 10
+                           for q, rows_ in flat_rank.items()]))
+    print(f"serve --index ivf --nlist {nlist} --nprobe {nlist}: ranks as "
+          f"--index flat ({swaps} near-tie swaps of "
+          f"{N_QUERIES * 10} positions); --quantize dims --nprobe 8: "
+          f"recall@10 {dims_recall:.4f} against flat (the seeded encoder's "
+          "passages are not clustered)", flush=True)
+
+    spec = get_model_spec("rdot_nll")
+    model = spec.build(dtype=torch.bfloat16)
+    load_pretrained(model, str(weights))
+    encode_q = make_encode_fn(model.to(dev), RobertaDot.query_emb, dev)
+    with TokenCache(str(data / "dev-query")) as qc:
+        batches = list(iter_cache_batches(qc, IVF_SERVE_BATCH))
+    loaded = IVFIPIndex.load(str(artifact), device=dev, nprobe=4)
+    check(loaded.quantize == "dims" and loaded.nlist == nlist,
+          "the saved artifact is not the dims IVF index")
+    got = _ranking(work / "ivf_load.tsv")
+    retriever = Retriever(encode_q, loaded,
+                          embedding2id=np.load(str(artifact) + ".ids.npy"))
+    for keys, q_ids, q_mask in batches:
+        s, p = retriever.search_tokens(q_ids[:len(keys)], q_mask[:len(keys)],
+                                       10)
+        for key, ps, ss in zip(keys, p.tolist(), s.tolist()):
+            check([pid for pid, _ in got[int(key)]] == ps,
+                  f"--load_index --nprobe 4: query {key} ranks otherwise "
+                  "than the index loaded in process")
+    keys, q_ids, q_mask = batches[0]
+    q_ids, q_mask = q_ids[:len(keys)], q_mask[:len(keys)]
+    server = RetrieverHTTPServer(Retriever(encode_q, flat, embedding2id=e2id),
+                                 port=0, pad_token_id=model.config.pad_token_id,
+                                 allow_reload=True).start()
+    try:
+        rep = _post(server.address, "/reload",
+                    {"index": str(artifact) + ".npz"})
+        body = _post(server.address, "/search", {
+            "ids": q_ids.tolist(), "mask": q_mask.tolist(), "k": 10})
+    finally:
+        server.shutdown()
+    check(rep.get("kind") == "ivf" and rep.get("ntotal") == N_PASSAGES,
+          f"/reload of the IVF artifact answered {rep}")
+    want_s, want_p = Retriever(
+        encode_q, IVFIPIndex.load(str(artifact), device=dev),
+        embedding2id=e2id).search_tokens(q_ids, q_mask, 10)
+    check([[e["pid"] for e in r] for r in body["results"]]
+          == want_p.tolist(), "/search after the IVF /reload: rows differ "
+          "from the artifact's index in process")
+    check(no_reference_modules(), "the port imported jax or ance_tpu")
+    launches = blockmax_counts()
+    phase_s = time.perf_counter() - t_phase
+    print(f"ivf serve: flat, ivf at nprobe = nlist, dims --save_index, "
+          f"--load_index --nprobe 4 in {cli_s:.1f} s; /reload kind ivf, "
+          f"/search == in process; kernel #1 launches {launches}; phase "
+          f"{phase_s:.1f} s", flush=True)
+    del model, flat, loaded
+    torch.cuda.empty_cache()
+    return {"builds": builds, "err_b": err_b, "bf16_rel_err": rel_c,
+            "bf16_valued_share": bf16_valued, "sweep": rows,
+            "hnsw": {"rows": HNSW_ROWS, "dim": DIM + 1,
+                     "build_s": hnsw_build,
+                     "inserts_per_s": HNSW_ROWS / hnsw_build,
+                     "ef": HNSW_EF, "recall_at_10": hnsw_recall,
+                     "qps": hnsw_qps},
+            "serve_swaps": swaps, "serve_dims_recall": dims_recall,
+            "cli_s": cli_s,
+            "blockmax_kernels_in_process": in_process,
+            "blockmax_kernels": launches, "seconds": phase_s}
 
 
 def _cosines(a, b):
@@ -5187,6 +5472,7 @@ def main() -> int:
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         serve = phase_serve(work)
+        ivf = phase_ivf(work)
         maxp = phase_maxp(work)
         train = phase_train(work)
         maxp_fp32 = phase_maxp_fp32(work)
@@ -5270,6 +5556,7 @@ def main() -> int:
         "ance_loop_dims": ance_loop["dims"]["blockmax_kernels"],
         "ance_loop_maxp": ance_loop["maxp"]["blockmax_kernels"],
         "topk_int8_study": topk_int8["launches"],
+        "ivf_phase": ivf["blockmax_kernels"],
         **{name: g["blockmax_kernels"]
            for name, g in dpr["generate"].items()},
         "seed_serve": seed["serve_blockmax_kernels"]}
@@ -5290,7 +5577,8 @@ def main() -> int:
         # generate from a warmup and generate-dpr too
         e["launches_by_path"] = {"generate": launches, **{
             name: g["blockmax_kernels"].get(kernel, 0)
-            for name, g in dpr["generate"].items()}}
+            for name, g in dpr["generate"].items()},
+            "ivf_phase": ivf["blockmax_kernels"].get(kernel, 0)}
         if kernel == "blockmax_pieces_f32":
             e["launches_by_path"]["warmup_generate"] = \
                 warmup["blockmax_kernels"][kernel]
@@ -5402,7 +5690,8 @@ def main() -> int:
         "fused_function": functions, "machine_code": machine_code,
         "index_search": searches, "ties": ties,
         "crossover": crossover, "serve": serve, "maxp": maxp,
-        "train": train, "maxp_fp32": maxp_fp32, "step_parity": parity,
+        "ivf": ivf, "train": train, "maxp_fp32": maxp_fp32,
+        "step_parity": parity,
         "mirror_encoder": mirror,
         "generate": generate, "warmup": warmup, "ance_loop": ance_loop,
         "dpr": dpr, "seed": seed, "topk_int8": topk_int8}))

@@ -1,6 +1,7 @@
 """The torch port never imports jax, flax, msgpack or regex, nor any module
 of the JAX package, while it preprocesses, warms up, exports, serves,
-trains, generates, runs the pipelined refresh (``ance-loop``), the DPR
+trains, generates, serves through IVF (``serve --index ivf``) and HNSW,
+runs the pipelined refresh (``ance-loop``), the DPR
 commands (``preprocess-dpr``, ``train --num_epoch``, ``generate-dpr``,
 ``export-hf --model_type dpr``) and SEED's (the seed-wordpiece tokenizer,
 ``preprocess --model_type seeddot_nll``, ``seed-pretrain``, ``export-hf
@@ -49,6 +50,21 @@ SCRIPT = textwrap.dedent("""
           "--max_seq_length", "12", "--max_query_length", "6",
           "--output", f"{d}/rank.tsv"])
     assert len(open(f"{d}/rank.tsv").read().splitlines()) == 15
+    # the approximate indexes: serve --index ivf (saved, then loaded), and
+    # the HNSW indexer on the port's C++ core
+    main(["serve", "--device", "cpu", "--model_name_or_path", d,
+          "--encoder_overrides", json.dumps(tiny), "--data_dir", d,
+          "--query_cache", f"{d}/dev-query", "--topk", "3",
+          "--max_seq_length", "12", "--max_query_length", "6",
+          "--index", "ivf", "--nlist", "4", "--nprobe", "2",
+          "--save_index", f"{d}/ivf", "--output", f"{d}/ivf_rank.tsv"])
+    assert len(open(f"{d}/ivf_rank.tsv").read().splitlines()) == 15
+    assert "ance_tpu_torch.index.hnsw" in mods
+    from ance_tpu_torch.index.hnsw import DenseHnswIndexer
+    hnsw = DenseHnswIndexer(vector_sz=8, store_n=64)
+    hnsw.index_data(list(range(30)), rs.randn(30, 8).astype(np.float32))
+    assert len(hnsw.search_knn(rs.randn(2, 8).astype(np.float32), 3)[0][0]) \
+        == 3
 
     # MaxP: documents of two 512-token chunks, one embedding row per chunk
     maxp = dict(tiny, max_position_embeddings=514)

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from ance_tpu_torch.index.flat import FlatIPIndex
+from ance_tpu_torch.index.ivf import IVFIPIndex
 from ance_tpu_torch.serve import Retriever, bucket_pow2, dedup_first_hit
 from ance_tpu_torch.serve_http import RetrieverHTTPServer
 
@@ -210,8 +211,8 @@ def test_metrics_and_lock_wait():
 
 
 def test_reload_flat_gap_and_guards(tmp_path):
-    """/reload: hot swap, the .npz path, gap mode, a dim guard, and a
-    400 for an IVF artifact (not ported)."""
+    """/reload: hot swap, the .npz path, gap mode, a dim guard, a 400 for
+    a malformed IVF artifact, and a real IVF artifact reloaded as IVF."""
     def saved(name, n, dim=8, first=100):
         idx = FlatIPIndex(dim=dim, device="cpu", method="scan")
         idx.add(np.eye(8, dtype=np.float32)[:n, :dim].copy())
@@ -240,12 +241,23 @@ def test_reload_flat_gap_and_guards(tmp_path):
         _, body = _post(srv, "/search", {"ids": ids.tolist(), "k": 1})
         assert body["results"][0][0]["pid"] == 107
         for path, match in ((p_wrong, "dim"), (str(tmp_path / "ivf"),
-                                               "not yet ported"),
+                                               "cannot load"),
                             (str(tmp_path / "missing"), "cannot load")):
             with pytest.raises(urllib.error.HTTPError) as exc:
                 _post(srv, "/reload", {"index": path})
             assert exc.value.code == 400
             assert match in json.loads(exc.value.read())["error"]
+        ivf = IVFIPIndex(dim=8, nlist=2, nprobe=2, device="cpu")
+        ivf.add(np.eye(8, dtype=np.float32))
+        ivf.save(str(tmp_path / "real_ivf"))
+        np.save(str(tmp_path / "real_ivf") + ".ids.npy",
+                np.arange(200, 208, dtype=np.int64))
+        status, rep = _post(srv, "/reload",
+                            {"index": str(tmp_path / "real_ivf")})
+        assert status == 200 and rep["kind"] == "ivf" and rep["ntotal"] == 8
+        assert isinstance(r.index, IVFIPIndex)
+        _, body = _post(srv, "/search", {"ids": ids.tolist(), "k": 1})
+        assert body["results"][0][0]["pid"] == 207
         # a gap reload that fails after releasing the index degrades the
         # server (healthz 500) until a later reload succeeds
         with pytest.raises(urllib.error.HTTPError) as exc:
@@ -257,7 +269,7 @@ def test_reload_flat_gap_and_guards(tmp_path):
         status, rep = _post(srv, "/reload", {"index": p_small, "gap": True})
         assert status == 200 and rep["ntotal"] == 4
         _, m = _get(srv, "/metrics")
-        assert m["reloads"] == 2 and m["errors"] == 4
+        assert m["reloads"] == 3 and m["errors"] == 4
     finally:
         srv.shutdown()
     srv2 = RetrieverHTTPServer(r, port=0).start()
@@ -375,8 +387,8 @@ def test_serve_cli_refuses_missing_cuda_and_unported_paths(slice_inputs):
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="CUDA is not available"):
             port_main(base)
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        port_main(base + ["--device", "cpu", "--index", "ivf"])
+    with pytest.raises(SystemExit, match="apply to --index ivf only"):
+        port_main(base + ["--device", "cpu", "--nprobe", "4"])
     # --training_dir reads the port's checkpoints and the JAX package's
     # msgpack ones (tests/test_torch_native_checkpoint.py); an empty
     # params.msgpack is refused, naming the file
