@@ -1,6 +1,7 @@
 """PyTorch port of ``ance_tpu`` for NVIDIA Hopper (H100).
 
-The package holds the ANCE system on one device: MS MARCO preprocessing
+The package holds the ANCE system on one device, or data-parallel over
+several (``core/mesh.py``, one process a card): MS MARCO preprocessing
 (``data/preprocess.py``), the RobertaDot encoders (FirstP ``rdot_nll`` and
 MaxP ``rdot_nll_multi_chunk``), corpus encode, the exact ``FlatIPIndex``
 (searched through the hand-written CUDA block-max top-k kernel,

@@ -6,10 +6,18 @@ ance-loop,seed-pretrain,serve,export-hf,eval,eval-full}``: the JAX CLI's
 Counterpart of the same subcommands of ``ance_tpu/cli.py``, with the same
 flags plus ``--device`` where a command computes on a device (default
 ``cuda``; asking for CUDA where none exists exits, it never carries on on
-the CPU) and minus the multi-device ones (``--tensor_parallel``, the
-multi-host flags, the mesh: ROADMAP Queue 1 #11). ``serve --index ivf``
-builds the approximate IVF index (``--nlist`` clusters, ``--nprobe``
-searched a query) on the device.
+the CPU). ``serve --index ivf`` builds the approximate IVF index
+(``--nlist`` clusters, ``--nprobe`` searched a query) on the device.
+
+``train``, ``warmup``, ``ance-loop`` and ``seed-pretrain`` run
+data-parallel over ``--num_processes`` ranks, one process a card (the JAX
+CLI's processes are hosts): start one process a rank with
+``--coordinator_address host:port`` (rank 0's) and ``--process_id r``;
+rank r runs on ``cuda:(r % device_count)``. ``--dist_backend`` (only
+here) picks NCCL (the default on CUDA) or gloo (the CPU's, and that of
+ranks that share a card); each rank prints ``{"dist": ...}`` naming it
+first. ``generate``, ``infer`` and ``generate-dpr`` take
+``--tensor_parallel`` 1 only (ROADMAP Queue 1, ``core/tp.py``).
 
 ``preprocess`` turns raw MS MARCO TSVs into token caches, id maps and
 offset-space qrels over ``--num_processes`` spawned workers and prints the
@@ -453,9 +461,48 @@ def _rank_query_tsv(args, retriever, out, B) -> int:
     return len(rows)
 
 
-def _make_training(args, model, spec):
+def _distributed(args):
+    """(device, mesh) for a training command: one device, or this rank's
+    card and the mesh of ``--num_processes`` ranks (module docstring).
+    Prints ``{"dist": ...}`` when a group starts."""
+    from ance_tpu_torch.core.mesh import initialize_distributed, make_mesh
+    from ance_tpu_torch.utils.device import resolve_device
+    device = resolve_device(args.device)
+    if (args.num_processes or 1) > 1 and not args.data_parallel:
+        # without the mesh's collectives each rank would silently train
+        # its own diverging replica
+        raise SystemExit(f"multi-host {args.command} requires data "
+                         "parallelism (drop --no_data_parallel)")
+    initialize_distributed(args.coordinator_address, args.num_processes,
+                           args.process_id, device=device,
+                           backend=args.dist_backend)
+    mesh = make_mesh(device)
+    if mesh is None:
+        return device, None
+    print(json.dumps({"dist": {"backend": mesh.backend, "rank": mesh.rank,
+                               "world": mesh.world,
+                               "device": str(mesh.device)}}), flush=True)
+    return mesh.device, mesh
+
+
+def _ranks_agree(mesh, model) -> None:
+    """At a multi-rank command's end: raise unless every rank holds the
+    same parameters, and return once rank 0's last checkpoint is whole."""
+    if mesh is not None:
+        mesh.check_replicated(dict(model.named_parameters()))
+        mesh.barrier()
+
+
+def _check_tensor_parallel(args) -> None:
+    if args.tensor_parallel != 1:
+        raise SystemExit(f"--tensor_parallel {args.tensor_parallel}: the "
+                         "port runs tensor parallelism 1 only; core/tp.py "
+                         "is queued in ROADMAP Queue 1")
+
+
+def _make_training(args, model, spec, mesh=None):
     """(state, train step) for ``train``, as ``ance_tpu/cli.py``'s
-    ``_make_training`` builds them on one device."""
+    ``_make_training`` builds them, on one device or ``mesh``."""
     from ance_tpu_torch.optim.schedules import warmup_cosine, warmup_linear
     from ance_tpu_torch.train.dpr_trainer import make_dpr_train_step
     from ance_tpu_torch.train.trainer import (init_train_state,
@@ -491,12 +538,12 @@ def _make_training(args, model, spec):
         # the published DPR configs' large batches fit in micro-batch
         # memory (reference run_ann_dpr.py:65, 226)
         step = make_dpr_train_step(
-            accum_steps=args.gradient_accumulation_steps)
+            accum_steps=args.gradient_accumulation_steps, mesh=mesh)
     else:
         step = make_train_step(
             triplet_loss_fn(multichunk=spec.multichunk,
                             fused_body=args.fused_body),
-            accum_steps=args.gradient_accumulation_steps)
+            accum_steps=args.gradient_accumulation_steps, mesh=mesh)
     return init_train_state(model, opt), step
 
 
@@ -519,22 +566,21 @@ def cmd_preprocess(args):
 
 def cmd_warmup(args):
     """The BM25-triples warmup (``ance warmup``, the reference's
-    run_warmup.py) on one device: resume from the newest complete
-    checkpoint in ``--output_dir``, skipping the batches it trained, train
-    off ``--train_file``, and evaluate dev MRR every ``--eval_steps`` with
-    ``--evaluate_during_training``."""
+    run_warmup.py) on one device or a rank's stripe of the lines: resume
+    from the newest complete checkpoint in ``--output_dir``, skipping the
+    batches it trained, train off ``--train_file``, and evaluate dev MRR
+    every ``--eval_steps`` with ``--evaluate_during_training``."""
     from ance_tpu_torch.train import checkpoint as ckpt
     from ance_tpu_torch.train.warmup import WarmupConfig, run_warmup
-    from ance_tpu_torch.utils.device import resolve_device
 
     if args.evaluate_during_training and not args.data_dir:
         raise SystemExit("--evaluate_during_training needs --data_dir (with "
                          "collection.tsv, queries.dev.small.tsv, top1000.dev "
                          "and qrels.dev.small.tsv)")
-    device = resolve_device(args.device)
+    device, mesh = _distributed(args)
     spec, model, _, _ = _build_model(args, device, seed=args.seed,
                                      warn_random=False)
-    state, step = _make_training(args, model, spec)
+    state, step = _make_training(args, model, spec, mesh)
     tokenizer = TokenizerFactory(spec.tokenizer_name,
                                  args.model_name_or_path)()
 
@@ -565,6 +611,8 @@ def cmd_warmup(args):
                        max_steps=args.max_steps, save_steps=args.save_steps,
                        eval_every=args.eval_steps,
                        checkpoint_dir=args.output_dir,
+                       host_id=mesh.rank if mesh else 0,
+                       num_hosts=mesh.world if mesh else 1,
                        log_trust_ratios=args.log_trust_ratios)
     # a preempted warmup resumes instead of restarting (reference
     # run_warmup.py:144-163)
@@ -575,6 +623,7 @@ def cmd_warmup(args):
                                 tokenizer=tokenizer,
                                 triples_path=args.train_file, seed=args.seed,
                                 eval_fn=eval_fn, start_step=start_step)
+    _ranks_agree(mesh, state.model)
     print(json.dumps(history[-3:]))
 
 
@@ -582,14 +631,14 @@ def cmd_train(args):
     """The trainer job (``ance train``, the reference's run_ann.py and, for
     DPR, run_ann_dpr.py): poll ``--ann_dir``, or train ``--num_epoch``
     epochs over ``{data_dir}/train-data`` (DPR), and checkpoint into
-    ``--output_dir``."""
+    ``--output_dir``; on one device or data-parallel over the ranks (the
+    summary then names the backend, and rank 0 writes the checkpoints)."""
     import time
 
     import torch
     from ance_tpu_torch.data.cache import TokenCache
     from ance_tpu_torch.data.feed import expand_triples, sample_one_neg_triples
     from ance_tpu_torch.train.ance_loop import AnceCycleConfig, run_trainer_job
-    from ance_tpu_torch.utils.device import resolve_device
 
     dpr = _model_spec(args.model_type).loss == "dpr_inbatch"
     if args.num_epoch > 0 and not dpr:
@@ -597,11 +646,11 @@ def cmd_train(args):
                          "use --model_type dpr")
     if args.num_epoch <= 0 and not args.ann_dir:
         raise SystemExit("--ann_dir is required unless --num_epoch > 0")
-    device = resolve_device(args.device)
+    device, mesh = _distributed(args)
     spec, model, params_source, _ = _build_model(args, device,
                                                  seed=args.seed,
                                                  warn_random=False)
-    state, step = _make_training(args, model, spec)
+    state, step = _make_training(args, model, spec, mesh)
     record = {"loss": [], "grad_norm": [], "step_ms": []}
     last = [time.perf_counter()]
 
@@ -642,7 +691,7 @@ def cmd_train(args):
                 num_epochs=args.num_epoch,
                 batch_size=args.per_device_train_batch_size,
                 shuffle_seed=args.seed, dev_eval_fn=dev_eval_fn,
-                checkpoint_dir=args.output_dir)
+                checkpoint_dir=args.output_dir, mesh=mesh)
         else:
             cycle_cfg = AnceCycleConfig(
                 batch_size=args.per_device_train_batch_size,
@@ -653,13 +702,18 @@ def cmd_train(args):
                 ann_dir=args.ann_dir, training_dir=args.output_dir,
                 max_steps=args.max_steps, save_every=args.save_steps,
                 rewarmup_per_dataset=args.rewarmup_per_dataset,
-                triples_fn=sample_one_neg_triples if dpr else expand_triples)
+                triples_fn=sample_one_neg_triples if dpr else expand_triples,
+                mesh=mesh)
     summary = {"steps": state.step, "params": params_source,
                "checkpoint": os.path.join(args.output_dir,
                                           f"checkpoint-{state.step}"),
                **record}
     if history is not None:
         summary["history"] = history
+    _ranks_agree(mesh, state.model)
+    if mesh is not None:
+        summary["dist"] = {"backend": mesh.backend, "rank": mesh.rank,
+                           "world": mesh.world, "params_replicated": True}
     print(json.dumps(summary))
 
 
@@ -676,6 +730,7 @@ def cmd_generate(args, inference_only: bool = False):
     from ance_tpu_torch.train.encode import make_encode_fn
     from ance_tpu_torch.utils.device import resolve_device
 
+    _check_tensor_parallel(args)
     device = resolve_device(args.device)
     spec, model, _, ckpt_path = _build_model(args, device, warn_random=False)
     qfn = make_encode_fn(model, type(model).query_emb, device)
@@ -762,6 +817,7 @@ def cmd_generate_dpr(args):
     from ance_tpu_torch.train.encode import make_encode_fn
     from ance_tpu_torch.utils.device import resolve_device
 
+    _check_tensor_parallel(args)
     device = resolve_device(args.device)
     spec, model, _, ckpt_path = _build_model(args, device, warn_random=False)
     pid2offset, _ = load_mapping(args.data_dir, "pid2offset")
@@ -802,23 +858,29 @@ def cmd_generate_dpr(args):
 
 def cmd_ance_loop(args):
     """The single-program pipelined refresh (``ance ance-loop``) on one
-    device: resume from ``--output_dir`` where a checkpoint is complete,
-    bootstrap, train ``--max_steps`` with a refresh work item every
-    ``--train_steps_per_slice`` steps, optionally serve the live index over
-    HTTP, then save a final checkpoint."""
+    device or replicated over the ranks: resume from ``--output_dir`` where
+    a checkpoint is complete, bootstrap, train ``--max_steps`` with a
+    refresh work item every ``--train_steps_per_slice`` steps, optionally
+    serve the live index over HTTP (one rank only), then save a final
+    checkpoint (rank 0)."""
     import numpy as np
     import torch
     from ance_tpu_torch.data.cache import TokenCache
     from ance_tpu_torch.train import checkpoint as ckpt
     from ance_tpu_torch.train.ance_loop import load_offset_qrels
     from ance_tpu_torch.train.pipelined import PipelineConfig, PipelinedAnce
-    from ance_tpu_torch.utils.device import resolve_device
     from ance_tpu_torch.utils.observability import MetricsLogger
 
-    device = resolve_device(args.device)
+    if args.http and (args.num_processes or 1) > 1:
+        # a search from one rank's server thread would start collectives
+        # the other ranks never join: the whole job would hang
+        raise SystemExit("ance-loop --http is single-host only; on a "
+                         "multi-host mesh run `serve` against exported "
+                         "checkpoints/index instead")
+    device, mesh = _distributed(args)
     spec, model, _, _ = _build_model(args, device, seed=args.seed,
                                      warn_random=False)
-    state, step = _make_training(args, model, spec)
+    state, step = _make_training(args, model, spec, mesh)
     cfg = PipelineConfig(
         train_steps_per_slice=args.train_steps_per_slice,
         encode_slice_size=args.encode_slice_size,
@@ -833,10 +895,15 @@ def cmd_ance_loop(args):
         index_quantize=args.index_quantize,
         rewarmup_per_dataset=args.rewarmup_per_dataset,
         checkpoint_dir=args.output_dir, save_every=args.save_steps,
-        log_trust_ratios=args.log_trust_ratios)
+        log_trust_ratios=args.log_trust_ratios,
+        host_id=mesh.rank if mesh else 0,
+        num_hosts=mesh.world if mesh else 1)
     train_qrels = load_offset_qrels(args.data_dir + "/train-qrel.tsv")
     dev_qrels = load_offset_qrels(args.data_dir + "/dev-qrel.tsv")
-    metrics = MetricsLogger(os.path.join(args.output_dir, "refresh.jsonl"))
+    metrics = None
+    if cfg.host_id == 0:
+        metrics = MetricsLogger(os.path.join(args.output_dir,
+                                             "refresh.jsonl"))
     with TokenCache(args.data_dir + "/passages") as pc, \
             TokenCache(args.data_dir + "/train-query") as tq, \
             TokenCache(args.data_dir + "/dev-query") as dq:
@@ -847,7 +914,7 @@ def cmd_ance_loop(args):
             body_method=_body_method(model, spec),
             passage_cache=pc, train_query_cache=tq, dev_query_cache=dq,
             train_qrels=train_qrels, dev_qrels=dev_qrels, device=device,
-            metrics_logger=metrics)
+            mesh=mesh, metrics_logger=metrics)
         resumed = loop.resume()
         remaining = max(0, args.max_steps - resumed)
         server = None
@@ -904,18 +971,22 @@ def cmd_ance_loop(args):
             if server is not None:
                 server.shutdown()
         loop.flush_checkpoints()
-        ckpt.save_checkpoint(args.output_dir, loop.state.step,
-                             loop.state.model,
-                             loop.state.optimizer.state_dict())
-    metrics.close()
+        if cfg.host_id == 0:
+            ckpt.save_checkpoint(args.output_dir, loop.state.step,
+                                 loop.state.model,
+                                 loop.state.optimizer.state_dict())
+        _ranks_agree(mesh, loop.state.model)
+    if metrics is not None:
+        metrics.close()
     print(json.dumps(loop.history[-3:]))
 
 
 def cmd_seed_pretrain(args):
     """SEED-Encoder pretraining (``ance seed-pretrain``): MLM + the
-    CLS-bottleneck decoder over ``{data_dir}/passages`` on one device,
-    checkpoints into ``--output_dir``; prints the last three history
-    entries. The tokenizer's pad id is the model's, as in the JAX CLI."""
+    CLS-bottleneck decoder over ``{data_dir}/passages`` on one device or
+    data-parallel over the ranks, checkpoints into ``--output_dir`` (rank
+    0); prints the last three history entries. The tokenizer's pad id is
+    the model's, as in the JAX CLI."""
     import torch
     from ance_tpu_torch.data.cache import TokenCache
     from ance_tpu_torch.data.wordpiece import SeedTokenizer
@@ -928,7 +999,6 @@ def cmd_seed_pretrain(args):
                                                     make_seed_pretrain_step,
                                                     run_seed_pretrain)
     from ance_tpu_torch.train.trainer import init_train_state, make_optimizer
-    from ance_tpu_torch.utils.device import resolve_device
 
     if not args.model_name_or_path:
         raise SystemExit("seed-pretrain needs --model_name_or_path: the "
@@ -938,7 +1008,7 @@ def cmd_seed_pretrain(args):
                          "batch (no --rewarmup_per_dataset or "
                          "--gradient_accumulation_steps), as `ance "
                          "seed-pretrain`")
-    device = resolve_device(args.device)
+    device, mesh = _distributed(args)
     tok = SeedTokenizer.from_vocab_file(args.model_name_or_path)
     vocab_size = len(tok.vocab)
     overrides = json.loads(args.encoder_overrides) \
@@ -968,16 +1038,19 @@ def cmd_seed_pretrain(args):
         batch_size=args.per_device_train_batch_size,
         mask_prob=args.mask_prob, max_steps=args.max_steps,
         save_steps=args.save_steps, log_every=args.log_every,
-        checkpoint_dir=args.output_dir, seed=args.seed)
+        checkpoint_dir=args.output_dir, seed=args.seed,
+        host_id=mesh.rank if mesh else 0,
+        num_hosts=mesh.world if mesh else 1)
     special_ids = [tok.cls_token_id, tok.sep_token_id, tok.pad_token_id,
                    tok.unk_token_id, tok.mask_token_id]
     with TokenCache(args.data_dir + "/passages") as cache:
-        _, history = run_seed_pretrain(
+        state, history = run_seed_pretrain(
             cfg, state=init_train_state(model, opt),
-            train_step=make_seed_pretrain_step(ratio), cache=cache,
+            train_step=make_seed_pretrain_step(ratio, mesh), cache=cache,
             generator=torch.Generator().manual_seed(args.seed),
             mask_token_id=tok.mask_token_id, vocab_size=vocab_size,
             special_ids=special_ids, pad_token_id=tok.pad_token_id)
+    _ranks_agree(mesh, state.model)
     print(json.dumps(history[-3:]))
 
 
@@ -1126,6 +1199,21 @@ def _add_train_flags(p):
     p.add_argument("--fused_body", action="store_true",
                    help="encode pos+neg as ONE [2B, S] pass (equal without "
                         "dropout; wider GEMMs)")
+    p.add_argument("--data_parallel", action="store_true", default=True)
+    p.add_argument("--no_data_parallel", dest="data_parallel",
+                   action="store_false")
+    # one process a rank, a rank one card (the reference's per-GPU
+    # torch.distributed.launch, run_ann.py:603-646)
+    p.add_argument("--coordinator_address", default=None,
+                   help="host:port of rank 0 (with --num_processes > 1)")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="ranks in the job, one process and one card each")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="collectives: nccl (the default on CUDA; one rank "
+                        "a card) or gloo (the CPU's default; ranks that "
+                        "share a card)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1269,6 +1357,9 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--index_quantize", default=None, choices=["dims"],
                        help="an int8 corpus index (per-dimension scales)")
         p.add_argument("--per_device_eval_batch_size", type=int, default=128)
+        p.add_argument("--tensor_parallel", type=int, default=1,
+                       help="1 only: the port has no tensor parallelism "
+                            "yet")
         p.set_defaults(fn=lambda a, inf=inference: cmd_generate(a, inf))
 
     p = sub.add_parser("generate-dpr",
@@ -1294,6 +1385,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="an int8 corpus index (per-dimension scales): a "
                         "quarter of the fp32 index's bytes")
     p.add_argument("--per_device_eval_batch_size", type=int, default=128)
+    p.add_argument("--tensor_parallel", type=int, default=1,
+                   help="1 only: the port has no tensor parallelism yet")
     p.set_defaults(fn=cmd_generate_dpr)
 
     p = sub.add_parser("ance-loop",
@@ -1402,6 +1495,10 @@ def main(argv=None):
         return args.fn(args)
     except UnreadableCheckpoint as e:
         raise SystemExit(str(e))
+    finally:
+        dist = sys.modules.get("torch.distributed")
+        if dist is not None and dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ one (query, positive, negative) triple per negative (or, for DPR, one
 triple with a negative drawn at random), and batches are
 vectorised gathers over the memory-mapped caches, attention masks from the
 stored lengths. Batches are the JAX package's, byte for byte, on the same
-caches and seed. The multi-host striping waits for ROADMAP Queue 1 #11.
+caches and seed, host by host: with ``num_hosts`` ranks each takes its
+stripe of the triples (``TripletBatches``).
 """
 
 from __future__ import annotations
@@ -68,19 +69,26 @@ class TripletBatches:
     """(query, pos, neg) batches from caches and training-data triples.
 
     ``seed >= 0`` shuffles the triples each epoch (``RandomState(seed +
-    epoch)``); an incomplete trailing batch is dropped."""
+    epoch)``); an incomplete trailing batch is dropped. With ``num_hosts``
+    ranks, rank ``host_id`` takes every ``num_hosts``-th triple from its
+    own index on (the reference's StreamingDataset striping,
+    utils/util.py:318-329) and shuffles that stripe."""
 
     query_cache: TokenCache
     passage_cache: TokenCache
     triples: np.ndarray            # [T, 3] from expand_triples
     batch_size: int
     seed: int = -1
+    host_id: int = 0
+    num_hosts: int = 1
 
     def __len__(self) -> int:
-        return self.triples.shape[0] // self.batch_size
+        local = len(range(self.host_id, self.triples.shape[0],
+                          self.num_hosts))
+        return local // self.batch_size
 
     def _epoch_triples(self, epoch_idx: int) -> np.ndarray:
-        triples = self.triples
+        triples = self.triples[self.host_id::self.num_hosts]
         if self.seed >= 0:
             perm = np.random.RandomState(self.seed + epoch_idx).permutation(
                 triples.shape[0])

@@ -22,7 +22,8 @@ def _lib() -> ctypes.CDLL:
                                   ctypes.c_int, ctypes.c_int, ctypes.c_int]
         lib.wp_encode.restype = ctypes.c_int
         lib.wp_encode.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
-                                  ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+                                  ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                                  ctypes.c_int]
         lib.wp_free.argtypes = [ctypes.c_void_p]
     return lib
 
@@ -51,8 +52,9 @@ class NativeWordPiece:
         self._buf = (ctypes.c_int * 65536)()
 
     def encode(self, text: str) -> list[int]:
-        n = self._lib.wp_encode(self._handle, text.encode("utf-8"),
-                                self._buf, len(self._buf))
+        raw = text.encode("utf-8")  # its length passed: NUL may be inside
+        n = self._lib.wp_encode(self._handle, raw, len(raw), self._buf,
+                                len(self._buf))
         if n < 0:
             raise ValueError("text produced too many tokens")
         return list(self._buf[:n])

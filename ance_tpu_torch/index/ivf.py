@@ -1,4 +1,5 @@
-"""IVF (inverted-file) approximate inner-product index on one device.
+"""IVF (inverted-file) approximate inner-product index, on one device or
+with its clusters sharded over the ranks of a mesh.
 
 Counterpart of ``ance_tpu/index/ivf.py``: cluster the corpus once, then
 answer a query by scoring it against the centroids and searching only the
@@ -22,8 +23,14 @@ JAX package computes it in XLA, outside any Pallas kernel):
     stream through [Q, chunk·capacity] fp32 products with a running top-k.
 
 Saved indexes use the JAX package's ``.npz`` layout, so either package
-loads the other's files. Sharding the clusters over several devices (the
-JAX package's ``mesh``) waits for ROADMAP Queue 1 #11.
+loads the other's files.
+
+On a mesh (:class:`ance_tpu_torch.core.mesh.DataMesh`) every rank builds the
+same bins (the build is deterministic, and ranks that disagree raise) and
+keeps its contiguous share of the clusters, padded with empty clusters to a
+multiple of the ranks; a search probes the top ``ceil(nprobe / ranks)`` of
+each rank's own clusters and merges the gathered [Q, k] candidates, as the
+JAX package's cluster-sharded search does (``ance_tpu/index/ivf.py:455-493``).
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ance_tpu_torch.index.flat import _quantize_int8
+from ance_tpu_torch.index.flat import _quantize_int8, merge_topk
 from ance_tpu_torch.ops.topk import NEG_INF, topk_lower_id_first
 
 _ASSIGN_CHUNK = 65_536  # rows a dispatch: [chunk, nlist] score material
@@ -136,9 +143,12 @@ def _pack_bins(assign_scores: np.ndarray, capacity: int
 
 def _ivf_core(queries: torch.Tensor, centroids: torch.Tensor,
               bins_emb: torch.Tensor, bins_ids: torch.Tensor, *, k: int,
-              nprobe: int, union: int, cluster_chunk: int
+              nprobe: int, union: int, cluster_chunk: int,
+              valid_clusters: Optional[int] = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """queries [Q, D] fp32 → (scores [Q, k] fp32, ids [Q, k] int64, −1 pad).
+    Clusters from ``valid_clusters`` on (a shard's padding) are never
+    selected.
 
     The whole batch shares one probe set: the union of every query's
     top-``nprobe`` clusters (filled up with the strongest unprobed ones to
@@ -159,6 +169,9 @@ def _ivf_core(queries: torch.Tensor, centroids: torch.Tensor,
     qe = qf if bins_emb.dtype == torch.int8 else qf.to(bins_emb.dtype).float()
 
     cscores = qf @ centroids.float().T                       # [Q, nlist]
+    masked = valid_clusters is not None and valid_clusters < nlist
+    if masked:
+        cscores[:, valid_clusters:] = NEG_INF
     _, probe = topk_lower_id_first(cscores, min(nprobe, nlist))
     # scalars, not tensors made on the host: a host-to-device copy would
     # wait for the device and put the host's enqueue in every search
@@ -167,6 +180,8 @@ def _ivf_core(queries: torch.Tensor, centroids: torch.Tensor,
     # fp32, as in the JAX package: 1e9 + s rounds to 1e9 for |s| < 32, so
     # every probed cluster ties and the lower index wins a smaller union
     priority = torch.where(probed > 0, 1e9, 0.0) + cscores.amax(dim=0)
+    if masked:
+        priority[valid_clusters:] = NEG_INF
     _, sel = topk_lower_id_first(priority[None], union)
     sel = sel[0]                                             # [union]
 
@@ -190,7 +205,8 @@ class IVFIPIndex:
 
     Drop-in for ``FlatIPIndex`` where approximation is acceptable (serving);
     same ``search(queries, k) → (scores, ids)`` contract, −1-padded ids,
-    on ``device``.
+    on ``device`` (by default ``mesh``'s, whose ranks then hold a share of
+    the clusters each; module docstring).
 
     ``nlist``: number of clusters (√N when None, set by ``add``).
     ``nprobe``: clusters searched per query — the recall/speed knob.
@@ -211,14 +227,19 @@ class IVFIPIndex:
 
     def __init__(self, dim: int, nlist: Optional[int] = None,
                  nprobe: int = 8, dtype: torch.dtype = torch.bfloat16, *,
-                 device, quantize=False, slack: float = 1.3,
+                 device=None, mesh=None, quantize=False, slack: float = 1.3,
                  kmeans_iters: int = 10, train_sample: int = 262_144,
                  seed: int = 0):
         self.dim = dim
         self.nlist = nlist
         self.nprobe = nprobe
         self.dtype = dtype
+        if device is None:
+            if mesh is None:
+                raise ValueError("IVFIPIndex needs a device or a mesh")
+            device = mesh.device
         self.device = torch.device(device)
+        self.mesh = mesh
         self.quantize = "dims" if quantize is True else (quantize or None)
         if self.quantize not in (None, "dims"):
             raise ValueError(f"quantize must be False/'dims' (per-row scales "
@@ -243,6 +264,15 @@ class IVFIPIndex:
     @property
     def capacity(self) -> Optional[int]:
         return None if self._bins_ids is None else self._bins_ids.shape[1]
+
+    def _shard_clusters(self) -> tuple[int, int, int]:
+        """(first, end, per_shard): the real clusters [first, end) this
+        rank holds, of ``per_shard`` slots a rank."""
+        if self.mesh is None:
+            return 0, self.nlist, self.nlist
+        per = -(-self.nlist // self.mesh.world)
+        first = min(self.mesh.rank * per, self.nlist)
+        return first, min(first + per, self.nlist), per
 
     def _rows(self, emb, rows) -> torch.Tensor:
         """fp32 rows of ``emb`` (a host array or a tensor) on the device;
@@ -317,6 +347,11 @@ class IVFIPIndex:
 
         bins, _ = _pack_bins_from(best, best_score, cap, self.nlist,
                                   spill_order)
+        if self.mesh is not None:
+            self.mesh.check_replicated(
+                {"centroids": self.centroids,
+                 "bins": torch.as_tensor(bins, device=self.device)},
+                "IVF builds")
         t3 = time.perf_counter()
         if self.quantize == "dims":
             amax = torch.zeros(self.dim, dtype=torch.float32,
@@ -332,20 +367,27 @@ class IVFIPIndex:
             self._dim_scales = None
             centroids = self.centroids
             store = self.dtype
-        # row r goes to slot slot_of[r] of the flattened [nlist·cap] bins
+        # row r goes to slot slot_of[r] of the flattened [nlist·cap] bins;
+        # this rank packs the slots of its own clusters only
+        first, end, _ = self._shard_clusters()
         slot_of = np.empty(n, np.int64)
         valid = bins >= 0
         slot_of[bins[valid]] = np.flatnonzero(valid)
-        slot_of = torch.as_tensor(slot_of, device=self.device)
-        packed = torch.zeros((self.nlist * cap, self.dim), dtype=store,
+        slot_of = torch.as_tensor(slot_of - first * cap, device=self.device)
+        packed = torch.zeros(((end - first) * cap, self.dim), dtype=store,
                              device=self.device)
         for s in range(0, n, chunk):
             rows = self._rows(emb, slice(s, s + chunk))
-            packed[slot_of[s:s + chunk]] = (
+            slots = slot_of[s:s + chunk]
+            if self.mesh is not None:
+                mine = (slots >= 0) & (slots < packed.shape[0])
+                rows, slots = rows[mine], slots[mine]
+            packed[slots] = (
                 _quantize_int8(rows, self._dim_scales[None, :])
                 if self.quantize else rows.to(store))
-        self._publish(packed.view(self.nlist, cap, self.dim),
-                      torch.as_tensor(bins, device=self.device), centroids, n)
+        self._publish(packed.view(end - first, cap, self.dim),
+                      torch.as_tensor(bins[first:end], device=self.device),
+                      centroids, n)
         self._sync()
         self.build_seconds = {"kmeans": t1 - t0, "assign": t2 - t1,
                               "pack": t3 - t2,
@@ -353,12 +395,29 @@ class IVFIPIndex:
 
     def _publish(self, bins_emb: torch.Tensor, bins_ids: torch.Tensor,
                  centroids: torch.Tensor, n: int) -> None:
-        """Make device bins / ids / search centroids searchable (shared by
-        add() and load())."""
-        self._bins_emb = bins_emb
-        self._bins_ids = bins_ids.to(torch.int64)
-        self._search_centroids = centroids
+        """Make this rank's clusters searchable (shared by add() and
+        load()): its bins and ids (clusters [first, end) of
+        :meth:`_shard_clusters`) padded with empty clusters to the shard
+        size, and its rows of the (global) search centroids."""
+        first, end, per = self._shard_clusters()
+        pad = per - (end - first)
+        cap = bins_emb.shape[1]
+        self._bins_emb = torch.cat([bins_emb, bins_emb.new_zeros(
+            (pad, cap, self.dim))]) if pad else bins_emb
+        bins_ids = bins_ids.to(torch.int64)
+        self._bins_ids = torch.cat([bins_ids, bins_ids.new_full(
+            (pad, cap), -1)]) if pad else bins_ids
+        cents = centroids[first:end]
+        self._search_centroids = torch.cat([cents, cents.new_zeros(
+            (pad, cents.shape[1]))]) if pad else cents
         self._ntotal = n
+
+    def _global_clusters(self, x: torch.Tensor) -> torch.Tensor:
+        """The ``nlist`` real clusters of a per-rank tensor (gathered over
+        the ranks of a mesh)."""
+        if self.mesh is not None:
+            x = self.mesh.gather_rows(x)
+        return x[:self.nlist]
 
     def save(self, path: str) -> None:
         """Persist bins + centroids + scales in the JAX package's layout
@@ -367,28 +426,33 @@ class IVFIPIndex:
         the k-means fit and the packing pass."""
         if self._bins_emb is None:
             raise ValueError("index is empty; nothing to save")
-        emb_t = self._bins_emb.cpu()
-        if emb_t.dtype == torch.bfloat16:
-            dtype_name = "bfloat16"
-            bins_emb = emb_t.view(torch.int16).numpy().view(np.uint16)
-        else:
-            bins_emb = emb_t.numpy()
-            dtype_name = bins_emb.dtype.name
-        np.savez(path, bins_emb=bins_emb,
-                 dtype_name=np.asarray(dtype_name),
-                 bins_ids=self._bins_ids.cpu().numpy().astype(np.int32),
-                 centroids=self.centroids.cpu().numpy(),
-                 dim_scales=(self._dim_scales.cpu().numpy()
-                             if self._dim_scales is not None
-                             else np.zeros(0)),
-                 ntotal=np.asarray(self._ntotal),
-                 nprobe=np.asarray(self.nprobe))
+        emb_t = self._global_clusters(self._bins_emb).cpu()
+        ids = self._global_clusters(self._bins_ids).cpu().numpy()
+        if self.mesh is None or self.mesh.rank == 0:
+            if emb_t.dtype == torch.bfloat16:
+                dtype_name = "bfloat16"
+                bins_emb = emb_t.view(torch.int16).numpy().view(np.uint16)
+            else:
+                bins_emb = emb_t.numpy()
+                dtype_name = bins_emb.dtype.name
+            np.savez(path, bins_emb=bins_emb,
+                     dtype_name=np.asarray(dtype_name),
+                     bins_ids=ids.astype(np.int32),
+                     centroids=self.centroids.cpu().numpy(),
+                     dim_scales=(self._dim_scales.cpu().numpy()
+                                 if self._dim_scales is not None
+                                 else np.zeros(0)),
+                     ntotal=np.asarray(self._ntotal),
+                     nprobe=np.asarray(self.nprobe))
+        if self.mesh is not None:
+            self.mesh.barrier()  # the file is whole before any rank goes on
 
     @classmethod
-    def load(cls, path: str, *, device, nprobe: Optional[int] = None
-             ) -> "IVFIPIndex":
-        """Rebuild a saved IVF index (either package's) on ``device``.
-        Centroids load pinned (add() after load reuses the clustering)."""
+    def load(cls, path: str, *, device=None, mesh=None,
+             nprobe: Optional[int] = None) -> "IVFIPIndex":
+        """Rebuild a saved IVF index (either package's) on ``device``,
+        its clusters sharded over ``mesh`` (any shard count). Centroids
+        load pinned (add() after load reuses the clustering)."""
         with np.load(path if str(path).endswith(".npz") else f"{path}.npz",
                      allow_pickle=False) as z:
             bins_emb, bins_ids = z["bins_emb"], z["bins_ids"]
@@ -404,7 +468,7 @@ class IVFIPIndex:
         idx = cls(dim=emb_t.shape[2], nlist=emb_t.shape[0],
                   nprobe=nprobe if nprobe is not None else saved_nprobe,
                   dtype=torch.float32 if quantize else emb_t.dtype,
-                  device=device, quantize=quantize)
+                  device=device, mesh=mesh, quantize=quantize)
         idx.centroids = torch.as_tensor(centroids, dtype=torch.float32,
                                         device=idx.device)
         idx._pinned = True
@@ -413,8 +477,9 @@ class IVFIPIndex:
             idx._dim_scales = torch.as_tensor(
                 np.asarray(scales, np.float32), device=idx.device)
             folded = idx.centroids / idx._dim_scales
-        idx._publish(emb_t.to(idx.device),
-                     torch.as_tensor(bins_ids.astype(np.int64),
+        first, end, _ = idx._shard_clusters()
+        idx._publish(emb_t[first:end].to(idx.device),
+                     torch.as_tensor(bins_ids[first:end].astype(np.int64),
                                      device=idx.device), folded, ntotal)
         return idx
 
@@ -432,15 +497,27 @@ class IVFIPIndex:
                ) -> tuple[torch.Tensor, torch.Tensor]:
         """Top-k by inner product over the probed clusters: (scores [Q, k]
         fp32, ids [Q, k] int64) on the index's device. ``union`` (default
-        ``min(nlist, Q·nprobe)``) caps the shared probe set. Result slots
-        beyond the probed candidates come back as (−inf, −1), the FAISS
-        convention."""
+        ``min(nlist, Q·nprobe)``, a rank's clusters on a mesh) caps the
+        shared probe set. Result slots beyond the probed candidates come
+        back as (−inf, −1), the FAISS convention. On a mesh each rank
+        probes the top ``ceil(nprobe / ranks)`` of its own clusters, and
+        the ranks' [Q, k] candidates merge."""
         if self._bins_emb is None:
             raise ValueError("index is empty; call add() first")
         nprobe = min(nprobe or self.nprobe, self.nlist)
         q = torch.as_tensor(queries).to(self.device, torch.float32)
         if self._dim_scales is not None:  # fold int8 dim scales in
             q = q * self._dim_scales
+        if self.mesh is not None:
+            first, end, per = self._shard_clusters()
+            nprobe = min(-(-nprobe // self.mesh.world), per)
+            union = min(per, union or q.shape[0] * nprobe)
+            s, i = _ivf_core(q, self._search_centroids, self._bins_emb,
+                             self._bins_ids, k=k, nprobe=nprobe, union=union,
+                             cluster_chunk=self._cluster_chunk_for(union),
+                             valid_clusters=end - first)
+            return merge_topk(self.mesh.all_gather(s),
+                              self.mesh.all_gather(i), k)
         union = min(union or q.shape[0] * nprobe, self.nlist)
         return _ivf_core(q, self._search_centroids, self._bins_emb,
                          self._bins_ids, k=k, nprobe=nprobe, union=union,

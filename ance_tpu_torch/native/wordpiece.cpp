@@ -33,8 +33,10 @@ inline bool is_ws(unsigned char c) {
     return c == ' ' || c == '\t' || c == '\n' || c == '\r';
 }
 
+// Unicode category Cc in ASCII (C0 and DEL) less the whitespace: the
+// Python path drops these characters
 inline bool is_control(unsigned char c) {
-    return c < 32 && !is_ws(c);
+    return (c < 32 && !is_ws(c)) || c == 127;
 }
 
 // Greedy longest-match-first WordPiece of one word into ids.
@@ -79,20 +81,21 @@ void* wp_create(const char** tokens, int n, int unk_id, int lowercase) {
 
 void wp_free(void* handle) { delete static_cast<Vocab*>(handle); }
 
-// Encode ASCII text into token ids (no special tokens). Returns the number
-// of ids produced, or -1 if out buffer is too small.
-int wp_encode(void* handle, const char* text, int* out, int max_out) {
+// Encode ASCII text of len bytes into token ids (no special tokens); an
+// embedded NUL is dropped like any control byte, not an end of text.
+// Returns the number of ids produced, or -1 if out buffer is too small.
+int wp_encode(void* handle, const char* text, int len, int* out,
+              int max_out) {
     const Vocab& v = *static_cast<Vocab*>(handle);
     std::vector<int> ids;
     std::string word;
-    const size_t len = std::strlen(text);
     word.reserve(32);
 
     auto flush = [&]() {
         if (!word.empty()) { wordpiece(v, word, ids); word.clear(); }
     };
 
-    for (size_t i = 0; i < len; ++i) {
+    for (int i = 0; i < len; ++i) {
         unsigned char c = (unsigned char)text[i];
         if (c == 0 || is_control(c)) continue;
         if (is_ws(c)) { flush(); continue; }

@@ -125,7 +125,13 @@ class LoopRetriever(Retriever):
     phase 2 waits for the device, and with it for whatever the loop queued
     before; the results are copied to the host after the lock is released.
     ``index`` and ``params`` follow the loop and cannot be set; searching
-    before the loop's first refresh (``bootstrap()``) raises."""
+    before the loop's first refresh (``bootstrap()``) raises.
+
+    When the loop runs on a mesh, client batches are padded to a multiple
+    of its ranks (the first row repeated) and the padding stripped from the
+    results, as the JAX retriever pads for its sharded encode. One rank
+    only: a search from one rank's server thread would start collectives
+    the other ranks never join (the CLI refuses ``--http`` there)."""
 
     def __init__(self, loop, **kw):
         self._loop = loop
@@ -133,9 +139,16 @@ class LoopRetriever(Retriever):
 
     def search_tokens(self, ids, mask, k: int
                       ) -> tuple[np.ndarray, np.ndarray]:
+        mesh = getattr(self._loop, "mesh", None)
+        B = ids.shape[0]
+        pad = (-B) % mesh.size if mesh is not None else 0
+        if pad:
+            ids = np.concatenate([ids, np.repeat(ids[:1], pad, 0)])
+            mask = np.concatenate([mask, np.repeat(mask[:1], pad, 0)])
         with self._loop.index_lock:
             scores, rows = self._search_rows(ids, mask, k)
-        return self._to_pids(scores, rows, k)
+        scores, pids = self._to_pids(scores, rows, k)
+        return scores[:B], pids[:B]
 
     @property
     def encode_fn(self) -> Callable:

@@ -1,5 +1,6 @@
 """The ANCE loop (counterpart of ``ance_tpu/train/ance_loop.py``; the
-reference's run_ann.py and run_ann_data_gen.py), on one device.
+reference's run_ann.py and run_ann_data_gen.py); the trainer job runs on
+one device or data-parallel over the ranks of a mesh.
 
   1. :func:`run_trainer_job` / :func:`run_generator_job` — the two jobs of
      the reference, talking through the file system: the generator writes
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from typing import Callable, Mapping, Optional
 
@@ -177,7 +179,7 @@ def run_trainer_job(cycle_cfg: AnceCycleConfig, *, state,
                     poll_every: int = 100, save_every: int = 500,
                     poll_interval: float = 5.0,
                     rewarmup_per_dataset: bool = False,
-                    triples_fn: Callable = expand_triples):
+                    triples_fn: Callable = expand_triples, mesh=None):
     """Train until ``max_steps``, polling ``ann_dir`` for newer data every
     ``poll_every`` steps and writing a checkpoint (parameters and
     optimizer state) every ``save_every`` steps and at the end.
@@ -189,19 +191,31 @@ def run_trainer_job(cycle_cfg: AnceCycleConfig, *, state,
     ``rewarmup_per_dataset`` re-anchors the optimizer's
     :class:`RewarmupSchedule` at every data swap, with the new file's line
     count as the decay horizon (the reference's default without
-    ``--single_warmup``). Returns the state."""
+    ``--single_warmup``). Returns the state.
+
+    On a ``mesh`` (``train_step`` then being the mesh's step) rank r feeds
+    its stripe of the triples (the JAX job's ``host_id`` / ``num_hosts``),
+    the ranks switch to the newest file every one of them sees, and rank 0
+    alone writes the checkpoints."""
+    host_id, num_hosts = (mesh.rank, mesh.world) if mesh else (0, 1)
     last_data_no = -1
     it = None
     while state.step < max_steps:
         if it is None or state.step % poll_every == 0:
             data_no, data_path, _ = get_latest_ann_data(ann_dir)
+            if mesh is not None:
+                data_no = int(mesh.all_reduce_(torch.tensor(
+                    [data_no], device=mesh.device), "min"))
+                data_path = os.path.join(ann_dir, ANN_DATA_PREFIX
+                                         + str(data_no))
             if data_no > last_data_no and data_path:
                 with open(data_path) as f:
                     lines = f.read().splitlines()
                 feed = TripletBatches(query_cache, passage_cache,
                                       triples_fn(lines),
                                       batch_size=cycle_cfg.batch_size,
-                                      seed=cycle_cfg.shuffle_seed + data_no)
+                                      seed=cycle_cfg.shuffle_seed + data_no,
+                                      host_id=host_id, num_hosts=num_hosts)
                 it = infinite_batches(feed, workers=cycle_cfg.feed_workers)
                 last_data_no = data_no
                 if rewarmup_per_dataset:
@@ -212,7 +226,8 @@ def run_trainer_job(cycle_cfg: AnceCycleConfig, *, state,
                 time.sleep(poll_interval)
                 continue
         state, metrics = train_step(state, next(it), generator)
-        if state.step % save_every == 0 or state.step >= max_steps:
+        if (state.step % save_every == 0 or state.step >= max_steps) \
+                and host_id == 0:
             ckpt.save_checkpoint(training_dir, state.step, state.model,
                                  state.optimizer.state_dict())
     return state

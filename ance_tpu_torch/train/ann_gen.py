@@ -2,7 +2,8 @@
 
 The generator half of the ANCE loop (counterpart of
 ``ance_tpu/train/ann_gen.py``; the reference's run_ann_data_gen.py), on one
-device:
+device or over the ranks of a mesh (each encodes its block of every batch
+and holds a shard of the index's rows):
 
   * the corpus, the dev queries and this round's chunk of train queries
     are encoded on ``device`` (:mod:`ance_tpu_torch.train.encode`);
@@ -14,8 +15,6 @@ device:
     ``ann_training_data_<n>`` (shuffled ``qid\\tpos\\tneg,...`` lines),
     then ``ann_ndcg_<n>`` written LAST as the ready signal, so either
     package's trainer reads what either package's generator writes.
-
-The mesh-sharded index of the JAX package waits for ROADMAP Queue 1 #11.
 """
 
 from __future__ import annotations
@@ -195,7 +194,7 @@ def generate_new_ann(cfg: AnnGenConfig, *,
                      output_dir: str,
                      device,
                      index: Optional[FlatIPIndex] = None,
-                     inference_only: bool = False) -> dict:
+                     inference_only: bool = False, mesh=None) -> dict:
     """One encode → index → eval → mine → write pass
     (reference run_ann_data_gen.py:231-336). ``query_encode_fn`` /
     ``body_encode_fn`` are :func:`ance_tpu_torch.train.encode.make_encode_fn`
@@ -208,21 +207,26 @@ def generate_new_ann(cfg: AnnGenConfig, *,
     passage ids and the dev query embeddings and ids) plus
     ``train_query_embedding`` (on the device), ``train_neighbor_ids`` (the
     mining search's rows, [Q, topk_training]) and ``seconds`` (host clock
-    after a device synchronize: passage encode, mining search, total)."""
+    after a device synchronize: passage encode, mining search, total).
+    ``mesh`` shards the encode and the index's rows over its ranks, every
+    one of which returns the same result (``ance_tpu/train/ann_gen.py``'s
+    ``mesh``); rank 0 alone writes the hand-off files."""
     device = torch.device(device)
     now = synced_clock(device)
     t_start = now()
     bs = cfg.encode_batch_size
     dev_q_emb, dev_q_ids = encode_cache_to_device(query_encode_fn,
-                                                  dev_query_cache, bs)
+                                                  dev_query_cache, bs,
+                                                  mesh=mesh)
     t0 = now()
     passage_emb, passage_ids = encode_cache_to_device(
-        body_encode_fn, passage_cache, bs, multichunk=cfg.multichunk)
+        body_encode_fn, passage_cache, bs, multichunk=cfg.multichunk,
+        mesh=mesh)
     seconds = {"encode_passages": now() - t0}
 
     if index is None:
         index = FlatIPIndex(dim=passage_emb.shape[1], device=device,
-                            quantize=cfg.index_quantize or False)
+                            mesh=mesh, quantize=cfg.index_quantize or False)
     if index.quantize == "dims":
         index.add_chunked(passage_emb)  # never stages an fp32 copy
     else:
@@ -242,7 +246,8 @@ def generate_new_ann(cfg: AnnGenConfig, *,
     q_start, q_end = query_chunk_range(len(train_query_cache),
                                        cfg.ann_chunk_factor, output_num)
     train_q_emb, train_q_ids = encode_cache_to_device(
-        query_encode_fn, train_query_cache, bs, start=q_start, stop=q_end)
+        query_encode_fn, train_query_cache, bs, start=q_start, stop=q_end,
+        mesh=mesh)
     t0 = now()
     _, train_neighbors = index.search(train_q_emb, cfg.topk_training)
     train_neighbors = train_neighbors.cpu().numpy()
@@ -253,9 +258,14 @@ def generate_new_ann(cfg: AnnGenConfig, *,
         select_topk=cfg.ann_measure_topk_mrr,
         rng=random.Random(cfg.seed + output_num))
 
-    data_path, ndcg_path = write_ann_data(
-        output_dir, output_num, train_q_ids, training_query_positive_id,
-        negatives, dev_ndcg, checkpoint_path, seed=cfg.seed + output_num)
+    data_path = os.path.join(output_dir, ANN_DATA_PREFIX + str(output_num))
+    ndcg_path = os.path.join(output_dir, ANN_NDCG_PREFIX + str(output_num))
+    if mesh is None or mesh.rank == 0:
+        write_ann_data(output_dir, output_num, train_q_ids,
+                       training_query_positive_id, negatives, dev_ndcg,
+                       checkpoint_path, seed=cfg.seed + output_num)
+    if mesh is not None:
+        mesh.barrier()  # the files are whole before any rank goes on
     seconds["total"] = now() - t_start
     return {"dev_ndcg": dev_ndcg, "num_queries_dev": num_dev,
             "ann_mrr": ann_mrr, "data_path": data_path,

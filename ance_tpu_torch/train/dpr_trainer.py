@@ -5,7 +5,9 @@ drivers/run_ann_dpr.py:309-374).
 Every query's softmax runs over all 2B contexts of the batch (its own
 positive and hard negative and every other query's), positives at even
 context rows and hard negatives at odd ones (run_ann_dpr.py:356-363). The
-reference gathers the batch over ranks; here it lives on one device.
+reference gathers the batch over ranks (dpr_utils.py:95-160), and so does
+the step on a mesh: the ranks' embeddings, gathered in rank order, make the
+global batch, whose one softmax every rank computes.
 
 :func:`make_dpr_train_step` accumulates gradients the GradCache way, so an
 accumulated step keeps the global softmax: embeddings of every
@@ -14,6 +16,14 @@ micro-batch re-encoded with autograd and its rows of the loss's gradient
 pulled back into the parameters. The reference's own accumulation
 averages per-micro-batch softmaxes, which shrinks the negatives each
 query sees.
+
+On a mesh that decomposition is what splits the work over the ranks: each
+rank encodes its own rows, the gathered (detached) embeddings give the
+global loss, each rank pulls its own rows of the loss's gradient back
+through its encode, and the partial gradients are SUMMED over the ranks:
+each holds its rows' share of the gradient of the one global loss.
+Averaging them, or a backward through an autograd gather, would be off by a
+factor of the rank count.
 """
 
 from __future__ import annotations
@@ -71,7 +81,7 @@ def _micro_generator(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
-def make_dpr_train_step(accum_steps: int = 1) -> Callable:
+def make_dpr_train_step(accum_steps: int = 1, mesh=None) -> Callable:
     """(state, batch, generator) → (state, metrics {"loss", "correct",
     "correct_ratio", "grad_norm"}; device scalars): the in-batch loss,
     backward, then the state's optimizer (global-norm clip, LAMB or AdamW).
@@ -90,7 +100,14 @@ def make_dpr_train_step(accum_steps: int = 1) -> Callable:
     the same batch (without dropout, up to fp32 rounding); the activations
     held are one micro-batch's. Micro-batch i draws its dropout from a
     generator seeded with :func:`micro_batch_seeds`' i-th seed in phases 1
-    and 3, so the dropout stream differs from the unaccumulated step's."""
+    and 3, so the dropout stream differs from the unaccumulated step's.
+
+    On a ``mesh`` the batch is this rank's rows and phase 2 runs on the
+    embeddings of every rank's rows, gathered in rank order (the JAX
+    step's global batch); with ``accum_steps`` 1 the rank's one encode
+    keeps its graph and is pulled back without a re-encode. The gradients
+    are summed over the ranks (module docstring); loss, correct count and
+    ratio are the global batch's."""
 
     def step(state: TrainState, batch: dict, generator: torch.Generator):
         model = state.model
@@ -100,10 +117,17 @@ def make_dpr_train_step(accum_steps: int = 1) -> Callable:
         for p in model.parameters():
             p.grad = None
         B = batch["query_ids"].shape[0]
-        if accum_steps <= 1:
+        if mesh is not None and mesh.world > 1:
+            generator = mesh.rank_generator(generator)
+        if accum_steps <= 1 and mesh is None:
             q, ctx = encode_towers(model, batch, generator)
             loss, correct = inbatch_loss_from_embs(q, ctx)
             loss.backward()
+        elif accum_steps <= 1:
+            q, ctx = encode_towers(model, batch, generator)
+            loss, correct, dq, dctx = _global_loss_grads(q.detach(),
+                                                         ctx.detach(), mesh)
+            torch.autograd.backward((q, ctx), grad_tensors=(dq, dctx))
         else:
             if B % accum_steps:
                 raise ValueError(f"batch {B} does not split into "
@@ -115,24 +139,46 @@ def make_dpr_train_step(accum_steps: int = 1) -> Callable:
             with torch.no_grad():  # 1. embeddings only
                 encoded = [encode_towers(model, mb, _micro_generator(s))
                            for mb, s in zip(micro, seeds)]
-            q_all = torch.cat([e[0] for e in encoded]).requires_grad_()
-            ctx_all = torch.cat([e[1] for e in encoded]).requires_grad_()
+            q_all = torch.cat([e[0] for e in encoded])
+            ctx_all = torch.cat([e[1] for e in encoded])
             del encoded
             # 2. one global-softmax loss and its embedding gradients
-            loss, correct = inbatch_loss_from_embs(q_all, ctx_all)
-            dq, dctx = torch.autograd.grad(loss, (q_all, ctx_all))
-            loss = loss.detach()
+            loss, correct, dq, dctx = _global_loss_grads(q_all, ctx_all,
+                                                         mesh)
             for i, (mb, s) in enumerate(zip(micro, seeds)):  # 3. pull back
                 q, ctx = encode_towers(model, mb, _micro_generator(s))
                 torch.autograd.backward(
                     (q, ctx), grad_tensors=(dq[i * m:(i + 1) * m],
                                             dctx[2 * i * m:2 * (i + 1) * m]))
+        if mesh is not None:
+            mesh.all_reduce_grads_(
+                [p.grad for p in model.parameters() if p.grad is not None],
+                "sum")
+            B *= mesh.world
         grad_norm = state.optimizer.step()
         state.step += 1
         return state, {"loss": loss.detach(), "correct": correct,
                        "correct_ratio": correct / B, "grad_norm": grad_norm}
 
     return step
+
+
+def _global_loss_grads(q: torch.Tensor, ctx: torch.Tensor, mesh):
+    """Phase 2: the in-batch loss over the batch's embeddings (every
+    rank's, gathered in rank order, on a mesh) and its gradients with
+    respect to THIS rank's rows of them → (loss, correct, dq, dctx)."""
+    q_all, ctx_all = q, ctx
+    if mesh is not None:
+        q_all, ctx_all = mesh.gather_rows(q), mesh.gather_rows(ctx)
+    q_all = q_all.detach().requires_grad_()
+    ctx_all = ctx_all.detach().requires_grad_()
+    loss, correct = inbatch_loss_from_embs(q_all, ctx_all)
+    dq, dctx = torch.autograd.grad(loss, (q_all, ctx_all))
+    if mesh is not None:
+        B = q.shape[0]
+        dq = dq[mesh.rank * B:(mesh.rank + 1) * B]
+        dctx = dctx[2 * mesh.rank * B:2 * (mesh.rank + 1) * B]
+    return loss.detach(), correct, dq, dctx
 
 
 def dpr_dev_batches(query_cache: TokenCache, passage_cache: TokenCache,
@@ -186,26 +232,37 @@ def run_dpr_epochs(*, state: TrainState, train_step: Callable,
                    passage_cache: TokenCache, train_data_path: str,
                    num_epochs: int, batch_size: int, shuffle_seed: int = 42,
                    dev_eval_fn: Optional[Callable] = None,
-                   checkpoint_dir: Optional[str] = None):
+                   checkpoint_dir: Optional[str] = None, mesh=None):
     """Fixed-epoch DPR training, the reference's ``--num_epoch`` mode
     (run_ann_dpr.py:179-211): each epoch draws one hard negative a line
     afresh (``sample_one_neg_triples``, seed ``shuffle_seed + epoch``) and
     reshuffles the triples, trains on every whole batch, then evaluates
     ``dev_eval_fn(model)`` → (dev NLL, correct ratio) and saves a
     checkpoint (parameters and optimizer). The train steps draw their
-    dropout from ``generator``. Returns (state, history)."""
+    dropout from ``generator``. Returns (state, history).
+
+    On a ``mesh`` (``train_step`` the mesh's step) rank r trains on its
+    stripe of each epoch's triples, every rank takes as many batches as
+    the shortest stripe holds (one more on some rank would wait forever in
+    the step's collectives), and rank 0 alone writes the checkpoints."""
+    import itertools
+
     from ance_tpu_torch.data.feed import TripletBatches, sample_one_neg_triples
     from ance_tpu_torch.train import checkpoint as ckpt
 
+    host_id, num_hosts = (mesh.rank, mesh.world) if mesh else (0, 1)
     with open(train_data_path, encoding="utf-8") as f:
         lines = f.read().splitlines()
     history = []
     for epoch in range(num_epochs):
         triples = sample_one_neg_triples(lines, seed=shuffle_seed + epoch)
         feed = TripletBatches(query_cache, passage_cache, triples,
-                              batch_size, seed=shuffle_seed)
+                              batch_size, seed=shuffle_seed,
+                              host_id=host_id, num_hosts=num_hosts)
+        n_batches = len(triples) // num_hosts // batch_size
         last_loss = None
-        for batch in feed.epoch_prefetched(epoch):
+        for batch in itertools.islice(feed.epoch_prefetched(epoch),
+                                      n_batches):
             state, metrics = train_step(state, batch, generator)
             last_loss = metrics["loss"]
         entry = {"epoch": epoch, "step": state.step}
@@ -215,7 +272,7 @@ def run_dpr_epochs(*, state: TrainState, train_step: Callable,
             entry["dev_nll"], entry["dev_correct_ratio"] = dev_eval_fn(
                 state.model)
         history.append(entry)
-        if checkpoint_dir:
+        if checkpoint_dir and host_id == 0:
             ckpt.save_checkpoint(checkpoint_dir, state.step, state.model,
                                  state.optimizer.state_dict(),
                                  extra={"epoch": epoch})

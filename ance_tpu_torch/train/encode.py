@@ -1,11 +1,14 @@
-"""Batched embedding inference over token caches, on one device.
+"""Batched embedding inference over token caches, on one device or
+data-parallel over the ranks of a mesh.
 
 Counterpart of ``ance_tpu/train/encode.py``: iterate a token cache in
 fixed-size batches, run the frozen encoder, collect the embeddings on the
 host (:func:`encode_cache`) or keep them on the device for the index
 (:func:`encode_cache_to_device`). Multi-vector (MaxP) documents flatten
 their chunk embeddings to one row each, the document id repeated per
-chunk. The mesh waits for a later PR (ROADMAP Queue 1 #11).
+chunk. On a mesh every rank walks the same global batches, encodes its
+contiguous ``1/world`` block of each and gathers the batch's embeddings
+in rank order, so every rank ends with all of them.
 """
 
 from __future__ import annotations
@@ -35,11 +38,18 @@ def mask_from_lengths(lengths: np.ndarray, max_len: int) -> np.ndarray:
 
 
 def iter_cache_batches(cache: TokenCache, batch_size: int, start: int = 0,
-                       stop: Optional[int] = None
+                       stop: Optional[int] = None, host_id: int = 0,
+                       num_hosts: int = 1
                        ) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]]:
-    """Yield (offsets [≤B], ids [B, L] int32, mask [B, L] int32); the final
-    batch is padded by repeating the last record (the caller drops the
-    padded rows), so every batch has one shape."""
+    """Yield (offsets [≤B], ids, mask int32); the final batch is padded by
+    repeating the last record (the caller drops the padded rows), so every
+    batch has one shape. With ``num_hosts`` ranks the offsets stay the
+    global batch's and ids / mask are rank ``host_id``'s contiguous block
+    of it, [B / num_hosts, L]."""
+    if batch_size % num_hosts:
+        raise ValueError(f"batch_size {batch_size} not divisible by "
+                         f"{num_hosts} ranks")
+    per_host = batch_size // num_hosts
     stop = cache.total_number if stop is None else stop
     for s in range(start, stop, batch_size):
         keys = np.arange(s, min(s + batch_size, stop))
@@ -47,7 +57,8 @@ def iter_cache_batches(cache: TokenCache, batch_size: int, start: int = 0,
         if real < batch_size:
             keys = np.concatenate(
                 [keys, np.full(batch_size - real, keys[-1])])
-        lengths, tokens = cache.batch(keys)
+        lengths, tokens = cache.batch(
+            keys[host_id * per_host:(host_id + 1) * per_host])
         mask = mask_from_lengths(lengths, cache.embedding_size)
         yield keys[:real], tokens.astype(np.int32), mask
 
@@ -78,16 +89,30 @@ def _rows(out: torch.Tensor, keys: np.ndarray, multichunk: bool
     return out.reshape(len(keys) * C, -1), np.repeat(keys, C)
 
 
+def _batches(encode_fn: Callable, cache: TokenCache, batch_size: int,
+             start: int, stop: Optional[int], mesh
+             ) -> Iterator[tuple[torch.Tensor, np.ndarray]]:
+    """(embeddings of one global batch, its offsets): this rank's block
+    encoded and, on a mesh, every rank's gathered in rank order."""
+    host_id, num_hosts = (mesh.rank, mesh.world) if mesh else (0, 1)
+    for keys, ids, mask in iter_cache_batches(cache, batch_size, start, stop,
+                                              host_id, num_hosts):
+        out = encode_fn(ids, mask)
+        yield (mesh.gather_rows(out) if mesh else out), keys
+
+
 def encode_cache_to_device(encode_fn: Callable, cache: TokenCache,
                            batch_size: int = 128, multichunk: bool = False,
-                           start: int = 0, stop: Optional[int] = None
-                           ) -> tuple[torch.Tensor, np.ndarray]:
+                           start: int = 0, stop: Optional[int] = None,
+                           mesh=None) -> tuple[torch.Tensor, np.ndarray]:
     """Encode records [start, stop) keeping the embeddings on the device.
     Returns (embeddings [M, D], embedding2id [M] int64); with
-    ``multichunk`` the encoder gives [B, C, D] and M counts chunks."""
+    ``multichunk`` the encoder gives [B, C, D] and M counts chunks. On a
+    ``mesh`` ``batch_size`` is the global batch (module docstring)."""
     parts, id_parts = [], []
-    for keys, ids, mask in iter_cache_batches(cache, batch_size, start, stop):
-        rows, row_ids = _rows(encode_fn(ids, mask), keys, multichunk)
+    for out, keys in _batches(encode_fn, cache, batch_size, start, stop,
+                              mesh):
+        rows, row_ids = _rows(out, keys, multichunk)
         parts.append(rows)
         id_parts.append(row_ids)
     return torch.cat(parts), np.concatenate(id_parts).astype(np.int64)
@@ -96,12 +121,14 @@ def encode_cache_to_device(encode_fn: Callable, cache: TokenCache,
 def encode_cache(encode_fn: Callable, cache: TokenCache,
                  batch_size: int = 128, multichunk: bool = False,
                  start: int = 0, stop: Optional[int] = None,
-                 flush_every: int = 16) -> tuple[np.ndarray, np.ndarray]:
+                 flush_every: int = 16, mesh=None
+                 ) -> tuple[np.ndarray, np.ndarray]:
     """Encode records [start, stop) → (embeddings [M, D] fp32 numpy,
     embedding2id [M] int64); ``multichunk`` as in
     :func:`encode_cache_to_device`. Up to ``flush_every`` batches stay in
     flight on the device before they are copied to the host, so host-side
-    cache reads overlap device compute."""
+    cache reads overlap device compute. ``mesh`` as in
+    :func:`encode_cache_to_device`."""
     emb_parts, id_parts = [], []
     pending: list[tuple[torch.Tensor, np.ndarray]] = []
 
@@ -112,8 +139,9 @@ def encode_cache(encode_fn: Callable, cache: TokenCache,
             id_parts.append(row_ids)
         pending.clear()
 
-    for keys, ids, mask in iter_cache_batches(cache, batch_size, start, stop):
-        pending.append((encode_fn(ids, mask), keys))
+    for out, keys in _batches(encode_fn, cache, batch_size, start, stop,
+                              mesh):
+        pending.append((out, keys))
         if len(pending) >= flush_every:
             flush()
     flush()

@@ -1,5 +1,6 @@
 """Pipelined ANCE: index refresh overlapped with training on one schedule,
-on one device (counterpart of ``ance_tpu/train/pipelined.py``).
+on one device or over the ranks of a mesh (counterpart of
+``ance_tpu/train/pipelined.py``).
 
 Trainer and index builder are one program:
 
@@ -43,7 +44,15 @@ Where the port differs from the JAX module:
     stacked once at F. On the card an item's time (``item_times``) is read
     after a device synchronize before and after it, so it is the item's own
     device time, not its enqueue.
-  * One device: no mesh, and ``num_hosts > 1`` raises (ROADMAP Queue 1 #11).
+
+On a mesh (:class:`ance_tpu_torch.core.mesh.DataMesh`, one process a card)
+the loop is replicated, as the JAX package's multi-host loop: every rank
+runs every work item in the same order, encoding its block of each encode
+batch (``encode_batch_size`` is the global batch) and gathering the rest,
+so the row-sharded index, the dev search and the mining give the same
+answer on every rank; each rank trains on its stripe of the mined triples
+(``batch_size`` rows a rank) through the mesh's train step; rank 0 alone
+writes checkpoints.
 """
 
 from __future__ import annotations
@@ -107,8 +116,8 @@ class PipelineConfig:
     checkpoint_dir: Optional[str] = None
     save_every: int = 0                # steps between mid-run checkpoints
                                        # (0 = refresh boundaries only)
-    num_hosts: int = 1                 # one host only: the multi-host
-                                       # loop is ROADMAP Queue 1 #11
+    host_id: int = 0                   # this rank's stripe of the
+    num_hosts: int = 1                 # triples (the mesh's rank, world)
 
 
 class PipelinedAnce:
@@ -129,16 +138,22 @@ class PipelinedAnce:
                  dev_query_cache: TokenCache,
                  train_qrels: Mapping[int, Mapping[int, int]],
                  dev_qrels: Mapping[int, Mapping[int, int]],
-                 device, metrics_logger=None):
-        if cfg.num_hosts > 1:
-            raise ValueError("the pipelined loop runs on one device; "
-                             "multi-host is ROADMAP Queue 1 #11")
+                 device=None, mesh=None, metrics_logger=None):
+        if cfg.num_hosts > 1 and mesh is None:
+            raise ValueError("multi-host pipelined mode requires a mesh")
+        if mesh is not None and (cfg.host_id, cfg.num_hosts) != (
+                mesh.rank, mesh.world):
+            raise ValueError(f"host_id/num_hosts {cfg.host_id}/"
+                             f"{cfg.num_hosts} are not the mesh's rank/world "
+                             f"{mesh.rank}/{mesh.world}")
         self.cfg = cfg
+        self.mesh = mesh
         self.state = state
         self.train_step = train_step
         self.generator = generator
         self.query_method, self.body_method = query_method, body_method
-        self.device = torch.device(device)
+        self.device = torch.device(device if device is not None
+                                   else mesh.device)
         self.passage_cache = passage_cache
         self.train_query_cache = train_query_cache
         self.dev_query_cache = dev_query_cache
@@ -187,7 +202,8 @@ class PipelinedAnce:
         them into the device-resident index buffer."""
         emb, _ = encode_cache_to_device(
             self.bfn, self.passage_cache, self.cfg.encode_batch_size,
-            multichunk=self.cfg.multichunk, start=start, stop=stop)
+            multichunk=self.cfg.multichunk, start=start, stop=stop,
+            mesh=self.mesh)
         scales = None
         if self.cfg.index_quantize == "dims" and start == 0:
             # this cycle's per-dim scales from its first slice (every slice
@@ -202,7 +218,7 @@ class PipelinedAnce:
             self._passage_ids = np.repeat(
                 np.arange(n, dtype=np.int64), self._rows_per_record)
             index = self.index if self.index is not None else FlatIPIndex(
-                dim=emb.shape[1], device=self.device,
+                dim=emb.shape[1], device=self.device, mesh=self.mesh,
                 quantize=self.cfg.index_quantize or False)
             with self.index_lock:
                 index.allocate(
@@ -255,7 +271,8 @@ class PipelinedAnce:
 
     def _encode_dev(self) -> None:
         self._cyc["dev_emb"], self._cyc["dev_ids"] = encode_cache_to_device(
-            self.qfn, self.dev_query_cache, self.cfg.encode_batch_size)
+            self.qfn, self.dev_query_cache, self.cfg.encode_batch_size,
+            mesh=self.mesh)
 
     def _search_dev(self, qs: int, qe: int) -> None:
         k = min(self.cfg.dev_search_depth, self.index.ntotal)
@@ -293,7 +310,7 @@ class PipelinedAnce:
     def _encode_train_queries(self, q_start: int, q_end: int) -> None:
         self._cyc["tq_emb"], self._cyc["tq_ids"] = encode_cache_to_device(
             self.qfn, self.train_query_cache, self.cfg.encode_batch_size,
-            start=q_start, stop=q_end)
+            start=q_start, stop=q_end, mesh=self.mesh)
 
     def _mine_chunk(self, qs: int, qe: int, chunk_no: int) -> None:
         cfg = self.cfg
@@ -328,10 +345,13 @@ class PipelinedAnce:
             for neg in negs:
                 triples.append((qid, pos, neg))
         if triples:
+            # mining is replicated, so every rank builds this triple list
+            # and trains on its stripe of it
             feed = TripletBatches(
                 self.train_query_cache, self.passage_cache,
                 np.asarray(triples, np.int64), cfg.batch_size,
-                seed=cfg.shuffle_seed + self.refresh_no)
+                seed=cfg.shuffle_seed + self.refresh_no,
+                host_id=cfg.host_id, num_hosts=cfg.num_hosts)
             self._batches = infinite_batches(feed, workers=cfg.feed_workers)
             if cfg.rewarmup_per_dataset:
                 # a fresh LR warmup for the new dataset, its size the
@@ -413,7 +433,10 @@ class PipelinedAnce:
         a restart (resume() re-seeds the cycle from the restored weights).
         Only the copy to the host is synchronous; the files are written on
         the checkpointer's thread while the next steps run, and DONE is
-        published at the next fence."""
+        published at the next fence. Rank 0 alone saves (reference
+        run_ann.py:307-334)."""
+        if self.cfg.host_id != 0:
+            return
         if self._async_ckptr is None:
             self._async_ckptr = ckpt.AsyncCheckpointer(self.cfg.checkpoint_dir)
         self._async_ckptr.wait()  # fence and publish the save in flight

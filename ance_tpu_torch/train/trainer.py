@@ -13,8 +13,14 @@ Parameters live in the model and update in place; the step makes no host
 round trip but the loss it hands back. Dropout draws from one device
 ``torch.Generator`` per encoder pass, each seeded from the step's host
 generator, as the JAX step splits its key three ways. The TPU's
-hardware-RNG switch (``fast_dropout_key``) and the mesh (ROADMAP Queue 1
-#11) have no counterpart here.
+hardware-RNG switch (``fast_dropout_key``) has no counterpart here.
+
+On a mesh (:class:`ance_tpu_torch.core.mesh.DataMesh`) each rank steps on
+its own rows of the global batch, and the gradients are all-reduced to
+their mean over the ranks before the clip (which reads the global norm) and
+the optimizer, so every rank applies the same update and the parameters
+stay bit-equal; the loss reported is the global mean. Each rank draws its
+dropout from a generator of its own (``DataMesh.rank_generator``).
 """
 
 from __future__ import annotations
@@ -184,12 +190,15 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
             for k, v in batch.items()}
 
 
-def make_train_step(loss_fn: Callable, accum_steps: int = 1) -> Callable:
+def make_train_step(loss_fn: Callable, accum_steps: int = 1,
+                    mesh=None) -> Callable:
     """(state, batch, generator) → (state, metrics {"loss", "grad_norm"}
     as device scalars). With ``accum_steps > 1`` the batch's leading dim
     splits into that many micro-batches run one after another; losses and
     gradients are summed and divided by ``accum_steps`` (the reference's
-    loss / accum, run_ann.py:263-268)."""
+    loss / accum, run_ann.py:263-268). On a ``mesh`` the batch is this
+    rank's rows, and the gradients and the loss are averaged over the
+    ranks (module docstring)."""
 
     def step(state: TrainState, batch: dict, generator: torch.Generator):
         model = state.model
@@ -198,6 +207,8 @@ def make_train_step(loss_fn: Callable, accum_steps: int = 1) -> Callable:
         model.train()
         for p in model.parameters():
             p.grad = None
+        if mesh is not None and mesh.world > 1:
+            generator = mesh.rank_generator(generator)
         n = next(iter(batch.values())).shape[0]
         if n % accum_steps:
             raise ValueError(f"batch {n} does not split into {accum_steps} "
@@ -214,6 +225,11 @@ def make_train_step(loss_fn: Callable, accum_steps: int = 1) -> Callable:
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(accum_steps)
+        if mesh is not None:
+            mesh.all_reduce_grads_(
+                [p.grad for p in model.parameters() if p.grad is not None],
+                "mean")
+            loss = mesh.all_reduce_(loss, "mean")
         grad_norm = state.optimizer.step()
         state.step += 1
         return state, {"loss": loss, "grad_norm": grad_norm}

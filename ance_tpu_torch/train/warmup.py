@@ -7,8 +7,12 @@ triple_batches`); checkpoints with the optimizer state every
 ``save_steps`` and once more, marked final, when the epochs run out; LAMB
 trust ratios and an eval every ``eval_every`` steps. A resumed run skips
 the batches its checkpoint has trained (reference run_warmup.py:144-163).
-One device: the JAX config's host striping comes with more than one GPU
-(ROADMAP Queue 1 #11).
+With ``num_hosts`` ranks, rank ``host_id`` trains on lines ``host_id``,
+``host_id + num_hosts``, ... of the file (the JAX config's striping,
+``data/process_fn.py``) through a mesh's train step, every rank takes as
+many batches an epoch as the shortest stripe holds, and rank 0 alone
+writes the checkpoints. (The JAX CLI's warmup stripes but never assembles
+the ranks' rows into one global batch: ROADMAP Queue 3.)
 
 Dropout on resume: the JAX loop splits its key for every batch before the
 skip check, so a resumed run draws the masks the uninterrupted one drew.
@@ -20,6 +24,7 @@ trains steps ``s + 1``... with the uninterrupted run's masks.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 from typing import Callable, Optional
 
@@ -42,6 +47,8 @@ class WarmupConfig:
     save_steps: int = 0              # 0 = no periodic checkpoints
     eval_every: int = 0              # steps between eval_fn calls; 0 = never
     checkpoint_dir: Optional[str] = None
+    host_id: int = 0                 # this rank's stripe of the lines (the
+    num_hosts: int = 1               # mesh's rank and world)
     log_trust_ratios: bool = False   # LAMB trust-ratio stats at eval points
                                      # (reference lamb.py:11-22 log_lamb_rs)
 
@@ -68,10 +75,16 @@ def run_warmup(cfg: WarmupConfig, *, state, train_step: Callable,
         # more batch would change the finished model
         return state, history
     skip = start_step
+    per_epoch = None  # every batch of one rank's stripe
+    if cfg.num_hosts > 1:
+        with open(triples_path, encoding="utf-8") as f:
+            per_epoch = sum(1 for _ in f) // cfg.num_hosts // cfg.batch_size
     for epoch in range(cfg.num_epochs):
         with open(triples_path, encoding="utf-8") as f:
-            for batch in triple_batches(tokenizer, f, cfg.batch_size,
-                                        cfg.max_seq_length):
+            for batch in itertools.islice(
+                    triple_batches(tokenizer, f, cfg.batch_size,
+                                   cfg.max_seq_length, host_id=cfg.host_id,
+                                   num_hosts=cfg.num_hosts), per_epoch):
                 if skip > 0:
                     skip -= 1
                     continue
@@ -81,6 +94,7 @@ def run_warmup(cfg: WarmupConfig, *, state, train_step: Callable,
                 history.append({"step": global_step,
                                 "loss": float(metrics["loss"])})
                 if cfg.save_steps and cfg.checkpoint_dir and \
+                        cfg.host_id == 0 and \
                         global_step % cfg.save_steps == 0:
                     ckpt.save_checkpoint(cfg.checkpoint_dir, global_step,
                                          state.model,
@@ -102,7 +116,7 @@ def run_warmup(cfg: WarmupConfig, *, state, train_step: Callable,
                                     "full_ranking_mrr": full_mrr})
                 if 0 < cfg.max_steps <= global_step:
                     return state, history
-    if cfg.checkpoint_dir:
+    if cfg.checkpoint_dir and cfg.host_id == 0:
         ckpt.save_checkpoint(cfg.checkpoint_dir, global_step, state.model,
                              state.optimizer.state_dict(),
                              extra={"final": True})

@@ -170,7 +170,17 @@ kernels under bf16 and int8 queries), and then:
     checkpoint's encoder (bit-equal before step 1), ``generate`` (#1 on
     an fp32 index, twice) with ``infer`` + ``eval-full``, ``export-hf``
     of both checkpoints re-imported bit for bit, and ``serve --bf16``
-    from the export (rankings byte-equal to serving the checkpoint).
+    from the export (rankings byte-equal to serving the checkpoint);
+  * mesh: data parallelism, two ranks sharing this card through gloo
+    (``phase_mesh``; not a multi-GPU measurement), each a process of
+    ``ance_tpu_torch.experiments.mesh_worker`` or of the CLI with a time
+    limit: the row-sharded exact index over 1,000,003 x 768 rows (fp32,
+    bf16, dims; kernel #1 on every shard) equal to the one-process index
+    at 2 gloo ranks and at 1 NCCL rank; ``cli train`` FirstP (fp32, 3
+    steps) and ``cli ance-loop`` (bootstrap equal to the one-process one
+    exactly, then 2 steps) against one process; the DPR GradCache step
+    (bf16, #2 and #3) against the one-process step; NCCL with two ranks
+    on one card and a rank without a GPU refused.
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. The last two lines are a JSON object of per-kernel results
@@ -5209,10 +5219,10 @@ def phase_seed(work: Path):
     _write_ann(ann, WARMUP_TRAIN_QUERIES, WARMUP_PASSAGES, rs)
     train_ms, start_sd, real_train = [], {}, cli._make_training
 
-    def make_training(args, model, spec):
+    def make_training(args, model, spec, mesh=None):
         start_sd.update({k: v.detach().cpu().clone()
                          for k, v in model.state_dict().items()})
-        state, step = real_train(args, model, spec)
+        state, step = real_train(args, model, spec, mesh)
 
         def timed(state, batch, generator):
             torch.cuda.synchronize()
@@ -5440,6 +5450,443 @@ def phase_seed(work: Path):
             "exports": exports, "phase_s": phase_s}
 
 
+MESH_RANKS = 2
+MESH_CORPUS = 1_000_003  # not a multiple of 2 x 16: shards carry padding
+MESH_SEED = 18
+MESH_REPS = 5
+MESH_RANK_TIMEOUT_S = 240  # each rank process; a hung rank fails the run
+MESH_TRAIN_STEPS, MESH_TRAIN_BATCH = 3, 32   # global batch, 16 a rank
+MESH_LOOP_QUERIES, MESH_LOOP_DEV = 16, 64    # x 2 negatives = 32 triples
+MESH_LOOP_SLICE = 2048
+MESH_DPR = {"batch": 16, "seq": 256, "n_steps": 2, "accum": 2,
+            "dtype": "bfloat16", "seed": 3,
+            "overrides": {"hidden_dropout": 0.0, "attention_dropout": 0.0},
+            "opt": {"name": "lamb", "lr": 1e-5, "weight_decay": 0.01,
+                    "max_grad_norm": 1.0}}
+MESH_LOSS_RTOL = 1e-4      # fp32 steps over one global batch, rows reordered
+MESH_DPR_NORM_RTOL = 1e-3  # bf16 towers; a factor of the ranks is 0.5 or 2
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start_ranks(job: dict, path: Path, world: int, env: dict | None = None
+                 ) -> list:
+    """One ``mesh_worker`` process a rank, all started at once."""
+    path.write_text(json.dumps(job))
+    return [subprocess.Popen(
+        [sys.executable, "-m", "ance_tpu_torch.experiments.mesh_worker",
+         str(path), str(r)], cwd=ROOT, env=env or _rank_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+
+
+def _rank_env() -> dict:
+    return dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="4")
+
+
+def _wait_ranks(procs: list, what: str, expect_ok: bool = True) -> list:
+    """(stdout, stderr) of every rank within MESH_RANK_TIMEOUT_S; every
+    rank killed on a timeout, which fails the run, as does a rank that
+    exits other than expected."""
+    deadline = time.monotonic() + MESH_RANK_TIMEOUT_S
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic())))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{what}: a rank hung past "
+                             f"{MESH_RANK_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if expect_ok:
+            check(p.returncode == 0, f"{what}: rank {r} exited "
+                  f"{p.returncode}: {err[-3000:]}")
+        else:
+            check(p.returncode != 0, f"{what}: rank {r} exited 0")
+    return outs
+
+
+def _rank_results(out_dir: Path, name: str, world: int) -> list:
+    import torch
+    return [torch.load(out_dir / f"{name}_rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def _mesh_index(work: Path) -> dict:
+    """(a) the row-sharded exact index at 2 gloo ranks on one card and at
+    1 NCCL rank, against the one-process index on this card."""
+    import torch
+    from ance_tpu_torch.experiments.mesh_worker import (FLAT_MODES,
+                                                        seeded_rows)
+    from ance_tpu_torch.index.flat import FlatIPIndex
+    out = work / "mesh_index"
+    out.mkdir()
+    case = {"case": "index_1m", "n": MESH_CORPUS, "dim": DIM,
+            "seed": MESH_SEED, "modes": list(INDEX_KERNEL),
+            "searches": [list(s) for s in SHAPES.values()],
+            "reps": MESH_REPS}
+    runs = {}
+    for backend, world in (("gloo", MESH_RANKS), ("nccl", 1)):
+        t0 = time.perf_counter()
+        job = {"init_method": f"tcp://127.0.0.1:{_free_port()}",
+               "world": world, "device": "cuda", "backend": backend,
+               "timeout_s": MESH_RANK_TIMEOUT_S, "out_dir": str(out),
+               "cases": [dict(case, name=f"index_{backend}")]}
+        _wait_ranks(_start_ranks(job, out / f"{backend}.json", world),
+                    f"mesh (a) {backend}")
+        runs[backend] = (_rank_results(out, f"index_{backend}", world),
+                         time.perf_counter() - t0)
+    dev = torch.device("cuda")
+    corpus = seeded_rows(MESH_CORPUS, DIM, MESH_SEED, dev)
+    result = {"seconds": {b: s for b, (_, s) in runs.items()}}
+    for mode, kernel in INDEX_KERNEL.items():
+        index = FlatIPIndex(DIM, device=dev, **FLAT_MODES[mode])
+        index.add(corpus)
+        for q_n, k in SHAPES.values():
+            q = seeded_rows(q_n, DIM, MESH_SEED + q_n, dev)
+            want_s, want_i = (t.cpu() for t in index.search(q, k))
+            key = f"{mode}/Q{q_n}k{k}"
+            for backend, (ranks, _) in runs.items():
+                got_s, got_i = ranks[0][key]
+                check(torch.equal(got_i, want_i), f"mesh (a) {backend} "
+                      f"{key}: sharded ids differ from one process")
+                check(torch.equal(got_s, want_s), f"mesh (a) {backend} "
+                      f"{key}: sharded scores differ from one process")
+            result[key] = {
+                f"{b}_rank{r['rank']}": {
+                    "shard_ms": r[key + "/shard_ms"],
+                    "gather_ms": r[key + "/gather_ms"]}
+                for b, (ranks, _) in runs.items() for r in ranks}
+        for backend, (ranks, _) in runs.items():
+            for r in ranks:
+                launches = r[f"{mode}/launches"]
+                check(launches.get(kernel, 0) >= len(SHAPES),
+                      f"mesh (a) {backend} rank {r['rank']} {mode}: "
+                      f"{launches}, not {kernel} on every search")
+        del index
+    del corpus
+    torch.cuda.empty_cache()
+    result["launches"] = {f"{b}_rank{r['rank']}": {
+        mode: r[f"{mode}/launches"] for mode in INDEX_KERNEL}
+        for b, (ranks, _) in runs.items() for r in ranks}
+    result["peak_gib"] = {f"{b}_rank{r['rank']}": r["peak_gib"]
+                          for b, (ranks, _) in runs.items() for r in ranks}
+    return result
+
+
+def _mesh_train_argv(work: Path, data: Path, out: str, batch: int) -> list:
+    return ["train", "--device", "cuda", "--model_name_or_path",
+            str(work / "roberta_base_seeded"), "--data_dir", str(data),
+            "--ann_dir", str(data / "ann"), "--output_dir", str(work / out),
+            "--max_steps", str(MESH_TRAIN_STEPS), "--save_steps",
+            str(MESH_TRAIN_STEPS), "--warmup_steps", "2",
+            "--per_device_train_batch_size", str(batch),
+            "--max_query_length", str(QUERY_LEN),
+            "--max_seq_length", str(PASSAGE_LEN), "--feed_workers", "0",
+            "--encoder_overrides", json.dumps(MESH_DPR["overrides"])]
+
+
+def _rank_argv(world: int, backend: str) -> list:
+    return ["--num_processes", str(world), "--coordinator_address",
+            f"127.0.0.1:{_free_port()}", "--dist_backend", backend]
+
+
+def _last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def _mesh_params_close(rank0: Path, one: Path, lr_sum: float) -> None:
+    import torch
+    from ance_tpu_torch.train.checkpoint import MODEL_FILE
+    got = torch.load(rank0 / MODEL_FILE, weights_only=True)
+    want = torch.load(one / MODEL_FILE, weights_only=True)
+    _params_close(got, want, atol=1e-5, lr_sum=lr_sum, share=1e-3)
+
+
+def phase_mesh(work: Path) -> dict:
+    """Data parallelism, two ranks sharing this one card through gloo (no
+    multi-GPU measurement: no scaling is measured here), each rank a
+    process with a time limit:
+
+      (a) the row-sharded exact ``FlatIPIndex`` over 1,000,003 x 768 seeded
+          rows, fp32 / bf16 / dims, searches Q=2048 k=10 and Q=512 k=200:
+          ids and scores equal to the one-process index on this card, at
+          2 gloo ranks and at 1 NCCL rank (its collectives run), kernel #1
+          launched by every rank on every search; each shard's search ms
+          and the [Q, k] all_gather's ms (timed alone on the card);
+      (b) ``cli train`` FirstP at RoBERTa-base width, fp32, dropout 0,
+          global batch 32 (16 a rank), 3 steps, against the one-process
+          ``train`` over the same global batch (accumulation 2, so its
+          micro-batches are the ranks' shapes): losses and gradient norms
+          within MESH_LOSS_RTOL, the parameters bit-equal on the ranks
+          (the CLI checks and reports it) and within the step-parity
+          bound of the one-process checkpoint;
+      (c) ``cli ance-loop`` FirstP, fp32, bootstrap and 2 steps: the
+          bootstrap (dev NDCG, recall, ann MRR, the mined triples) equal
+          to the one-process bootstrap exactly, the step losses within
+          MESH_LOSS_RTOL, kernel #1 launched on every rank;
+      (d) the DPR GradCache step at 2 ranks (BERT-base towers, bf16, batch
+          16, seq 256, accumulation 2, dropout 0: kernels #2 and #3)
+          against the one-process step at accumulation 4 (the same
+          micro-batch shapes): the first loss equal, the gradient norms
+          within MESH_DPR_NORM_RTOL (a gradient off by the rank count is
+          off by 0.5 or 2), parameters within the step-parity bound;
+      (e) what must not run: NCCL with two ranks on one card exits naming
+          ``--dist_backend gloo``; a rank that finds no GPU exits.
+
+    (b) and (c) run at once, as do (d) and (e), each beside its
+    one-process reference in this process: none of them is timed."""
+    import numpy as np
+    import torch
+    from ance_tpu_torch.experiments.mesh_worker import (dpr_batches,
+                                                        loop_probes,
+                                                        loop_summary)
+    from ance_tpu_torch.models.registry import get_model_spec
+    from ance_tpu_torch.optim.schedules import warmup_linear
+    from ance_tpu_torch.train.dpr_trainer import make_dpr_train_step
+    from ance_tpu_torch.train.trainer import init_train_state, make_optimizer
+
+    print("mesh: two ranks sharing one card through gloo (and one NCCL "
+          "rank), not a multi-GPU measurement", flush=True)
+    torch.cuda.empty_cache()  # the earlier phases' cache, for the ranks
+    seconds, result = {}, {}
+    t0 = time.perf_counter()
+    result["index"] = _mesh_index(work)
+    seconds["a_index"] = time.perf_counter() - t0
+    for key, by_rank in result["index"].items():
+        if "/Q" in key:
+            print(f"mesh (a) {key}: " + "; ".join(
+                f"{who} shard {v['shard_ms']:.3f} ms, [Q, k] all_gather "
+                f"{v['gather_ms']:.3f} ms" for who, v in by_rank.items()))
+    print(f"mesh (a) peak GiB by rank {result['index']['peak_gib']}; "
+          f"ids and scores == one process; launches "
+          f"{result['index']['launches']}", flush=True)
+
+    # (b) train: 8 queries x 4 negatives = 32 triples, one global batch;
+    # (c) ance-loop: 16 queries x 2 negatives, over the train passages
+    rs = np.random.RandomState(18)
+    data, loop_data = work / "mesh_train", work / "mesh_loop"
+    for d in (data, loop_data):
+        d.mkdir()
+    for suffix in ("", "_meta"):
+        for name in ("train-query", "passages"):
+            os.symlink(work / "train" / f"{name}{suffix}",
+                       data / f"{name}{suffix}")
+        os.symlink(work / "train" / f"passages{suffix}",
+                   loop_data / f"passages{suffix}")
+    _write_ann(data / "ann", 8, TRAIN_PASSAGES, rs)
+    _write_cache(loop_data / "train-query", MESH_LOOP_QUERIES, QUERY_LEN, 8,
+                 rs)
+    _write_cache(loop_data / "dev-query", MESH_LOOP_DEV, QUERY_LEN, 8, rs)
+    for name, n in (("train", MESH_LOOP_QUERIES), ("dev", MESH_LOOP_DEV)):
+        with open(loop_data / f"{name}-qrel.tsv", "w") as f:
+            for q in range(n):
+                f.write(f"{q}\t{rs.randint(TRAIN_PASSAGES)}\t1\n")
+
+    def loop_argv(out: str, train_batch: int, eval_batch: int) -> list:
+        return ["ance-loop", "--device", "cuda", "--model_name_or_path",
+                str(work / "roberta_base_seeded"), "--data_dir",
+                str(loop_data), "--output_dir", str(work / out),
+                "--max_steps", "2", "--warmup_steps", "2",
+                "--max_seq_length", str(PASSAGE_LEN), "--max_query_length",
+                str(QUERY_LEN), "--per_device_train_batch_size",
+                str(train_batch), "--per_device_eval_batch_size",
+                str(eval_batch), "--encode_slice_size", str(MESH_LOOP_SLICE),
+                "--train_steps_per_slice", "8", "--topk_training", "100",
+                "--negative_sample", "2", "--ann_chunk_factor", "1",
+                "--feed_workers", "0", "--encoder_overrides",
+                json.dumps(MESH_DPR["overrides"])]
+
+    t0 = time.perf_counter()
+    dirs = {}
+    for sub in ("b", "c", "d", "e"):
+        dirs[sub] = work / f"mesh_{sub}"
+        dirs[sub].mkdir()
+    procs_b = _start_ranks(
+        {"out_dir": str(dirs["b"]), "cli": _mesh_train_argv(
+            work, data, "mesh_b_two", MESH_TRAIN_BATCH // MESH_RANKS)
+         + _rank_argv(MESH_RANKS, "gloo")}, dirs["b"] / "job.json",
+        MESH_RANKS)
+    procs_c = _start_ranks(
+        {"out_dir": str(dirs["c"]), "cli": loop_argv("mesh_c_two", 16, 128)
+         + _rank_argv(MESH_RANKS, "gloo")}, dirs["c"] / "job.json",
+        MESH_RANKS)
+    one_b = _cli(_mesh_train_argv(work, data, "mesh_b_one", MESH_TRAIN_BATCH)
+                 + ["--gradient_accumulation_steps", "2"])
+    # the one process encodes 64 rows at a time, as each rank does
+    with loop_probes() as record:
+        _cli(loop_argv("mesh_c_one", 32, 64)
+             + ["--gradient_accumulation_steps", "2"])
+    one_c = loop_summary(record)
+    ranks_b = [_last_json(o) for o, _ in _wait_ranks(procs_b,
+                                                     "mesh (b) train")]
+    peak_b = [r["peak_gib"] for r in _rank_results(dirs["b"], "cli",
+                                                   MESH_RANKS)]
+    _wait_ranks(procs_c, "mesh (c) ance-loop")
+    ranks_c = _rank_results(dirs["c"], "cli", MESH_RANKS)
+    seconds["b_c_train_and_loop"] = time.perf_counter() - t0
+
+    for r, got in enumerate(ranks_b):
+        check(got["dist"] == {"backend": "gloo", "rank": r,
+                              "world": MESH_RANKS, "params_replicated": True},
+              f"mesh (b) rank {r}: {got.get('dist')}")
+        check(got["loss"] == ranks_b[0]["loss"],
+              "mesh (b) ranks' losses differ")
+        check(np.allclose(got["loss"], one_b["loss"], rtol=MESH_LOSS_RTOL,
+                          atol=0), f"mesh (b) losses {got['loss']} vs one "
+              f"process {one_b['loss']}")
+        check(np.allclose(got["grad_norm"], one_b["grad_norm"],
+                          rtol=MESH_LOSS_RTOL, atol=0),
+              f"mesh (b) gradient norms {got['grad_norm']} vs "
+              f"{one_b['grad_norm']}")
+    lr_sum = sum(warmup_linear(1e-4, 2, MESH_TRAIN_STEPS)(i)
+                 for i in range(MESH_TRAIN_STEPS))
+    _mesh_params_close(Path(ranks_b[0]["checkpoint"]),
+                       Path(one_b["checkpoint"]), lr_sum)
+    result["train"] = {"losses": ranks_b[0]["loss"],
+                       "one_process": one_b["loss"],
+                       "grad_norm": ranks_b[0]["grad_norm"],
+                       "one_process_grad_norm": one_b["grad_norm"],
+                       "peak_gib": peak_b}
+    print(f"mesh (b) train 2 ranks: losses {ranks_b[0]['loss']} vs one "
+          f"process {one_b['loss']}; gradient norms "
+          f"{ranks_b[0]['grad_norm']} vs {one_b['grad_norm']}; parameters "
+          f"bit-equal on the ranks and within the step-parity bound; peak "
+          f"GiB by rank {peak_b}", flush=True)
+
+    boot = one_c["bootstrap"]
+    check(boot["num_triples"] == MESH_TRAIN_BATCH,
+          f"mesh (c) {boot['num_triples']} triples, not one global batch")
+    for r, got in enumerate(ranks_c):
+        for key in ("dev_ndcg", "dev_recall", "ann_mrr", "num_triples"):
+            check(got["bootstrap"][key] == boot[key],
+                  f"mesh (c) rank {r} bootstrap {key} "
+                  f"{got['bootstrap'][key]} != one process {boot[key]}")
+        check(got["triples"] == one_c["triples"],
+              f"mesh (c) rank {r}: mined triples differ")
+        check(got["losses"] == ranks_c[0]["losses"],
+              "mesh (c) ranks' losses differ")
+        check(np.allclose(got["losses"], one_c["losses"],
+                          rtol=MESH_LOSS_RTOL, atol=0),
+              f"mesh (c) losses {got['losses']} vs {one_c['losses']}")
+        check(got["launches"].get("blockmax_pieces_f32", 0) >= 2,
+              f"mesh (c) rank {r}: kernel #1 launches {got['launches']}")
+    result["ance_loop"] = {
+        "bootstrap": {k: boot[k] for k in ("dev_ndcg", "dev_recall",
+                                          "ann_mrr", "num_triples")},
+        "losses": ranks_c[0]["losses"], "one_process": one_c["losses"],
+        "launches": {f"rank{r}": g["launches"]
+                     for r, g in enumerate(ranks_c)},
+        "one_process_launches": one_c["launches"],
+        "peak_gib": [g["peak_gib"] for g in ranks_c]}
+    print(f"mesh (c) ance-loop 2 ranks: bootstrap == one process "
+          f"{result['ance_loop']['bootstrap']}, triples equal; losses "
+          f"{ranks_c[0]['losses']} vs {one_c['losses']}; #1 launches "
+          f"{result['ance_loop']['launches']}; peak GiB by rank "
+          f"{result['ance_loop']['peak_gib']}", flush=True)
+
+    # (d) the DPR GradCache step, beside (e) the refusals
+    t0 = time.perf_counter()
+    spec = dict(MESH_DPR, case="dpr_full",
+                params_out=str(dirs["d"] / "params.pt"))
+    procs_d = _start_ranks(
+        {"init_method": f"tcp://127.0.0.1:{_free_port()}",
+         "world": MESH_RANKS, "device": "cuda", "backend": "gloo",
+         "timeout_s": MESH_RANK_TIMEOUT_S, "out_dir": str(dirs["d"]),
+         "cases": [spec]}, dirs["d"] / "job.json", MESH_RANKS)
+    refuse = _mesh_train_argv(work, data, "mesh_e", 16)
+    procs_nccl = _start_ranks(
+        {"out_dir": str(dirs["e"]),
+         "cli": refuse + _rank_argv(MESH_RANKS, "nccl")},
+        dirs["e"] / "nccl.json", MESH_RANKS)
+    procs_no_gpu = _start_ranks(
+        {"out_dir": str(dirs["e"]),
+         "cli": refuse + _rank_argv(MESH_RANKS, "gloo")},
+        dirs["e"] / "nogpu.json", 1,
+        dict(_rank_env(), CUDA_VISIBLE_DEVICES=""))
+    dev = torch.device("cuda")
+    model = get_model_spec("dpr").build(
+        dtype=torch.bfloat16, config_overrides=MESH_DPR["overrides"],
+        seed=MESH_DPR["seed"]).to(dev)
+    opt = MESH_DPR["opt"]
+    state = init_train_state(model, make_optimizer(
+        model, opt["name"], opt["lr"], weight_decay=opt["weight_decay"],
+        max_grad_norm=opt["max_grad_norm"]))
+    step = make_dpr_train_step(accum_steps=MESH_RANKS * MESH_DPR["accum"])
+    gen = torch.Generator().manual_seed(MESH_DPR["seed"])
+    losses, norms = [], []
+    for batch in dpr_batches(MESH_DPR):
+        state, m = step(state, batch, gen)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    one_d = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model, state
+    torch.cuda.empty_cache()
+    _wait_ranks(procs_d, "mesh (d) dpr")
+    ranks_d = _rank_results(dirs["d"], "dpr_full", MESH_RANKS)
+    outs_nccl = _wait_ranks(procs_nccl, "mesh (e) nccl on one card",
+                            expect_ok=False)
+    outs_no_gpu = _wait_ranks(procs_no_gpu, "mesh (e) no GPU",
+                              expect_ok=False)
+    seconds["d_e_dpr_and_refusals"] = time.perf_counter() - t0
+
+    want = 12 * 2 * MESH_DPR["accum"] * 2 * MESH_DPR["n_steps"]
+    for r, got in enumerate(ranks_d):
+        check(got["loss"] == ranks_d[0]["loss"], "mesh (d) losses differ")
+        check(got["loss"][0] == losses[0], f"mesh (d) rank {r} first loss "
+              f"{got['loss'][0]} != one process {losses[0]}")
+        check(np.allclose(got["loss"], losses, rtol=MESH_LOSS_RTOL, atol=0),
+              f"mesh (d) losses {got['loss']} vs {losses}")
+        check(np.allclose(got["grad_norm"], norms, rtol=MESH_DPR_NORM_RTOL,
+                          atol=0), f"mesh (d) gradient norms "
+              f"{got['grad_norm']} vs one process {norms}")
+        # a step: each micro-batch's towers twice forward (GradCache), once
+        # backward, 12 layers each
+        check(sum(got["fused_forward"].values()) == want
+              and sum(got["fused_backward"].values()) == want // 2,
+              f"mesh (d) rank {r}: #2 {got['fused_forward']} / #3 "
+              f"{got['fused_backward']}, not {want} / {want // 2}")
+    _params_close(torch.load(dirs["d"] / "params.pt", weights_only=True),
+                  one_d, atol=1e-5, lr_sum=opt["lr"] * MESH_DPR["n_steps"],
+                  share=1e-3)
+    result["dpr"] = {"losses": ranks_d[0]["loss"], "one_process": losses,
+                     "grad_norm": ranks_d[0]["grad_norm"],
+                     "one_process_grad_norm": norms,
+                     "fused_forward": {f"rank{r}": g["fused_forward"]
+                                       for r, g in enumerate(ranks_d)},
+                     "fused_backward": {f"rank{r}": g["fused_backward"]
+                                        for r, g in enumerate(ranks_d)},
+                     "peak_gib": {f"rank{r}": g["peak_gib"]
+                                  for r, g in enumerate(ranks_d)},
+                     "rank_seconds": ranks_d[0]["seconds"]}
+    print(f"mesh (d) DPR GradCache 2 ranks: losses {ranks_d[0]['loss']} vs "
+          f"one process {losses}; gradient norms {ranks_d[0]['grad_norm']} "
+          f"vs {norms}; #2 / #3 {result['dpr']['fused_forward']} / "
+          f"{result['dpr']['fused_backward']}; peak GiB "
+          f"{result['dpr']['peak_gib']}", flush=True)
+    check(all("--dist_backend gloo" in err for _, err in outs_nccl),
+          "mesh (e) NCCL's refusal does not name --dist_backend gloo: "
+          + outs_nccl[0][1][-2000:])
+    check("CUDA is not available" in outs_no_gpu[0][1],
+          "mesh (e) a rank with no GPU: " + outs_no_gpu[0][1][-2000:])
+    result["seconds"] = seconds
+    print(f"mesh (e) NCCL on one card refused naming --dist_backend gloo; "
+          f"a rank with no GPU exits; sub-phase seconds {seconds}",
+          flush=True)
+    check(no_reference_modules(), "the port imported jax or ance_tpu")
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -5481,6 +5928,10 @@ def main() -> int:
         ance_loop = phase_ance_loop(work, generate, train)
         dpr = phase_dpr(work)
         seed = phase_seed(work)
+        t0 = time.perf_counter()
+        mesh = phase_mesh(work)
+        mesh["seconds"]["total"] = time.perf_counter() - t0
+        print(f"mesh: {mesh['seconds']['total']:.1f} s", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     parity = phase_step_parity()
@@ -5559,7 +6010,10 @@ def main() -> int:
         "ivf_phase": ivf["blockmax_kernels"],
         **{name: g["blockmax_kernels"]
            for name, g in dpr["generate"].items()},
-        "seed_serve": seed["serve_blockmax_kernels"]}
+        "seed_serve": seed["serve_blockmax_kernels"],
+        # by rank (two gloo ranks sharing the card; one NCCL rank)
+        "mesh_index": mesh["index"]["launches"],
+        "mesh_ance_loop": mesh["ance_loop"]["launches"]}
     fp32_entries = []
     for kernel, dtypes, launches in (
             ("blockmax_pieces_f32", "f32xf32",
@@ -5580,6 +6034,9 @@ def main() -> int:
             for name, g in dpr["generate"].items()},
             "ivf_phase": ivf["blockmax_kernels"].get(kernel, 0)}
         if kernel == "blockmax_pieces_f32":
+            e["launches_by_path"]["mesh_ance_loop"] = {
+                rank: n.get(kernel, 0) for rank, n in
+                mesh["ance_loop"]["launches"].items()}
             e["launches_by_path"]["warmup_generate"] = \
                 warmup["blockmax_kernels"][kernel]
             e["launches_by_path"]["seed_generate"] = \
@@ -5665,7 +6122,9 @@ def main() -> int:
             "fused_fwd_bf16"],
         "dpr_generate_dims": dpr["generate"]["dpr_generate_dims"][
             "fused_forward"]["fused_fwd_bf16"],
-        "seed_pretrain": seed["pretrain_fused_forward"]["fused_fwd_bf16"]}
+        "seed_pretrain": seed["pretrain_fused_forward"]["fused_fwd_bf16"],
+        "mesh_dpr": {rank: n.get("fused_fwd_bf16", 0) for rank, n in
+                     mesh["dpr"]["fused_forward"].items()}}
     fused_fwd["dpr_path_operands"] = dpr["train_path"]["forward"]
     fused_fwd["seed_path_operands"] = seed["pretrain_path"]["forward"]
     fused_bwd = entry("fused_attention_bwd", "fused_attention",
@@ -5677,7 +6136,9 @@ def main() -> int:
         "maxp_train": train["maxp"]["fused_backward_launches"],
         "ance_loop_maxp": ance_loop["maxp"]["fused_backward"],
         "dpr_train": dpr["train_fused_backward"]["fused_bwd_bf16"],
-        "seed_pretrain": seed["pretrain_fused_backward"]["fused_bwd_bf16"]}
+        "seed_pretrain": seed["pretrain_fused_backward"]["fused_bwd_bf16"],
+        "mesh_dpr": {rank: n.get("fused_bwd_bf16", 0) for rank, n in
+                     mesh["dpr"]["fused_backward"].items()}}
     fused_bwd["dpr_path_operands"] = dpr["train_path"]["backward"]
     fused_bwd["seed_path_operands"] = seed["pretrain_path"]["backward"]
     print(json.dumps({"kernels": [
@@ -5694,7 +6155,7 @@ def main() -> int:
         "step_parity": parity,
         "mirror_encoder": mirror,
         "generate": generate, "warmup": warmup, "ance_loop": ance_loop,
-        "dpr": dpr, "seed": seed, "topk_int8": topk_int8}))
+        "dpr": dpr, "seed": seed, "topk_int8": topk_int8, "mesh": mesh}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

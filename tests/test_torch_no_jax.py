@@ -3,9 +3,10 @@ of the JAX package, while it preprocesses, warms up, exports, serves,
 trains, generates, serves through IVF (``serve --index ivf``) and HNSW,
 runs the pipelined refresh (``ance-loop``), the DPR
 commands (``preprocess-dpr``, ``train --num_epoch``, ``generate-dpr``,
-``export-hf --model_type dpr``) and SEED's (the seed-wordpiece tokenizer,
+``export-hf --model_type dpr``), SEED's (the seed-wordpiece tokenizer,
 ``preprocess --model_type seeddot_nll``, ``seed-pretrain``, ``export-hf
---model_type seeddot_nll``). Checked in a fresh interpreter, because
+--model_type seeddot_nll``) and data parallelism (``core/mesh.py``, a
+one-rank group through ``experiments/mesh_worker.py``). Checked in a fresh interpreter, because
 this test process already has jax (tests/conftest.py imports it)."""
 
 import os
@@ -284,6 +285,20 @@ SCRIPT = textwrap.dedent("""
           f"{d}/dpr_ckpt", "--out_dir", f"{d}/dpr_export"])
     assert "model_dict" in torch.load(f"{d}/dpr_export/checkpoint-2",
                                       weights_only=True)
+    # data parallelism: a one-rank gloo group through the rank worker, its
+    # row-sharded index searched and saved
+    from ance_tpu_torch.experiments import mesh_worker
+    np.savez(f"{d}/mesh.npz", corpus=rs.randn(11, 4).astype(np.float32),
+             queries=rs.randn(2, 4).astype(np.float32))
+    os.mkdir(f"{d}/mesh_out")
+    json.dump({"init_method": f"file://{d}/rendezvous", "world": 1,
+               "out_dir": f"{d}/mesh_out", "cases": [
+                   {"case": "flat", "data": f"{d}/mesh.npz",
+                    "modes": ["none", "dims"], "ks": [3], "slice_rows": 4,
+                    "save_dir": d}]}, open(f"{d}/job.json", "w"))
+    assert mesh_worker.main([f"{d}/job.json", "0"]) == 0
+    assert os.path.exists(f"{d}/mesh_out/flat_rank0.pt")
+    assert os.path.exists(f"{d}/dims.npz")
     assert "jax" not in sys.modules, "the port pulled in jax"
     assert "flax" not in sys.modules
     assert "msgpack" not in sys.modules

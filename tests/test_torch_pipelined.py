@@ -422,7 +422,8 @@ def test_schedule_interleaves_all_generator_work(tmp_path):
 
 def test_zero_steps_zero_triples_and_one_device(tmp_path):
     """``run(0)`` is a no-op (no bootstrap); a cycle that mines no triple
-    raises instead of re-encoding forever; more than one host raises."""
+    raises instead of re-encoding forever; more than one host without a
+    mesh raises."""
     cfg = dict(SMALL, encode_slice_size=64, search_chunk_queries=64)
     loop = _port_task(tmp_path, **cfg)
     loop.run(0)
@@ -430,7 +431,7 @@ def test_zero_steps_zero_triples_and_one_device(tmp_path):
     loop.train_positive = {}  # no train qrels: no triple can be built
     with pytest.raises(RuntimeError, match="zero training triples"):
         loop.bootstrap()
-    with pytest.raises(ValueError, match="Queue 1 #11"):
+    with pytest.raises(ValueError, match="requires a mesh"):
         _port_task(tmp_path / "b", **dict(cfg, num_hosts=2))
 
 

@@ -137,14 +137,16 @@ def test_pretrain_step_matches_jax(tmp_path, opt):
 
 
 def test_multi_host_is_refused(tmp_path):
-    from ance_tpu_torch.train.seed_pretrain import (SeedPretrainConfig,
-                                                    run_seed_pretrain)
-    with TokenCache(_cache(tmp_path / "c")) as cache:
-        with pytest.raises(ValueError, match="Queue 1 #11"):
-            run_seed_pretrain(SeedPretrainConfig(num_hosts=2), state=None,
-                              train_step=None, cache=cache,
-                              generator=torch.Generator(), mask_token_id=60,
-                              vocab_size=61, special_ids=[0])
+    """More than one process without data parallelism exits before any
+    process group starts, with ``ance seed-pretrain``'s message: each rank
+    would train its own diverging replica."""
+    from ance_tpu_torch.cli import main
+    with pytest.raises(SystemExit, match="requires data parallelism"):
+        main(["seed-pretrain", "--device", "cpu", "--model_name_or_path",
+              str(tmp_path), "--data_dir", str(tmp_path), "--output_dir",
+              str(tmp_path / "out"), "--num_processes", "2",
+              "--process_id", "0", "--coordinator_address",
+              "127.0.0.1:1", "--no_data_parallel"])
 
 
 TINY = json.dumps({"num_layers": 2, "hidden_size": 32, "num_heads": 4,

@@ -119,3 +119,28 @@ def test_failed_build_raises(tmp_path, monkeypatch, vocab_file):
     assert tok.encode("the quick fox") == \
         jwp.WordPieceTokenizer.from_vocab_file(str(dup)).encode(
             "the quick fox")
+
+
+CONTROL_TEXTS = ["del\x7fin the middle", "nul\x00in the middle",
+                 "\x00leading nul", "trailing del\x7f", "a\x00\x7f\x01b c",
+                 "x\x00" * 30, "bell\x07 and escape\x1b[1m"]
+
+
+def test_native_core_drops_del_and_nul_as_python(vocab_file):
+    """DEL (127, category Cc) and NUL are dropped by the Python path; the
+    C++ core now drops them too (DEL as a control byte, NUL no longer the
+    end of the text, whose byte count is passed in), on its own and
+    through the tokenizer, which routes such ASCII text to it."""
+    native = pwp.WordPieceTokenizer.from_vocab_file(vocab_file)
+    python = pwp.WordPieceTokenizer.from_vocab_file(vocab_file,
+                                                    native=False)
+    assert native.core == "native"
+    rnd = random.Random(2)
+    fuzz = ["".join(rnd.choice("ab c,\x00\x7f\x1f") for _ in range(40))
+            for _ in range(100)]
+    for text in CONTROL_TEXTS + fuzz:
+        want = [python.vocab.get(p, python.unk_token_id)
+                for w in pwp.basic_tokenize(text, python.lowercase)
+                for p in pwp.wordpiece(w, python.vocab, python.unk_token)]
+        assert native._native.encode(text) == want, repr(text)
+        assert native.encode(text) == python.encode(text), repr(text)
