@@ -16,8 +16,14 @@ CLI's processes are hosts): start one process a rank with
 rank r runs on ``cuda:(r % device_count)``. ``--dist_backend`` (only
 here) picks NCCL (the default on CUDA) or gloo (the CPU's, and that of
 ranks that share a card); each rank prints ``{"dist": ...}`` naming it
-first. ``generate``, ``infer`` and ``generate-dpr`` take
-``--tensor_parallel`` 1 only (ROADMAP Queue 1, ``core/tp.py``).
+first. ``generate``, ``infer`` and ``generate-dpr`` take the same rank
+flags and run over a (data, model) grid of the ranks, as the JAX CLI runs
+them over its chips: the encode is sharded over the data axis and, with
+``--tensor_parallel`` tp > 1 (which must divide the ranks; attention
+``xla`` or ``xla_bf16``), the encoder's weights Megatron-style over tp
+model ranks (``core/tp.py``); the index is row-sharded over the data axis
+and replicated over the model axis, and global rank 0 alone writes. One
+process runs on one device whatever tp says (the JAX CLI on one chip).
 
 ``preprocess`` turns raw MS MARCO TSVs into token caches, id maps and
 offset-space qrels over ``--num_processes`` spawned workers and prints the
@@ -493,11 +499,59 @@ def _ranks_agree(mesh, model) -> None:
         mesh.barrier()
 
 
-def _check_tensor_parallel(args) -> None:
-    if args.tensor_parallel != 1:
-        raise SystemExit(f"--tensor_parallel {args.tensor_parallel}: the "
-                         "port runs tensor parallelism 1 only; core/tp.py "
-                         "is queued in ROADMAP Queue 1")
+def _eval_grid(args):
+    """(device, data axis, model axis) of a generator command
+    (``ance_tpu/cli.py``'s ``_eval_mesh``): one device, with no axes, for
+    one process; else this rank's card and its place in a (data, model)
+    grid of ``--num_processes`` ranks, tp = ``--tensor_parallel`` model
+    ranks a data rank (model axis None at tp 1). An eval batch that does
+    not split over the data ranks runs whole and unsharded on every rank
+    (a data axis of one rank each, no model axis), as the JAX CLI falls
+    back to one device. Prints ``{"dist": ...}`` when a group starts."""
+    import dataclasses
+    from ance_tpu_torch.core.mesh import initialize_distributed, make_mesh
+    from ance_tpu_torch.core.tp import make_mesh_2d
+    from ance_tpu_torch.utils.device import resolve_device
+    device = resolve_device(args.device)
+    world, tp = args.num_processes or 1, max(1, args.tensor_parallel)
+    if world > 1 and world % tp:
+        raise SystemExit(f"--tensor_parallel {tp} does not divide "
+                         f"{world} devices")
+    initialize_distributed(args.coordinator_address, args.num_processes,
+                           args.process_id, device=device,
+                           backend=args.dist_backend)
+    mesh = make_mesh(device)
+    if mesh is None:
+        return device, None, None
+    dp = world // tp
+    model_axis = None
+    if args.per_device_eval_batch_size % dp:
+        print(f"WARNING: eval batch {args.per_device_eval_batch_size} not "
+              f"divisible by {dp} data-parallel ranks; every rank encodes "
+              "it whole, and rank 0 writes", file=sys.stderr, flush=True)
+        data_axis = dataclasses.replace(mesh, rank=0, world=1,
+                                        global_rank=mesh.rank)
+    elif tp > 1:
+        data_axis, model_axis = make_mesh_2d(tp, dp, device=device)
+    else:
+        data_axis = mesh
+    print(json.dumps({"dist": {
+        "backend": mesh.backend, "rank": mesh.rank, "world": mesh.world,
+        "device": str(mesh.device), "data": data_axis.rank,
+        "model": model_axis.rank if model_axis else 0,
+        "tp": model_axis.world if model_axis else 1}}), flush=True)
+    return mesh.device, data_axis, model_axis
+
+
+def _build_eval_model(args, device, model_axis):
+    """:func:`_build_model` for a generator command, the encoder's weights
+    sharded over ``model_axis`` (``core/tp.py``) when there is one."""
+    spec, model, _, ckpt_path = _build_model(args, device, warn_random=False)
+    if model_axis is not None:
+        from ance_tpu_torch.core.tp import shard_params_tp, validate_tp
+        validate_tp(model.config, model_axis)
+        shard_params_tp(model, model_axis)
+    return spec, model, ckpt_path
 
 
 def _make_training(args, model, spec, mesh=None):
@@ -719,20 +773,19 @@ def cmd_train(args):
 
 def cmd_generate(args, inference_only: bool = False):
     """One generator pass (``ance generate``; ``infer`` with
-    ``inference_only``) with the weights :func:`_build_model` loads. The
-    handoff files cite the checkpoint directory they came from, or
-    ``<init>`` when they came from no checkpoint."""
+    ``inference_only``) with the weights :func:`_build_model` loads, on
+    one device or over a grid of ranks (:func:`_eval_grid`). The handoff
+    files cite the checkpoint directory they came from, or ``<init>`` when
+    they came from no checkpoint."""
     import numpy as np
     from ance_tpu_torch.data.cache import TokenCache
     from ance_tpu_torch.train.ance_loop import (load_offset_qrels,
                                                 positives_from_qrels)
     from ance_tpu_torch.train.ann_gen import AnnGenConfig, generate_new_ann
     from ance_tpu_torch.train.encode import make_encode_fn
-    from ance_tpu_torch.utils.device import resolve_device
 
-    _check_tensor_parallel(args)
-    device = resolve_device(args.device)
-    spec, model, _, ckpt_path = _build_model(args, device, warn_random=False)
+    device, mesh, model_axis = _eval_grid(args)
+    spec, model, ckpt_path = _build_eval_model(args, device, model_axis)
     qfn = make_encode_fn(model, type(model).query_emb, device)
     bfn = make_encode_fn(model, _body_method(model, spec), device)
     gen_cfg = AnnGenConfig(topk_training=args.topk_training,
@@ -755,7 +808,7 @@ def cmd_generate(args, inference_only: bool = False):
             train_query_cache=train_c,
             training_query_positive_id=positives_from_qrels(train_qrels),
             dev_query_positive_id=dev_qrels, output_dir=args.output_dir,
-            device=device, inference_only=inference_only)
+            device=device, inference_only=inference_only, mesh=mesh)
     if not inference_only:
         print(json.dumps({"dev_ndcg": result["dev_ndcg"],
                           "ann_mrr": result["ann_mrr"],
@@ -767,23 +820,25 @@ def cmd_generate(args, inference_only: bool = False):
     # stops after the encode, run_ann_data_gen.py:256-257): the passages as
     # the index holds them, as ``ance infer`` writes them
     from ance_tpu_torch.evaluation.offline import save_embedding_shard
-    os.makedirs(args.output_dir, exist_ok=True)
-    prefix = os.path.join(args.output_dir, f"step{args.output_num}")
     index = result["index"]
-    paths = {
-        "passages": save_embedding_shard(
-            prefix + "_passage_emb_p_", index._emb[:index.ntotal].cpu()
-            .numpy()),
-        "passage_ids": save_embedding_shard(
-            prefix + "_passage_embid_p_",
-            np.asarray(result["passage_embedding2id"])),
-        "dev_query": save_embedding_shard(
-            prefix + "_dev_query_emb_p_", result["dev_query_embedding"]),
-        "dev_query_ids": save_embedding_shard(
-            prefix + "_dev_query_embid_p_",
-            result["dev_query_embedding2id"]),
-    }
-    print(json.dumps(paths))
+    # the index's rows, gathered from every data rank's shard
+    passages = index._global_rows(index._emb).cpu().numpy()
+    prefix = os.path.join(args.output_dir, f"step{args.output_num}")
+    arrays = {
+        "passages": ("_passage_emb_p_", passages),
+        "passage_ids": ("_passage_embid_p_",
+                        np.asarray(result["passage_embedding2id"])),
+        "dev_query": ("_dev_query_emb_p_", result["dev_query_embedding"]),
+        "dev_query_ids": ("_dev_query_embid_p_",
+                          result["dev_query_embedding2id"])}
+    if mesh is None or mesh.writer:
+        os.makedirs(args.output_dir, exist_ok=True)
+        for suffix, a in arrays.values():
+            save_embedding_shard(prefix + suffix, a)
+    if mesh is not None:
+        mesh.barrier()  # the shards are whole before any rank goes on
+    print(json.dumps({k: f"{prefix}{suffix}_data_obj_0.npy"
+                      for k, (suffix, _) in arrays.items()}))
 
 
 def cmd_preprocess_dpr(args):
@@ -807,19 +862,18 @@ def cmd_generate_dpr(args):
     """One DPR generator pass (``ance generate-dpr``) with the weights
     :func:`_build_model` loads: the test questions' top-k hit curves, the
     train questions' answer-filtered negatives, then
-    ``ann_training_data_<n>`` and ``ann_ndcg_<n>``. The test answers come
-    from ``{data_dir}/test-ann`` where it exists, else ``--test_qas``."""
+    ``ann_training_data_<n>`` and ``ann_ndcg_<n>``, on one device or over
+    a grid of ranks (:func:`_eval_grid`). The test answers come from
+    ``{data_dir}/test-ann`` where it exists, else ``--test_qas``."""
     from ance_tpu_torch.data.cache import TokenCache
     from ance_tpu_torch.data.dpr import (load_answers, load_mapping,
                                          load_passage_texts,
                                          load_positive_ids, load_qas_answers)
     from ance_tpu_torch.train.dpr_gen import generate_new_ann_dpr
     from ance_tpu_torch.train.encode import make_encode_fn
-    from ance_tpu_torch.utils.device import resolve_device
 
-    _check_tensor_parallel(args)
-    device = resolve_device(args.device)
-    spec, model, _, ckpt_path = _build_model(args, device, warn_random=False)
+    device, mesh, model_axis = _eval_grid(args)
+    spec, model, ckpt_path = _build_eval_model(args, device, model_axis)
     pid2offset, _ = load_mapping(args.data_dir, "pid2offset")
     raw = load_passage_texts(args.wiki_path)
     passage_texts = {pid2offset[p]: t for p, t in raw.items()
@@ -850,7 +904,7 @@ def cmd_generate_dpr(args):
             topk_training=args.topk_training,
             negative_sample=args.negative_sample,
             encode_batch_size=args.per_device_eval_batch_size,
-            index_quantize=args.index_quantize)
+            index_quantize=args.index_quantize, mesh=mesh)
     print(json.dumps({k: result[k] for k in (
         "top20", "top100", "top20_trivia", "top100_trivia", "data_path",
         "ndcg_path", "seconds")} | {"checkpoint": ckpt_path or "<init>"}))
@@ -1202,6 +1256,10 @@ def _add_train_flags(p):
     p.add_argument("--data_parallel", action="store_true", default=True)
     p.add_argument("--no_data_parallel", dest="data_parallel",
                    action="store_false")
+    _add_dist_flags(p)
+
+
+def _add_dist_flags(p):
     # one process a rank, a rank one card (the reference's per-GPU
     # torch.distributed.launch, run_ann.py:603-646)
     p.add_argument("--coordinator_address", default=None,
@@ -1358,8 +1416,10 @@ def build_parser() -> argparse.ArgumentParser:
                        help="an int8 corpus index (per-dimension scales)")
         p.add_argument("--per_device_eval_batch_size", type=int, default=128)
         p.add_argument("--tensor_parallel", type=int, default=1,
-                       help="1 only: the port has no tensor parallelism "
-                            "yet")
+                       help="shard the encoder weights Megatron-style over "
+                            "this many ranks (core/tp.py); requires "
+                            "--attention xla and divisible head counts")
+        _add_dist_flags(p)
         p.set_defaults(fn=lambda a, inf=inference: cmd_generate(a, inf))
 
     p = sub.add_parser("generate-dpr",
@@ -1386,7 +1446,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "quarter of the fp32 index's bytes")
     p.add_argument("--per_device_eval_batch_size", type=int, default=128)
     p.add_argument("--tensor_parallel", type=int, default=1,
-                   help="1 only: the port has no tensor parallelism yet")
+                   help="shard the encoder weights Megatron-style over "
+                        "this many ranks (core/tp.py)")
+    _add_dist_flags(p)
     p.set_defaults(fn=cmd_generate_dpr)
 
     p = sub.add_parser("ance-loop",

@@ -18,6 +18,13 @@ world, device, backend) stands wherever the JAX package passes its ``Mesh``;
     sharded over the ranks; each rank searches its shard and the [Q, k]
     candidates are gathered and merged.
 
+A mesh may be one axis of a larger grid of ranks: ``group`` is then its
+process group and ``rank`` / ``world`` count within it (the data axis of
+``core/tp.py``'s (data, model) grid). ``global_rank`` stays the process's
+rank in the whole job: the one writer of hand-off files is global rank 0
+(:attr:`DataMesh.writer`), never "rank 0 of an axis", which every model
+group has; and :meth:`DataMesh.barrier` fences all the job's ranks.
+
 The backend is explicit: NCCL on CUDA and gloo on the CPU by default, or as
 ``--dist_backend`` asks. NCCL runs one rank a card and fails on two ranks
 that share one; :func:`initialize_distributed` says so first, naming gloo,
@@ -49,41 +56,56 @@ _OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
 
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
-    """The ranks of one data-parallel job, as this rank sees them."""
+    """The ranks of one data-parallel job, or of one axis of a grid of
+    ranks, as this rank sees them (module docstring)."""
 
     rank: int
     world: int
     device: torch.device
     backend: str
+    group: Optional[object] = None  # None: the whole job's group
+    global_rank: Optional[int] = None  # None: ``rank``
 
     @property
     def size(self) -> int:
         """Devices on the data axis (``jax.sharding.Mesh.size``)."""
         return self.world
 
+    @property
+    def writer(self) -> bool:
+        """Whether this rank writes the job's files: global rank 0 only."""
+        return (self.rank if self.global_rank is None
+                else self.global_rank) == 0
+
     def _staged(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.device.type != "cpu"
+
+    def _all_reduce(self, t: torch.Tensor, op: str, group) -> None:
+        buf = t.cpu() if self._staged(t) else t
+        dist.all_reduce(buf, op=_OPS[op], group=group)
+        if buf is not t:
+            t.copy_(buf)
 
     def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Reduce ``t`` in place over the ranks (``sum``, ``mean``, ``max``
         or ``min``); every rank ends with the same values."""
-        buf = t.cpu() if self._staged(t) else t
-        dist.all_reduce(buf, op=_OPS[op])
-        if buf is not t:
-            t.copy_(buf)
+        if self.world > 1:
+            self._all_reduce(t, op, self.group)
         if op == "mean":
             t.div_(self.world)
         return t
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """[world, *t.shape]: every rank's ``t``, in rank order."""
+        if self.world == 1:
+            return t[None]
         src = t.contiguous().reshape(-1)
         if t.dtype in _AS_BYTES:  # types gloo does not take: their bytes
             src = src.view(torch.uint8)
         if self._staged(src):
             src = src.cpu()
         out = src.new_empty((self.world, src.numel()))
-        dist.all_gather(list(out.unbind(0)), src)
+        dist.all_gather(list(out.unbind(0)), src, group=self.group)
         return out.to(t.device).view(t.dtype).reshape(
             (self.world,) + tuple(t.shape))
 
@@ -92,9 +114,13 @@ class DataMesh:
         return self.all_gather(t).reshape((-1,) + tuple(t.shape[1:]))
 
     def barrier(self) -> None:
-        """Returns on every rank once all have reached it (a reduction the
-        host waits for)."""
-        float(self.all_reduce_(torch.zeros(1, device=self.device)))
+        """Returns on every rank of the job, this axis's and every other's,
+        once all have reached it (a reduction the host waits for): it
+        fences the writer's files."""
+        flag = torch.zeros(1, device=self.device)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            self._all_reduce(flag, "sum", None)
+        float(flag)
 
     def block(self, n: int) -> slice:
         """This rank's contiguous rows of an ``n``-row global batch."""

@@ -26,11 +26,16 @@ run and the JAX package. The cases:
     tokenizer;
   * ``index_1m``: the chip smoke's sharded exact index over a corpus made
     on the card from a seed (kernel #1 a shard, timed, launches counted);
-  * ``dpr_full``: DPR GradCache steps of seeded BERT-base towers.
+  * ``dpr_full``: DPR GradCache steps of seeded BERT-base towers;
+  * ``tp``: the tensor-parallel encode and one SGD step of a pickled model
+    on a (data, model) grid of the ranks (``core/tp.py``);
+  * ``dryrun``: ``graft_entry.dryrun_multichip``'s contents on this rank.
 
 A command line runs under probes that record what it did: the pipelined
-loop's bootstrap entry, its mined triples and step losses, kernel #1's
-launches and the card's peak memory (``<out_dir>/cli_rank<r>.pt``).
+loop's bootstrap entry, its mined triples and step losses; a generator's
+ranked ids, metrics and index rows; the parameter shapes tensor
+parallelism left on the rank; kernel #1's launches and the card's peak
+memory (``<out_dir>/cli_rank<r>.pt``).
 """
 
 from __future__ import annotations
@@ -389,10 +394,70 @@ def dpr_batches(spec: dict) -> list[dict]:
     return out
 
 
+def _full(t: torch.Tensor, spec: tuple, model_axis) -> torch.Tensor:
+    """A parameter (or its gradient) whole again: the model ranks' slices
+    gathered and joined along the dimension ``spec`` splits."""
+    from ance_tpu_torch.core.tp import MODEL_AXIS
+    if MODEL_AXIS not in spec:
+        return t.detach().clone()
+    return torch.cat(model_axis.all_gather(t.detach()).unbind(0),
+                     dim=spec.index(MODEL_AXIS))
+
+
+def case_tp(mesh, spec: dict) -> dict:
+    """A pickled model sharded over a grid of ``spec['tp']`` model ranks
+    (``core/tp.py``): the encode of every global batch of ``batches`` (this
+    rank's data block, gathered over the data axis), then one SGD step
+    (lr ``spec['lr']``) on the loss sum(emb²) over the first batch, its
+    gradients summed over the data axis. Returns the embeddings, the
+    loss, every parameter and gradient whole, and each parameter's shape
+    on this rank."""
+    from ance_tpu_torch.core.tp import (encoder_param_shardings,
+                                        make_mesh_2d, shard_params_tp,
+                                        validate_tp)
+    data_axis, model_axis = make_mesh_2d(spec["tp"], device=mesh.device)
+    model = torch.load(spec["model"], weights_only=False).to(mesh.device)
+    validate_tp(model.config, model_axis)
+    shard_params_tp(model, model_axis)
+    specs = encoder_param_shardings(model)
+    method = getattr(type(model), spec.get("method", "body_emb"))
+    with np.load(spec["batches"]) as z:
+        ids, mask = (torch.as_tensor(z[k], device=mesh.device)
+                     for k in ("ids", "mask"))
+    own = data_axis.block(ids.shape[0])
+    out = {"rank": mesh.rank, "data": data_axis.rank,
+           "model": model_axis.rank,
+           "local_shapes": {n: tuple(p.shape)
+                            for n, p in model.named_parameters()}}
+    with torch.no_grad():
+        out["emb"] = data_axis.gather_rows(method(model, ids[own],
+                                                  mask[own])).cpu()
+    model.zero_grad()
+    loss = (method(model, ids[own], mask[own]) ** 2).sum()
+    loss.backward()
+    params = dict(model.named_parameters())
+    data_axis.all_reduce_grads_([p.grad for p in params.values()],
+                                op="sum")
+    out["loss"] = float(data_axis.all_reduce_(loss.detach().clone()))
+    out["grads"] = {n: _full(p.grad, specs[n], model_axis).cpu()
+                    for n, p in params.items()}
+    with torch.no_grad():
+        for p in params.values():
+            p.sub_(spec["lr"] * p.grad)
+    out["params"] = {n: _full(p, specs[n], model_axis).cpu()
+                     for n, p in params.items()}
+    return out
+
+
+def case_dryrun(mesh, spec: dict) -> dict:
+    from ance_tpu_torch.graft_entry import dryrun_rank
+    return dryrun_rank(mesh, spec)
+
+
 CASES = {"flat": case_flat, "ivf": case_ivf, "replicated": case_replicated,
          "step": case_step,
          "warmup": case_warmup, "index_1m": case_index_1m,
-         "dpr_full": case_dpr_full}
+         "dpr_full": case_dpr_full, "tp": case_tp, "dryrun": case_dryrun}
 
 
 # -- command lines under probes -----------------------------------------------
@@ -436,14 +501,74 @@ def loop_summary(record: dict) -> dict:
             "triples": record["triples"], "launches": blockmax_launches()}
 
 
+@contextlib.contextmanager
+def generator_probes():
+    """Record what ``cli generate`` / ``infer`` / ``generate-dpr`` did:
+    their pass's result (metrics, ranked ids, and the index's rows, every
+    rank's shard gathered) under ``"generate"`` or ``"generate_dpr"``, and
+    the parameter shapes ``shard_params_tp`` left on this rank under
+    ``"local_shapes"``. Yields the record."""
+    from ance_tpu_torch.core import tp
+    from ance_tpu_torch.train import ann_gen, dpr_gen
+    record = {}
+    real = {"gen": ann_gen.generate_new_ann,
+            "dpr": dpr_gen.generate_new_ann_dpr,
+            "shard": tp.shard_params_tp}
+
+    def index_rows(result):
+        index = result["index"]
+        return index._global_rows(index._emb).float().cpu()
+
+    def gen(*args, **kw):
+        result = real["gen"](*args, **kw)
+        record["generate"] = {
+            k: result[k] for k in ("dev_ndcg", "train_neighbor_ids",
+                                   "passage_embedding2id") if k in result}
+        record["generate"]["passage_emb"] = index_rows(result)
+        if "train_query_embedding" in result:
+            record["generate"]["train_query_embedding"] = \
+                result["train_query_embedding"].float().cpu()
+        return result
+
+    def dpr(*args, **kw):
+        result = real["dpr"](*args, **kw)
+        record["generate_dpr"] = {
+            k: result[k] for k in ("top20", "top100", "top_k_hits",
+                                   "top_k_hits_trivia", "test_neighbor_ids",
+                                   "train_neighbor_ids")}
+        record["generate_dpr"].update(
+            passage_emb=index_rows(result),
+            **{k: result[k].float().cpu() for k in (
+                "test_query_embedding", "train_query_embedding")})
+        return result
+
+    def shard(model, axis):
+        out = real["shard"](model, axis)
+        record["local_shapes"] = {n: tuple(p.shape)
+                                  for n, p in model.named_parameters()}
+        return out
+
+    ann_gen.generate_new_ann, dpr_gen.generate_new_ann_dpr = gen, dpr
+    tp.shard_params_tp = shard
+    try:
+        yield record
+    finally:
+        ann_gen.generate_new_ann = real["gen"]
+        dpr_gen.generate_new_ann_dpr = real["dpr"]
+        tp.shard_params_tp = real["shard"]
+
+
 def run_cli(job: dict, rank: int) -> None:
     """The command line as rank ``rank``; saves what the probes recorded
-    (an ``ance-loop``'s summary) and the card's peak GiB."""
+    (an ``ance-loop``'s summary, a generator's results, kernel #1's
+    launches) and the card's peak GiB."""
     from ance_tpu_torch.cli import main
     argv = list(job["cli"]) + ["--process_id", str(rank)]
-    with loop_probes() as record:
+    with loop_probes() as record, generator_probes() as generated:
         main(argv)
-    result = loop_summary(record) if record["loops"] else {}
+    result = loop_summary(record) if record["loops"] else {
+        "launches": blockmax_launches()}
+    result.update(generated)
     if torch.cuda.is_available():
         result["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     _save(job["out_dir"], "cli", rank, result)

@@ -226,7 +226,7 @@ class FlatIPIndex:
         """Write the JAX package's ``.npz`` layout: values at their storage
         dtype (bf16 as a uint16 view), scales, quantize mode and row count;
         padding rows are stripped, so any shard count loads it. On a mesh
-        the rows are gathered and rank 0 writes."""
+        the rows are gathered and global rank 0 writes."""
         if self._emb is None:
             raise ValueError("index is empty; nothing to save")
         emb_t = self._global_rows(self._emb).cpu()
@@ -235,7 +235,7 @@ class FlatIPIndex:
             scales = self._global_rows(self._scales).cpu().numpy()
         elif self._scales is not None:
             scales = self._scales.cpu().numpy()
-        if self.mesh is None or self.mesh.rank == 0:
+        if self.mesh is None or self.mesh.writer:
             if emb_t.dtype == torch.bfloat16:
                 dtype_name = "bfloat16"
                 emb = emb_t.view(torch.int16).numpy().view(np.uint16)

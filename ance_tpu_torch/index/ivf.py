@@ -428,7 +428,7 @@ class IVFIPIndex:
             raise ValueError("index is empty; nothing to save")
         emb_t = self._global_clusters(self._bins_emb).cpu()
         ids = self._global_clusters(self._bins_ids).cpu().numpy()
-        if self.mesh is None or self.mesh.rank == 0:
+        if self.mesh is None or self.mesh.writer:
             if emb_t.dtype == torch.bfloat16:
                 dtype_name = "bfloat16"
                 bins_emb = emb_t.view(torch.int16).numpy().view(np.uint16)

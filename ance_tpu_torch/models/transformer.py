@@ -23,6 +23,12 @@ for the whole batch with that probability, no rescale of the others;
 (``quant_noise_p``: block DropConnect on the Q/K/V and output projection
 weights, ``ops/quant_noise.py``; ``:169-209``). Rate 0 or ``eval()``
 leaves the forward as it is.
+
+Tensor parallelism (``core/tp.py``): once ``shard_params_tp`` has cut a
+rank's slices, :class:`SelfAttention`, :class:`Intermediate` and
+:class:`Output` hold the model axis in ``tp_axis`` and run its local heads
+and width, with Megatron's *f* in front of each column-parallel block and
+*g* between each row-parallel product and its bias.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ance_tpu_torch.core.tp import copy_to_model, reduce_from_model
 from ance_tpu_torch.ops.attention import multi_head_attention
 from ance_tpu_torch.ops.quant_noise import quant_noise
 
@@ -109,6 +116,15 @@ def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype):
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
+def _row_parallel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  axis, dtype: torch.dtype) -> torch.Tensor:
+    """A row-parallel Dense: this rank's partial product, summed over the
+    model axis in fp32 (*g*), then the bias in ``dtype`` (as
+    :func:`_dense` takes it), added once."""
+    partial = F.linear(x.to(dtype), weight.to(dtype))
+    return (reduce_from_model(partial, axis) + bias.to(dtype)).to(dtype)
+
+
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, cfg: EncoderConfig):
     """Residual LayerNorm: fp32 in and out-cast to the compute dtype, or
     entirely in the compute dtype when ``fp32_layernorm`` is off."""
@@ -175,11 +191,14 @@ class SelfAttention(nn.Module):
         self.output = _Holder(dense=nn.Linear(H, H),
                               LayerNorm=nn.LayerNorm(H,
                                                      eps=cfg.layer_norm_eps))
+        self.tp_axis = None  # the model axis under tensor parallelism
 
     def forward(self, x, attention_mask, generator=None):
         cfg = self.cfg
         B, S, _ = x.shape
-        H, D = cfg.num_heads, cfg.head_dim()
+        tp = self.tp_axis
+        # under tensor parallelism this rank's heads only
+        H, D = cfg.num_heads // (tp.world if tp else 1), cfg.head_dim()
         lins = (self.self.query, self.self.key, self.self.value,
                 self.output.dense)
         w = [lin.weight for lin in lins]
@@ -190,6 +209,8 @@ class SelfAttention(nn.Module):
         w = [wi.to(cfg.dtype) for wi in w]
         b = [lin.bias.to(cfg.dtype) for lin in lins]
         x = x.to(cfg.dtype)
+        if tp is not None:
+            x = copy_to_model(x, tp)
         if cfg.fused_qkv:
             # one [H, 3H] GEMM: the activations are read once, not three times
             qkv = F.linear(x, torch.cat(w[:3]), torch.cat(b[:3]))
@@ -201,8 +222,11 @@ class SelfAttention(nn.Module):
             q, k, v, attention_mask, impl=cfg.attention_impl,
             dropout_rate=0.0 if generator is None else cfg.attention_dropout,
             generator=generator)
-        out = F.linear(ctx.reshape(B, S, cfg.hidden_size).to(cfg.dtype),
-                       w[3], b[3])
+        ctx = ctx.reshape(B, S, H * D).to(cfg.dtype)
+        if tp is None:
+            out = F.linear(ctx, w[3], b[3])
+        else:
+            out = _row_parallel(ctx, w[3], b[3], tp, cfg.dtype)
         return dropout(out, cfg.hidden_dropout, generator)
 
 
@@ -220,8 +244,11 @@ class Intermediate(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.tp_axis = None  # the model axis under tensor parallelism
 
     def forward(self, x):
+        if self.tp_axis is not None:
+            x = copy_to_model(x, self.tp_axis)
         h = _dense(x, self.dense, self.cfg.dtype)
         return F.gelu(h, approximate="tanh" if gelu_approximate(self.cfg)
                       else "none")
@@ -236,10 +263,15 @@ class Output(nn.Module):
         self.cfg = cfg
         self.dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.tp_axis = None  # the model axis under tensor parallelism
 
     def forward(self, h, generator=None):
-        return dropout(_dense(h, self.dense, self.cfg.dtype),
-                       self.cfg.hidden_dropout, generator)
+        if self.tp_axis is None:
+            out = _dense(h, self.dense, self.cfg.dtype)
+        else:
+            out = _row_parallel(h, self.dense.weight, self.dense.bias,
+                                self.tp_axis, self.cfg.dtype)
+        return dropout(out, self.cfg.hidden_dropout, generator)
 
 
 class EncoderLayer(nn.Module):

@@ -210,7 +210,7 @@ def generate_new_ann(cfg: AnnGenConfig, *,
     after a device synchronize: passage encode, mining search, total).
     ``mesh`` shards the encode and the index's rows over its ranks, every
     one of which returns the same result (``ance_tpu/train/ann_gen.py``'s
-    ``mesh``); rank 0 alone writes the hand-off files."""
+    ``mesh``); global rank 0 alone writes the hand-off files."""
     device = torch.device(device)
     now = synced_clock(device)
     t_start = now()
@@ -260,7 +260,7 @@ def generate_new_ann(cfg: AnnGenConfig, *,
 
     data_path = os.path.join(output_dir, ANN_DATA_PREFIX + str(output_num))
     ndcg_path = os.path.join(output_dir, ANN_NDCG_PREFIX + str(output_num))
-    if mesh is None or mesh.rank == 0:
+    if mesh is None or mesh.writer:
         write_ann_data(output_dir, output_num, train_q_ids,
                        training_query_positive_id, negatives, dev_ndcg,
                        checkpoint_path, seed=cfg.seed + output_num)

@@ -1,5 +1,5 @@
 """DPR ANN data generation: answer-validated retrieval and answer-filtered
-negative mining, on one device.
+negative mining, on one device or sharded over the ranks of a mesh.
 
 Counterpart of ``ance_tpu/train/dpr_gen.py`` (the reference's
 drivers/run_ann_data_gen_dpr.py:230-345). Against the MS MARCO generator
@@ -9,7 +9,8 @@ curve), mining drops candidates that hold one, and the sidecar carries
 ``top20`` / ``top100`` (and ``*_trivia``) instead of NDCG. The searches go
 through :class:`ance_tpu_torch.index.flat.FlatIPIndex` (block-max top-k,
 the kernel of ``csrc/blockmax.cu`` on the card); the files are the JAX
-package's, byte for byte.
+package's, byte for byte. On a ``mesh`` the encode and the index's rows
+are sharded as in ``generate_new_ann``, and global rank 0 writes.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ def generate_new_ann_dpr(*, output_num: int, checkpoint_path: str,
                          negative_sample: int = 20,
                          dev_search_depth: int = 100,
                          encode_batch_size: int = 128,
-                         index_quantize: Optional[str] = None) -> dict:
+                         index_quantize: Optional[str] = None,
+                         mesh=None) -> dict:
     """One encode → index → validate → mine → write pass (reference
     run_ann_data_gen_dpr.py:204-278). ``query_encode_fn`` /
     ``body_encode_fn`` are ``train/encode.py::make_encode_fn`` closures
@@ -54,23 +56,28 @@ def generate_new_ann_dpr(*, output_num: int, checkpoint_path: str,
     questions' embeddings (on the device) and ranked ids (``*_neighbor_ids``,
     numpy), the two hit curves (``top_k_hits``, ``top_k_hits_trivia``) and
     ``seconds`` (host clock after a device synchronize: encode, each
-    search, total)."""
+    search, total). ``mesh`` (a ``core.mesh.DataMesh``, the JAX
+    function's ``mesh``) shards the encode and the index's rows over its
+    ranks, every one of which returns the same result; global rank 0 alone
+    writes the files."""
     device = torch.device(device)
     now = synced_clock(device)
     t_start = now()
     bs = encode_batch_size
     q_emb, q_ids = encode_cache_to_device(query_encode_fn, train_query_cache,
-                                          bs)
+                                          bs, mesh=mesh)
     test_emb, test_ids = encode_cache_to_device(query_encode_fn,
-                                                test_query_cache, bs)
+                                                test_query_cache, bs,
+                                                mesh=mesh)
     trivia_emb, trivia_ids = encode_cache_to_device(
-        query_encode_fn, trivia_test_query_cache, bs)
+        query_encode_fn, trivia_test_query_cache, bs, mesh=mesh)
     t0 = now()
     passage_emb, passage_ids = encode_cache_to_device(body_encode_fn,
-                                                      passage_cache, bs)
+                                                      passage_cache, bs,
+                                                      mesh=mesh)
     seconds = {"encode_passages": now() - t0}
 
-    index = FlatIPIndex(dim=passage_emb.shape[1], device=device,
+    index = FlatIPIndex(dim=passage_emb.shape[1], device=device, mesh=mesh,
                         quantize=index_quantize or False)
     if index.quantize == "dims":
         index.add_chunked(passage_emb)  # never stages an fp32 copy
@@ -103,9 +110,14 @@ def generate_new_ann_dpr(*, output_num: int, checkpoint_path: str,
     metrics = {"top20": at(top_k_hits, 20), "top100": at(top_k_hits, 100),
                "top20_trivia": at(top_k_hits_trivia, 20),
                "top100_trivia": at(top_k_hits_trivia, 100)}
-    data_path, ndcg_path = write_dpr_ann_data(
-        output_dir, output_num, q_ids, training_query_positive_id, negatives,
-        metrics, checkpoint_path)
+    data_path = os.path.join(output_dir, ANN_DATA_PREFIX + str(output_num))
+    ndcg_path = os.path.join(output_dir, ANN_NDCG_PREFIX + str(output_num))
+    if mesh is None or mesh.writer:
+        write_dpr_ann_data(output_dir, output_num, q_ids,
+                           training_query_positive_id, negatives, metrics,
+                           checkpoint_path)
+    if mesh is not None:
+        mesh.barrier()  # the files are whole before any rank goes on
     seconds["total"] = now() - t_start
     out = dict(metrics)
     out.update({"data_path": data_path, "ndcg_path": ndcg_path,

@@ -56,7 +56,7 @@ kernels under bf16 and int8 queries), and then:
     split; ``serve --index ivf`` over the FirstP passages (ranking as
     ``--index flat`` at nprobe = nlist, a saved ``dims`` artifact through
     ``--load_index --nprobe`` and ``POST /reload``); the HNSW indexer on
-    the port's C++ core over 10,000 of the rows, its recall@10 against the
+    the port's C++ core over 5,000 of the rows, its recall@10 against the
     exact search on the card;
   * MaxP serve: the same weights as ``rdot_nll_multi_chunk`` over 4,096
     documents of seq 2048 (16,384 chunk rows of 512): the ``serve`` CLI,
@@ -113,13 +113,13 @@ kernels under bf16 and int8 queries), and then:
     ``cli train`` on the file and ``generate --training_dir`` on its
     checkpoint, then ``run_ance_cycles`` (2 cycles x 3 steps);
   * warmup: the front of the pipeline on raw MS MARCO-format TSVs made
-    from a seed (32,768 passages of 40-120 words, 1,024 train and 256 dev
+    from a seed (16,384 passages of 40-120 words, 1,024 train and 256 dev
     queries with qrels, top1000.dev, 48 x 32 triples), tokenized by a
     word-hash tokenizer in RoBERTa's id space (no tokenizer files, no
     hub): ``cli preprocess`` over 4 spawned workers (every record against
     the tokenizer, the qrels against the rows), ``cli warmup`` at full
-    width (bf16, LAMB 2e-4, batch 32) to step 24 with two in-training
-    evals, a rerun to 48 that resumes, ``cli generate --training_dir`` on
+    width (bf16, LAMB 2e-4, batch 32) to step 12 with an in-training
+    eval, a rerun to 24 that resumes, ``cli generate --training_dir`` on
     the warmup checkpoint (``blockmax_pieces_f32`` launched exactly twice,
     mining ids == a scan, dev NDCG == ``eval-full``'s), ``cli export-hf``
     and ``serve`` from the export (rankings byte-equal to serving the
@@ -127,8 +127,8 @@ kernels under bf16 and int8 queries), and then:
   * ance-loop: the pipelined refresh through ``cli ance-loop`` on the
     generator's data and weights: FirstP over an fp32 index with
     ``--http`` and a client sending B=1, k=10 searches at 10/s while it
-    trains (bootstrap, a whole cycle of 8 slices of 4,096 passages, 8
-    steps an item, then 8 steps more; its bootstrap dev NDCG equal to
+    trains (bootstrap, a whole cycle of 8 slices of 4,096 passages, 4
+    steps an item, then 4 steps more; its bootstrap dev NDCG equal to
     ``generate``'s, every mining search equal to a scan of the index as
     it stood, every live answer 200 and, after the run, equal to
     ``LoopRetriever.search_tokens``, block-max launches == S and M items
@@ -136,7 +136,7 @@ kernels under bf16 and int8 queries), and then:
     kernel #2 counted in the encode items, #3 in the steps), each
     kernel held to its plain version on the loop's own operands;
   * dpr: DPR's BiEncoder (two seeded BERT-base towers, seq 256) as its
-    runbook drives it, over a psgs_w100.tsv-format corpus of 16,384
+    runbook drives it, over a psgs_w100.tsv-format corpus of 8,192
     passages and NQ / TriviaQA question files made from a seed and
     tokenized by a word-hash tokenizer in BERT's id space:
     ``preprocess-dpr`` over 4 spawned workers (records against the
@@ -180,7 +180,17 @@ kernels under bf16 and int8 queries), and then:
     steps) and ``cli ance-loop`` (bootstrap equal to the one-process one
     exactly, then 2 steps) against one process; the DPR GradCache step
     (bf16, #2 and #3) against the one-process step; NCCL with two ranks
-    on one card and a rank without a GPU refused.
+    on one card and a rank without a GPU refused;
+  * tp: tensor parallelism (``core/tp.py``), two CLI ranks sharing this
+    card through gloo (``phase_tp``): ``generate`` at tp 2 (RoBERTa-base,
+    fp32, xla attention) against one process (passage embeddings, dev
+    NDCG, mined ids but for near-ties, #1 on both ranks, each rank half
+    of every column-parallel weight), ``generate`` at tp 1 (hand-off files
+    byte-equal), ``generate-dpr --bf16`` at tp 2 on the DPR phase's
+    towers, and the refusals (``--attention auto``, tp 3 at two ranks,
+    NCCL on one card).
+
+Each phase's wall seconds print before the result lines.
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. The last two lines are a JSON object of per-kernel results
@@ -1556,7 +1566,7 @@ IVF_SCORE_ATOL = 1e-4  # fp32 IVF scores against fp64, |score| ≲ 1.3
 IVF_BF16_RTOL = 1e-3  # bf16 bins' fp32 scores against fp64 of the operands
 IVF_REPS = 7
 IVF_SERVE_BATCH = 8  # queries a batch where nprobe must matter: 8 x 4 < 181
-HNSW_ROWS, HNSW_EF, HNSW_RECALL_FLOOR = 10_000, 256, 0.85
+HNSW_ROWS, HNSW_EF, HNSW_RECALL_FLOOR = 5_000, 256, 0.85
 
 
 def _ranking(path: Path) -> dict:
@@ -1602,7 +1612,7 @@ def phase_ivf(work: Path) -> dict:
     a saved ``dims`` artifact served by ``--load_index --nprobe 4`` ranks
     as the index loaded in process; ``POST /reload`` of it answers
     ``"kind": "ivf"`` and then the in-process index's rows. Last the HNSW
-    indexer (the port's C++ core, built by g++ here) over 10,000 rows of
+    indexer (the port's C++ core, built by g++ here) over 5,000 rows of
     the corpus: recall@10 at ef 256 against the exact search on the card,
     and its inserts/s."""
     import numpy as np
@@ -3174,13 +3184,13 @@ def phase_generate(work: Path):
 
 
 # the front of the pipeline: raw MS MARCO-format TSVs made from a seed
-WARMUP_PASSAGES = 32_768
+WARMUP_PASSAGES = 16_384
 WARMUP_WORDS = (40, 120)  # words a passage
 WARMUP_VOCAB_WORDS = 30_000  # distinct words of the synthetic corpus
 WARMUP_TRAIN_QUERIES, WARMUP_DEV_QUERIES = 1024, 256
 WARMUP_CANDIDATES = 100  # top1000.dev lines a dev query, its positive among
 WARMUP_BATCH, WARMUP_TRIPLE_BATCHES = 32, 48  # triples: 48 x 32 lines
-WARMUP_STEPS, WARMUP_SAVE = 24, 12  # then a resumed run to 2 x WARMUP_STEPS
+WARMUP_STEPS, WARMUP_SAVE = 12, 6  # then a resumed run to 2 x WARMUP_STEPS
 PREPROCESS_WORKERS = 4
 ROBERTA_VOCAB = 50265
 WORD_HASH_SEED = 0x5EED
@@ -3392,8 +3402,8 @@ def phase_warmup(work: Path):
     process at full RoBERTa-base width from the serve phase's seeded
     weights: ``preprocess`` of raw TSVs over PREPROCESS_WORKERS spawned
     workers; ``warmup`` (bf16, LAMB at 2e-4, batch 32, seq 128) to
-    WARMUP_STEPS with two in-training evals, then a second run to twice
-    that which must resume; ``generate --training_dir`` on the warmup
+    WARMUP_STEPS with an in-training eval at its end, then a second run to
+    twice that which must resume (checkpoints every WARMUP_SAVE steps); ``generate --training_dir`` on the warmup
     checkpoint (an fp32 index: block-max launches counted from 0 just
     before it, read just after) with ``infer`` + ``eval-full``;
     ``export-hf`` and ``serve`` from the export."""
@@ -3441,7 +3451,7 @@ def phase_warmup(work: Path):
             str(raw_dir / "triples.train.small.tsv"), "--output_dir",
             str(warm), "--optimizer", "lamb", "--learning_rate", "2e-4",
             "--warmup_steps", "8", "--save_steps", str(WARMUP_SAVE),
-            "--evaluate_during_training", "--eval_steps", str(WARMUP_SAVE),
+            "--evaluate_during_training", "--eval_steps", str(WARMUP_STEPS),
             "--log_trust_ratios", "--data_dir", str(raw_dir),
             "--per_device_train_batch_size", str(WARMUP_BATCH), *seq_flags]
         t0 = time.perf_counter()
@@ -3459,8 +3469,7 @@ def phase_warmup(work: Path):
               f"warmup trained steps {[h['step'] for h in losses]}")
         check(all(math.isfinite(h["loss"]) for h in losses),
               f"warmup losses {[h['loss'] for h in losses]}")
-        check([h["step"] for h in evals] == [steps[WARMUP_SAVE - 1],
-                                             steps[-1]]
+        check([h["step"] for h in evals] == [steps[-1]]
               and all(0.0 <= h[k] <= 1.0 for h in evals
                       for k in ("reranking_mrr", "full_ranking_mrr")),
               f"warmup evals {evals}")
@@ -3621,7 +3630,7 @@ def phase_warmup(work: Path):
             "peak_gib": peak}
 
 
-LOOP_SLICE, LOOP_STEPS_PER_SLICE = 4096, 8  # passages an E item; steps an item
+LOOP_SLICE, LOOP_STEPS_PER_SLICE = 4096, 4  # passages an E item; steps an item
 MAXP_LOOP_SLICE = 128  # documents an E item of the MaxP loop (4 batches)
 IDLE_SEARCHES = 100  # live B=1 searches timed after the run, the loop idle
 LIVE_QPS = 10  # the offered rate of the live client during the run (open
@@ -3776,10 +3785,12 @@ def phase_ance_loop(work: Path, generate: dict, train: dict):
     process) at full RoBERTa-base width from the serve phase's seeded
     weights, on the generator phase's data: (a) FirstP over an fp32 index
     with ``--http``, a client thread sending B=1, k=10 searches at
-    LIVE_QPS while it trains, bootstrap and a whole cycle plus 8 steps;
-    (b) FirstP over an int8 (``dims``) index without serving, bootstrap
-    and 24 steps; (c) MaxP (bf16, attention dropout 0) over the fp32 MaxP
-    phase's 512 documents of seq 2048, bootstrap and 8 steps. Each run's
+    LIVE_QPS while it trains, bootstrap and a whole cycle plus
+    LOOP_STEPS_PER_SLICE steps; (b) FirstP over an int8 (``dims``) index
+    without serving, bootstrap and 3 x LOOP_STEPS_PER_SLICE steps; (c)
+    MaxP (bf16, attention dropout 0) over the fp32 MaxP phase's 512
+    documents of seq 2048, bootstrap and LOOP_STEPS_PER_SLICE steps. Each
+    run's
     launch counts are set to 0 just before it and read just after it."""
     import collections
     import gc
@@ -4096,10 +4107,10 @@ def phase_ance_loop(work: Path, generate: dict, train: dict):
 # (commands/run_train_dpr.sh, commands/run_ann_data_gen_dpr.sh): a
 # psgs_w100.tsv-format corpus, the DPR question files and the test CSVs,
 # made from a seed
-DPR_PASSAGES = 16_384
+DPR_PASSAGES = 8_192
 DPR_WORDS = (90, 110)  # words a passage (psgs_w100's are 100)
 DPR_LONG_EVERY = 97  # every 97th passage 320 words: cut to the sequence
-DPR_TRAIN_Q, DPR_DEV_Q, DPR_TRIVIA_DEV_Q, DPR_TEST_Q = 256, 64, 32, 512
+DPR_TRAIN_Q, DPR_DEV_Q, DPR_TRIVIA_DEV_Q, DPR_TEST_Q = 128, 64, 32, 512
 DPR_HARD_NEGATIVES = 3
 DPR_SEQ, DPR_BATCH, DPR_LR = 256, 16, "1e-5"
 DPR_TOPK, DPR_NEGATIVES = 200, 100  # --topk_training / --negative_sample
@@ -5887,6 +5898,420 @@ def phase_mesh(work: Path) -> dict:
     return result
 
 
+TP_RANKS = 2
+TP_PASSAGES, TP_DEV, TP_TRAIN_QUERIES = 512, 32, 64
+TP_EVAL_BATCH = 128
+TP_TOPK, TP_NEGATIVES = 100, 5
+TP_DEV_FROM = 4            # dev query i: the first QUERY_LEN tokens of 4 x i
+TP_EMB_ATOL = 1e-4         # fp32 passage embeddings, tp 2 against one process
+TP_NDCG_ATOL = 1e-6
+TP_BF16_COSINE = 0.999     # bf16 tp 2 embeddings' rows against one process
+TP_DPR_PASSAGES, TP_DPR_QUERIES = 256, 32
+TP_TINY = {"num_layers": 2, "hidden_size": 64, "num_heads": 4,
+           "intermediate_size": 128}
+
+
+def _cut_cache(src: Path, dst: Path, n: int) -> None:
+    """The first ``n`` records of the token cache ``src`` as ``dst``."""
+    import numpy as np
+    from ance_tpu_torch.data.cache import TokenCache, TokenCacheWriter
+    with TokenCache(str(src)) as c:
+        lengths, tokens = c.batch(np.arange(min(n, c.total_number)))
+        seq = c.embedding_size
+    with TokenCacheWriter(str(dst), seq) as w:
+        for length, row in zip(lengths, tokens):
+            w.write(int(length), row)
+
+
+def _tp_data(work: Path, rs) -> Path:
+    """(a) and (b)'s data: TP_PASSAGES random passages, TP_TRAIN_QUERIES
+    random train queries with a random positive each, and TP_DEV dev
+    queries that are passage prefixes (graded 2, beside a random 1), so
+    dev NDCG is far from 0."""
+    import numpy as np
+    from ance_tpu_torch.data.cache import TokenCache, TokenCacheWriter
+    data = work / "tp_data"
+    data.mkdir()
+    _write_cache(data / "passages", TP_PASSAGES, PASSAGE_LEN, 8, rs)
+    _write_cache(data / "train-query", TP_TRAIN_QUERIES, QUERY_LEN, 8, rs)
+    with open(data / "train-qrel.tsv", "w") as f:
+        for q in range(TP_TRAIN_QUERIES):
+            f.write(f"{q}\t{rs.randint(TP_PASSAGES)}\t1\n")
+    sources = np.arange(TP_DEV) * TP_DEV_FROM
+    with TokenCache(str(data / "passages")) as pc:
+        lengths, tokens = pc.batch(sources)
+    with TokenCacheWriter(str(data / "dev-query"), QUERY_LEN) as w:
+        for length, row in zip(lengths, tokens):
+            n = int(min(length, QUERY_LEN))
+            q = np.ones(QUERY_LEN, np.int32)
+            q[:n] = row[:n]
+            w.write(n, q)
+    with open(data / "dev-qrel.tsv", "w") as f:
+        for q, p in enumerate(sources):
+            f.write(f"{q}\t{p}\t2\n{q}\t{rs.randint(TP_PASSAGES)}\t1\n")
+    return data
+
+
+def _tp_dpr_data(work: Path) -> Path:
+    """(c)'s data: the DPR phase's caches cut to TP_DPR_PASSAGES passages
+    and TP_DPR_QUERIES questions a split (the rest linked)."""
+    src, data = work / "dpr_data", work / "tp_dpr_data"
+    data.mkdir()
+    cut = {"passages": TP_DPR_PASSAGES, "train-query": TP_DPR_QUERIES,
+           "test-query": TP_DPR_QUERIES, "trivia-test-query": TP_DPR_QUERIES}
+    for name in os.listdir(src):
+        if name.removesuffix("_meta") not in cut:
+            os.symlink(src / name, data / name)
+    for name, n in cut.items():
+        _cut_cache(src / name, data / name, n)
+    return data
+
+
+def _near_tie_swaps(got_ids, want_ids, query_emb, corpus_emb, got_query,
+                    got_corpus, what: str) -> dict:
+    """Where ``got_ids`` (a rank's ranked ids) differ from ``want_ids`` (one
+    process's), the two runs ranked near-ties apart: at every rank j, the
+    one process's score (fp64, from its embeddings) of the rank's j-th id
+    is within a tolerance of its own j-th score. The tolerance is what the
+    measured differences between the two runs' embeddings can do: twice
+    the most they move any score of the query (the j-th largest of two
+    score lists moves by no more than the largest change of one score),
+    plus 1e-6 of its largest score (the searches round their fp64
+    rescoring to fp32). Returns the count of differing ranks, the widest
+    score gap and the widest tolerance."""
+    import numpy as np
+    import torch
+    q, c = query_emb.double().cpu(), corpus_emb.double().cpu()
+    scores = q @ c.T
+    got = torch.as_tensor(np.asarray(got_ids, np.int64))
+    want = torch.as_tensor(np.asarray(want_ids, np.int64))
+    gap = (scores.gather(1, got) - scores.gather(1, want)).abs()
+    moved = (got_query.double().cpu() @ got_corpus.double().cpu().T
+             - scores).abs().amax(1, keepdim=True)
+    tol = 2 * moved + 1e-6 * scores.abs().amax(1, keepdim=True)
+    bad = (gap > tol).nonzero()
+    check(len(bad) == 0, f"{what}: {len(bad)} ranks beyond the tie "
+          f"tolerance; first: query {int(bad[0, 0]) if len(bad) else -1} "
+          f"(gap {gap.max().item():.3g}, tolerance {tol.min().item():.3g})")
+    return {"count": int((got != want).sum()),
+            "widest_gap": float(gap.max()), "tolerance": float(tol.max())}
+
+
+def _row_cosine(a, b) -> float:
+    """The smallest cosine between matching rows of ``a`` and ``b``."""
+    import torch
+    return float(torch.nn.functional.cosine_similarity(
+        a.double(), b.double(), dim=1).min())
+
+
+def _tp_argv(work: Path, command: str, data: Path, out: Path, batch: int,
+             extra=()) -> list:
+    """``generate`` over ``data`` from the seeded RoBERTa-base weights (no
+    checkpoint under ``--training_dir``), fp32, xla attention, dropout
+    0."""
+    return [command, "--device", "cuda", "--model_name_or_path",
+            str(work / "roberta_base_seeded"), "--data_dir", str(data),
+            "--training_dir", str(work / "tp_no_checkpoints"),
+            "--output_dir", str(out),
+            "--max_seq_length", str(PASSAGE_LEN), "--max_query_length",
+            str(QUERY_LEN), "--per_device_eval_batch_size", str(batch),
+            "--topk_training", str(TP_TOPK), "--negative_sample",
+            str(TP_NEGATIVES), "--ann_chunk_factor", "1", "--attention",
+            "xla", "--encoder_overrides", json.dumps(MESH_DPR["overrides"]),
+            *extra]
+
+
+def phase_tp(work: Path) -> dict:
+    """Tensor parallelism (``core/tp.py``), two ranks sharing this card
+    through gloo (no multi-GPU measurement: only the sub-phase is timed),
+    each a process of the CLI with a time limit. Each layer's two
+    all-reduces pass through the host under gloo, so the corpora are
+    small: this checks behaviour.
+
+      (a) ``generate --num_processes 2 --tensor_parallel 2`` at RoBERTa-base
+          width, fp32, ``--attention xla``, dropout 0, over TP_PASSAGES
+          passages at seq 128 with TP_DEV dev and TP_TRAIN_QUERIES train
+          queries, against the one-process ``generate`` on the same
+          weights: passage embeddings within TP_EMB_ATOL (the worst
+          printed), dev NDCG@10 within TP_NDCG_ATOL, the mined ids equal
+          but for near-ties (``_near_tie_swaps``; counted), the hand-off
+          files equal but for those queries' lines, kernel #1 on both
+          ranks, each rank's column-parallel weights half the rows;
+      (b) ``generate --num_processes 2`` at tp 1 (data-parallel, the index
+          row-sharded): the hand-off files byte-equal to one process at
+          the ranks' encode batch;
+      (c) ``generate-dpr --bf16 --num_processes 2 --tensor_parallel 2`` on
+          the DPR phase's trained BERT-base towers over its data cut to
+          TP_DPR_PASSAGES passages and TP_DPR_QUERIES questions a split:
+          every row of the embeddings within TP_BF16_COSINE of one
+          process's, and no further from the towers in fp32 than twice
+          one bf16 process's distance (1 - cosine), the ranked ids equal
+          but for near-ties, a question's
+          first answer-bearing rank moved only where its ranking did (the
+          hit curves' equality printed), kernel #1 on both ranks;
+      (d) the refusals: tp 2 with ``--attention auto``, tp 3 at two ranks,
+          and NCCL with two ranks on one card (naming ``--dist_backend
+          gloo``).
+
+    Every rank group starts at once; the one-process references run in
+    this process meanwhile."""
+    import numpy as np
+    import torch
+    from ance_tpu_torch.data import dpr
+    from ance_tpu_torch.evaluation.qa_validation import has_answer
+    from ance_tpu_torch.train import ann_gen, dpr_gen
+
+    print("tp: two ranks sharing one card through gloo, not a multi-GPU "
+          "measurement", flush=True)
+    torch.cuda.empty_cache()
+    (work / "tp_no_checkpoints").mkdir()
+    data = _tp_data(work, np.random.RandomState(19))
+    dpr_data, raw = _tp_dpr_data(work), work / "dpr_raw"
+    dirs = {}
+    for sub in ("a", "b", "c", "d"):
+        dirs[sub] = work / f"tp_{sub}"
+        dirs[sub].mkdir()
+
+    def ranks(sub: str, argv: list, world: int = TP_RANKS,
+              backend: str = "gloo", name: str = "job") -> list:
+        return _start_ranks({"out_dir": str(dirs[sub]),
+                             "cli": argv + _rank_argv(TP_RANKS, backend)},
+                            dirs[sub] / f"{name}.json", world)
+
+    def one(argv: list, module, name: str) -> tuple[dict, dict]:
+        """The one-process run of ``argv`` in this process, and the result
+        of its pass (``module.name``)."""
+        kept, real = {}, getattr(module, name)
+
+        def keep(*args, **kw):
+            kept.update(real(*args, **kw))
+            return kept
+        setattr(module, name, keep)
+        try:
+            return _cli(argv), kept
+        finally:
+            setattr(module, name, real)
+
+    dpr_argv = ["generate-dpr", "--device", "cuda", "--model_type", "dpr",
+                "--bf16", "--attention", "xla", "--max_seq_length",
+                str(DPR_SEQ), "--max_query_length", str(DPR_SEQ),
+                "--data_dir", str(dpr_data), "--wiki_path",
+                str(raw / "psgs_w100.tsv"), "--test_qas",
+                str(raw / "nq-test.csv"), "--trivia_qas",
+                str(raw / "trivia-test.csv"), "--training_dir",
+                str(work / "dpr_ckpt"), "--topk_training", str(TP_TOPK),
+                "--negative_sample", str(TP_NEGATIVES),
+                "--per_device_eval_batch_size", str(TP_EVAL_BATCH),
+                "--encoder_overrides", json.dumps(MESH_DPR["overrides"])]
+    # the refusals: a tiny encoder from its seeded init (no weights load)
+    refuse = _tp_argv(work, "generate", data, dirs["d"] / "out",
+                      TP_EVAL_BATCH)
+    refuse = refuse[:refuse.index("--encoder_overrides")] + [
+        "--encoder_overrides", json.dumps(dict(TP_TINY,
+                                               **MESH_DPR["overrides"]))]
+    refuse[refuse.index("--model_name_or_path") + 1] = str(
+        work / "tp_no_checkpoints")
+    t0 = time.perf_counter()
+    procs = {
+        "a": ranks("a", _tp_argv(work, "generate", data, dirs["a"] / "two",
+                                 TP_EVAL_BATCH, ["--tensor_parallel",
+                                                 str(TP_RANKS)])),
+        "b": ranks("b", _tp_argv(work, "generate", data, dirs["b"] / "two",
+                                 TP_EVAL_BATCH)),
+        "c": ranks("c", dpr_argv + ["--output_dir", str(dirs["c"] / "two"),
+                                    "--tensor_parallel", str(TP_RANKS)]),
+        "auto": ranks("d", [x if x != "xla" else "auto" for x in refuse]
+                      + ["--tensor_parallel", "2"], name="auto"),
+        "three": ranks("d", refuse + ["--tensor_parallel", "3"], world=1,
+                       name="three"),
+        "nccl": ranks("d", refuse + ["--tensor_parallel", "2"],
+                      backend="nccl", name="nccl")}
+    one_a, kept_a = one(_tp_argv(work, "generate", data, dirs["a"] / "one",
+                                 TP_EVAL_BATCH), ann_gen, "generate_new_ann")
+    one_corpus = kept_a["index"]._emb[:kept_a["index"].ntotal].float().cpu()
+    one_train_q = kept_a["train_query_embedding"].float().cpu()
+    one_ids = kept_a["train_neighbor_ids"]
+    del kept_a
+    # the ranks of (b) encode TP_EVAL_BATCH / 2 rows at a time: so does
+    # their one-process reference
+    one(_tp_argv(work, "generate", data, dirs["b"] / "one",
+                 TP_EVAL_BATCH // TP_RANKS), ann_gen, "generate_new_ann")
+    one_c, kept_c = one(dpr_argv + ["--output_dir", str(dirs["c"] / "one")],
+                        dpr_gen, "generate_new_ann_dpr")
+    # the same towers in fp32: how far bf16 itself is from the function
+    _, kept_f32 = one([x for x in dpr_argv if x != "--bf16"]
+                      + ["--output_dir", str(dirs["c"] / "one_fp32")],
+                      dpr_gen, "generate_new_ann_dpr")
+    fp32 = {"passages": kept_f32["index"]._emb[:kept_f32["index"].ntotal],
+            **{k: kept_f32[f"{k}_query_embedding"] for k in ("test",
+                                                             "train")}}
+    fp32 = {k: v.float().cpu() for k, v in fp32.items()}
+    del kept_f32
+    torch.cuda.empty_cache()
+    outs = {k: _wait_ranks(p, f"tp {k}", expect_ok=k in ("a", "b", "c"))
+            for k, p in procs.items()}
+    got = {k: _rank_results(dirs[k], "cli", TP_RANKS) for k in "abc"}
+    seconds = {"all": time.perf_counter() - t0}
+    result = {}
+
+    # (a)
+    half = "roberta.encoder.layer.0.attention.self.query.weight"
+    emb_err, swaps = 0.0, {}
+    for r, (g, (out, _)) in enumerate(zip(got["a"], outs["a"])):
+        dist = json.loads(out.strip().splitlines()[0])["dist"]
+        check(dist == {"backend": "gloo", "rank": r, "world": TP_RANKS,
+                       "device": "cuda:0", "data": 0, "model": r,
+                       "tp": TP_RANKS}, f"tp (a) rank {r}: {dist}")
+        check(g["local_shapes"][half] == (DIM // TP_RANKS, DIM),
+              f"tp (a) rank {r}: {half} {g['local_shapes'][half]}")
+        gen = g["generate"]
+        err = (gen["passage_emb"] - one_corpus).abs().max().item()
+        emb_err = max(emb_err, err)
+        check(err <= TP_EMB_ATOL, f"tp (a) rank {r}: passage embeddings "
+              f"{err:.3g} from one process (bound {TP_EMB_ATOL})")
+        check(abs(gen["dev_ndcg"] - one_a["dev_ndcg"]) <= TP_NDCG_ATOL,
+              f"tp (a) rank {r}: dev NDCG {gen['dev_ndcg']!r} vs one "
+              f"process {one_a['dev_ndcg']!r}")
+        swaps[f"rank{r}"] = _near_tie_swaps(
+            gen["train_neighbor_ids"], one_ids, one_train_q, one_corpus,
+            gen["train_query_embedding"], gen["passage_emb"],
+            f"tp (a) rank {r} mining")
+        check(g["launches"].get("blockmax_pieces_f32", 0) >= 2,
+              f"tp (a) rank {r}: kernel #1 launches {g['launches']}")
+    lines = {w: (dirs["a"] / w / "ann_training_data_0").read_text()
+             .splitlines() for w in ("one", "two")}
+    swapped = {int(q) for q in np.argwhere(
+        got["a"][0]["generate"]["train_neighbor_ids"] != one_ids)[:, 0]}
+    differ = [a for a, b in zip(*lines.values()) if a != b]
+    check(len(lines["one"]) == len(lines["two"])
+          and all(int(a.split("\t")[0]) in swapped for a in differ),
+          f"tp (a) {len(differ)} hand-off lines differ, not all of them "
+          "a query with near-tie swaps")
+    result["generate_tp2"] = {
+        "passage_emb_max_abs_err": emb_err, "near_tie_swaps": swaps,
+        "lines_differing": len(differ), "dev_ndcg": one_a["dev_ndcg"],
+        "dev_ndcg_tp2": [g["generate"]["dev_ndcg"] for g in got["a"]],
+        "launches": {f"rank{r}": g["launches"]
+                     for r, g in enumerate(got["a"])},
+        "peak_gib": [g.get("peak_gib") for g in got["a"]]}
+    print(f"tp (a) generate 2 ranks at tp 2: passage embeddings within "
+          f"{emb_err:.3g} of one process (bound {TP_EMB_ATOL}); dev NDCG "
+          f"{result['generate_tp2']['dev_ndcg_tp2']} vs "
+          f"{one_a['dev_ndcg']!r}; mined ids: near-tie swaps {swaps}, "
+          f"{len(differ)} of {len(lines['one'])} hand-off lines differ; "
+          f"#1 launches {result['generate_tp2']['launches']}; {half} "
+          f"{DIM // TP_RANKS} x {DIM} a rank; peak GiB "
+          f"{result['generate_tp2']['peak_gib']}", flush=True)
+
+    # (b)
+    for r, g in enumerate(got["b"]):
+        check(g["launches"].get("blockmax_pieces_f32", 0) >= 2,
+              f"tp (b) rank {r}: kernel #1 launches {g['launches']}")
+    for name in ("ann_training_data_0", "ann_ndcg_0"):
+        check((dirs["b"] / "two" / name).read_bytes()
+              == (dirs["b"] / "one" / name).read_bytes(),
+              f"tp (b) {name} differs from one process")
+    result["generate_dp2"] = {"launches": {
+        f"rank{r}": g["launches"] for r, g in enumerate(got["b"])}}
+    print(f"tp (b) generate 2 ranks at tp 1: hand-off files byte-equal to "
+          f"one process; #1 launches {result['generate_dp2']['launches']}",
+          flush=True)
+
+    # (c): each test question's first answer-bearing rank, by the one
+    # process's ranking and by a rank's, may differ only where the
+    # rankings do
+    pid2offset, _ = dpr.load_mapping(str(dpr_data), "pid2offset")
+    texts = {pid2offset[p]: t for p, t in dpr.load_passage_texts(
+        str(raw / "psgs_w100.tsv")).items()}
+    answers = dpr.load_qas_answers(str(raw / "nq-test.csv"))
+
+    def first_hits(ids) -> np.ndarray:
+        return np.asarray([next((j for j, p in enumerate(row) if has_answer(
+            answers[q], texts[int(p)][0])), -1) for q, row in enumerate(ids)])
+
+    corpus = kept_c["index"]._emb[:kept_c["index"].ntotal].float().cpu()
+    one_q = {k: kept_c[f"{k}_query_embedding"].float().cpu()
+             for k in ("test", "train")}
+    one_first = first_hits(kept_c["test_neighbor_ids"])
+    ones = {"passages": corpus, **one_q}
+    # 1 - the least row cosine of one process's bf16 embeddings to fp32's
+    bf16_off = {k: 1 - _row_cosine(ones[k], fp32[k]) for k in ones}
+    dpr_swaps, cosines, hits_moved, tp_off = {}, {}, {}, {}
+    half_c = "ctx_model.encoder.layer.0.intermediate.dense.weight"
+    for r, g in enumerate(got["c"]):
+        gen = g["generate_dpr"]
+        check(g["local_shapes"][half_c] == (4 * DIM // TP_RANKS, DIM),
+              f"tp (c) rank {r}: the context tower is not sharded")
+        check(g["launches"].get("blockmax_pieces_f32", 0) >= 3,
+              f"tp (c) rank {r}: kernel #1 launches {g['launches']}")
+        cosines[f"rank{r}"] = {
+            "passages": _row_cosine(gen["passage_emb"], corpus),
+            **{k: _row_cosine(gen[f"{k}_query_embedding"], one_q[k])
+               for k in one_q}}
+        check(min(cosines[f"rank{r}"].values()) >= TP_BF16_COSINE,
+              f"tp (c) rank {r}: embeddings' row cosines to one process "
+              f"{cosines[f'rank{r}']} (bound {TP_BF16_COSINE})")
+        # tp 2 adds no more than bf16 itself costs: its rows as far from
+        # fp32 as one bf16 process's, twice over at most
+        tp_off[f"rank{r}"] = {
+            k: 1 - _row_cosine(gen["passage_emb"] if k == "passages"
+                               else gen[f"{k}_query_embedding"], fp32[k])
+            for k in fp32}
+        check(all(tp_off[f"rank{r}"][k] <= 2 * bf16_off[k] + 1e-7
+                  for k in fp32), f"tp (c) rank {r}: 1 - cosine to fp32 "
+              f"{tp_off[f'rank{r}']}, one bf16 process's {bf16_off}")
+        dpr_swaps[f"rank{r}"] = {
+            k: _near_tie_swaps(
+                gen[f"{k}_neighbor_ids"], kept_c[f"{k}_neighbor_ids"],
+                one_q[k], corpus, gen[f"{k}_query_embedding"],
+                gen["passage_emb"], f"tp (c) rank {r} {k}")
+            for k in one_q}
+        moved = np.flatnonzero(first_hits(gen["test_neighbor_ids"])
+                               != one_first)
+        reranked = (gen["test_neighbor_ids"]
+                    != kept_c["test_neighbor_ids"]).any(1)
+        check(reranked[moved].all(), f"tp (c) rank {r}: questions "
+              f"{moved[~reranked[moved]]} moved their first hit on an "
+              "unchanged ranking")
+        hits_moved[f"rank{r}"] = len(moved)
+    result["generate_dpr_tp2"] = {
+        "top20": one_c["top20"], "top100": one_c["top100"],
+        "near_tie_swaps": dpr_swaps, "row_cosines": cosines,
+        "one_minus_cosine_to_fp32": {"one_process_bf16": bf16_off,
+                                     **tp_off},
+        "questions_first_hit_moved": hits_moved,
+        "curves_equal": {f"rank{r}": (
+            g["generate_dpr"]["top_k_hits"] == kept_c["top_k_hits"],
+            g["generate_dpr"]["top_k_hits_trivia"]
+            == kept_c["top_k_hits_trivia"]) for r, g in enumerate(got["c"])},
+        "launches": {f"rank{r}": g["launches"]
+                     for r, g in enumerate(got["c"])}}
+    print(f"tp (c) generate-dpr --bf16 2 ranks at tp 2: top-k hit curves "
+          f"(NQ test, trivia) equal to one process's "
+          f"{result['generate_dpr_tp2']['curves_equal']} (one process's "
+          f"top20 {one_c['top20']}, top100 {one_c['top100']}); questions "
+          f"whose first hit moved, each on a ranking that moved: "
+          f"{hits_moved}; embeddings' least row cosine to one process "
+          f"{cosines}; 1 - least cosine to the fp32 towers: one bf16 "
+          f"process {bf16_off}, tp 2 {tp_off}; ranked ids: near-tie swaps "
+          f"{dpr_swaps}; #1 launches "
+          f"{result['generate_dpr_tp2']['launches']}", flush=True)
+    del kept_c, corpus
+
+    # (d)
+    check(all("tensor parallelism requires an explicit 'xla' or "
+              "'xla_bf16'" in err for _, err in outs["auto"]),
+          "tp (d) --attention auto: " + outs["auto"][0][1][-2000:])
+    check("--tensor_parallel 3 does not divide 2 devices"
+          in outs["three"][0][1], "tp (d) tp 3: " + outs["three"][0][1][-2000:])
+    check(all("--dist_backend gloo" in err for _, err in outs["nccl"]),
+          "tp (d) NCCL on one card: " + outs["nccl"][0][1][-2000:])
+    result["seconds"] = seconds
+    print(f"tp (d) --attention auto, tp 3 at two ranks and NCCL on one "
+          f"card refused; sub-phase seconds {seconds}", flush=True)
+    check(no_reference_modules(), "the port imported jax or ance_tpu")
+    return result
+
 def main() -> int:
     try:
         import torch
@@ -5906,35 +6331,46 @@ def main() -> int:
     # network (spawned workers inherit this)
     os.environ["HF_HUB_OFFLINE"] = os.environ["TRANSFORMERS_OFFLINE"] = "1"
 
-    name = phase_device()
-    build_s, built = phase_build()
-    machine_code = phase_machine_code(built)
-    cases, searches = phase_kernel()
-    topk_int8 = phase_topk_int8()
-    ties = phase_ties()
-    attn_cases, crossover = phase_attention()
-    bwd_cases, functions = phase_attention_backward()
-    seq128 = phase_seq128()
-    mirror = phase_mirror()
+    phase_s = {}
+
+    def timed(phase, *args):
+        """``phase(*args)``, its wall seconds kept under its name."""
+        t0 = time.perf_counter()
+        out = phase(*args)
+        key = phase.__name__.removeprefix("phase_")
+        phase_s[key] = time.perf_counter() - t0
+        print(f"phase {key}: {phase_s[key]:.1f} s", flush=True)
+        return out
+
+    name = timed(phase_device)
+    build_s, built = timed(phase_build)
+    machine_code = timed(phase_machine_code, built)
+    cases, searches = timed(phase_kernel)
+    topk_int8 = timed(phase_topk_int8)
+    ties = timed(phase_ties)
+    attn_cases, crossover = timed(phase_attention)
+    bwd_cases, functions = timed(phase_attention_backward)
+    seq128 = timed(phase_seq128)
+    mirror = timed(phase_mirror)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        serve = phase_serve(work)
-        ivf = phase_ivf(work)
-        maxp = phase_maxp(work)
-        train = phase_train(work)
-        maxp_fp32 = phase_maxp_fp32(work)
-        generate = phase_generate(work)
-        warmup = phase_warmup(work)
-        ance_loop = phase_ance_loop(work, generate, train)
-        dpr = phase_dpr(work)
-        seed = phase_seed(work)
-        t0 = time.perf_counter()
-        mesh = phase_mesh(work)
-        mesh["seconds"]["total"] = time.perf_counter() - t0
-        print(f"mesh: {mesh['seconds']['total']:.1f} s", flush=True)
+        serve = timed(phase_serve, work)
+        ivf = timed(phase_ivf, work)
+        maxp = timed(phase_maxp, work)
+        train = timed(phase_train, work)
+        maxp_fp32 = timed(phase_maxp_fp32, work)
+        generate = timed(phase_generate, work)
+        warmup = timed(phase_warmup, work)
+        ance_loop = timed(phase_ance_loop, work, generate, train)
+        dpr = timed(phase_dpr, work)
+        seed = timed(phase_seed, work)
+        mesh = timed(phase_mesh, work)
+        tp = timed(phase_tp, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    parity = phase_step_parity()
+    parity = timed(phase_step_parity)
+    print("phase seconds " + json.dumps(
+        {k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     headline = next(c for c in cases
                     if c["dtypes"] == "bf16xbf16" and c["shape"] == "dev")
 
@@ -6013,7 +6449,10 @@ def main() -> int:
         "seed_serve": seed["serve_blockmax_kernels"],
         # by rank (two gloo ranks sharing the card; one NCCL rank)
         "mesh_index": mesh["index"]["launches"],
-        "mesh_ance_loop": mesh["ance_loop"]["launches"]}
+        "mesh_ance_loop": mesh["ance_loop"]["launches"],
+        # by rank: generate at tp 2 and tp 1, generate-dpr at tp 2
+        **{f"tp_{k}": tp[k]["launches"] for k in (
+            "generate_tp2", "generate_dp2", "generate_dpr_tp2")}}
     fp32_entries = []
     for kernel, dtypes, launches in (
             ("blockmax_pieces_f32", "f32xf32",
@@ -6037,6 +6476,10 @@ def main() -> int:
             e["launches_by_path"]["mesh_ance_loop"] = {
                 rank: n.get(kernel, 0) for rank, n in
                 mesh["ance_loop"]["launches"].items()}
+            for k in ("generate_tp2", "generate_dp2", "generate_dpr_tp2"):
+                e["launches_by_path"][f"tp_{k}"] = {
+                    rank: n.get(kernel, 0) for rank, n in
+                    tp[k]["launches"].items()}
             e["launches_by_path"]["warmup_generate"] = \
                 warmup["blockmax_kernels"][kernel]
             e["launches_by_path"]["seed_generate"] = \
@@ -6155,7 +6598,8 @@ def main() -> int:
         "step_parity": parity,
         "mirror_encoder": mirror,
         "generate": generate, "warmup": warmup, "ance_loop": ance_loop,
-        "dpr": dpr, "seed": seed, "topk_int8": topk_int8, "mesh": mesh}))
+        "dpr": dpr, "seed": seed, "topk_int8": topk_int8, "mesh": mesh,
+        "tp": tp, "phase_seconds": phase_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -124,8 +124,8 @@ def _tiny_index_data(tmp_path):
 def test_cli_refusals(tmp_path):
     """What the multi-rank CLI refuses, each before a group starts:
     ``ance-loop --http`` over ranks (JAX's message), more than one process
-    without data parallelism, ``--tensor_parallel`` other than 1 (naming
-    the ROADMAP), and NCCL on the CPU."""
+    without data parallelism, ``--tensor_parallel`` that does not divide
+    the ranks (the JAX CLI's message), and NCCL on the CPU."""
     from ance_tpu_torch.cli import main
     ranks = ["--num_processes", "2", "--process_id", "0",
              "--coordinator_address", "127.0.0.1:1"]
@@ -138,12 +138,12 @@ def test_cli_refusals(tmp_path):
         with pytest.raises(SystemExit, match="requires data parallelism"):
             main([*cmd, *common, *ranks, "--no_data_parallel"])
     for cmd in ("generate", "infer"):
-        with pytest.raises(SystemExit, match="ROADMAP"):
-            main([cmd, *common, "--training_dir", str(tmp_path),
-                  "--tensor_parallel", "2"])
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        main(["generate-dpr", *common, "--wiki_path", "x",
-              "--training_dir", str(tmp_path), "--tensor_parallel", "2"])
+        with pytest.raises(SystemExit, match="does not divide 2 devices"):
+            main([cmd, *common, *ranks, "--training_dir", str(tmp_path),
+                  "--tensor_parallel", "3"])
+    with pytest.raises(SystemExit, match="does not divide 2 devices"):
+        main(["generate-dpr", *common, *ranks, "--wiki_path", "x",
+              "--training_dir", str(tmp_path), "--tensor_parallel", "3"])
     with pytest.raises(SystemExit, match="needs --device cuda"):
         main(["train", "--ann_dir", str(tmp_path), *common, *ranks,
               "--dist_backend", "nccl"])

@@ -27,6 +27,9 @@ SCRIPT = textwrap.dedent("""
     for name in mods:
         importlib.import_module(name)
     assert "jax" not in sys.modules, "import pulled in jax"
+    # tensor parallelism and the entry points are among them
+    assert {"ance_tpu_torch.core.tp", "ance_tpu_torch.graft_entry"} <= \
+        set(mods)
 
     from ance_tpu_torch.data.cache import TokenCacheWriter
     from ance_tpu_torch.cli import main
@@ -291,13 +294,25 @@ SCRIPT = textwrap.dedent("""
     np.savez(f"{d}/mesh.npz", corpus=rs.randn(11, 4).astype(np.float32),
              queries=rs.randn(2, 4).astype(np.float32))
     os.mkdir(f"{d}/mesh_out")
+    # and core/tp.py's 1 x 1 grid of that rank: the tp case's encode and
+    # step
+    torch.save(get_model_spec("rdot_nll").build(
+        attention_impl="xla", config_overrides=tiny), f"{d}/tp_model.pt")
+    np.savez(f"{d}/tp_batch.npz", ids=rs.randint(3, 50, (2, 6)),
+             mask=np.ones((2, 6), np.int64))
     json.dump({"init_method": f"file://{d}/rendezvous", "world": 1,
                "out_dir": f"{d}/mesh_out", "cases": [
                    {"case": "flat", "data": f"{d}/mesh.npz",
                     "modes": ["none", "dims"], "ks": [3], "slice_rows": 4,
-                    "save_dir": d}]}, open(f"{d}/job.json", "w"))
+                    "save_dir": d},
+                   {"case": "tp", "tp": 1, "lr": 0.1,
+                    "model": f"{d}/tp_model.pt",
+                    "batches": f"{d}/tp_batch.npz"}]},
+              open(f"{d}/job.json", "w"))
     assert mesh_worker.main([f"{d}/job.json", "0"]) == 0
     assert os.path.exists(f"{d}/mesh_out/flat_rank0.pt")
+    assert torch.load(f"{d}/mesh_out/tp_rank0.pt",
+                      weights_only=False)["emb"].shape == (2, 768)
     assert os.path.exists(f"{d}/dims.npz")
     assert "jax" not in sys.modules, "the port pulled in jax"
     assert "flax" not in sys.modules
