@@ -592,7 +592,8 @@ def _make_training(args, model, spec, mesh=None):
         # the published DPR configs' large batches fit in micro-batch
         # memory (reference run_ann_dpr.py:65, 226)
         step = make_dpr_train_step(
-            accum_steps=args.gradient_accumulation_steps, mesh=mesh)
+            accum_steps=args.gradient_accumulation_steps, mesh=mesh,
+            multichunk=spec.multichunk)
     else:
         step = make_train_step(
             triplet_loss_fn(multichunk=spec.multichunk,

@@ -160,9 +160,10 @@ def _optimizer(model, opt: dict):
 
 def _make_step(kind: str, accum: int, mesh):
     from ance_tpu_torch.train import trainer
-    if kind == "dpr":
+    if kind in ("dpr", "maxp_inbatch"):
         from ance_tpu_torch.train.dpr_trainer import make_dpr_train_step
-        return make_dpr_train_step(accum_steps=accum, mesh=mesh)
+        return make_dpr_train_step(accum_steps=accum, mesh=mesh,
+                                   multichunk=kind == "maxp_inbatch")
     if kind == "seed":
         from ance_tpu_torch.train.seed_pretrain import make_seed_pretrain_step
         return make_seed_pretrain_step(mesh=mesh)

@@ -14,6 +14,11 @@ from ance_tpu_torch.models.transformer import (EncoderConfig,
                                                TransformerEncoder, pool)
 
 
+def _head_dtype(x: torch.Tensor) -> torch.dtype:
+    """The heads' dtype: fp32, or fp64 for an fp64 model (a yardstick)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 class RobertaDot(nn.Module):
     """Shared-tower dual encoder: RoBERTa → CLS (or masked-mean) pooling →
     Dense(out_dim) → LayerNorm, the head in fp32.
@@ -36,7 +41,7 @@ class RobertaDot(nn.Module):
     def _embed(self, input_ids, attention_mask, generator=None):
         hidden = self.roberta(input_ids, attention_mask, generator=generator)
         pooled = pool(hidden, attention_mask, self.use_mean)
-        return self.norm(self.embeddingHead(pooled.to(torch.float32)))
+        return self.norm(self.embeddingHead(pooled.to(_head_dtype(pooled))))
 
     def query_emb(self, input_ids, attention_mask, generator=None):
         return self._embed(input_ids, attention_mask, generator)
@@ -57,7 +62,8 @@ class RobertaDot(nn.Module):
         ids = input_ids.reshape(B * C, self.base_len)
         mask = attention_mask.reshape(B * C, self.base_len)
         hidden = self.roberta(ids, mask, generator=generator)
-        emb = self.norm(self.embeddingHead(hidden[:, 0].to(torch.float32)))
+        cls = hidden[:, 0]
+        emb = self.norm(self.embeddingHead(cls.to(_head_dtype(cls))))
         return emb.reshape(B, C, -1)
 
     def forward(self, input_ids, attention_mask, generator=None):
@@ -74,7 +80,7 @@ class BertTower(TransformerEncoder):
                 generator=None):
         hidden = super().forward(input_ids, attention_mask, token_type_ids,
                                  generator)
-        return hidden[:, 0].to(torch.float32)
+        return hidden[:, 0].to(_head_dtype(hidden))
 
 
 class BiEncoder(nn.Module):

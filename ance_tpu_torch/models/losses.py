@@ -8,7 +8,8 @@
 * :func:`masked_lm_loss` / :func:`seed_pretrain_loss` — SEED pretraining:
   the MLM term and the CLS-bottleneck decoder's LM term, weighted.
 
-All in fp32 whatever the encoder's compute dtype. The JAX losses pin their
+All in fp32 whatever the encoder's compute dtype (in fp64 for fp64
+embeddings, a yardstick's). The JAX losses pin their
 matmuls to HIGHEST precision; here TF32 is off at package import, so fp32
 products are full fp32 on the card too.
 """
@@ -20,12 +21,16 @@ import torch
 EMPTY_CHUNK_BIAS = -9999.0  # reference models.py:109
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def nll_triplet_loss(q_embs: torch.Tensor, pos_embs: torch.Tensor,
                      neg_embs: torch.Tensor) -> torch.Tensor:
     """Mean over the batch of −log softmax([q·pos, q·neg])[0]."""
-    q = q_embs.to(torch.float32)
-    s_pos = (q * pos_embs.to(torch.float32)).sum(-1)
-    s_neg = (q * neg_embs.to(torch.float32)).sum(-1)
+    q = _wide(q_embs)
+    s_pos = (q * _wide(pos_embs)).sum(-1)
+    s_neg = (q * _wide(neg_embs)).sum(-1)
     logits = torch.stack([s_pos, s_neg], dim=1)          # [B, 2]
     return -torch.log_softmax(logits, dim=1)[:, 0].mean()
 
@@ -39,8 +44,7 @@ def multichunk_scores(q_embs: torch.Tensor, chunk_embs: torch.Tensor,
     B, C, _ = chunk_embs.shape
     alive = attention_mask.reshape(B, C, -1)[:, :, 0]
     bias = (1.0 - alive.to(torch.float32)) * EMPTY_CHUNK_BIAS
-    scores = torch.einsum("bd,bcd->bc", q_embs.to(torch.float32),
-                          chunk_embs.to(torch.float32))
+    scores = torch.einsum("bd,bcd->bc", _wide(q_embs), _wide(chunk_embs))
     return torch.amax(scores + bias, dim=-1)
 
 
@@ -71,7 +75,7 @@ def dpr_inbatch_loss(q_embs: torch.Tensor, ctx_embs: torch.Tensor,
     holds positives and hard negatives interleaved, ``positive_idx`` [Q]
     each query's positive row (2i in the reference layout,
     run_ann_dpr.py:356-363). Returns (mean loss, correct count)."""
-    scores = q_embs.to(torch.float32) @ ctx_embs.to(torch.float32).T
+    scores = _wide(q_embs) @ _wide(ctx_embs).T
     return _inbatch_nll(scores, positive_idx)
 
 
@@ -83,12 +87,13 @@ def dpr_inbatch_multichunk_loss(q_embs: torch.Tensor,
     """:func:`dpr_inbatch_loss` over MaxP documents: score(q, doc) is the
     max over the doc's chunk dot products, a chunk whose first token is
     padding biased by −9999. ``ctx_chunk_embs`` [C, Cn, D]; ``ctx_mask``
-    [C, Cn·L]. No registry model trains with it, in either package."""
+    [C, Cn·L]. ``train/dpr_trainer.py``'s step trains with it under
+    ``multichunk`` (the MaxP demo's loop, ``experiments/demo_maxp.py``)."""
     C, Cn, _ = ctx_chunk_embs.shape
     alive = ctx_mask.reshape(C, Cn, -1)[:, :, 0]
     bias = (1.0 - alive.to(torch.float32)) * EMPTY_CHUNK_BIAS
-    s = torch.einsum("qd,jcd->qjc", q_embs.to(torch.float32),
-                     ctx_chunk_embs.to(torch.float32)) + bias[None]
+    s = torch.einsum("qd,jcd->qjc", _wide(q_embs),
+                     _wide(ctx_chunk_embs)) + bias[None]
     return _inbatch_nll(torch.amax(s, dim=-1), positive_idx)
 
 

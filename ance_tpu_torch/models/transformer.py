@@ -126,10 +126,12 @@ def _row_parallel(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, cfg: EncoderConfig):
-    """Residual LayerNorm: fp32 in and out-cast to the compute dtype, or
-    entirely in the compute dtype when ``fp32_layernorm`` is off."""
+    """Residual LayerNorm: fp32 (fp64 for an fp64 model) in and out-cast
+    to the compute dtype, or entirely in the compute dtype when
+    ``fp32_layernorm`` is off."""
     if cfg.fp32_layernorm:
-        return ln(x.to(torch.float32)).to(cfg.dtype)
+        wide = torch.promote_types(cfg.dtype, torch.float32)
+        return ln(x.to(wide)).to(cfg.dtype)
     return F.layer_norm(x, ln.normalized_shape, ln.weight.to(cfg.dtype),
                         ln.bias.to(cfg.dtype), ln.eps)
 

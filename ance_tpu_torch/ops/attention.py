@@ -166,6 +166,7 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl not in ("xla", "xla_bf16"):
         raise ValueError(f"unknown attention impl {impl!r}")
     bias = None if attention_mask is None else mask_to_bias(attention_mask)
-    softmax_dtype = torch.bfloat16 if impl == "xla_bf16" else torch.float32
+    softmax_dtype = torch.bfloat16 if impl == "xla_bf16" \
+        else torch.promote_types(q.dtype, torch.float32)
     return xla_attention(q, k, v, bias, softmax_dtype=softmax_dtype,
                          dropout_rate=dropout_rate, generator=generator)

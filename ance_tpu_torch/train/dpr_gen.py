@@ -42,13 +42,18 @@ def generate_new_ann_dpr(*, output_num: int, checkpoint_path: str,
                          negative_sample: int = 20,
                          dev_search_depth: int = 100,
                          encode_batch_size: int = 128,
+                         index: Optional[FlatIPIndex] = None,
                          index_quantize: Optional[str] = None,
-                         mesh=None) -> dict:
+                         seed: int = 0, mesh=None) -> dict:
     """One encode → index → validate → mine → write pass (reference
     run_ann_data_gen_dpr.py:204-278). ``query_encode_fn`` /
     ``body_encode_fn`` are ``train/encode.py::make_encode_fn`` closures
     over the BiEncoder's towers (the JAX function's ``params``);
-    ``passage_texts`` is keyed by cache offset.
+    ``passage_texts`` is keyed by cache offset. ``index`` is an empty
+    index of the caller's (a bf16 ``FlatIPIndex``, say) that the passages
+    are added to as given; without one the function builds an fp32 index
+    (``index_quantize``: an int8 one). ``seed`` shuffles the training
+    file's lines.
 
     Returns the JAX function's keys (``top20``, ``top100``,
     ``top20_trivia``, ``top100_trivia``, ``data_path``, ``ndcg_path``,
@@ -77,8 +82,9 @@ def generate_new_ann_dpr(*, output_num: int, checkpoint_path: str,
                                                       mesh=mesh)
     seconds = {"encode_passages": now() - t0}
 
-    index = FlatIPIndex(dim=passage_emb.shape[1], device=device, mesh=mesh,
-                        quantize=index_quantize or False)
+    if index is None:
+        index = FlatIPIndex(dim=passage_emb.shape[1], device=device,
+                            mesh=mesh, quantize=index_quantize or False)
     if index.quantize == "dims":
         index.add_chunked(passage_emb)  # never stages an fp32 copy
     else:
@@ -115,7 +121,7 @@ def generate_new_ann_dpr(*, output_num: int, checkpoint_path: str,
     if mesh is None or mesh.writer:
         write_dpr_ann_data(output_dir, output_num, q_ids,
                            training_query_positive_id, negatives, metrics,
-                           checkpoint_path)
+                           checkpoint_path, seed=seed)
     if mesh is not None:
         mesh.barrier()  # the files are whole before any rank goes on
     seconds["total"] = now() - t_start
@@ -186,15 +192,15 @@ def write_dpr_ann_data(output_dir: str, output_num: int,
                        query_embedding2id: np.ndarray,
                        training_query_positive_id: Mapping[int, int],
                        query_negative_passage: Mapping[int, Sequence[int]],
-                       metrics: dict, checkpoint_path: str
+                       metrics: dict, checkpoint_path: str, seed: int = 0
                        ) -> tuple[str, str]:
-    """The triple lines shuffled by ``random.Random(0)`` (the JAX
-    function's default seed), then the top-k-hit JSON sidecar, LAST: the
-    ready signal (reference run_ann_data_gen_dpr.py:265-278)."""
+    """The triple lines shuffled by ``random.Random(seed)`` (the JAX
+    function's shuffle), then the top-k-hit JSON sidecar, LAST: the ready
+    signal (reference run_ann_data_gen_dpr.py:265-278)."""
     os.makedirs(output_dir, exist_ok=True)
     data_path = os.path.join(output_dir, ANN_DATA_PREFIX + str(output_num))
     order = list(range(len(query_embedding2id)))
-    random.Random(0).shuffle(order)
+    random.Random(seed).shuffle(order)
     with open(data_path, "w") as f:
         for qi in order:
             qid = int(query_embedding2id[qi])

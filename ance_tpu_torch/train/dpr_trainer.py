@@ -41,10 +41,13 @@ from ance_tpu_torch.train.trainer import (TrainState, batch_to_device,
 
 
 def encode_towers(model, batch: dict,
-                  generator: Optional[torch.Generator] = None):
-    """Both towers over one batch → (q [B, D], ctx [2B, D]):
-    ctx[2i] is query i's positive, ctx[2i + 1] its negative
-    (run_ann_dpr.py:356-363). With ``generator`` (a host generator) each
+                  generator: Optional[torch.Generator] = None,
+                  multichunk: bool = False):
+    """Both towers over one batch → (q [B, D], ctx, ctx_mask): ctx[2i] is
+    query i's positive, ctx[2i + 1] its negative (run_ann_dpr.py:356-363),
+    and ``ctx_mask`` [2B, S] their attention masks in the same order. ctx
+    is [2B, D], or with ``multichunk`` the MaxP chunk embeddings [2B, C, D]
+    (``body_emb_multichunk``). With ``generator`` (a host generator) each
     tower draws its dropout from a device generator split from it, as the
     JAX function splits its key in two; without one (or in ``eval()``
     mode) nothing is dropped."""
@@ -58,13 +61,19 @@ def encode_towers(model, batch: dict,
                           dim=1).reshape(2 * B, -1)
     ctx_mask = torch.stack([batch["pos_mask"], batch["neg_mask"]],
                            dim=1).reshape(2 * B, -1)
-    return q, model.body_emb(ctx_ids, ctx_mask, ctx_gen)
+    body = model.body_emb_multichunk if multichunk else model.body_emb
+    return q, body(ctx_ids, ctx_mask, ctx_gen), ctx_mask
 
 
-def inbatch_loss_from_embs(q, ctx):
+def inbatch_loss_from_embs(q, ctx, ctx_mask=None, multichunk: bool = False):
     """The in-batch loss over gathered embeddings, positives at even
-    context rows → (loss, correct count)."""
+    context rows → (loss, correct count); with ``multichunk`` over MaxP
+    chunk embeddings, each document scored by its best live chunk
+    (``losses.dpr_inbatch_multichunk_loss``, which reads ``ctx_mask``)."""
     positive_idx = torch.arange(q.shape[0], device=q.device) * 2
+    if multichunk:
+        return losses.dpr_inbatch_multichunk_loss(q, ctx, ctx_mask,
+                                                  positive_idx)
     return losses.dpr_inbatch_loss(q, ctx, positive_idx)
 
 
@@ -81,20 +90,32 @@ def _micro_generator(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
-def make_dpr_train_step(accum_steps: int = 1, mesh=None) -> Callable:
+def make_dpr_train_step(accum_steps: int = 1, mesh=None,
+                        multichunk: bool = False,
+                        deterministic: bool = False) -> Callable:
     """(state, batch, generator) → (state, metrics {"loss", "correct",
     "correct_ratio", "grad_norm"}; device scalars): the in-batch loss,
     backward, then the state's optimizer (global-norm clip, LAMB or AdamW).
 
+    ``multichunk`` trains MaxP documents: contexts through
+    ``body_emb_multichunk`` and the in-batch loss over each document's best
+    live chunk (the JAX step's ``multichunk``). ``deterministic`` drops
+    nothing: the encodes get no dropout generator (the JAX step's
+    ``deterministic``, its eval path); ``generator`` is then unused (it
+    may be None) and no draw is taken from it.
+
     ``accum_steps > 1`` is the GradCache step
     (``make_dpr_accum_train_step`` in the JAX package), in three phases:
 
-      1. each micro-batch encoded without autograd, its embeddings kept;
-      2. one loss over the gathered [B, 2B] scores, and its gradients with
-         respect to the embeddings (``torch.autograd.grad`` on leaves);
+      1. each micro-batch encoded without autograd, its embeddings and its
+         context mask kept;
+      2. one loss over the gathered embeddings ([B, D] queries and [2B, D]
+         contexts, or [2B, C, D] chunk embeddings with the gathered masks),
+         and its gradients with respect to the embeddings
+         (``torch.autograd.grad`` on leaves);
       3. each micro-batch encoded again with autograd, and its rows of
-         those gradients pulled back (``torch.autograd.backward``),
-         accumulating into ``.grad``.
+         those gradients (``dctx[2im:2(i+1)m]``, chunks and all) pulled
+         back (``torch.autograd.backward``), accumulating into ``.grad``.
 
     Its loss, correct count and gradients are the unaccumulated step's on
     the same batch (without dropout, up to fp32 rounding); the activations
@@ -103,11 +124,16 @@ def make_dpr_train_step(accum_steps: int = 1, mesh=None) -> Callable:
     and 3, so the dropout stream differs from the unaccumulated step's.
 
     On a ``mesh`` the batch is this rank's rows and phase 2 runs on the
-    embeddings of every rank's rows, gathered in rank order (the JAX
-    step's global batch); with ``accum_steps`` 1 the rank's one encode
+    embeddings and masks of every rank's rows, gathered in rank order (the
+    JAX step's global batch); with ``accum_steps`` 1 the rank's one encode
     keeps its graph and is pulled back without a re-encode. The gradients
     are summed over the ranks (module docstring); loss, correct count and
     ratio are the global batch's."""
+
+    def encode(model, batch, generator):
+        return encode_towers(model, batch,
+                             None if deterministic else generator,
+                             multichunk)
 
     def step(state: TrainState, batch: dict, generator: torch.Generator):
         model = state.model
@@ -117,16 +143,16 @@ def make_dpr_train_step(accum_steps: int = 1, mesh=None) -> Callable:
         for p in model.parameters():
             p.grad = None
         B = batch["query_ids"].shape[0]
-        if mesh is not None and mesh.world > 1:
+        if mesh is not None and mesh.world > 1 and not deterministic:
             generator = mesh.rank_generator(generator)
         if accum_steps <= 1 and mesh is None:
-            q, ctx = encode_towers(model, batch, generator)
-            loss, correct = inbatch_loss_from_embs(q, ctx)
+            q, ctx, mask = encode(model, batch, generator)
+            loss, correct = inbatch_loss_from_embs(q, ctx, mask, multichunk)
             loss.backward()
         elif accum_steps <= 1:
-            q, ctx = encode_towers(model, batch, generator)
-            loss, correct, dq, dctx = _global_loss_grads(q.detach(),
-                                                         ctx.detach(), mesh)
+            q, ctx, mask = encode(model, batch, generator)
+            loss, correct, dq, dctx = _global_loss_grads(
+                q.detach(), ctx.detach(), mask, mesh, multichunk)
             torch.autograd.backward((q, ctx), grad_tensors=(dq, dctx))
         else:
             if B % accum_steps:
@@ -135,18 +161,19 @@ def make_dpr_train_step(accum_steps: int = 1, mesh=None) -> Callable:
             m = B // accum_steps
             micro = [{k: v[i * m:(i + 1) * m] for k, v in batch.items()}
                      for i in range(accum_steps)]
-            seeds = micro_batch_seeds(generator, accum_steps)
-            with torch.no_grad():  # 1. embeddings only
-                encoded = [encode_towers(model, mb, _micro_generator(s))
+            seeds = [0] * accum_steps if deterministic \
+                else micro_batch_seeds(generator, accum_steps)
+            with torch.no_grad():  # 1. embeddings and masks only
+                encoded = [encode(model, mb, _micro_generator(s))
                            for mb, s in zip(micro, seeds)]
-            q_all = torch.cat([e[0] for e in encoded])
-            ctx_all = torch.cat([e[1] for e in encoded])
+            q_all, ctx_all, mask_all = (torch.cat([e[j] for e in encoded])
+                                        for j in range(3))
             del encoded
             # 2. one global-softmax loss and its embedding gradients
-            loss, correct, dq, dctx = _global_loss_grads(q_all, ctx_all,
-                                                         mesh)
+            loss, correct, dq, dctx = _global_loss_grads(
+                q_all, ctx_all, mask_all, mesh, multichunk)
             for i, (mb, s) in enumerate(zip(micro, seeds)):  # 3. pull back
-                q, ctx = encode_towers(model, mb, _micro_generator(s))
+                q, ctx, _ = encode(model, mb, _micro_generator(s))
                 torch.autograd.backward(
                     (q, ctx), grad_tensors=(dq[i * m:(i + 1) * m],
                                             dctx[2 * i * m:2 * (i + 1) * m]))
@@ -163,16 +190,20 @@ def make_dpr_train_step(accum_steps: int = 1, mesh=None) -> Callable:
     return step
 
 
-def _global_loss_grads(q: torch.Tensor, ctx: torch.Tensor, mesh):
+def _global_loss_grads(q: torch.Tensor, ctx: torch.Tensor,
+                       ctx_mask: torch.Tensor, mesh, multichunk: bool):
     """Phase 2: the in-batch loss over the batch's embeddings (every
-    rank's, gathered in rank order, on a mesh) and its gradients with
-    respect to THIS rank's rows of them → (loss, correct, dq, dctx)."""
-    q_all, ctx_all = q, ctx
+    rank's, and every rank's context masks, gathered in rank order, on a
+    mesh) and its gradients with respect to THIS rank's rows of them →
+    (loss, correct, dq, dctx)."""
+    q_all, ctx_all, mask_all = q, ctx, ctx_mask
     if mesh is not None:
         q_all, ctx_all = mesh.gather_rows(q), mesh.gather_rows(ctx)
+        mask_all = mesh.gather_rows(ctx_mask)
     q_all = q_all.detach().requires_grad_()
     ctx_all = ctx_all.detach().requires_grad_()
-    loss, correct = inbatch_loss_from_embs(q_all, ctx_all)
+    loss, correct = inbatch_loss_from_embs(q_all, ctx_all, mask_all,
+                                           multichunk)
     dq, dctx = torch.autograd.grad(loss, (q_all, ctx_all))
     if mesh is not None:
         B = q.shape[0]
@@ -216,7 +247,7 @@ def evaluate_dev(model, query_cache: TokenCache, passage_cache: TokenCache,
     with torch.inference_mode():
         for batch in dpr_dev_batches(query_cache, passage_cache,
                                      dev_data_path, batch_size):
-            q, ctx = encode_towers(model, batch_to_device(batch, device))
+            q, ctx, _ = encode_towers(model, batch_to_device(batch, device))
             loss, correct = inbatch_loss_from_embs(q, ctx)
             total_loss += float(loss)
             total_correct += int(correct)

@@ -188,7 +188,22 @@ kernels under bf16 and int8 queries), and then:
     of every column-parallel weight), ``generate`` at tp 1 (hand-off files
     byte-equal), ``generate-dpr --bf16`` at tp 2 on the DPR phase's
     towers, and the refusals (``--attention auto``, tp 3 at two ranks,
-    NCCL on one card).
+    NCCL on one card);
+  * demo: the learning demos' paths (``experiments/demo*.py``): (a) the
+    MaxP in-batch step (``make_dpr_train_step(multichunk=True)``) of
+    ``rdot_nll_multi_chunk`` at full width, 8 queries of seq 64 and 16
+    documents of 4 x 512 with empty chunks, in bf16 with attention dropout
+    0 (#2 / #3 12 a step, the first call of each held to plain; step ms,
+    peak memory), then in fp32 the GradCache step (accumulation 2) against
+    the unaccumulated one and both against the step in fp64, each
+    distance printed against the element and the normwise bound; (b) the
+    FirstP demo cut only in corpus size (16,384 passages; 1,000 warmup
+    steps and 1,856 loop steps), in a process of its own beside the DPR,
+    SEED, mesh and tp phases (its loop is bound by the host): bootstrap dev
+    NDCG@10 at chance, the last refresh at 0.5 or above, every mining pass
+    equal to a scan, #1 once a search item and on the loop's own D = 256
+    operands against plain and the exact maxima, timed beside its bound.
+    The DPR phase's GradCache check is held against the fp64 step too.
 
 Each phase's wall seconds print before the result lines.
 
@@ -4658,6 +4673,18 @@ def phase_dpr(work: Path):
         element_excess = max(
             ((grads[DPR_ACCUM][n] - g).abs() / (1e-6 + 1e-5 * g.abs()))
             .max().item() for n, g in grads[1].items())
+        # the yardstick: the unaccumulated step in fp64 (the einsum
+        # attention: no kernel takes fp64); each fp32 step's distance from
+        # it, against the element bound and normwise (_fp64_distances)
+        model64 = get_model_spec("dpr").build(
+            dtype=torch.float64, attention_impl="xla", config_overrides={
+                "hidden_dropout": 0.0, "attention_dropout": 0.0})
+        ckpt.load_params(final, model64)
+        model64 = model64.double().to("cuda")
+        gc64, g64 = _raw_grads(model64, batch, 1, False)
+        vs64 = {a: _fp64_distances(grads[a], g64) for a in (1, DPR_ACCUM)}
+        del model64, g64
+        torch.cuda.empty_cache()
         check(rel <= 1e-6 and gc[DPR_ACCUM]["correct"] == gc[1]["correct"]
               and norm_rel <= 1e-5 and grad_excess <= 1.0,
               f"GradCache on the card: {gc[DPR_ACCUM]} against the "
@@ -4674,7 +4701,14 @@ def phase_dpr(work: Path):
               f"every gradient tensor within 1e-4 of its norm + 1e-6 of the "
               f"whole gradient's (worst {worst_tensor} at "
               f"{grad_excess:.3g} of it; the CPU test's element bound "
-              f"exceeded {element_excess:.3g}x); #2 / #3 launches "
+              f"exceeded {element_excess:.3g}x); against the fp64 step "
+              f"(loss {gc64['loss']!r}): one pass element "
+              f"{vs64[1]['element_excess']:.3g}x the bound "
+              f"({vs64[1]['element_worst']}), normwise "
+              f"{vs64[1]['normwise_excess']:.3g}; GradCache element "
+              f"{vs64[DPR_ACCUM]['element_excess']:.3g}x "
+              f"({vs64[DPR_ACCUM]['element_worst']}), normwise "
+              f"{vs64[DPR_ACCUM]['normwise_excess']:.3g}; #2 / #3 launches "
               f"{gc[DPR_ACCUM]['launches']}; its first forward and backward "
               f"against plain {gc_path}", flush=True)
         del model, batch, grads, gc_fwd, gc_bwd
@@ -4854,6 +4888,7 @@ def phase_dpr(work: Path):
             "gradcache_grad_norm_rel": norm_rel,
             "gradcache_worst_tensor": [worst_tensor, grad_excess],
             "gradcache_worst_element_vs_cpu_bound": element_excess,
+            "gradcache_fp64": gc64, "gradcache_against_fp64": vs64,
             "gradcache_path": gc_path,
             "generate": gens, "kernel_cases": kernel_cases,
             "phase_peak_gib": phase_peak, "capacity_21m": capacity}
@@ -6312,7 +6347,370 @@ def phase_tp(work: Path) -> dict:
     check(no_reference_modules(), "the port imported jax or ance_tpu")
     return result
 
+# the learning demos (experiments/demo*.py): the MaxP in-batch step at
+# full width, and the FirstP demo cut in corpus size
+DEMO_PASSAGES = 16_384
+# loop steps of the FirstP demo's cut: 29 refreshes of 64 steps; two
+# 16,384-passage card runs passed dev NDCG@10 0.5 at loop step 1,600 and
+# 1,344 and read 0.754 and 0.9596 at 1,792
+DEMO_LOOP_STEPS = 1_856
+DEMO_CHANCE, DEMO_LEARNED = 0.05, 0.5  # bootstrap below, last refresh at
+MAXP_STEP_QUERIES, MAXP_STEP_QUERY_LEN = 8, 64
+MAXP_STEP_DOC_LEN = 2048  # 4 chunks of 512: 16 documents, 64 chunk rows
+MAXP_STEP_STEPS = 5
+FP64_ACCUM = 8  # the fp64 yardstick's micro-batches: a query, 2 documents
+
+
+def _maxp_step_batch(seed: int) -> dict:
+    """MAXP_STEP_QUERIES queries of MAXP_STEP_QUERY_LEN and as many
+    positive and negative documents of MAXP_STEP_DOC_LEN (RoBERTa ids,
+    ``<s>`` then ids, padding 1): lengths from 256, so later chunks are
+    often empty (their first token padding); positive 1 is chunk 0
+    alone, negative 2 chunks 0 and 1."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    B = MAXP_STEP_QUERIES
+
+    def rows(seq, lengths):
+        ids = rs.randint(3, 50265, (B, seq))
+        ids[:, 0] = 0
+        mask = np.arange(seq)[None] < lengths[:, None]
+        return np.where(mask, ids, 1).astype(np.int32), mask.astype(np.int32)
+    b = {}
+    b["query_ids"], b["query_mask"] = rows(
+        MAXP_STEP_QUERY_LEN, rs.randint(8, MAXP_STEP_QUERY_LEN + 1, B))
+    for side in ("pos", "neg"):
+        lengths = rs.randint(256, MAXP_STEP_DOC_LEN + 1, B)
+        lengths[1 if side == "pos" else 2] = 300 if side == "pos" else 700
+        b[f"{side}_ids"], b[f"{side}_mask"] = rows(MAXP_STEP_DOC_LEN,
+                                                   lengths)
+    return b
+
+
+def _raw_grads(model, batch, accum: int, multichunk: bool) -> tuple:
+    """One in-batch step without dropout, lr 0 and no clipping: (metrics,
+    the raw gradients)."""
+    import torch
+    from ance_tpu_torch.train import dpr_trainer, trainer
+    state = trainer.init_train_state(model, trainer.make_optimizer(
+        model, "lamb", 0.0, max_grad_norm=0.0))
+    _, metrics = dpr_trainer.make_dpr_train_step(
+        accum, multichunk=multichunk, deterministic=True)(state, batch, None)
+    torch.cuda.synchronize()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def _fp64_distances(grads: dict, g64: dict) -> dict:
+    """An fp32 step's gradients against the fp64 step's: the worst element
+    against the element bound (|g - g64| / (1e-6 + 1e-5 |g64|), at most 1
+    within it) and the worst tensor against the normwise one (|g - g64| /
+    (1e-4 |g64| + 1e-6 |G64|), likewise), each with its tensor. Printed
+    and kept, not held: fp32's own distance from fp64 is the finding
+    (a tiny encoder on the CPU already exceeds the element bound 2.8x,
+    ``tests/test_torch_dpr.py``)."""
+    total = math.sqrt(sum(g.norm().item() ** 2 for g in g64.values()))
+    element, normwise = [], []
+    for n, w in g64.items():
+        d = grads[n].double() - w
+        element.append(((d.abs() / (1e-6 + 1e-5 * w.abs())).max().item(), n))
+        normwise.append((d.norm().item()
+                         / (1e-4 * w.norm().item() + 1e-6 * total), n))
+    (e, e_at), (m, m_at) = max(element), max(normwise)
+    return {"element_excess": e, "element_worst": e_at,
+            "element_bound_holds": e <= 1.0, "normwise_excess": m,
+            "normwise_worst": m_at}
+
+
+def _demo_maxp_step() -> dict:
+    """(a) ``rdot_nll_multi_chunk`` at RoBERTa-base width from seeded
+    weights (init std 0.05, so the in-batch scores are not all alike)
+    through ``make_dpr_train_step(multichunk=True)``: in bf16 with
+    attention dropout 0 (#2 / #3 on the 64 chunk rows of a step, launches
+    == 12 a document pass, the first call of each held to plain), its
+    step ms and peak memory; then in fp32 the GradCache step (accumulation
+    2) against the unaccumulated one on the same batch, and both against
+    the step in fp64 (``FP64_ACCUM`` micro-batches; the einsum attention,
+    no kernel takes fp64)."""
+    import numpy as np
+    import torch
+    from ance_tpu_torch.models.registry import get_model_spec
+    from ance_tpu_torch.train import dpr_trainer, trainer
+    spec = get_model_spec("rdot_nll_multi_chunk")
+    batch = _maxp_step_batch(20)
+    layers = 12
+
+    # bf16, the kernels: MAXP_STEP_STEPS steps, dropout as trained but in
+    # the attention (0 there, so #2 / #3 run)
+    model = spec.build(dtype=torch.bfloat16, config_overrides={
+        "attention_dropout": 0.0, "initializer_range": 0.05}).cuda()
+    state = trainer.init_train_state(model, trainer.make_optimizer(
+        model, "lamb", 1e-5))
+    step = dpr_trainer.make_dpr_train_step(multichunk=True)
+    gen = torch.Generator().manual_seed(0)
+    fwd, bwd, times, losses = {}, {}, [], []
+    torch.cuda.reset_peak_memory_stats()
+    _reset_attention_counts()
+    with picked_calls("forward", (0,), fwd), \
+            picked_calls("backward", (0,), bwd):
+        for _ in range(MAXP_STEP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, gen)
+            losses.append(float(m["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+    launches = _attention_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = ({"fused_fwd_bf16": layers * MAXP_STEP_STEPS},
+            {"fused_bwd_bf16": layers * MAXP_STEP_STEPS})
+    check(launches == want, f"demo (a) MaxP in-batch step: #2 / #3 "
+          f"launches {launches}, not {want} (12 a document pass)")
+    check(all(math.isfinite(x) for x in losses), f"demo (a): losses {losses}")
+    step_ms = statistics.median(times[TIMED_FROM:])
+    path = _attention_on_operands(fwd, bwd, "demo (a) MaxP in-batch step")
+    print(f"demo (a) MaxP in-batch step (rdot_nll_multi_chunk, bf16, "
+          f"{MAXP_STEP_QUERIES} queries x {MAXP_STEP_QUERY_LEN}, "
+          f"{2 * MAXP_STEP_QUERIES} documents x {MAXP_STEP_DOC_LEN}): step "
+          f"{step_ms:.1f} ms (median after {TIMED_FROM}), peak {peak:.2f} "
+          f"GiB, losses {[round(x, 4) for x in losses]}; #2 / #3 launches "
+          f"{launches}; first calls against plain {path}", flush=True)
+    start = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model, state, fwd, bwd
+    torch.cuda.empty_cache()
+
+    # fp32: accumulation 1 and 2, then the fp64 yardstick; no dropout
+    quiet = {"attention_dropout": 0.0, "hidden_dropout": 0.0}
+    gc, grads = {}, {}
+    model = spec.build(config_overrides=quiet)
+    model.load_state_dict(start)
+    model = model.cuda()
+    with torch.no_grad():  # the batch's largest |query . chunk| score
+        q, ctx, _ = dpr_trainer.encode_towers(
+            model.eval(), trainer.batch_to_device(batch, "cuda"),
+            multichunk=True)
+        top = torch.einsum("qd,jcd->qjc", q, ctx).abs().max().item()
+        del q, ctx
+    for accum in (1, 2):
+        _reset_attention_counts()
+        gc[accum], grads[accum] = _raw_grads(model, batch, accum, True)
+        gc[accum]["launches"] = _attention_counts()
+    del model
+    torch.cuda.empty_cache()
+    check(gc[2]["launches"] == ({"flash_fwd_pieces": 2 * 2 * layers},
+                                {"fused_bwd_pieces": 2 * layers}),
+          f"demo (a) fp32 GradCache: #2 / #3 launches {gc[2]['launches']}, "
+          "not each micro-batch's documents encoded twice and pulled back "
+          "once on the pieces routes")
+    f64 = spec.build(dtype=torch.float64, attention_impl="xla",
+                     config_overrides=quiet)
+    f64.load_state_dict(start)
+    f64 = f64.double().cuda()
+    gc64, g64 = _raw_grads(f64, batch, FP64_ACCUM, True)
+    del f64
+    torch.cuda.empty_cache()
+    rel = abs(gc[2]["loss"] - gc[1]["loss"]) / abs(gc[1]["loss"])
+    # the loss is a difference of scores whose fp32 rounding scales with
+    # them: held within 1e-6 of the larger of |loss| and the largest
+    # |score| (one run read 2.0e-6 of |loss| ~19 at scores of hundreds,
+    # another 2.0e-7)
+    loss_tol = 1e-6 * max(abs(gc[1]["loss"]), top)
+    total = math.sqrt(sum(g.norm().item() ** 2 for g in grads[1].values()))
+    grad_excess, worst = max(
+        ((grads[2][n] - g).norm().item()
+         / (1e-4 * g.norm().item() + 1e-6 * total), n)
+        for n, g in grads[1].items())
+    vs64 = {a: _fp64_distances(grads[a], g64) for a in (1, 2)}
+    check(abs(gc[2]["loss"] - gc[1]["loss"]) <= loss_tol
+          and gc[2]["correct"] == gc[1]["correct"] and grad_excess <= 1.0,
+          f"demo (a) fp32 GradCache: {gc[2]} against {gc[1]} (loss rel "
+          f"{rel}, tolerance {loss_tol} at largest |score| {top}; {worst} "
+          f"at {grad_excess} of its bound)")
+    print(f"demo (a) fp32 GradCache (accumulation 2) vs one pass: loss "
+          f"{gc[2]['loss']!r} / {gc[1]['loss']!r} (rel {rel:.3g}; bound "
+          f"{loss_tol:.3g}, 1e-6 of the largest |score| {top:.1f} or of "
+          f"|loss|; fp64 {gc64['loss']!r}), correct {gc[2]['correct']:.0f} / "
+          f"{gc[1]['correct']:.0f} / fp64 {gc64['correct']:.0f}, every "
+          f"tensor within 1e-4 of its norm + 1e-6 of the whole gradient's "
+          f"(worst {worst} at {grad_excess:.3g}); against the fp64 step "
+          f"(accumulation {FP64_ACCUM}): one pass element "
+          f"{vs64[1]['element_excess']:.3g}x the bound 1e-6 + 1e-5 rel "
+          f"({vs64[1]['element_worst']}), normwise "
+          f"{vs64[1]['normwise_excess']:.3g}; GradCache element "
+          f"{vs64[2]['element_excess']:.3g}x ({vs64[2]['element_worst']}), "
+          f"normwise {vs64[2]['normwise_excess']:.3g}; #2 / #3 launches "
+          f"{gc[2]['launches']}", flush=True)
+    del grads, g64
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "step_ms_all": times, "peak_gib": peak,
+            "losses": losses, "launches": launches, "path_operands": path,
+            "gradcache": gc, "gradcache_fp64": gc64,
+            "gradcache_loss_rel": rel, "gradcache_loss_tolerance": loss_tol,
+            "largest_score": top, "gradcache_worst_tensor":
+            [worst, grad_excess], "against_fp64": vs64,
+            "shape": {"queries": MAXP_STEP_QUERIES,
+                      "query_len": MAXP_STEP_QUERY_LEN,
+                      "documents": 2 * MAXP_STEP_QUERIES,
+                      "doc_len": MAXP_STEP_DOC_LEN}}
+
+
+def _demo_firstp(work: Path) -> dict:
+    """(b) ``experiments/demo.py`` (the FirstP demo, bf16, LAMB 1e-3, 1,000
+    in-batch warmup steps, the pipelined loop) cut only in corpus size, to
+    DEMO_PASSAGES, and to DEMO_LOOP_STEPS loop steps, under the loop's
+    probes: bootstrap dev NDCG@10 below DEMO_CHANCE, the last refresh at
+    DEMO_LEARNED or above, every mining pass equal to a scan, #1's
+    launches == the S and M items, and #1 on the loop's own D = 256
+    operands against plain and the exact maxima, timed beside its bound."""
+    import torch
+    from ance_tpu_torch.experiments import demo
+    from ance_tpu_torch.ops.topk import (_pad_rows, blockmax_scores,
+                                         blockmax_scores_reference)
+    from ance_tpu_torch.utils.timing import (clocks_text, cuda_ms,
+                                             timed_in_turns)
+    log = work / "demo_firstp.jsonl"
+    t0 = time.perf_counter()
+    with _loop_probes() as probes:
+        reset_blockmax_counts()
+        out = demo.main(["--passages", str(DEMO_PASSAGES), "--steps",
+                         str(DEMO_LOOP_STEPS), "--log", str(log)])
+        launches = blockmax_counts()
+        loop = out["loop"]
+        seconds = time.perf_counter() - t0
+        history = loop.history
+        searched = sum(tag in "SM" for tag in loop.schedule_trace)
+        check(launches == {"blockmax_pieces_f32": searched},
+              f"demo (b): block-max launches {launches}, not one a search "
+              f"item ({searched})")
+        check(history[0]["dev_ndcg"] < DEMO_CHANCE, f"demo (b): bootstrap "
+              f"dev NDCG@10 {history[0]['dev_ndcg']}, not chance")
+        check(history[-1]["dev_ndcg"] >= DEMO_LEARNED, f"demo (b): last "
+              f"refresh {history[-1]}, below {DEMO_LEARNED}")
+        mined = _mining_equals_scan(probes, "demo (b)")
+        cases = _phase1_on_loop_operands(probes, "f32xf32", "demo firstp")
+        # the dev operands again: the exact maxima, the kernel's time
+        q, corpus = probes["phase1"]["dev"]
+        q, c = q.contiguous(), _pad_rows(corpus, CHUNK_ROWS)
+        del probes, loop, out
+    got = blockmax_scores(q, c, chunk_rows=CHUNK_ROWS)
+    want = blockmax_scores_reference(q, c)
+    exact = (q.double() @ c.double().T).reshape(q.shape[0], -1, 16).amax(-1)
+    k_err = (got.double() - exact).abs().max().item()
+    p_err = (want.double() - exact).abs().max().item()
+    check(k_err <= FLOAT_ATOL, f"demo (b): #1 is {k_err} from the exact "
+          f"maxima, > {FLOAT_ATOL}")
+    times, sampled = timed_in_turns({"ms": lambda: blockmax_scores(
+        q, c, chunk_rows=CHUNK_ROWS)})
+    plain_ms = cuda_ms(lambda: blockmax_scores_reference(q, c))
+    nq, nc, dim = q.shape[0], c.shape[0], q.shape[1]
+    moved = (nq + nc) * dim * 4 + nq * (nc // 16) * 4
+    b_ms, b_by = bound(moved, 2.0 * nq * nc * dim
+                       * FP32_PIECE_PRODUCTS["f32xf32"], "bf16")
+    case = dict(cases[0], shape="demo firstp dev (timed)", ms=times["ms"],
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                clocks=sampled, max_abs_err_exact=k_err,
+                plain_max_abs_err_exact=p_err,
+                fp32_rate_bound_ms=bound(moved, 2.0 * nq * nc * dim,
+                                         "f32")[0])
+    print(f"kernel f32xf32    demo firstp dev Q={nq} N={nc} D={dim} "
+          f"(blockmax_pieces_f32): kernel {times['ms']:.4f} ms  plain "
+          f"{plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}); against the "
+          f"exact maxima: kernel {k_err:.3g}, plain {p_err:.3g}  "
+          f"{clocks_text(sampled)}", flush=True)
+    del got, want, exact, q, c
+    torch.cuda.empty_cache()
+    crossing = next((h["step"] for h in history
+                     if h["dev_ndcg"] >= DEMO_LEARNED), None)
+    print(f"demo (b) FirstP, {DEMO_PASSAGES} passages: bootstrap "
+          f"{history[0]['dev_ndcg']:.4f}, last refresh "
+          f"{history[-1]['dev_ndcg']:.4f} at step {history[-1]['step']} "
+          f"({len(history)} refreshes, {DEMO_LEARNED} first at step "
+          f"{crossing}), {mined} mining passes equal to the scan, #1 "
+          f"launches {launches}; {seconds:.1f} s", flush=True)
+    return {"seconds": seconds, "refreshes": [
+        {k: h[k] for k in ("refresh", "step", "dev_ndcg", "dev_recall")}
+        for h in history], "crossed_at_step": crossing,
+        "blockmax_kernels": launches, "mining_checked": mined,
+        "kernel_cases": cases + [case]}
+
+
+DEMO_CHILD_TIMEOUT_S = 900  # phase_demo (b)'s process, start to end
+
+
+def phase_demo_step() -> dict:
+    """The learning demos' paths, (a): the MaxP in-batch (multichunk) step
+    at full width (``_demo_maxp_step``), its launches counted from 0 just
+    before it and read just after."""
+    a = _demo_maxp_step()
+    check(no_reference_modules(), "the port imported jax or ance_tpu")
+    return a
+
+
+def start_demo_firstp(work: Path) -> dict:
+    """Start phase_demo (b), the FirstP demo cut in corpus size, in a
+    process of its own (this script with ``--demo-firstp``), so that it
+    runs beside the phases that follow it (DPR, SEED, mesh, tp): its loop
+    is bound by the host (~93% of the card idle), theirs mostly by their
+    worker and rank processes. Their times are taken with it beside them,
+    and DPR's 21M capacity check with its ~2 GiB on the card."""
+    out = work / "demo_firstp.json"
+    log = open(work / "demo_firstp.out", "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--demo-firstp",
+         str(work), str(out)], stdout=log, stderr=subprocess.STDOUT)
+    return {"proc": proc, "out": out, "log": log, "t0": time.perf_counter()}
+
+
+def phase_demo(child: dict) -> dict:
+    """The learning demos' paths, (b): wait for the FirstP demo's process
+    (``start_demo_firstp``), print its refresh lines and checks, and fail
+    where it failed."""
+    proc = child["proc"]
+    try:
+        rc = proc.wait(timeout=max(1.0, DEMO_CHILD_TIMEOUT_S - (
+            time.perf_counter() - child["t0"])))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    child["log"].close()
+    wall = time.perf_counter() - child["t0"]
+    text = (child["out"].parent / "demo_firstp.out").read_text()
+    for line in text.splitlines():
+        if line.startswith(("{\"event\": \"refresh", "{\"event\": \"boot",
+                            "{\"event\": \"warmup_done", "{\"idle",
+                            "{\"event\": \"done", "kernel ", "demo (b)",
+                            "Traceback", "  ", "RuntimeError", "chip_smoke")):
+            print(line, flush=True)
+    check(rc == 0, f"demo (b): its process exited {rc} after {wall:.1f} s "
+          f"(limit {DEMO_CHILD_TIMEOUT_S} s)")
+    b = json.loads(child["out"].read_text())
+    b["process_wall_s"] = wall
+    print(f"demo (b): the process took {wall:.1f} s, start to end "
+          "(beside the DPR, SEED, mesh and tp phases)", flush=True)
+    return b
+
+
+def demo_firstp_child(work: str, out: str) -> int:
+    """``chip_smoke.py --demo-firstp WORK OUT``: phase_demo (b) in this
+    process (the kernels already built by the parent), its result as JSON
+    in OUT; a failed check exits non-zero."""
+    sys.path.insert(0, str(ROOT))
+    import ance_tpu_torch  # noqa: F401  (TF32 off before any work)
+    b = _demo_firstp(Path(work))
+    check(no_reference_modules(), "the port imported jax or ance_tpu")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(f"demo (b) numbers ({smi}): {b['seconds']:.1f} s", flush=True)
+    Path(out).write_text(json.dumps(b))
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--demo-firstp"]:
+        return demo_firstp_child(*sys.argv[2:4])
     try:
         import torch
     except ImportError:
@@ -6362,10 +6760,17 @@ def main() -> int:
         generate = timed(phase_generate, work)
         warmup = timed(phase_warmup, work)
         ance_loop = timed(phase_ance_loop, work, generate, train)
-        dpr = timed(phase_dpr, work)
-        seed = timed(phase_seed, work)
-        mesh = timed(phase_mesh, work)
-        tp = timed(phase_tp, work)
+        demo = {"maxp_step": timed(phase_demo_step)}
+        child = start_demo_firstp(work)
+        try:
+            dpr = timed(phase_dpr, work)
+            seed = timed(phase_seed, work)
+            mesh = timed(phase_mesh, work)
+            tp = timed(phase_tp, work)
+        except BaseException:
+            child["proc"].kill()
+            raise
+        demo["firstp"] = timed(phase_demo, child)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     parity = timed(phase_step_parity)
@@ -6422,7 +6827,8 @@ def main() -> int:
              "blockmax_bf16_int8")
     # phase 1 on generate's and the pipelined loop's operands
     cases += generate.pop("kernel_cases") + ance_loop.pop("kernel_cases") \
-        + dpr.pop("kernel_cases") + seed.pop("kernel_cases")
+        + dpr.pop("kernel_cases") + seed.pop("kernel_cases") \
+        + demo["firstp"].pop("kernel_cases")
     own = [c for c in cases if c["kernel"] not in apart]
     blockmax = entry("blockmax_scores", "blockmax", "ance_tpu/ops/topk.py:90",
                      maxp["blockmax_launches"],
@@ -6484,6 +6890,9 @@ def main() -> int:
                 warmup["blockmax_kernels"][kernel]
             e["launches_by_path"]["seed_generate"] = \
                 seed["blockmax_kernels"][kernel]
+            # the FirstP demo's loop at 16,384 x 256 (phase_demo (b))
+            e["launches_by_path"]["demo_firstp"] = \
+                demo["firstp"]["blockmax_kernels"].get(kernel, 0)
         fp32_entries.append(e)
     # the int8 routes, with their launches on the int8 phase-1 study's path
     # and their yardstick (the same product at a library's rate)
@@ -6544,13 +6953,18 @@ def main() -> int:
                 "maxp_fp32_serve": launches,
                 "dpr_generate_fp32": dpr["generate"]["dpr_generate_fp32"][
                     "fused_forward"][kernel],
-                "dpr_gradcache_fp32": gc_fwd[kernel]}
+                "dpr_gradcache_fp32": gc_fwd[kernel],
+                "demo_maxp_gradcache_fp32": demo["maxp_step"]["gradcache"][
+                    2]["launches"][0][kernel]}
             e["dpr_path_operands"] = dpr["generate"]["dpr_generate_fp32"][
                 "path_forward"]
             e["dpr_gradcache_operands"] = dpr["gradcache_path"]["forward"]
         elif entry_name == "fused_attention_bwd_f32":
-            e["launches_by_path"] = {"maxp_fp32_train": launches,
-                                     "dpr_gradcache_fp32": gc_bwd[kernel]}
+            e["launches_by_path"] = {
+                "maxp_fp32_train": launches,
+                "dpr_gradcache_fp32": gc_bwd[kernel],
+                "demo_maxp_gradcache_fp32": demo["maxp_step"]["gradcache"][
+                    2]["launches"][1][kernel]}
             e["dpr_gradcache_operands"] = dpr["gradcache_path"]["backward"]
         fp32_attention.append(e)
     fused_fwd = attention_entry("fused_attention",
@@ -6567,7 +6981,11 @@ def main() -> int:
             "fused_forward"]["fused_fwd_bf16"],
         "seed_pretrain": seed["pretrain_fused_forward"]["fused_fwd_bf16"],
         "mesh_dpr": {rank: n.get("fused_fwd_bf16", 0) for rank, n in
-                     mesh["dpr"]["fused_forward"].items()}}
+                     mesh["dpr"]["fused_forward"].items()},
+        "demo_maxp_inbatch_step": demo["maxp_step"]["launches"][0][
+            "fused_fwd_bf16"]}
+    fused_fwd["demo_path_operands"] = demo["maxp_step"]["path_operands"][
+        "forward"]
     fused_fwd["dpr_path_operands"] = dpr["train_path"]["forward"]
     fused_fwd["seed_path_operands"] = seed["pretrain_path"]["forward"]
     fused_bwd = entry("fused_attention_bwd", "fused_attention",
@@ -6581,7 +6999,11 @@ def main() -> int:
         "dpr_train": dpr["train_fused_backward"]["fused_bwd_bf16"],
         "seed_pretrain": seed["pretrain_fused_backward"]["fused_bwd_bf16"],
         "mesh_dpr": {rank: n.get("fused_bwd_bf16", 0) for rank, n in
-                     mesh["dpr"]["fused_backward"].items()}}
+                     mesh["dpr"]["fused_backward"].items()},
+        "demo_maxp_inbatch_step": demo["maxp_step"]["launches"][1][
+            "fused_bwd_bf16"]}
+    fused_bwd["demo_path_operands"] = demo["maxp_step"]["path_operands"][
+        "backward"]
     fused_bwd["dpr_path_operands"] = dpr["train_path"]["backward"]
     fused_bwd["seed_path_operands"] = seed["pretrain_path"]["backward"]
     print(json.dumps({"kernels": [
@@ -6599,7 +7021,7 @@ def main() -> int:
         "mirror_encoder": mirror,
         "generate": generate, "warmup": warmup, "ance_loop": ance_loop,
         "dpr": dpr, "seed": seed, "topk_int8": topk_int8, "mesh": mesh,
-        "tp": tp, "phase_seconds": phase_s}))
+        "tp": tp, "demo": demo, "phase_seconds": phase_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -10,6 +10,8 @@ compared (threefry and Philox draw other masks); with it on, the port's
 GradCache gradient is held to autograd through one pass that uses the same
 per-micro-batch generators."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -339,3 +341,178 @@ def test_gradcache_with_dropout_pulls_back_the_same_masks():
     with torch.inference_mode():
         plain, _ = inbatch_loss_from_embs(*encode_towers(pm, tb))
     assert abs(plain.item() - loss.item()) > 1e-4
+
+
+# MaxP in-batch training (``make_dpr_train_step(multichunk=True)``): a
+# RobertaDot of 2 layers at width 64 with chunks of 16, documents of 4
+# chunks; RoBERTa ids (pad 1, <s> 0)
+MAXP = {"vocab_size": 100, "hidden_size": 64, "num_layers": 2,
+        "num_heads": 4, "intermediate_size": 128,
+        "max_position_embeddings": 40}
+MAXP_CHUNK, MAXP_CHUNKS = 16, 4
+
+
+def _maxp_models(init=0.05):
+    from ance_tpu.models.dot_models import RobertaDot as JaxDot
+    from ance_tpu_torch.models.dot_models import RobertaDot
+    kw = dict(MAXP, initializer_range=init, **NO_DROPOUT)
+    jm = JaxDot(JaxConfig(attention_impl="xla", **kw), out_dim=32,
+                base_len=MAXP_CHUNK)
+    ids = jnp.ones((2, 8), jnp.int32)
+    params = jax.tree.map(np.asarray, jax.jit(jm.init)(
+        jax.random.PRNGKey(0), ids, ids)["params"])
+    pm = RobertaDot(EncoderConfig(attention_impl="xla", **kw), out_dim=32,
+                    base_len=MAXP_CHUNK)
+    pm.load_state_dict(state_dict_from_flax(params), strict=True)
+    return jm, params, pm
+
+
+def _maxp_batch(B, seed):
+    """B queries of seq 8 and 2B documents of 4 chunks: lengths anywhere
+    from 1 token (only chunk 0 live) to all 64, so later chunks are often
+    empty (their first token padding); document 1 is chunk 0 alone."""
+    rs = np.random.RandomState(seed)
+
+    def rows(n, seq, lengths):
+        ids = rs.randint(3, MAXP["vocab_size"], (n, seq)).astype(np.int32)
+        ids[:, 0] = 0
+        mask = (np.arange(seq)[None] < lengths[:, None]).astype(np.int32)
+        return np.where(mask == 1, ids, 1).astype(np.int32), mask
+    b = {}
+    b["query_ids"], b["query_mask"] = rows(B, 8, rs.randint(2, 9, B))
+    seq = MAXP_CHUNK * MAXP_CHUNKS
+    for side in ("pos", "neg"):
+        lengths = rs.randint(1, seq + 1, B)
+        if side == "pos":
+            lengths[1] = MAXP_CHUNK - 3
+        b[f"{side}_ids"], b[f"{side}_mask"] = rows(B, seq, lengths)
+    return b
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_maxp_inbatch_step_matches_jax(accum):
+    """``make_dpr_train_step(accum, multichunk=True, deterministic=True)``
+    against JAX ``make_dpr_accum_train_step(..., deterministic=True,
+    multichunk=True)`` on one batch of 4 (8 documents, empty chunks, one
+    document of chunk 0 alone), init std 0.05: the loss within 1e-6,
+    ``correct`` equal, every raw gradient tensor within 1e-4 of its norm +
+    1e-6 of the whole gradient's from ``jax.grad`` of the JAX loss (the
+    two frameworks sum in other orders: elements of this encoder at init
+    0.05 part by up to 4x the port's own GradCache element bound), and
+    one LAMB step (clip 1.0, weight decay) within the step-parity bound,
+    the attention key biases (true gradient 0) bounded apart; LAMB turns
+    the rounding of a near-zero gradient into a step, so up to 2e-4 of
+    the entries may part by more than 2e-6 (11 of 78,112 at accumulation
+    2)."""
+    from ance_tpu.train import dpr_trainer as jdpr
+    from ance_tpu.train import trainer as jax_trainer
+    from ance_tpu_torch.train import trainer
+    from ance_tpu_torch.train.dpr_trainer import make_dpr_train_step
+    batch = _maxp_batch(4, seed=7)
+    assert (batch["pos_mask"][:, ::MAXP_CHUNK] == 0).any()  # empty chunks
+    jm, params, pm = _maxp_models()
+    jopt = jax_trainer.make_optimizer("lamb", LR, eps=1e-8,
+                                      weight_decay=0.01, max_grad_norm=1.0)
+    jstate = jax_trainer.init_train_state(jax.tree.map(jnp.asarray, params),
+                                          jopt)
+    jstep = jdpr.make_dpr_accum_train_step(jm, jopt, accum_steps=accum,
+                                           deterministic=True,
+                                           multichunk=True)
+    jstate, jmet = jstep(jstate, batch, jax.random.PRNGKey(0))
+    loss_fn = jdpr.biencoder_loss_fn(jm, deterministic=True, multichunk=True)
+    jgrads = state_dict_from_flax(jax.tree.map(np.asarray, jax.grad(
+        lambda p: loss_fn(p, batch, jax.random.PRNGKey(0))[0])(
+            jax.tree.map(jnp.asarray, params))))
+
+    # the raw gradients: lr 0, no clipping
+    _, _, raw = _maxp_models()
+    state = trainer.init_train_state(raw, trainer.make_optimizer(
+        raw, "lamb", 0.0, max_grad_norm=0.0))
+    _, m = make_dpr_train_step(accum, multichunk=True, deterministic=True)(
+        state, batch, None)
+    np.testing.assert_allclose(m["loss"].item(), float(jmet["loss"]),
+                               atol=1e-6, rtol=1e-6)
+    assert int(m["correct"]) == int(jmet["correct"])
+    total = math.sqrt(sum(float(g.norm()) ** 2 for g in jgrads.values()))
+    for n, p in raw.named_parameters():
+        assert float((p.grad - jgrads[n]).norm()) <= \
+            1e-4 * float(jgrads[n].norm()) + 1e-6 * total, n
+
+    state = trainer.init_train_state(pm, trainer.make_optimizer(
+        pm, "lamb", LR, eps=1e-8, weight_decay=0.01, max_grad_norm=1.0))
+    state, m = make_dpr_train_step(accum, multichunk=True,
+                                   deterministic=True)(state, batch, None)
+    np.testing.assert_allclose(m["loss"].item(), float(jmet["loss"]),
+                               atol=1e-6, rtol=1e-6)
+    want = state_dict_from_flax(jax.tree.map(np.asarray, jstate.params))
+    _assert_params_close(pm.state_dict(), want, lr_sum=LR, share=2e-4)
+
+
+def test_maxp_gradcache_equals_the_unaccumulated_step():
+    """The multichunk GradCache step at accumulation 2 and 4 against 1 on
+    one batch of 8 (16 documents) in the port, dropout off, init 0.2: the
+    loss within 1e-6 relative, ``correct`` equal, and every gradient
+    tensor of each within 1e-5 of its norm + 1e-6 of the whole gradient's
+    (the attention key biases' true gradient is 0) from the step's in
+    fp64 (the same weights in an fp64 model): phase 3 pulls each
+    micro-batch's [2m, C, D] rows of the chunk gradients back with its
+    masks, and a fault there moves a tensor by O(1). Every fp32 step,
+    the unaccumulated one too, is ~2e-6 of each norm from fp64 and
+    exceeds the element bound (1e-6 + 1e-5 relative) against it by up to
+    2.8x in most tensors: fp32's own error at this size, not the
+    accumulation's."""
+    from ance_tpu_torch.models.dot_models import RobertaDot
+    from ance_tpu_torch.train import trainer
+    from ance_tpu_torch.train.dpr_trainer import make_dpr_train_step
+    batch = _maxp_batch(8, seed=9)
+
+    def grads(pm, accum):
+        state = trainer.init_train_state(pm, trainer.make_optimizer(
+            pm, "lamb", 0.0, max_grad_norm=0.0))
+        _, m = make_dpr_train_step(accum, multichunk=True,
+                                   deterministic=True)(state, batch, None)
+        return m, {n: p.grad.clone() for n, p in pm.named_parameters()}
+    _, _, pm = _maxp_models(init=0.2)
+    f64 = RobertaDot(EncoderConfig(attention_impl="xla", dtype=torch.float64,
+                                   **MAXP, **NO_DROPOUT),
+                     out_dim=32, base_len=MAXP_CHUNK).double()
+    f64.load_state_dict(pm.state_dict())
+    m64, g64 = grads(f64, 1)
+    total = math.sqrt(sum(float(g.norm()) ** 2 for g in g64.values()))
+    assert m64["loss"].dtype == torch.float64
+    (m1, _), *accumulated = results = [grads(_maxp_models(init=0.2)[2], a)
+                                       for a in (1, 2, 4)]
+    np.testing.assert_allclose(m1["loss"].item(), m64["loss"].item(),
+                               rtol=1e-6)
+    for m, g in results:
+        np.testing.assert_allclose(m["loss"].item(), m1["loss"].item(),
+                                   rtol=1e-6)
+        assert int(m["correct"]) == int(m1["correct"]) == int(m64["correct"])
+        for n in g64:
+            assert float((g[n].double() - g64[n]).norm()) \
+                <= 1e-5 * float(g64[n].norm()) + 1e-6 * total, n
+
+
+def test_maxp_inbatch_step_is_not_the_firstp_one():
+    """The multichunk step scores documents by their best live chunk: its
+    loss is another number than the first chunk's alone would give, and
+    an empty chunk's −9999 bias keeps it out of the max (the loss is the
+    same with the empty chunks' embeddings zeroed)."""
+    from ance_tpu_torch.train.dpr_trainer import (encode_towers,
+                                                  inbatch_loss_from_embs)
+    _, _, pm = _maxp_models(init=0.2)
+    batch = {k: torch.as_tensor(v).long()
+             for k, v in _maxp_batch(4, seed=8).items()}
+    pm.eval()
+    with torch.inference_mode():
+        q, ctx, mask = encode_towers(pm, batch, multichunk=True)
+        assert ctx.shape == (8, MAXP_CHUNKS, 32) and mask.shape == (8, 64)
+        # positives at even context rows, with their masks
+        assert torch.equal(mask[0::2], batch["pos_mask"])
+        maxp, _ = inbatch_loss_from_embs(q, ctx, mask, multichunk=True)
+        first, _ = inbatch_loss_from_embs(q, ctx[:, 0])
+        alive = mask.reshape(8, MAXP_CHUNKS, -1)[:, :, :1].float()
+        zeroed, _ = inbatch_loss_from_embs(q, ctx * alive, mask,
+                                           multichunk=True)
+    assert abs(maxp.item() - first.item()) > 1e-3
+    assert zeroed.item() == pytest.approx(maxp.item(), rel=1e-6)

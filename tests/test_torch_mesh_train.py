@@ -81,6 +81,10 @@ def setup(tmp_path_factory):
     torch.save(dpm, root / "dpr.pt")
     dpr = dpr_tests._batches(2, 8, 16, 32, seed=1)
     _save_batches(root / "dpr.npz", dpr)
+    _, _, mpm = dpr_tests._maxp_models(init=0.2)
+    torch.save(mpm, root / "maxp.pt")
+    _save_batches(root / "maxp.npz", [dpr_tests._maxp_batch(8, seed=s)
+                                      for s in (11, 12)])
     sjm, sparams = _seed_jax()
     spm = pseed.SeedForMaskedLM(pseed.seed_encoder_config(**seed_tests.GEOM),
                                 pseed.SeedDecoderConfig(**seed_tests.DEC))
@@ -102,6 +106,10 @@ def setup(tmp_path_factory):
         *({"case": "step", "name": f"dpr{a}", "kind": "dpr",
            "model": str(root / "dpr.pt"), "batches": str(root / "dpr.npz"),
            "n_steps": 2, "accum": a, "opt": _opt(DPR_LR)} for a in (1, 2)),
+        *({"case": "step", "name": f"maxp{a}", "kind": "maxp_inbatch",
+           "model": str(root / "maxp.pt"),
+           "batches": str(root / "maxp.npz"), "n_steps": 2, "accum": a,
+           "opt": _opt(DPR_LR)} for a in (1, 2)),
         {"case": "step", "name": "seed", "kind": "seed",
          "model": str(root / "seed.pt"), "cache": cache, "batch": 2,
          "n_steps": STEPS, "opt": _opt(SEED_LR), **SEED_BKW},
@@ -206,6 +214,35 @@ def test_dpr_step_keeps_the_global_softmax(setup, accum):
                                     batches, _opt(DPR_LR), accum)
     np.testing.assert_allclose(got["loss"], losses, atol=1e-6, rtol=1e-5)
     np.testing.assert_allclose(got["grad_norm"], norms, rtol=1e-5)
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_maxp_inbatch_step_at_two_ranks(setup, accum):
+    """The MaxP in-batch step (``multichunk=True``) at 2 ranks, each 4 of
+    a global batch of 8 queries and 16 documents of 4 chunks, empty chunks
+    among them: the ranks' chunk embeddings and masks gathered in rank
+    order give the one-process step's loss (within 1e-6 + 1e-5 relative),
+    correct count and gradient norm (1e-5 relative: the partial gradients
+    summed, not averaged), parameters bit-equal on the ranks and within
+    the step-parity bound of one process's after 2 steps."""
+    got = _ranks_bit_equal(setup["ranks"][f"maxp{accum}"])
+    with np.load(setup["root"] / "maxp.npz") as z:
+        batches = [{k[3:]: z[k] for k in z.files if k.startswith(f"b{i}_")}
+                   for i in range(2)]
+    model = torch.load(setup["root"] / "maxp.pt", weights_only=False)
+    from ance_tpu_torch.experiments.mesh_worker import _make_step, _optimizer
+    state = trainer.init_train_state(model, _optimizer(model, _opt(DPR_LR)))
+    step = _make_step("maxp_inbatch", accum, None)
+    gen = torch.Generator().manual_seed(0)
+    for i, b in enumerate(batches):
+        state, m = step(state, b, gen)
+        np.testing.assert_allclose(got["loss"][i], float(m["loss"]),
+                                   atol=1e-6, rtol=1e-5)
+        assert got["correct"][i] == int(m["correct"])
+        np.testing.assert_allclose(got["grad_norm"][i],
+                                   float(m["grad_norm"]), rtol=1e-5)
+    _assert_params_close(got["params"], model.state_dict(),
+                         lr_sum=2 * DPR_LR, share=1e-4)
 
 
 def test_seed_step_weights_every_ranks_tokens(setup):

@@ -6,7 +6,9 @@ commands (``preprocess-dpr``, ``train --num_epoch``, ``generate-dpr``,
 ``export-hf --model_type dpr``), SEED's (the seed-wordpiece tokenizer,
 ``preprocess --model_type seeddot_nll``, ``seed-pretrain``, ``export-hf
 --model_type seeddot_nll``) and data parallelism (``core/mesh.py``, a
-one-rank group through ``experiments/mesh_worker.py``). Checked in a fresh interpreter, because
+one-rank group through ``experiments/mesh_worker.py``), nor while the
+learning demos (``experiments/demo*.py``) run. Checked in a fresh
+interpreter, because
 this test process already has jax (tests/conftest.py imports it)."""
 
 import os
@@ -27,9 +29,11 @@ SCRIPT = textwrap.dedent("""
     for name in mods:
         importlib.import_module(name)
     assert "jax" not in sys.modules, "import pulled in jax"
-    # tensor parallelism and the entry points are among them
-    assert {"ance_tpu_torch.core.tp", "ance_tpu_torch.graft_entry"} <= \
-        set(mods)
+    # tensor parallelism, the entry points and the demos are among them
+    assert {"ance_tpu_torch.core.tp", "ance_tpu_torch.graft_entry",
+            "ance_tpu_torch.experiments.demo",
+            "ance_tpu_torch.experiments.demo_maxp",
+            "ance_tpu_torch.experiments.demo_dpr"} <= set(mods)
 
     from ance_tpu_torch.data.cache import TokenCacheWriter
     from ance_tpu_torch.cli import main
@@ -323,6 +327,43 @@ SCRIPT = textwrap.dedent("""
     assert not old, f"the port imported the JAX package: {old}"
     print("modules", len(mods))
 """)
+
+
+DEMOS = textwrap.dedent("""
+    import sys
+    import torch
+    torch.set_num_threads(1)
+    from ance_tpu_torch.experiments import demo, demo_dpr, demo_maxp
+    demo.SHAPE = dict(hidden_size=16, num_layers=1, num_heads=2,
+                      intermediate_size=32)
+    cpu = ["--device", "cpu", "--dtype", "fp32"]
+    demo.main(["--passages", "1030", "--train_q", "8", "--dev_q", "4",
+               "--warm", "2", "--steps", "8", "--batch", "2"] + cpu)
+    demo.main(["--model", "seeddot", "--passages", "1030", "--train_q",
+               "8", "--dev_q", "4", "--warm", "2", "--steps", "8",
+               "--batch", "2"] + cpu)
+    demo_maxp.main(["--docs", "32", "--train_q", "8", "--dev_q", "4",
+                    "--warm", "2", "--steps", "8", "--batch", "2"] + cpu)
+    demo_dpr.main(["--passages", "64", "--train_q", "8", "--test_q", "4",
+                   "--trivia_q", "4", "--cycles", "1", "--steps", "2",
+                   "--batch", "2"] + cpu)
+    assert "jax" not in sys.modules, "a demo pulled in jax"
+    old = sorted(m for m in sys.modules
+                 if m == "ance_tpu" or m.startswith("ance_tpu."))
+    assert not old, f"a demo imported the JAX package: {old}"
+    print("demos ok")
+""")
+
+
+def test_demos_never_import_jax():
+    """The three learning demos (``experiments/demo.py`` with both models,
+    ``demo_maxp.py``, ``demo_dpr.py``) run end to end at a tiny size on
+    the CPU without jax or the JAX package."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", DEMOS], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.rstrip().endswith("demos ok")
 
 
 def test_port_never_imports_jax():
