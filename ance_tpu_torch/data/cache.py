@@ -23,10 +23,13 @@ import numpy as np
 
 
 class TokenCache:
-    """Batched reader over a token cache through a read-only ``np.memmap``;
-    a context manager, with ``len()`` and ``batch(keys)``."""
+    """Reader over a token cache through a read-only ``np.memmap``: a
+    context manager with ``len()``, ``cache[i] → (length, tokens)``,
+    batched ``batch(keys)``, and iteration in ``ix_array`` order — a
+    ``RandomState(seed)`` permutation for ``seed >= 0``, else the file's
+    (the reference's ``EmbeddingCache``)."""
 
-    def __init__(self, base_path: str | os.PathLike):
+    def __init__(self, base_path: str | os.PathLike, seed: int = -1):
         self.base_path = str(base_path)
         with open(self.base_path + "_meta", "r") as f:
             meta = json.load(f)
@@ -34,6 +37,11 @@ class TokenCache:
         self.total_number = int(meta["total_number"])
         self.embedding_size = int(meta["embedding_size"])
         self.record_size = self.embedding_size * self.dtype.itemsize + 4
+        if seed >= 0:
+            self.ix_array = np.random.RandomState(seed).permutation(
+                self.total_number)
+        else:
+            self.ix_array = np.arange(self.total_number)
         self._raw: np.memmap | None = None
 
     def open(self) -> "TokenCache":
@@ -53,13 +61,30 @@ class TokenCache:
     def __len__(self) -> int:
         return self.total_number
 
+    def _records(self) -> np.ndarray:
+        if self._raw is None:
+            self.open()
+        return self._raw.reshape(self.total_number, self.record_size)
+
+    def __getitem__(self, key: int) -> tuple[int, np.ndarray]:
+        """Record ``key`` → (length, tokens [L])."""
+        if key < 0 or key >= self.total_number:
+            raise IndexError(
+                f"Index {key} is out of bound for cached embeddings of size "
+                f"{self.total_number}")
+        rec = self._records()[key]
+        length = int.from_bytes(bytes(rec[:4]), "big")
+        return length, np.frombuffer(rec[4:].tobytes(), dtype=self.dtype)
+
+    def __iter__(self) -> Iterator[tuple[int, np.ndarray]]:
+        for i in self.ix_array:
+            yield self[int(i)]
+
     def batch(self, keys: Sequence[int] | np.ndarray
               ) -> tuple[np.ndarray, np.ndarray]:
         """Gather records → (lengths [B] int64, tokens [B, L])."""
-        if self._raw is None:
-            self.open()
         keys = np.asarray(keys, dtype=np.int64)
-        recs = self._raw.reshape(self.total_number, self.record_size)[keys]
+        recs = self._records()[keys]
         lengths = recs[:, :4].copy().view(">u4")[:, 0].astype(np.int64)
         tokens = np.frombuffer(recs[:, 4:].tobytes(), dtype=self.dtype)
         return lengths, tokens.reshape(len(keys), self.embedding_size)

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import queue
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Sequence
 
@@ -21,6 +23,10 @@ import numpy as np
 
 from ance_tpu_torch.data.cache import TokenCache
 from ance_tpu_torch.train.encode import mask_from_lengths
+
+# the name prefix of every feed thread: ``epoch_prefetched``'s pool threads
+# ("feed_0", ...) and ``prefetch_batches``' worker ("feed-prefetch")
+FEED_THREAD_PREFIX = "feed"
 
 
 def parse_triple_line(line: str) -> tuple[int, int, list[int]]:
@@ -119,7 +125,7 @@ class TripletBatches:
         B = self.batch_size
         pending: collections.deque = collections.deque()
         with ThreadPoolExecutor(max_workers=workers,
-                                thread_name_prefix="feed") as ex:
+                                thread_name_prefix=FEED_THREAD_PREFIX) as ex:
             try:
                 for s in range(0, triples.shape[0] - B + 1, B):
                     pending.append(
@@ -133,19 +139,83 @@ class TripletBatches:
                     f.cancel()
 
 
+def prefetch_batches(batches: Iterator[dict], depth: int = 4
+                     ) -> Iterator[dict]:
+    """``batches`` staged ahead on one background thread ("feed-prefetch"):
+    the same batches in the same order, at most ``depth`` of them waiting.
+    An exception in the worker is raised again at the consumer; closing
+    the generator (or dropping it) stops the worker within 0.1 s."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    end = object()
+
+    def put(item) -> bool:
+        """Put ``item`` unless told to stop; False when told."""
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for b in batches:
+                if not put(b):
+                    return
+            item = end
+        except BaseException as e:  # raised again at the consumer
+            item = e
+        put(item)
+
+    t = threading.Thread(target=worker, daemon=True,
+                         name=f"{FEED_THREAD_PREFIX}-prefetch")
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
+def feed_threads() -> set:
+    """The live threads whose name starts with ``FEED_THREAD_PREFIX``:
+    the feed's gather pools and prefetch workers."""
+    return {t for t in threading.enumerate()
+            if t.name.startswith(FEED_THREAD_PREFIX) and t.is_alive()}
+
+
+def live_feed_threads(ignore=()) -> int:
+    """How many feed threads live, leaving out those in ``ignore`` (the
+    ones a caller saw before it started)."""
+    return len(feed_threads() - set(ignore))
+
+
 def infinite_batches(batches: TripletBatches, *,
                      workers: int = 8) -> Iterator[dict]:
     """Re-iterate epochs forever (the reference re-iterates its dataset on
     StopIteration); ``workers > 0`` gathers through ``epoch_prefetched``,
-    ``0`` serially."""
+    ``0`` serially. Closing it closes the epoch's iterator at once (its
+    gather threads end then), not when the garbage collector finds it:
+    some Python 3.12 releases keep a closed generator's locals until the
+    generator itself is freed."""
     epoch = 0
     while True:
         yielded = False
         it = (batches.epoch_prefetched(epoch, workers=workers) if workers
               else batches.epoch(epoch))
-        for b in it:
-            yielded = True
-            yield b
+        try:
+            for b in it:
+                yielded = True
+                yield b
+        finally:
+            it.close()
         if not yielded:
             raise ValueError("dataset smaller than one batch")
         epoch += 1

@@ -87,18 +87,21 @@ def pipeline_config(batch: int = 128) -> PipelineConfig:
 
 
 class Log:
-    """JSON lines to ``path`` (appended, as the scripts do) and stdout."""
+    """JSON lines to ``path`` (appended, as the scripts do) and stdout,
+    flushed: ``log(rec)`` or ``log(**rec)``, which returns the record."""
 
-    def __init__(self, path: Optional[str]):
+    def __init__(self, path: Optional[str] = None):
         self.path = path
         if path and os.path.dirname(path):
             os.makedirs(os.path.dirname(path), exist_ok=True)
 
-    def __call__(self, rec: dict) -> None:
+    def __call__(self, rec: Optional[dict] = None, **fields) -> dict:
+        rec = {**(rec or {}), **fields}
         if self.path:
             with open(self.path, "a") as f:
                 f.write(json.dumps(rec) + "\n")
         print(json.dumps(rec), flush=True)
+        return rec
 
 
 def rounded(entry: dict) -> dict:

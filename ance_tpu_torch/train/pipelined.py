@@ -352,7 +352,12 @@ class PipelinedAnce:
                 np.asarray(triples, np.int64), cfg.batch_size,
                 seed=cfg.shuffle_seed + self.refresh_no,
                 host_id=cfg.host_id, num_hosts=cfg.num_hosts)
-            self._batches = infinite_batches(feed, workers=cfg.feed_workers)
+            # the replaced feed is closed here, not left to the garbage
+            # collector: its gather threads end now
+            old, self._batches = self._batches, infinite_batches(
+                feed, workers=cfg.feed_workers)
+            if old is not None:
+                old.close()
             if cfg.rewarmup_per_dataset:
                 # a fresh LR warmup for the new dataset, its size the
                 # horizon (reference run_ann.py:210-215)
@@ -450,6 +455,13 @@ class PipelinedAnce:
         if self._async_ckptr is not None:
             self._async_ckptr.wait()
 
+    def close(self) -> None:
+        """End the training feed (its gather threads) and fence the last
+        checkpoint; the loop runs no further steps."""
+        if self._batches is not None:
+            self._batches.close()
+        self.flush_checkpoints()
+
     def resume(self) -> int:
         """Restore the newest complete checkpoint of cfg.checkpoint_dir
         (parameters, optimizer, step, refresh rotation). Returns the resumed
@@ -465,6 +477,8 @@ class PipelinedAnce:
         self._take_snapshot()
         self._work.clear()
         self._cyc.clear()
+        if self._batches is not None:
+            self._batches.close()
         self._batches = None
         self._seed_cycle()
         logger.info("pipelined resume: step %s, refresh %s", step,

@@ -135,6 +135,16 @@ kernels under bf16 and int8 queries), and then:
     plus live searches), over an int8 ``dims`` index, and MaxP (bf16,
     kernel #2 counted in the encode items, #3 in the steps), each
     kernel held to its plain version on the loop's own operands;
+  * refresh: ``experiments/perf_refresh8m8.py``'s own functions in process
+    at 65,536 passages (two slices of 32,768; RoBERTa-base width, bf16,
+    LAMB, batch 64, the ``dims`` index, the script's config): its
+    preflight at the full 8.8M capacity (8,847,360 rows, ``dims`` and
+    fp32) with a batch-64 step beside each, the bootstrap (``ntotal``),
+    one cycle with step gaps from CUDA events, the first mining item's ids
+    against a scan, #1 (``blockmax_pieces_int8``) once a dev search and
+    mining item and held to plain on the mining item's operands, and no
+    feed thread left once the loop is closed; run where no other phase
+    holds the card's memory;
   * dpr: DPR's BiEncoder (two seeded BERT-base towers, seq 256) as its
     runbook drives it, over a psgs_w100.tsv-format corpus of 8,192
     passages and NQ / TriviaQA question files made from a seed and
@@ -3802,7 +3812,7 @@ def phase_ance_loop(work: Path, generate: dict, train: dict):
     with ``--http``, a client thread sending B=1, k=10 searches at
     LIVE_QPS while it trains, bootstrap and a whole cycle plus
     LOOP_STEPS_PER_SLICE steps; (b) FirstP over an int8 (``dims``) index
-    without serving, bootstrap and 3 x LOOP_STEPS_PER_SLICE steps; (c)
+    without serving, bootstrap and one step; (c)
     MaxP (bf16, attention dropout 0) over the fp32 MaxP phase's 512
     documents of seq 2048, bootstrap and LOOP_STEPS_PER_SLICE steps. Each
     run's
@@ -4001,9 +4011,11 @@ def phase_ance_loop(work: Path, generate: dict, train: dict):
     del loop, server, probes
     release()
 
-    # (b) FirstP over an int8 (dims) index, no serving: 24 steps
+    # (b) FirstP over an int8 (dims) index, no serving: the bootstrap's
+    # searches and one step (phase_refresh runs this loop at 65,536
+    # passages through a whole cycle)
     with _loop_probes() as probes:
-        b = run(flags("loop_b", 3 * LOOP_STEPS_PER_SLICE)
+        b = run(flags("loop_b", 1)
                 + ["--index_quantize", "dims"])
         loop = probes["loops"][0]
         want = {"blockmax_pieces_int8": searches(loop)}
@@ -4116,6 +4128,68 @@ def phase_ance_loop(work: Path, generate: dict, train: dict):
     check(no_reference_modules(), "the port imported jax or ance_tpu")
     results["kernel_cases"] = kernel_cases
     return results
+
+
+REFRESH_PASSAGES = 65_536  # two of the 8.8M refresh's 32,768-row slices
+REFRESH_NO_REFRESH_STEPS = 4  # the script's 100, cut for time
+REFRESH_SEARCHES = 6  # two refreshes of one S and two M items (1,024 queries)
+
+
+def phase_refresh(work: Path) -> dict:
+    """``experiments/perf_refresh8m8.py``'s ``run`` in process at
+    REFRESH_PASSAGES: the pipelined refresh at full width with the
+    script's config, its preflight at the full 8,847,360-row capacity in
+    ``dims`` and fp32. Checks the bootstrap's ``ntotal``, the mining
+    sample against the scan, #1's launches (counted by the script from
+    the bootstrap to the cycle's end) against the S and M items, #1 on the
+    mining item's operands against plain, the cycle's step gaps read from
+    CUDA events, no feed thread alive once the loop is closed, and the
+    preflights' and the cycle's peak memory."""
+    import torch
+    from ance_tpu_torch.experiments import perf_refresh8m8 as pr
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = pr.run(pr.parse_args([
+        "--device", "cuda", "--root", str(work / "refresh"),
+        "--passages", str(REFRESH_PASSAGES),
+        "--no_refresh_steps", str(REFRESH_NO_REFRESH_STEPS)]))
+    total_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    cases = out["preflight"]["cases"]
+    check([c["index"] for c in cases] == ["dims", "fp32"] and all(
+        c["capacity_rows"] == 8_847_360 and math.isfinite(c["loss"])
+        and 0 < c["peak_gib"] < total_gib for c in cases),
+        f"refresh preflight: {cases}")
+    boot, cyc, k = out["bootstrap"], out["cycle"][0], out["kernels"]
+    check(boot["ntotal"] == REFRESH_PASSAGES, f"refresh ntotal {boot}")
+    check(out["mining_vs_scan"]["equal"], f"refresh mining ids != the scan "
+          f"{out['mining_vs_scan']}")
+    check(k["searches"] == REFRESH_SEARCHES and k["launches"] ==
+          {"blockmax_pieces_int8": REFRESH_SEARCHES}, f"refresh: #1 "
+          f"launches {k['launches']} against {k['searches']} S and M items")
+    tol = FLOAT_ATOL * max(1.0, k["max_abs_score"] / FLOAT_ATOL_SCORE)
+    check(k["kernel"] == "blockmax_pieces_int8" and k["max_abs_err"] <= tol,
+          f"refresh: #1 on the mining item's operands {k['kernel']} max "
+          f"|err| {k['max_abs_err']} > {tol}")
+    check(cyc["gap_source"] == "cuda_events"
+          and cyc["step_gap"]["n"] == cyc["steps"] - 1
+          and cyc["step_gap"]["max_s"] > 0, f"refresh step gaps {cyc}")
+    check(out["done"]["feed_threads_after_close"] == 0,
+          f"refresh: feed threads left {out['done']}")
+    check(cyc["peak_gib"] is not None and cyc["peak_gib"] < total_gib,
+          f"refresh cycle peak {cyc['peak_gib']}")
+    print(f"refresh ({REFRESH_PASSAGES} passages, dims): preflight peaks "
+          f"{[round(c['peak_gib'], 2) for c in cases]} GiB (dims, fp32 at "
+          f"8,847,360 rows); bootstrap {boot['wall_min'] * 60:.1f} s, cycle "
+          f"{cyc['wall_min'] * 60:.1f} s ({cyc['steps']} steps), step gap "
+          f"{cyc['step_gap']} (CUDA events), items "
+          f"{ {t: round(v['p50_s'], 3) for t, v in cyc['item_times'].items()} }"
+          f" s p50; train alone {out['train_no_refresh']['step_ms']:.1f} ms a "
+          f"step; #1 {k['launches']} == S + M; at Q={k['Q']} N={k['N']} "
+          f"{k['ms']:.3f} ms (bound {k['bound_ms']:.3f}, plain "
+          f"{k['plain_ms']:.3f}), max |err| {k['max_abs_err']:.3g}; mining "
+          f"== scan; feed threads left 0", flush=True)
+    check(no_reference_modules(), "the port imported jax or ance_tpu")
+    return out
 
 
 # DPR (NQ open-QA) at BERT-base width, as the runbook drives it
@@ -6511,26 +6585,31 @@ def _demo_maxp_step() -> dict:
     del f64
     torch.cuda.empty_cache()
     rel = abs(gc[2]["loss"] - gc[1]["loss"]) / abs(gc[1]["loss"])
-    # the loss is a difference of scores whose fp32 rounding scales with
-    # them: held within 1e-6 of the larger of |loss| and the largest
-    # |score| (one run read 2.0e-6 of |loss| ~19 at scores of hundreds,
-    # another 2.0e-7)
-    loss_tol = 1e-6 * max(abs(gc[1]["loss"]), top)
+    # each fp32 loss against the fp64 step's: a query's loss sums its
+    # softmax over the batch's 2 x MAXP_STEP_QUERIES documents' scores,
+    # and fp32 rounds each score by at most 2^-24 of the largest |score|,
+    # so the bound is that many terms x the largest |score| x 2^-24
+    loss_terms = 2 * MAXP_STEP_QUERIES
+    loss_tol = loss_terms * top * 2.0 ** -24
+    vs64_loss = {a: abs(gc[a]["loss"] - gc64["loss"]) for a in (1, 2)}
     total = math.sqrt(sum(g.norm().item() ** 2 for g in grads[1].values()))
     grad_excess, worst = max(
         ((grads[2][n] - g).norm().item()
          / (1e-4 * g.norm().item() + 1e-6 * total), n)
         for n, g in grads[1].items())
     vs64 = {a: _fp64_distances(grads[a], g64) for a in (1, 2)}
-    check(abs(gc[2]["loss"] - gc[1]["loss"]) <= loss_tol
+    check(max(vs64_loss.values()) <= loss_tol
           and gc[2]["correct"] == gc[1]["correct"] and grad_excess <= 1.0,
-          f"demo (a) fp32 GradCache: {gc[2]} against {gc[1]} (loss rel "
-          f"{rel}, tolerance {loss_tol} at largest |score| {top}; {worst} "
-          f"at {grad_excess} of its bound)")
+          f"demo (a) fp32 GradCache: {gc[2]} / one pass {gc[1]} against the "
+          f"fp64 loss {gc64['loss']!r}: distances {vs64_loss}, bound "
+          f"{loss_tol} ({loss_terms} terms x largest |score| {top} x "
+          f"2^-24); {worst} at {grad_excess} of its bound")
     print(f"demo (a) fp32 GradCache (accumulation 2) vs one pass: loss "
-          f"{gc[2]['loss']!r} / {gc[1]['loss']!r} (rel {rel:.3g}; bound "
-          f"{loss_tol:.3g}, 1e-6 of the largest |score| {top:.1f} or of "
-          f"|loss|; fp64 {gc64['loss']!r}), correct {gc[2]['correct']:.0f} / "
+          f"{gc[2]['loss']!r} / {gc[1]['loss']!r} (rel {rel:.3g}), from the "
+          f"fp64 loss {gc64['loss']!r} by {vs64_loss[2]:.3g} / "
+          f"{vs64_loss[1]:.3g} (bound {loss_tol:.3g}: {loss_terms} terms x "
+          f"the largest |score| {top:.1f} x 2^-24), correct "
+          f"{gc[2]['correct']:.0f} / "
           f"{gc[1]['correct']:.0f} / fp64 {gc64['correct']:.0f}, every "
           f"tensor within 1e-4 of its norm + 1e-6 of the whole gradient's "
           f"(worst {worst} at {grad_excess:.3g}); against the fp64 step "
@@ -6547,6 +6626,7 @@ def _demo_maxp_step() -> dict:
             "losses": losses, "launches": launches, "path_operands": path,
             "gradcache": gc, "gradcache_fp64": gc64,
             "gradcache_loss_rel": rel, "gradcache_loss_tolerance": loss_tol,
+            "gradcache_loss_vs_fp64": vs64_loss,
             "largest_score": top, "gradcache_worst_tensor":
             [worst, grad_excess], "against_fp64": vs64,
             "shape": {"queries": MAXP_STEP_QUERIES,
@@ -6760,6 +6840,7 @@ def main() -> int:
         generate = timed(phase_generate, work)
         warmup = timed(phase_warmup, work)
         ance_loop = timed(phase_ance_loop, work, generate, train)
+        refresh = timed(phase_refresh, work)
         demo = {"maxp_step": timed(phase_demo_step)}
         child = start_demo_firstp(work)
         try:
@@ -6826,6 +6907,12 @@ def main() -> int:
     apart = ("blockmax_pieces_f32", "blockmax_pieces_int8", "blockmax_int8",
              "blockmax_bf16_int8")
     # phase 1 on generate's and the pipelined loop's operands
+    k = refresh["kernels"]
+    cases.append({"dtypes": "f32xint8", "shape": "refresh mining",
+                  "kernel": k["kernel"], "Q": k["Q"], "N": k["N"],
+                  "D": k["D"], "max_abs_err": k["max_abs_err"],
+                  "ms": k["ms"], "plain_ms": k["plain_ms"],
+                  "bound_ms": k["bound_ms"], "bound_by": k["bound_by"]})
     cases += generate.pop("kernel_cases") + ance_loop.pop("kernel_cases") \
         + dpr.pop("kernel_cases") + seed.pop("kernel_cases") \
         + demo["firstp"].pop("kernel_cases")
@@ -6848,6 +6935,7 @@ def main() -> int:
         "ance_loop": ance_loop["firstp"]["blockmax_kernels"],
         "ance_loop_dims": ance_loop["dims"]["blockmax_kernels"],
         "ance_loop_maxp": ance_loop["maxp"]["blockmax_kernels"],
+        "refresh_8m8_cut": refresh["kernels"]["launches"],
         "topk_int8_study": topk_int8["launches"],
         "ivf_phase": ivf["blockmax_kernels"],
         **{name: g["blockmax_kernels"]
@@ -6893,6 +6981,9 @@ def main() -> int:
             # the FirstP demo's loop at 16,384 x 256 (phase_demo (b))
             e["launches_by_path"]["demo_firstp"] = \
                 demo["firstp"]["blockmax_kernels"].get(kernel, 0)
+        else:  # the pipelined refresh at two 32,768-passage slices
+            e["launches_by_path"]["refresh_8m8_cut"] = \
+                refresh["kernels"]["launches"].get(kernel, 0)
         fp32_entries.append(e)
     # the int8 routes, with their launches on the int8 phase-1 study's path
     # and their yardstick (the same product at a library's rate)
@@ -7020,6 +7111,7 @@ def main() -> int:
         "step_parity": parity,
         "mirror_encoder": mirror,
         "generate": generate, "warmup": warmup, "ance_loop": ance_loop,
+        "refresh": refresh,
         "dpr": dpr, "seed": seed, "topk_int8": topk_int8, "mesh": mesh,
         "tp": tp, "demo": demo, "phase_seconds": phase_s}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ commands (``preprocess-dpr``, ``train --num_epoch``, ``generate-dpr``,
 ``preprocess --model_type seeddot_nll``, ``seed-pretrain``, ``export-hf
 --model_type seeddot_nll``) and data parallelism (``core/mesh.py``, a
 one-rank group through ``experiments/mesh_worker.py``), nor while the
-learning demos (``experiments/demo*.py``) run. Checked in a fresh
+learning demos (``experiments/demo*.py``) or the refresh and feed
+measurements (``experiments/perf_refresh8m8.py``, ``perf_feed.py``,
+``perf_loopfeed.py``) run. Checked in a fresh
 interpreter, because
 this test process already has jax (tests/conftest.py imports it)."""
 
@@ -33,7 +35,10 @@ SCRIPT = textwrap.dedent("""
     assert {"ance_tpu_torch.core.tp", "ance_tpu_torch.graft_entry",
             "ance_tpu_torch.experiments.demo",
             "ance_tpu_torch.experiments.demo_maxp",
-            "ance_tpu_torch.experiments.demo_dpr"} <= set(mods)
+            "ance_tpu_torch.experiments.demo_dpr",
+            "ance_tpu_torch.experiments.perf_refresh8m8",
+            "ance_tpu_torch.experiments.perf_feed",
+            "ance_tpu_torch.experiments.perf_loopfeed"} <= set(mods)
 
     from ance_tpu_torch.data.cache import TokenCacheWriter
     from ance_tpu_torch.cli import main
@@ -353,6 +358,48 @@ DEMOS = textwrap.dedent("""
     assert not old, f"a demo imported the JAX package: {old}"
     print("demos ok")
 """)
+
+
+PERF_SCRIPTS = textwrap.dedent("""
+    import json, sys, tempfile
+    import torch
+    torch.set_num_threads(1)
+    from ance_tpu_torch.experiments import (perf_feed, perf_loopfeed,
+                                            perf_refresh8m8)
+    tiny = json.dumps({"num_layers": 1, "hidden_size": 16, "num_heads": 2,
+                       "intermediate_size": 32})
+    cpu = ["--device", "cpu", "--dtype", "fp32"]
+    d = tempfile.mkdtemp()
+    out = perf_refresh8m8.main(cpu + [
+        "--root", d + "/r", "--passages", "256", "--train_q", "64",
+        "--dev_q", "16", "--batch", "4", "--slice", "128",
+        "--no_refresh_steps", "1", "--preflight_passages", "100",
+        "--encoder_overrides", tiny])
+    assert out["mining_vs_scan"]["equal"]
+    perf_feed.main(["--step_ms", "1", "--root", d + "/f", "--passages",
+                    "500", "--queries", "100", "--batches", "2"])
+    assert perf_loopfeed.main(cpu + [
+        "--passages", "256", "--train_q", "16", "--dev_q", "8", "--slice",
+        "128", "--cycles", "1", "--encoder_overrides", tiny])[
+        "batches_equal"]
+    assert "jax" not in sys.modules, "a perf script pulled in jax"
+    old = sorted(m for m in sys.modules
+                 if m == "ance_tpu" or m.startswith("ance_tpu."))
+    assert not old, f"a perf script imported the JAX package: {old}"
+    print("perf scripts ok")
+""")
+
+
+def test_perf_scripts_never_import_jax():
+    """``experiments/perf_refresh8m8.py``, ``perf_feed.py`` and
+    ``perf_loopfeed.py`` run end to end at a tiny size on the CPU without
+    jax or the JAX package."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", PERF_SCRIPTS], env=env,
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.rstrip().endswith("perf scripts ok")
 
 
 def test_demos_never_import_jax():
