@@ -16,7 +16,8 @@ dev search and mining pass goes through kernel #1 (``csrc/blockmax.cu``,
 ``blockmax_pieces_f32`` at D = 256) on the card.
 
     python -m ance_tpu_torch.experiments.demo [--model seeddot]
-        [--passages N] [--steps N] [--log run.jsonl]
+        [--passages N] [--steps N] [--init_seed 0 --warm_seed 9
+        --loop_seed 1] [--log run.jsonl]
 
 Against the JAX script:
 
@@ -33,7 +34,9 @@ Against the JAX script:
     ``PRNGKey(0)`` (weights), ``PRNGKey(9)`` (warmup dropout) and
     ``PRNGKey(1)`` (the loop's dropout): other streams than JAX's, so the
     two runs draw other weights and masks and give curves of the same
-    kind, not the same numbers;
+    kind, not the same numbers. ``--init_seed``, ``--warm_seed`` and
+    ``--loop_seed`` set the three (the start line then names them), for
+    a curve's spread over seeds;
   * the log (``--log``, one JSON object a line, each also printed) has
     the script's events and keys in its order; the start line adds the
     card's name and power limit. The device's idle share over a profiled
@@ -174,10 +177,10 @@ def warm_triples(n_train_q: int, n_classes: int, n_rows: int) -> np.ndarray:
 
 
 def build_model(kind: str = "rdot", dtype: torch.dtype = torch.bfloat16,
-                base_len: int = 512) -> RobertaDot:
+                base_len: int = 512, seed: int = INIT_SEED) -> RobertaDot:
     """The scripts' encoder (``SHAPE``, ``OUT_DIM``) at ``dtype``, seeded
-    on the host with ``INIT_SEED``: ``rdot`` (RobertaDot; ``base_len`` is
-    the MaxP chunk length) or ``seeddot`` (``seed_dot_model``)."""
+    on the host with ``seed``: ``rdot`` (RobertaDot; ``base_len`` is the
+    MaxP chunk length) or ``seeddot`` (``seed_dot_model``)."""
     if kind == "seeddot":
         from ance_tpu_torch.models.seed import seed_dot_model
         model = seed_dot_model(vocab_size=VOCAB, out_dim=OUT_DIM,
@@ -188,8 +191,7 @@ def build_model(kind: str = "rdot", dtype: torch.dtype = torch.bfloat16,
                            out_dim=OUT_DIM, base_len=base_len)
     else:
         raise ValueError(f"unknown demo model {kind!r}: rdot or seeddot")
-    init_weights(model, model.config,
-                 torch.Generator().manual_seed(INIT_SEED))
+    init_weights(model, model.config, torch.Generator().manual_seed(seed))
     return model
 
 
@@ -294,12 +296,13 @@ def run_loop(loop: PipelinedAnce, total: int, device, log: Log) -> None:
 
 def make_loop(cfg: PipelineConfig, state, train_step, caches: dict,
               passages: str, train_qrels, dev_qrels, device,
-              body_method=RobertaDot.body_emb) -> PipelinedAnce:
+              body_method=RobertaDot.body_emb, seed: int = LOOP_SEED
+              ) -> PipelinedAnce:
     """The scripts' ``PipelinedAnce`` over ``caches`` (``passages`` names
-    the corpus cache), dropout from ``LOOP_SEED``."""
+    the corpus cache), dropout from ``seed``."""
     return PipelinedAnce(
         cfg, state=state, train_step=train_step,
-        generator=torch.Generator().manual_seed(LOOP_SEED),
+        generator=torch.Generator().manual_seed(seed),
         query_method=RobertaDot.query_emb, body_method=body_method,
         passage_cache=caches[passages],
         train_query_cache=caches["train-query"],
@@ -322,6 +325,12 @@ def parse_args(argv=None, description: str = __doc__):
     p.add_argument("--batch", type=int, default=128)
     p.add_argument("--train_q", type=int, default=8192)
     p.add_argument("--dev_q", type=int, default=512)
+    p.add_argument("--init_seed", type=int, default=INIT_SEED,
+                   help="the weights' generator")
+    p.add_argument("--warm_seed", type=int, default=WARM_SEED,
+                   help="the warmup's dropout generator")
+    p.add_argument("--loop_seed", type=int, default=LOOP_SEED,
+                   help="the loop's dropout generator")
     add_device_args(p)
     return p.parse_args(argv)
 
@@ -345,13 +354,17 @@ def run(args, root: str) -> dict:
     device = torch.device(args.device)
     log = Log(args.log)
     t_start = time.time()
+    seeds = (args.init_seed, args.warm_seed, args.loop_seed)
     log({"event": "start", "devices": devices(device),
-         "corpus": args.passages, "train_q": args.train_q, **card(device)})
+         "corpus": args.passages, "train_q": args.train_q, **card(device),
+         **({} if seeds == (INIT_SEED, WARM_SEED, LOOP_SEED) else {
+             "seeds": dict(zip(("init", "warm", "loop"), seeds))})})
     paths, train_qrels, dev_qrels = build_corpus(
         root, args.passages, args.train_q, args.dev_q)
     log({"event": "corpus_built", "sec": round(time.time() - t_start, 1)})
 
-    model = build_model(args.model, DTYPES[args.dtype]).to(device)
+    model = build_model(args.model, DTYPES[args.dtype],
+                        seed=args.init_seed).to(device)
     n_params = sum(p.numel() for p in model.parameters())
     log({"event": "model", "params_m": round(float(n_params) / 1e6, 1)})
     state = init_train_state(model, demo_optimizer(model))
@@ -363,11 +376,12 @@ def run(args, root: str) -> dict:
                                        args.passages),
                           batch_size=args.batch, seed=5)
     state = run_warmup(state, step, infinite_batches(feed), args.warm,
-                       torch.Generator().manual_seed(WARM_SEED), device,
-                       log, every=100)
+                       torch.Generator().manual_seed(args.warm_seed),
+                       device, log, every=100)
 
     loop = make_loop(pipeline_config(args.batch), state, step, caches,
-                     "passages", train_qrels, dev_qrels, device)
+                     "passages", train_qrels, dev_qrels, device,
+                     seed=args.loop_seed)
     t0 = time.time()
     loop.bootstrap()
     log({"event": "bootstrap_refresh", "sec": round(time.time() - t0, 1),

@@ -127,14 +127,28 @@ kernels under bf16 and int8 queries), and then:
   * ance-loop: the pipelined refresh through ``cli ance-loop`` on the
     generator's data and weights: FirstP over an fp32 index with
     ``--http`` and a client sending B=1, k=10 searches at 10/s while it
-    trains (bootstrap, a whole cycle of 8 slices of 4,096 passages, 4
-    steps an item, then 4 steps more; its bootstrap dev NDCG equal to
+    trains (bootstrap, then 2 items of the next cycle, 4 steps an item:
+    ``serve_load`` drives live serving through a whole cycle; its
+    bootstrap dev NDCG equal to
     ``generate``'s, every mining search equal to a scan of the index as
     it stood, every live answer 200 and, after the run, equal to
     ``LoopRetriever.search_tokens``, block-max launches == S and M items
     plus live searches), over an int8 ``dims`` index, and MaxP (bf16,
     kernel #2 counted in the encode items, #3 in the steps), each
     kernel held to its plain version on the loop's own operands;
+  * serve_load: the serving measurements' ``run`` in process at cut depth
+    and full width (``experiments/perf_http.py``, ``perf_serve.py``,
+    ``perf_liveserve.py``): the HTTP tax at B 64 / 512 (answers == the
+    direct calls); the serve path over a 262,144 x 768 ``dims`` corpus
+    with the MaxP overfetch and dedup at B 64 / 512 (the dedup A/B equal)
+    and per-request latency at B 1 / 64 over bf16 and ``dims`` indexes
+    (each search line's route and launches, a search of it == the scan);
+    the live loop at 8,192 passages (two slices of 4,096; RoBERTa-base
+    bf16, the scripts' config, the fp32 index): one ``train_alone``
+    cycle, a 5 s idle window and one whole cycle with 4 HTTP client
+    threads, every sampled live search == the scan of the index as it
+    stood, #1's launches == the searches served + the S and M items,
+    every answer whole, no thread left;
   * refresh: ``experiments/perf_refresh8m8.py``'s own functions in process
     at 65,536 passages (two slices of 32,768; RoBERTa-base width, bf16,
     LAMB, batch 64, the ``dims`` index, the script's config): its
@@ -234,6 +248,7 @@ beside this file.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -3656,6 +3671,8 @@ def phase_warmup(work: Path):
 
 
 LOOP_SLICE, LOOP_STEPS_PER_SLICE = 4096, 4  # passages an E item; steps an item
+LOOP_A_ITEMS = 2  # items (a) runs after its bootstrap: a whole cycle of
+                  # live serving is phase_serve_load's
 MAXP_LOOP_SLICE = 128  # documents an E item of the MaxP loop (4 batches)
 IDLE_SEARCHES = 100  # live B=1 searches timed after the run, the loop idle
 LIVE_QPS = 10  # the offered rate of the live client during the run (open
@@ -3810,8 +3827,8 @@ def phase_ance_loop(work: Path, generate: dict, train: dict):
     process) at full RoBERTa-base width from the serve phase's seeded
     weights, on the generator phase's data: (a) FirstP over an fp32 index
     with ``--http``, a client thread sending B=1, k=10 searches at
-    LIVE_QPS while it trains, bootstrap and a whole cycle plus
-    LOOP_STEPS_PER_SLICE steps; (b) FirstP over an int8 (``dims``) index
+    LIVE_QPS while it trains, bootstrap and LOOP_A_ITEMS items of the
+    next cycle (LOOP_STEPS_PER_SLICE steps an item); (b) FirstP over an int8 (``dims``) index
     without serving, bootstrap and one step; (c)
     MaxP (bf16, attention dropout 0) over the fp32 MaxP phase's 512
     documents of seq 2048, bootstrap and LOOP_STEPS_PER_SLICE steps. Each
@@ -3832,7 +3849,7 @@ def phase_ance_loop(work: Path, generate: dict, train: dict):
     # 8 slices, then D, S, V, Q, M, F: 256 dev and 1,024 train queries a
     # search item each
     cycle = "E" * -(-N_PASSAGES // LOOP_SLICE) + "DSVQMF"
-    first_steps = (len(cycle) + 1) * LOOP_STEPS_PER_SLICE
+    first_steps = LOOP_A_ITEMS * LOOP_STEPS_PER_SLICE
 
     def flags(out: str, steps: int, data_dir: Path = data,
               seq: int = PASSAGE_LEN, eval_batch: int = 128,
@@ -3942,8 +3959,8 @@ def phase_ance_loop(work: Path, generate: dict, train: dict):
               "and live searches, over the fp32 index)")
         check(n_live >= 10, f"only {n_live} live searches during the run")
         trace = "".join(loop.schedule_trace)
-        check(trace.replace("T", "") == cycle * 2 + "E"
-              and loop.state.step == first_steps and loop.refresh_no == 2,
+        check(trace.replace("T", "") == cycle + "E" * LOOP_A_ITEMS
+              and loop.state.step == first_steps and loop.refresh_no == 1,
               f"ance-loop (a): schedule {trace.replace('T', '')}, step "
               f"{loop.state.step}")
         boot = loop.history[0]["dev_ndcg"]
@@ -3952,7 +3969,7 @@ def phase_ance_loop(work: Path, generate: dict, train: dict):
               f"{generate['dev_ndcg']!r}")
         mined = _mining_equals_scan(probes, "ance-loop (a)")
         lines = (work / "loop_a" / "refresh.jsonl").read_text().splitlines()
-        check(len(lines) == 2 and all(
+        check(len(lines) == 1 and all(
             {"refresh", "dev_ndcg", "dev_recall", "ann_mrr", "num_triples",
              "refresh_sec"} <= set(json.loads(x)) for x in lines),
             f"refresh.jsonl: {lines}")
@@ -4128,6 +4145,123 @@ def phase_ance_loop(work: Path, generate: dict, train: dict):
     check(no_reference_modules(), "the port imported jax or ance_tpu")
     results["kernel_cases"] = kernel_cases
     return results
+
+
+SERVE_LOAD_CORPUS = 262_144  # the serve path's corpus, cut from 1,000,000
+SERVE_LOAD_PASSAGES = 8_192  # the live loop's corpus: two slices of 4,096
+SERVE_LOAD_IDLE_S = 5  # the scripts' idle window of 20 s, cut
+SERVE_LOAD_MIN_SAMPLES = 32  # live searches held to the scan a window
+
+
+def phase_serve_load(work: Path) -> dict:
+    """The serving measurements (``experiments/perf_http.py``,
+    ``perf_serve.py``, ``perf_liveserve.py``) through their ``run`` in
+    process at cut depth and full width: the HTTP tax at B 64 / 512 (5
+    calls each); the serve path over a SERVE_LOAD_CORPUS x 768 corpus
+    (RoBERTa-base bf16 queries, a ``dims`` index with the MaxP overfetch
+    and dedup, B 64 / 512) and per-request latency at B 1 / 64 (10 calls,
+    bf16 and ``dims`` indexes); the live loop at SERVE_LOAD_PASSAGES
+    (RoBERTa-base bf16, seq 128 / 32, the scripts' config, the fp32 index)
+    for one ``train_alone`` cycle, a SERVE_LOAD_IDLE_S idle window and one
+    cycle with 4 HTTP client threads. Checks: the HTTP answers equal the
+    direct calls; the dedup A/B equal; each search line's route the one
+    its index takes, its launches one a call, and a search of it equal to
+    the scan; every sampled live search equal to the scan of the index as
+    it stood (at least SERVE_LOAD_MIN_SAMPLES a window); #1's launches ==
+    the searches served + the loop's S and M items; every answer whole;
+    both cycles finish; no thread left."""
+    import torch
+    from ance_tpu_torch.experiments import (perf_http, perf_liveserve,
+                                            perf_serve)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    http = perf_http.run(perf_http.parse_args(
+        ["--device", "cuda", "--batches", "64,512", "--reps", "5"]))
+    check([r["batch"] for r in http["http"]] == [64, 512] and all(
+        r["answers_equal"] for r in http["http"]),
+        f"serve_load http: answers != direct {http['http']}")
+    http_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    serve = perf_serve.run(perf_serve.parse_args(
+        ["--device", "cuda", "--corpus", str(SERVE_LOAD_CORPUS),
+         "--serve_batches", "64,512", "--latency_batches", "1,64",
+         "--latency_reps", "10", "--profiled_calls", "0"]))
+    routes = {"serve": "blockmax_pieces_int8",
+              "search_int8": "blockmax_pieces_int8",
+              "search_bf16": "blockmax_bf16",
+              "request_e2e_bf16": "blockmax_bf16"}
+    for rec in serve["serve"] + serve["latency"]:
+        if rec["stage"] == "dedup":
+            check(rec["equal"], f"serve_load dedup A/B {rec}")
+            continue
+        if rec["stage"] == "encode":
+            continue
+        want = routes[rec["stage"]]
+        check(rec["route"] == want and rec["launches"] == {
+            want: rec["calls"]}, f"serve_load {rec['stage']}: route "
+            f"{rec['route']}, launches {rec['launches']} for "
+            f"{rec['calls']} calls")
+        if "scan_equal" in rec:
+            check(rec["scan_equal"], f"serve_load {rec['stage']} B="
+                  f"{rec.get('batch', rec.get('serve_batch'))}: ids != scan")
+    check(sum(r["stage"] == "dedup" for r in serve["serve"]) == 4
+          and len(serve["latency"]) == 8, "serve_load serve: stages missing")
+    serve_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    live = perf_liveserve.run(perf_liveserve.parse_args(
+        ["--device", "cuda", "--passages", str(SERVE_LOAD_PASSAGES),
+         "--warm_cycles", "0", "--no_train_while_serving",
+         "--idle_s", str(SERVE_LOAD_IDLE_S), "--clients", "thread"]))
+    steps = live["bootstrap_s"]["steps_per_cycle"]
+    check(live["bootstrap_s"]["ntotal"] == SERVE_LOAD_PASSAGES,
+          f"serve_load live: bootstrap {live['bootstrap_s']}")
+    idle, during = live["idle_chip"][0], live["during_refresh_cycle"][0]
+    for rec in (live["train_alone"], during):
+        check(rec["refreshes"] == 1 and rec["step_gap"]["source"] ==
+              "cuda_events" and rec["step_gap"]["n"] == steps - 1,
+              f"serve_load live: {rec['stage']} did not run one whole "
+              f"cycle: {rec}")
+    for rec in (idle, during):
+        v = rec["live_vs_scan"]
+        check(v["all_equal"] and v["samples"] >= min(
+            SERVE_LOAD_MIN_SAMPLES, v["searches"]) and v["searches"] > 0,
+            f"serve_load live {rec['stage']}: sampled answers vs scan {v}")
+        check(rec["errors"] == 0 and rec["partial"] == 0 and rec["n"] > 0,
+              f"serve_load live {rec['stage']}: {rec['n']} answers, "
+              f"{rec['errors']} failed, {rec['partial']} not whole")
+    k = live["kernels"]
+    check(k["launches_equal"] is True, f"serve_load live: #1 launches "
+          f"{k['launches']} != {k['served_searches']} served + "
+          f"{k['sm_items']} S/M items")
+    check(live["done"]["threads_left"] == [] and
+          live["done"]["feed_threads_after_close"] == 0,
+          f"serve_load live: threads left {live['done']}")
+    live_s = time.perf_counter() - t0
+    h = {r["batch"]: round(r["http_overhead_ms"], 2) for r in http["http"]}
+    sv = {r["serve_batch"]: round(r["ms_median"], 2) for r in serve["serve"]
+          if r["stage"] == "serve"}
+    lat = {(r["stage"], r["batch"]): round(r["p50_ms"], 2)
+           for r in serve["latency"]}
+    print(f"serve_load: http overhead ms {h} ({http_s:.1f} s); serve "
+          f"{SERVE_LOAD_CORPUS} x 768 dims ms {sv}, latency p50 ms "
+          f"{ {f'{s} B={b}': v for (s, b), v in lat.items()} } "
+          f"({serve_s:.1f} s); live {SERVE_LOAD_PASSAGES} passages: train "
+          f"alone {live['train_alone']['wall_s']:.1f} s, idle p50/p99 "
+          f"{idle['p50_ms']:.1f}/{idle['p99_ms']:.1f} ms, during a cycle "
+          f"p50/p99 {during['p50_ms']:.1f}/{during['p99_ms']:.1f} ms "
+          f"({during['cycle_wall_s']:.1f} s, slowdown "
+          f"{during['train_slowdown_pct']:.0f}%), lock wait "
+          f"{during['lock_wait_ms_per_req']:.1f} ms a request; sampled "
+          f"answers == scan ({idle['live_vs_scan']['samples']} + "
+          f"{during['live_vs_scan']['samples']}); #1 {k['launches']} == "
+          f"{k['served_searches']} served + {k['sm_items']} S/M; no thread "
+          f"left ({live_s:.1f} s)", flush=True)
+    check(no_reference_modules(), "the port imported jax or ance_tpu")
+    return {"http": http, "serve": serve, "live": live,
+            "seconds": {"http": http_s, "serve": serve_s, "live": live_s}}
 
 
 REFRESH_PASSAGES = 65_536  # two of the 8.8M refresh's 32,768-row slices
@@ -6840,6 +6974,7 @@ def main() -> int:
         generate = timed(phase_generate, work)
         warmup = timed(phase_warmup, work)
         ance_loop = timed(phase_ance_loop, work, generate, train)
+        serve_load = timed(phase_serve_load, work)
         refresh = timed(phase_refresh, work)
         demo = {"maxp_step": timed(phase_demo_step)}
         child = start_demo_firstp(work)
@@ -6906,6 +7041,15 @@ def main() -> int:
     # study); the launches of every path by kernel beside the first
     apart = ("blockmax_pieces_f32", "blockmax_pieces_int8", "blockmax_int8",
              "blockmax_bf16_int8")
+
+    def serve_load_launches(kernel=None):
+        """#1's launches over ``phase_serve_load``'s serve and latency
+        lines, by kernel (or of ``kernel``)."""
+        n = collections.Counter()
+        for rec in serve_load["serve"]["serve"] + \
+                serve_load["serve"]["latency"]:
+            n.update(rec.get("launches", {}))
+        return dict(n) if kernel is None else n[kernel]
     # phase 1 on generate's and the pipelined loop's operands
     k = refresh["kernels"]
     cases.append({"dtypes": "f32xint8", "shape": "refresh mining",
@@ -6936,6 +7080,11 @@ def main() -> int:
         "ance_loop_dims": ance_loop["dims"]["blockmax_kernels"],
         "ance_loop_maxp": ance_loop["maxp"]["blockmax_kernels"],
         "refresh_8m8_cut": refresh["kernels"]["launches"],
+        # the serving measurements: the serve path and latency lines (a
+        # bf16 and a dims index), the live loop's served and S / M
+        # searches (fp32 index)
+        "serve_load_serve": serve_load_launches(),
+        "serve_load_live": serve_load["live"]["kernels"]["launches"],
         "topk_int8_study": topk_int8["launches"],
         "ivf_phase": ivf["blockmax_kernels"],
         **{name: g["blockmax_kernels"]
@@ -6981,9 +7130,15 @@ def main() -> int:
             # the FirstP demo's loop at 16,384 x 256 (phase_demo (b))
             e["launches_by_path"]["demo_firstp"] = \
                 demo["firstp"]["blockmax_kernels"].get(kernel, 0)
+            # the live loop under 4 HTTP clients (fp32 index)
+            e["launches_by_path"]["serve_load_live"] = \
+                serve_load["live"]["kernels"]["launches"].get(kernel, 0)
         else:  # the pipelined refresh at two 32,768-passage slices
             e["launches_by_path"]["refresh_8m8_cut"] = \
                 refresh["kernels"]["launches"].get(kernel, 0)
+            # the serve path and latency over the dims index
+            e["launches_by_path"]["serve_load_serve"] = \
+                serve_load_launches(kernel)
         fp32_entries.append(e)
     # the int8 routes, with their launches on the int8 phase-1 study's path
     # and their yardstick (the same product at a library's rate)
@@ -7111,7 +7266,7 @@ def main() -> int:
         "step_parity": parity,
         "mirror_encoder": mirror,
         "generate": generate, "warmup": warmup, "ance_loop": ance_loop,
-        "refresh": refresh,
+        "refresh": refresh, "serve_load": serve_load,
         "dpr": dpr, "seed": seed, "topk_int8": topk_int8, "mesh": mesh,
         "tp": tp, "demo": demo, "phase_seconds": phase_s}))
     print(json.dumps({"ok": True, "device": {

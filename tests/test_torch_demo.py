@@ -476,3 +476,68 @@ def test_demo_log_has_the_scripts_events(which, monkeypatch, tmp_path):
         assert got[:len(keys)] == keys, r["event"]
         extra = set(got[len(keys):])
         assert extra in entries if spread else not extra, r["event"]
+
+
+@pytest.mark.parametrize("seeds", [None, (3, 4, 5)],
+                         ids=["defaults", "flags"])
+def test_seed_flags_reach_the_generators(seeds, monkeypatch, tmp_path):
+    """``--init_seed`` / ``--warm_seed`` / ``--loop_seed`` seed the
+    weights' generator, the warmup's and the loop's (defaults 0 / 9 / 1,
+    the scripts' keys); the start line names them when they differ."""
+    monkeypatch.setattr(demo, "SHAPE", E2E_SHAPE)
+    seen = {}
+    real_init = demo.init_weights
+
+    def init_weights(model, cfg, generator):
+        seen["init"] = generator.initial_seed()
+        return real_init(model, cfg, generator)
+
+    def run_warmup(state, step, batches, n_steps, generator, *a, **kw):
+        seen["warm"] = generator.initial_seed()
+        return state
+
+    class Stop(Exception):
+        pass
+
+    def make_loop(*args, seed=demo.LOOP_SEED, **kw):
+        seen["loop"] = seed
+        raise Stop
+
+    monkeypatch.setattr(demo, "init_weights", init_weights)
+    monkeypatch.setattr(demo, "run_warmup", run_warmup)
+    monkeypatch.setattr(demo, "make_loop", make_loop)
+    log = tmp_path / "run.jsonl"
+    flags = [] if seeds is None else [
+        "--init_seed", str(seeds[0]), "--warm_seed", str(seeds[1]),
+        "--loop_seed", str(seeds[2])]
+    with pytest.raises(Stop):
+        demo.main(["--device", "cpu", "--dtype", "fp32", "--passages",
+                   str(FIRSTP["passages"]), "--train_q", "8", "--dev_q", "8",
+                   "--warm", "0", "--steps", "0", "--batch", "2",
+                   "--log", str(log)] + flags)
+    want = seeds or (demo.INIT_SEED, demo.WARM_SEED, demo.LOOP_SEED)
+    assert (seen["init"], seen["warm"], seen["loop"]) == tuple(want)
+    start = json.loads(log.read_text().splitlines()[0])
+    if seeds is None:
+        assert "seeds" not in start
+    else:
+        assert start["seeds"] == {"init": 3, "warm": 4, "loop": 5}
+    # the weights and the loop's generator from those seeds
+    monkeypatch.undo()
+    monkeypatch.setattr(demo, "SHAPE", E2E_SHAPE)
+    os.makedirs(tmp_path / "task")
+    caches = {n: TokenCache(p).open() for n, p in _firstp_task(
+        tmp_path / "task")[0].items()}
+    model = demo.build_model("rdot", torch.float32, seed=want[0])
+    ref = demo.build_model("rdot", torch.float32)
+    same = all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                 ref.parameters()))
+    assert same == (want[0] == demo.INIT_SEED)
+    loop = demo.make_loop(demo.pipeline_config(2),
+                          init_train_state(model, demo.demo_optimizer(model)),
+                          demo.make_dpr_train_step(), caches, "passages",
+                          {0: {0: 1}}, {0: {0: 1}}, "cpu", seed=want[2])
+    assert loop.generator.initial_seed() == want[2]
+    loop.close()
+    for c in caches.values():
+        c.close()

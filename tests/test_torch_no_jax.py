@@ -364,8 +364,9 @@ PERF_SCRIPTS = textwrap.dedent("""
     import json, sys, tempfile
     import torch
     torch.set_num_threads(1)
-    from ance_tpu_torch.experiments import (perf_feed, perf_loopfeed,
-                                            perf_refresh8m8)
+    from ance_tpu_torch.experiments import (perf_feed, perf_http,
+                                            perf_liveserve, perf_loopfeed,
+                                            perf_refresh8m8, perf_serve)
     tiny = json.dumps({"num_layers": 1, "hidden_size": 16, "num_heads": 2,
                        "intermediate_size": 32})
     cpu = ["--device", "cpu", "--dtype", "fp32"]
@@ -382,6 +383,19 @@ PERF_SCRIPTS = textwrap.dedent("""
         "--passages", "256", "--train_q", "16", "--dev_q", "8", "--slice",
         "128", "--cycles", "1", "--encoder_overrides", tiny])[
         "batches_equal"]
+    assert all(r["answers_equal"] for r in perf_http.main(
+        ["--device", "cpu", "--batches", "8", "--reps", "1"])["http"])
+    assert perf_serve.main(cpu + [
+        "--corpus", "1024", "--serve_batches", "4", "--reps", "1",
+        "--latency_batches", "1", "--latency_reps", "1",
+        "--encoder_overrides", tiny])["serve"][0]["scan_equal"]
+    perf_refresh8m8.OUT_DIM = 16  # a narrow index: fast CPU searches
+    out = perf_liveserve.main(cpu + [
+        "--passages", "256", "--train_q", "16", "--dev_q", "8", "--slice",
+        "128", "--idle_s", "0.2", "--warm_cycles", "0",
+        "--no_train_while_serving", "--encoder_overrides", tiny])
+    assert out["during_refresh_cycle"][0]["live_vs_scan"]["all_equal"]
+    assert out["done"]["threads_left"] == []
     assert "jax" not in sys.modules, "a perf script pulled in jax"
     old = sorted(m for m in sys.modules
                  if m == "ance_tpu" or m.startswith("ance_tpu."))
@@ -391,8 +405,9 @@ PERF_SCRIPTS = textwrap.dedent("""
 
 
 def test_perf_scripts_never_import_jax():
-    """``experiments/perf_refresh8m8.py``, ``perf_feed.py`` and
-    ``perf_loopfeed.py`` run end to end at a tiny size on the CPU without
+    """``experiments/perf_refresh8m8.py``, ``perf_feed.py``,
+    ``perf_loopfeed.py``, ``perf_http.py``, ``perf_serve.py`` and
+    ``perf_liveserve.py`` run end to end at a tiny size on the CPU without
     jax or the JAX package."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", PERF_SCRIPTS], env=env,
