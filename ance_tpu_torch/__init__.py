@@ -7,8 +7,10 @@ MaxP ``rdot_nll_multi_chunk``), corpus encode, the exact ``FlatIPIndex``
 (searched through the hand-written CUDA block-max top-k kernel,
 ``csrc/blockmax.cu``), the batch, HTTP and live retrievers, the train step
 with LAMB, the BM25 warmup, the trainer and generator jobs, the
-single-program pipelined refresh (``train/pipelined.py``), reading the JAX
-package's msgpack checkpoints and exporting HF directories. DPR:
+single-program pipelined refresh (``train/pipelined.py``), reading and
+resuming the JAX package's checkpoints (msgpack, and orbax's OCDBT / zarr /
+zstd layout through ``train/orbax_reader.py``, ``train/ocdbt.py`` and the
+C++ zstd decoder ``native/zstd.cpp``) and exporting HF directories. DPR:
 ``models/dot_models.py::BiEncoder``, ``data/dpr.py``,
 ``train/dpr_trainer.py`` (the in-batch step, GradCache accumulation),
 ``train/dpr_gen.py`` and ``evaluation/qa_validation.py``. SEED:
@@ -22,7 +24,7 @@ CLI's 13 subcommands: ``preprocess``, ``preprocess-dpr``, ``warmup``,
 ``seed-pretrain``, ``serve``, ``export-hf``, ``eval``, ``eval-full``. The
 attention kernels are CUDA C++ too (``csrc/``). ``ance_tpu`` (JAX) stays
 the reference every module here is tested against; this package never
-imports jax, flax or msgpack.
+imports jax, flax, msgpack, orbax, tensorstore or zstandard.
 """
 
 import torch

@@ -35,7 +35,9 @@ newest complete checkpoint), evaluates dev MRR with
 (or ``--init_model_dir``) as an HF ``pytorch_model.bin`` + ``config.json``
 directory, or with ``--model_type dpr`` as a DPR ``CheckpointState`` file.
 Every command that loads weights reads the port's checkpoints and the JAX
-package's msgpack ones (a DPR model also a ``CheckpointState``).
+package's, msgpack or orbax (a DPR model also a ``CheckpointState``); the
+commands that resume (``warmup``, ``ance-loop``) restore a JAX
+checkpoint's optimizer state too.
 
 SEED (``--model_type seeddot_nll``, RobertaDot over the SEED encoder, and
 the ``seed-wordpiece`` tokenizer over ``--model_name_or_path``'s
@@ -203,8 +205,8 @@ def _build_model(args, device, seed: int = 0, warn_random: bool = True):
     else from ``--model_name_or_path``: an HF-layout directory, a
     checkpoint directory, or a training directory (its newest complete
     checkpoint, as the JAX CLI warm-starts); else they stay random (serve
-    warns). A checkpoint is the port's or the JAX package's msgpack one
-    (``train/checkpoint.py::load_params``). Returns (spec, model,
+    warns). A checkpoint is the port's or the JAX package's, msgpack or
+    orbax (``train/checkpoint.py::load_params``). Returns (spec, model,
     params_source, checkpoint): ``checkpoint`` is the checkpoint directory
     loaded, or None when the weights came from elsewhere."""
     import torch
@@ -914,7 +916,8 @@ def cmd_generate_dpr(args):
 def cmd_ance_loop(args):
     """The single-program pipelined refresh (``ance ance-loop``) on one
     device or replicated over the ranks: resume from ``--output_dir`` where
-    a checkpoint is complete, bootstrap, train ``--max_steps`` with a
+    a checkpoint is complete (the port's, or the JAX ``ance-loop``'s orbax
+    or msgpack one: parameters, optimizer, step and refresh), bootstrap, train ``--max_steps`` with a
     refresh work item every ``--train_steps_per_slice`` steps, optionally
     serve the live index over HTTP (one rank only), then save a final
     checkpoint (rank 0)."""

@@ -16,13 +16,24 @@ reader that waits for DONE never sees a partial checkpoint.
 :class:`AsyncCheckpointer` writes the same files from a background thread
 and publishes ``meta.json`` and DONE only at its fence (``wait``).
 
-Checkpoints of the JAX package's trainer (``params.msgpack``, written by
-``flax.serialization``) load too, through :func:`load_raw_params` (a
-reader on the standard library, :mod:`ance_tpu_torch.train.flax_msgpack`)
-and ``models/weights.py::state_dict_from_flax``, strictly; their
-``opt_state.msgpack`` is not read, so a run resumed or warm-started from
-one starts a fresh optimizer. The JAX package's orbax layout (``state/``
-or ``params/`` directories) needs orbax and is refused.
+Checkpoints of the JAX package's trainer load too, in both of its
+layouts, parameters and optimizer state alike:
+
+  * msgpack (``params.msgpack`` and ``opt_state.msgpack``, written by
+    ``flax.serialization``: warmup, train, DPR, seed-pretrain and the JAX
+    ``ance-loop``'s last checkpoint), read by
+    :mod:`ance_tpu_torch.train.flax_msgpack`;
+  * orbax (``state/`` holding ``{"params", "opt_state"}``, the JAX
+    ``AsyncCheckpointer``'s, every checkpoint of the pipelined loop, or
+    the legacy ``params/``), read by
+    :mod:`ance_tpu_torch.train.orbax_reader` (OCDBT, zarr v2 and zstd on
+    the port's own code).
+
+:func:`load_raw_params` and :func:`load_raw_opt_state` return the JAX
+trees; ``models/weights.py::state_dict_from_flax`` maps the parameters and
+``optim/optax_state.py`` the optimizer state (LAMB or AdamW moments, step
+count, rewarmup anchor and horizon) onto the port's, so a run the JAX
+package trained resumes here where it stopped.
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ DONE_MARKER = "DONE"
 MODEL_FILE = "pytorch_model.bin"
 OPTIMIZER_FILE = "optimizer.pt"
 NATIVE_FILE = "params.msgpack"  # the JAX package's parameters
+NATIVE_OPT_FILE = "opt_state.msgpack"  # and its optimizer state
 
 
 class UnreadableCheckpoint(ValueError):
@@ -200,29 +212,49 @@ def is_native(ckpt_dir: str) -> bool:
 
 
 def load_raw_params(ckpt_dir: str) -> dict:
-    """The flax parameter tree of a JAX-package checkpoint in its msgpack
-    layout (counterpart of the read half of ``ance_tpu/train/
-    checkpoint.py::load_raw_params``): nested dicts of numpy arrays, bf16
-    leaves as ``torch.bfloat16`` tensors. Raises
-    :class:`UnreadableCheckpoint` for the orbax layout, a missing file or
-    bytes that are not flax msgpack."""
+    """The flax parameter tree of a JAX-package checkpoint, either layout
+    (counterpart of ``ance_tpu/train/checkpoint.py::load_raw_params``):
+    nested dicts of numpy arrays, bf16 leaves as ``torch.bfloat16``
+    tensors. Raises :class:`UnreadableCheckpoint` naming the file for a
+    missing file or bytes the readers do not know."""
     from ance_tpu_torch.train.flax_msgpack import read_msgpack
+    from ance_tpu_torch.train.orbax_reader import read_item
     path = os.path.join(ckpt_dir, NATIVE_FILE)
     if os.path.exists(path):
         try:
             return read_msgpack(path)
         except ValueError as e:
             raise UnreadableCheckpoint(str(e)) from None
-    for sub in ("state", "params"):
-        if os.path.isdir(os.path.join(ckpt_dir, sub)):
-            raise UnreadableCheckpoint(
-                f"{os.path.join(ckpt_dir, sub)}: an orbax checkpoint (the "
-                "JAX package's AsyncCheckpointer); reading it needs orbax, "
-                "which the port does not use. Write a msgpack checkpoint "
-                "(ance_tpu.train.checkpoint.save_checkpoint) or export it "
-                "with `ance export-hf`")
+    state = os.path.join(ckpt_dir, "state")
+    if os.path.isdir(state):
+        tree = read_item(state, "params")
+        if tree is None:
+            raise UnreadableCheckpoint(f"{state}: the orbax item holds no "
+                                       "params")
+        return tree
+    if os.path.isdir(os.path.join(ckpt_dir, "params")):
+        return read_item(os.path.join(ckpt_dir, "params"))
     raise UnreadableCheckpoint(f"{ckpt_dir}: neither {MODEL_FILE} nor "
                                f"{NATIVE_FILE}")
+
+
+def load_raw_opt_state(ckpt_dir: str):
+    """The JAX optimizer state tree of a JAX-package checkpoint, from
+    ``opt_state.msgpack`` or the orbax ``state/`` item's ``opt_state``
+    (tuples as dicts keyed ``"0"``, ``"1"``, ...); None when the
+    checkpoint has none (the legacy orbax ``params/`` never has)."""
+    from ance_tpu_torch.train.flax_msgpack import read_msgpack
+    from ance_tpu_torch.train.orbax_reader import read_item
+    path = os.path.join(ckpt_dir, NATIVE_OPT_FILE)
+    if os.path.exists(path):
+        try:
+            return read_msgpack(path)
+        except ValueError as e:
+            raise UnreadableCheckpoint(str(e)) from None
+    state = os.path.join(ckpt_dir, "state")
+    if os.path.isdir(state):
+        return read_item(state, "opt_state")
+    return None
 
 
 def holds_weights(model_dir: str) -> bool:
@@ -239,11 +271,10 @@ def state_dict(ckpt_dir: str) -> tuple[dict[str, torch.Tensor], str]:
     """A checkpoint directory's parameters as a port state dict, whichever
     layout holds them, and the file they were read from: the torch state
     dict as saved (a DPR ``CheckpointState``, the reference's single-file
-    dict, gives its ``model_dict``), or a JAX-package ``params.msgpack``
-    (a RobertaDot, BiEncoder or SeedForMaskedLM tree) as fp32 (through
-    :func:`load_raw_params` and ``models/weights.py::
-    state_dict_from_flax``; its optimizer state is not read, and a note
-    on stderr says so)."""
+    dict, gives its ``model_dict``), or a JAX-package checkpoint's tree (a
+    RobertaDot, BiEncoder or SeedForMaskedLM one, msgpack or orbax) as
+    fp32, through :func:`load_raw_params` and ``models/weights.py::
+    state_dict_from_flax`` (a note on stderr says so)."""
     from ance_tpu_torch.models.weights import (checkpoint_file,
                                                state_dict_from_flax)
     if not is_native(ckpt_dir):
@@ -252,7 +283,7 @@ def state_dict(ckpt_dir: str) -> tuple[dict[str, torch.Tensor], str]:
         if isinstance(sd, dict) and "model_dict" in sd:
             sd = sd["model_dict"]  # run_ann_dpr.py:376-392
         return sd, path
-    path = os.path.join(ckpt_dir, NATIVE_FILE)
+    path = _native_source(ckpt_dir)
     tree = load_raw_params(ckpt_dir)
     try:
         sd = state_dict_from_flax(tree)
@@ -261,9 +292,18 @@ def state_dict(ckpt_dir: str) -> tuple[dict[str, torch.Tensor], str]:
             f"{path}: not a RobertaDot, BiEncoder or SeedForMaskedLM "
             f"parameter tree (missing {e})") from None
     print(f"note: {ckpt_dir} is a JAX-package checkpoint: its parameters "
-          "are read; its optimizer state is not read (training from it "
-          "starts a fresh optimizer)", file=sys.stderr)
+          f"are read from {os.path.basename(path)}", file=sys.stderr)
     return sd, path
+
+
+def _native_source(ckpt_dir: str) -> str:
+    """The file or orbax item a JAX-package checkpoint's parameters are
+    read from."""
+    for name in (NATIVE_FILE, "state", "params"):
+        path = os.path.join(ckpt_dir, name)
+        if os.path.exists(path):
+            return path
+    return os.path.join(ckpt_dir, NATIVE_FILE)
 
 
 def load_params(ckpt_dir: str, model: torch.nn.Module,
@@ -281,15 +321,30 @@ def load_params(ckpt_dir: str, model: torch.nn.Module,
     return path
 
 
-def load_checkpoint(ckpt_dir: str, model: torch.nn.Module
-                    ) -> tuple[Optional[dict], dict]:
+def load_checkpoint(ckpt_dir: str, model: torch.nn.Module,
+                    optimizer=None) -> tuple[Optional[dict], dict]:
     """Load the parameters strictly into ``model`` (in place, onto its
-    device). Returns (the optimizer state or None, meta); a JAX-package
-    checkpoint has no ``optimizer.pt``, so it gives none."""
+    device). Returns (the optimizer state or None, meta): the port's
+    ``optimizer.pt`` as saved, or a JAX-package checkpoint's optimizer
+    state mapped onto ``optimizer`` (``optim/optax_state.py``; None when
+    no ``optimizer`` is given or the checkpoint has no state)."""
     load_params(ckpt_dir, model)
-    opt_path = os.path.join(ckpt_dir, OPTIMIZER_FILE)
-    opt_state = torch.load(opt_path, map_location="cpu", weights_only=True) \
-        if os.path.exists(opt_path) else None
+    opt_state = None
+    if is_native(ckpt_dir):
+        tree = load_raw_opt_state(ckpt_dir) if optimizer is not None \
+            else None
+        if tree is not None:
+            from ance_tpu_torch.optim.optax_state import \
+                optimizer_state_from_jax
+            try:
+                opt_state = optimizer_state_from_jax(tree, optimizer, model)
+            except ValueError as e:
+                raise UnreadableCheckpoint(f"{ckpt_dir}: {e}") from None
+    else:
+        opt_path = os.path.join(ckpt_dir, OPTIMIZER_FILE)
+        if os.path.exists(opt_path):
+            opt_state = torch.load(opt_path, map_location="cpu",
+                                   weights_only=True)
     with open(os.path.join(ckpt_dir, "meta.json")) as f:
         meta = json.load(f)
     return opt_state, meta
@@ -298,13 +353,22 @@ def load_checkpoint(ckpt_dir: str, model: torch.nn.Module
 def resume_train_state(training_dir: str, state):
     """Restore the newest complete checkpoint into a ``TrainState``: the
     parameters, and the optimizer (moments, step count, schedule anchor)
-    when saved (a JAX-package checkpoint: the parameters only). Returns
-    (state, resumed step); (state, 0) when there is nothing complete."""
+    when saved, the JAX package's included (a note on stderr names what
+    was restored). Returns (state, resumed step); (state, 0) when there is
+    nothing complete."""
     path, step = get_latest_checkpoint(training_dir)
     if path is None or not is_complete(path):
         return state, 0
-    opt_state, _ = load_checkpoint(path, state.model)
+    opt_state, _ = load_checkpoint(path, state.model, state.optimizer)
     if opt_state is not None:
         state.optimizer.load_state_dict(opt_state)
+        if is_native(path):
+            restored = f"count {state.optimizer.count}"
+            if "rewarmup" in opt_state:
+                restored += (f", anchor {opt_state['rewarmup']['anchor']}, "
+                             f"horizon {opt_state['rewarmup']['horizon']}")
+            print(f"note: {path} is a JAX-package checkpoint: its "
+                  f"parameters and its optimizer state ({restored}) are "
+                  "restored", file=sys.stderr)
     state.step = step
     return state, step

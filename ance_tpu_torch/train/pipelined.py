@@ -464,8 +464,10 @@ class PipelinedAnce:
 
     def resume(self) -> int:
         """Restore the newest complete checkpoint of cfg.checkpoint_dir
-        (parameters, optimizer, step, refresh rotation). Returns the resumed
-        step (0 = nothing to resume)."""
+        (parameters, optimizer, step, refresh rotation), the port's or the
+        JAX loop's (orbax ``state/`` with ``refresh_no`` in its meta.json,
+        or its final msgpack one). Returns the resumed step (0 = nothing
+        to resume)."""
         self.state, step = ckpt.resume_train_state(self.cfg.checkpoint_dir,
                                                    self.state)
         if step == 0:

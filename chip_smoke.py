@@ -112,6 +112,15 @@ kernels under bf16 and int8 queries), and then:
     ``eval-full`` (its NDCG@10 equals generate's),
     ``cli train`` on the file and ``generate --training_dir`` on its
     checkpoint, then ``run_ance_cycles`` (2 cycles x 3 steps);
+  * jax checkpoint: the JAX package's orbax checkpoint committed under
+    ``tests/data/jax_loop_orbax`` (a JAX ``PipelinedAnce`` run at tiny
+    widths, LAMB with rewarmup) read by the port's own OCDBT, zarr and
+    zstd readers on the host (``native/zstd.cpp`` built here; every leaf's
+    sha256 against ``fixture.json``; the read's seconds and the decoder's
+    MB/s), resumed on cuda and on the CPU (step, count, anchor, horizon),
+    the committed batches' steps held to the JAX package's parameters
+    after them and to each other, then ``cli generate --training_dir``
+    on it (``blockmax_pieces_f32`` twice, mining ids == scan);
   * warmup: the front of the pipeline on raw MS MARCO-format TSVs made
     from a seed (16,384 passages of 40-120 words, 1,024 train and 256 dev
     queries with qrels, top1000.dev, 48 x 32 triples), tokenized by a
@@ -3221,6 +3230,239 @@ def phase_generate(work: Path):
             "eval_full_ndcg_10": full["ndcg_10"],
             "second_checkpoint": second["checkpoint"],
             "cycles_s": cycles_s, "cycles": history}
+
+
+# the JAX package's orbax checkpoint, committed as a fixture
+JAX_FIXTURE = ROOT / "tests" / "data" / "jax_loop_orbax"
+JAX_FIXTURE_PASSAGES = 8_192  # the generator's corpus over the fixture
+JAX_FIXTURE_QUERIES = (512, 64)  # train and dev queries
+JAX_FIXTURE_DECODE_S = 0.5  # the decoder is timed over this many seconds
+JAX_FIXTURE_SHARE = 1e-3  # entries allowed past 2e-6 after the steps, as
+                          # the CLI ance-loop parity test allows
+
+
+def _apart(got: dict, want: dict) -> tuple[float, int]:
+    """The largest difference of two state dicts, and its entries past
+    2e-6."""
+    diffs = [(got[k].float() - w.float()).abs() for k, w in want.items()]
+    return (max(float(d.max()) for d in diffs),
+            sum(int((d > 2e-6).sum()) for d in diffs))
+
+
+def _write_token_cache(path: Path, n: int, seq: int, vocab: int, rs) -> None:
+    """n random RoBERTa-style rows of ids below ``vocab`` (<s> 0, pad 1)."""
+    import numpy as np
+    from ance_tpu_torch.data.cache import TokenCacheWriter
+    lengths = rs.randint(3, seq + 1, n)
+    tokens = rs.randint(3, vocab, (n, seq)).astype(np.int32)
+    tokens[:, 0] = 0
+    tokens[np.arange(seq)[None, :] >= lengths[:, None]] = 1
+    with TokenCacheWriter(str(path), seq) as w:
+        for length, row in zip(lengths, tokens):
+            w.write(int(length), row)
+
+
+def phase_jax_checkpoint(work: Path) -> dict:
+    """A checkpoint of the JAX package's pipelined loop (the committed
+    ``tests/data/jax_loop_orbax``: orbax ``state/``, an OCDBT store of
+    zstd-compressed zarr arrays, LAMB with rewarmup, written by the JAX
+    ``PipelinedAnce`` at tiny widths) read and resumed by the port on the
+    card's host, which has no orbax, tensorstore or zstd library:
+
+    1. build ``native/zstd.cpp`` (the cached library removed first), read
+       the parameters and the optimizer state (the read's seconds), each
+       leaf's sha256 against ``fixture.json``; the decoder's MB/s over the
+       store's zstd chunks, decoded again and again for 0.5 s;
+    2. resume the port's trainer from the fixture on cuda and on the CPU
+       (step, count, anchor and horizon as the JAX loop left them), take
+       the committed batches' steps, and hold the parameters to the JAX
+       package's after the same steps and the cuda ones to the CPU ones
+       (``_params_close``);
+    3. ``cli generate --training_dir`` the fixture on cuda (an fp32 index)
+       over seeded caches: ``blockmax_pieces_f32`` launched twice (the dev
+       and the mining search; counts set to 0 just before), the mining ids
+       equal to a scan, phase 1 on its operands against the plain
+       version."""
+    import hashlib
+    import numpy as np
+    import torch
+    from ance_tpu_torch.index import flat
+    from ance_tpu_torch.models.registry import get_model_spec
+    from ance_tpu_torch.train import ann_gen, trainer
+    from ance_tpu_torch.train import checkpoint as ckpt
+    from ance_tpu_torch.train.ocdbt import OcdbtStore
+    from ance_tpu_torch.utils import native_build, zstd
+
+    spec = json.loads((JAX_FIXTURE / "fixture.json").read_text())
+    path = JAX_FIXTURE / f"checkpoint-{spec['step']}"
+    check((path / "state" / "manifest.ocdbt").exists(), f"{path}: no orbax "
+          "state/ (the fixture is missing from the checkout)")
+    # 1. the host: build, read, hash, decode rate
+    native_build.library_path("zstd").unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    zstd._native()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree = {"params": ckpt.load_raw_params(str(path)),
+            "opt_state": ckpt.load_raw_opt_state(str(path))}
+    read_s = time.perf_counter() - t0
+
+    def hashes(node, prefix=""):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out.update(hashes(v, f"{prefix}{k}/"))
+            elif v is not None:
+                raw = v.view(torch.int16).numpy() \
+                    if isinstance(v, torch.Tensor) else v
+                out[f"{prefix}{k}"] = hashlib.sha256(raw.tobytes()) \
+                    .hexdigest()
+        return out
+    got = hashes(tree)
+    want = {k: v["sha256"] for k, v in spec["leaves"].items()}
+    check(got == want, f"{path}: {sum(got.get(k) != v for k, v in want.items())}"
+          f" of {len(want)} leaves differ from fixture.json's sha256")
+    with OcdbtStore(str(path / "state")) as store:
+        chunks = [v for k, v in zip(store.keys(), store.read_many(
+            store.keys())) if not k.endswith(b".zarray")]
+    compressed = sum(len(c) for c in chunks)
+    decoded, reps = 0, 0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < JAX_FIXTURE_DECODE_S:
+        decoded += sum(len(zstd.decompress(c)) for c in chunks)
+        reps += 1
+    decode_s = time.perf_counter() - t0
+    mb_s = decoded / decode_s / 1e6
+    print(f"jax checkpoint: zstd.cpp built in {build_s:.2f} s; read "
+          f"{len(want)} leaves (params + opt_state) in {read_s:.3f} s, "
+          f"sha256 == fixture.json; decoder {mb_s:.1f} MB/s over "
+          f"{len(chunks)} chunks ({compressed} -> {decoded // reps} bytes, "
+          f"{reps} passes)", flush=True)
+
+    # 2. resume on cuda and on the CPU, the committed batches' steps
+    o = spec["optimizer"]
+    with np.load(JAX_FIXTURE / "after_steps.npz") as z:
+        batches = [{k.split("/")[1]: z[k] for k in z.files
+                    if k.startswith(f"batch{i}/")}
+                   for i in range(spec["steps_after"])]
+        jax_after = {k[len("param/"):]: torch.from_numpy(z[k])
+                     for k in z.files if k.startswith("param/")}
+    after, losses, lr_sum = {}, {}, 0.0
+    for device in ("cuda", "cpu"):
+        model = get_model_spec(spec["model_type"]).build(
+            config_overrides=spec["geometry"], seed=5).to(device)
+        state = trainer.init_train_state(model, trainer.make_optimizer(
+            model, o["name"], o["learning_rate"], eps=o["eps"],
+            weight_decay=o["weight_decay"], max_grad_norm=o["max_grad_norm"],
+            rewarmup=(o["warmup_steps"], o["initial_horizon"])))
+        state, step = ckpt.resume_train_state(str(JAX_FIXTURE), state)
+        sched = state.optimizer.schedule
+        check(step == spec["step"] == state.optimizer.count
+              and (sched.anchor, sched.horizon) == (spec["anchor"],
+                                                    spec["horizon"]),
+              f"{device}: resumed at step {step}, count "
+              f"{state.optimizer.count}, anchor {sched.anchor}, horizon "
+              f"{sched.horizon}; the JAX loop left {spec['step']}, "
+              f"{spec['anchor']}, {spec['horizon']}")
+        check(all(s["exp_avg"].device.type == device
+                  for s in state.optimizer.inner.state.values()),
+              f"the restored moments are not on {device}")
+        pstep = trainer.make_train_step(trainer.triplet_loss_fn())
+        gen = torch.Generator().manual_seed(0)
+        lr_sum, losses[device] = 0.0, []
+        for batch in batches:
+            lr_sum += sched(state.optimizer.count)
+            state, metrics = pstep(state, batch, gen)
+            losses[device].append(float(metrics["loss"]))
+        after[device] = {k: v.detach().cpu()
+                         for k, v in model.state_dict().items()}
+        del state, model
+    # the whole-step bound of tests/test_torch_train.py, with a share
+    for other in (jax_after, after["cpu"]):
+        _params_close(after["cuda"], other, 2e-6, lr_sum, JAX_FIXTURE_SHARE)
+    vs_jax = _apart(after["cuda"], jax_after)
+    vs_cpu = _apart(after["cuda"], after["cpu"])
+    entries = sum(v.numel() for v in jax_after.values())
+    print(f"jax checkpoint: resumed on cuda at step {spec['step']} (count, "
+          f"anchor {spec['anchor']}, horizon {spec['horizon']}) and took "
+          f"{len(batches)} steps (losses {losses['cuda']}); parameters vs "
+          f"the JAX package's: max |diff| {vs_jax[0]:.3g}, {vs_jax[1]} of "
+          f"{entries} past 2e-6; vs the CPU path: max |diff| "
+          f"{vs_cpu[0]:.3g}, {vs_cpu[1]} past 2e-6", flush=True)
+
+    # 3. generate from the fixture on cuda
+    geo, rs = spec["geometry"], np.random.RandomState(23)
+    data = work / "jax_ckpt_data"
+    data.mkdir()
+    n_train, n_dev = JAX_FIXTURE_QUERIES
+    _write_token_cache(data / "passages", JAX_FIXTURE_PASSAGES, 12,
+                       geo["vocab_size"], rs)
+    for name, n in (("train", n_train), ("dev", n_dev)):
+        _write_token_cache(data / f"{name}-query", n, 8, geo["vocab_size"],
+                           rs)
+        with open(data / f"{name}-qrel.tsv", "w") as f:
+            f.writelines(f"{q}\t{rs.randint(JAX_FIXTURE_PASSAGES)}\t1\n"
+                         for q in range(n))
+    results, searched = [], []
+    real, real_topk = ann_gen.generate_new_ann, flat.topk_blockmax
+
+    def keep(*args, **kwargs):
+        results.append(real(*args, **kwargs))
+        return results[-1]
+
+    def recorded(queries, corpus, **kwargs):
+        searched.append((queries, corpus))
+        return real_topk(queries, corpus, **kwargs)
+
+    ann_gen.generate_new_ann, flat.topk_blockmax = keep, recorded
+    try:
+        torch.cuda.synchronize()
+        reset_blockmax_counts()
+        t0 = time.perf_counter()
+        summary = _cli([
+            "generate", "--device", "cuda", "--training_dir",
+            str(JAX_FIXTURE), "--encoder_overrides", json.dumps(geo),
+            "--data_dir", str(data), "--output_dir", str(work / "jax_ann"),
+            "--max_seq_length", "12", "--max_query_length", "8",
+            "--topk_training", "32", "--negative_sample", "4",
+            "--ann_chunk_factor", "1"])
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        by_kernel = blockmax_counts()
+    finally:
+        ann_gen.generate_new_ann, flat.topk_blockmax = real, real_topk
+    check(by_kernel == {"blockmax_pieces_f32": 2}, f"generate from the JAX "
+          f"checkpoint launched {by_kernel}, not blockmax_pieces_f32 twice")
+    check(summary["checkpoint"] == str(path), f"generate cited "
+          f"{summary['checkpoint']}, not {path}")
+    result = results.pop()
+    index = result["index"]
+    index.method = "scan"
+    _, scan_ids = index.search(result["train_query_embedding"], 32)
+    same = (scan_ids.cpu().numpy() == result["train_neighbor_ids"]).mean()
+    check(same == 1.0, f"mining ids equal the scan on {same:.6f} of "
+          "positions, not all")
+    del index, result
+    # LayerNorm'd 768-d embeddings: block maxima up to ~770, as SEED's
+    kernel_cases = phase1_against_plain(searched, "f32xf32",
+                                        "jax checkpoint generate",
+                                        scaled=True)
+    print(f"jax checkpoint: generate --training_dir {JAX_FIXTURE.name} in "
+          f"{gen_s:.2f} s ({JAX_FIXTURE_PASSAGES} passages, {n_train} "
+          f"mined queries); block-max launches {by_kernel}; mining ids == "
+          "scan", flush=True)
+    check(no_reference_modules(), "the port imported jax or ance_tpu")
+    torch.cuda.empty_cache()
+    return {"zstd_build_s": build_s, "read_s": read_s,
+            "leaves": len(want), "decode_mb_s": mb_s,
+            "decode_bytes": decoded // reps, "compressed_bytes": compressed,
+            "resume_step": spec["step"], "losses": losses,
+            "params_vs_jax": {"max_abs_diff": vs_jax[0],
+                              "past_2e-6": vs_jax[1]},
+            "params_vs_cpu": {"max_abs_diff": vs_cpu[0],
+                              "past_2e-6": vs_cpu[1]},
+            "generate_s": gen_s, "blockmax_kernels": by_kernel,
+            "kernel_cases": kernel_cases}
 
 
 # the front of the pipeline: raw MS MARCO-format TSVs made from a seed
@@ -6972,6 +7214,7 @@ def main() -> int:
         train = timed(phase_train, work)
         maxp_fp32 = timed(phase_maxp_fp32, work)
         generate = timed(phase_generate, work)
+        jax_checkpoint = timed(phase_jax_checkpoint, work)
         warmup = timed(phase_warmup, work)
         ance_loop = timed(phase_ance_loop, work, generate, train)
         serve_load = timed(phase_serve_load, work)
@@ -7058,6 +7301,7 @@ def main() -> int:
                   "ms": k["ms"], "plain_ms": k["plain_ms"],
                   "bound_ms": k["bound_ms"], "bound_by": k["bound_by"]})
     cases += generate.pop("kernel_cases") + ance_loop.pop("kernel_cases") \
+        + jax_checkpoint.pop("kernel_cases") \
         + dpr.pop("kernel_cases") + seed.pop("kernel_cases") \
         + demo["firstp"].pop("kernel_cases")
     own = [c for c in cases if c["kernel"] not in apart]
@@ -7127,6 +7371,9 @@ def main() -> int:
                 warmup["blockmax_kernels"][kernel]
             e["launches_by_path"]["seed_generate"] = \
                 seed["blockmax_kernels"][kernel]
+            # generate from the JAX package's orbax checkpoint
+            e["launches_by_path"]["jax_checkpoint_generate"] = \
+                jax_checkpoint["blockmax_kernels"][kernel]
             # the FirstP demo's loop at 16,384 x 256 (phase_demo (b))
             e["launches_by_path"]["demo_firstp"] = \
                 demo["firstp"]["blockmax_kernels"].get(kernel, 0)
@@ -7265,7 +7512,8 @@ def main() -> int:
         "ivf": ivf, "train": train, "maxp_fp32": maxp_fp32,
         "step_parity": parity,
         "mirror_encoder": mirror,
-        "generate": generate, "warmup": warmup, "ance_loop": ance_loop,
+        "generate": generate, "jax_checkpoint": jax_checkpoint,
+        "warmup": warmup, "ance_loop": ance_loop,
         "refresh": refresh, "serve_load": serve_load,
         "dpr": dpr, "seed": seed, "topk_int8": topk_int8, "mesh": mesh,
         "tp": tp, "demo": demo, "phase_seconds": phase_s}))

@@ -3,11 +3,13 @@ msgpack reader (``train/flax_msgpack.py``) against
 ``flax.serialization.msgpack_restore`` on what
 ``ance_tpu.train.checkpoint.save_checkpoint`` writes (fp32 and bf16 trees,
 numpy scalars, chunked leaves), ``serve`` / ``infer`` / ``generate`` from
-a JAX ``checkpoint-<n>`` against the JAX encoder, a resume from one, and
-the refusal of what the port cannot read."""
+a JAX ``checkpoint-<n>`` against the JAX encoder, a resume from one (the
+optimizer restored, from the msgpack and the orbax layout), and the
+refusal of what the port cannot read."""
 
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -166,7 +168,8 @@ def test_serve_infer_and_generate_read_a_jax_checkpoint(jax_run, tmp_path,
     same caches within the fp32 forward-parity tolerance (atol 1e-4,
     ``tests/test_torch_models.py``); ``serve --model_name_or_path
     <checkpoint-5>`` ranks as ``serve --training_dir``; ``generate`` cites
-    checkpoint-5; each says on stderr that the optimizer is not read."""
+    checkpoint-5; each notes on stderr that it read a JAX-package
+    checkpoint."""
     from ance_tpu_torch.cli import main
     root, data, run, model, params = jax_run
     want_p = _jax_embeddings(model, params, os.path.join(data, "passages"),
@@ -211,30 +214,103 @@ def test_serve_infer_and_generate_read_a_jax_checkpoint(jax_run, tmp_path,
                .splitlines()) == 8
 
 
-def test_resume_from_a_jax_checkpoint_starts_a_fresh_optimizer(jax_run,
-                                                               capsys):
-    """``resume_train_state`` over the JAX training directory: the
-    parameters loaded strictly, the step 5, the optimizer untouched (no
-    moments, count 0), and a note on stderr."""
+def _jax_optimizer_state(params, name):
+    """The JAX optimizer state after one update of seeded gradients (so
+    the moments are not zero), the rewarmup schedule re-anchored at that
+    step with horizon 7."""
+    from ance_tpu.optim.schedules import reset_rewarmup
+    from ance_tpu.train.trainer import make_optimizer
+    params = jax.tree.map(jnp.asarray, params)
+    if name == "lamb_rewarmup":
+        opt = make_optimizer("lamb", 1e-3, rewarmup=(2, 10))
+    else:
+        opt = make_optimizer("adamw", lambda s: 1e-3, weight_decay=0.01)
+    state = opt.init(params)
+    grads = jax.tree.map(lambda p: jnp.cos(p * 5.0) * 0.01, params)
+    _, state = opt.update(grads, state, params)
+    if name == "lamb_rewarmup":
+        state = reset_rewarmup(state, horizon=7.0)
+    return state
+
+
+@pytest.mark.parametrize("opt", ["lamb_rewarmup", "adamw"])
+@pytest.mark.parametrize("layout", ["msgpack", "orbax"])
+def test_resume_from_a_jax_checkpoint_restores_the_optimizer(
+        jax_run, tmp_path, capsys, layout, opt):
+    """``resume_train_state`` over a JAX training directory whose
+    checkpoint-5 holds the parameters and the optimizer state (msgpack's
+    ``opt_state.msgpack``, or the orbax ``state/`` of the JAX
+    ``AsyncCheckpointer``): the parameters loaded strictly, the step 5,
+    and the optimizer restored bit for bit: each parameter's moments as
+    ``state_dict_from_flax`` maps the JAX ones, the count (AdamW's step
+    too), LAMB's rewarmup anchor and horizon; a note on stderr names
+    them. A JAX state of the other optimizer is refused naming its
+    path."""
+    from ance_tpu.optim.lamb import find_lamb_state
     from ance_tpu_torch.models.registry import get_model_spec
     from ance_tpu_torch.models.weights import state_dict_from_flax
     from ance_tpu_torch.train import trainer
-    _, _, run, _, params = jax_run
-    model = get_model_spec("rdot_nll").build(config_overrides=TINY, seed=3)
-    state = trainer.init_train_state(model, trainer.make_optimizer(
-        model, "lamb", 1e-3))
-    state, step = ckpt.resume_train_state(run, state)
-    assert step == state.step == 5 and state.optimizer.count == 0
-    assert not state.optimizer.inner.state
+    _, _, _, _, params = jax_run
+    jstate = _jax_optimizer_state(params, opt)
+    run = tmp_path / "run"
+    if layout == "msgpack":
+        _jax_checkpoint(run, 5, params, jstate)
+    else:
+        writer = jax_ckpt.AsyncCheckpointer(str(run))
+        writer.save(5, jax.tree.map(jnp.asarray, params), opt_state=jstate)
+        writer.wait()
+        assert os.path.isdir(run / "checkpoint-5" / "state")
+    moments = find_lamb_state(jstate) if opt == "lamb_rewarmup" \
+        else jstate[1][0]
+    mu = state_dict_from_flax(jax.tree.map(np.asarray, moments.mu))
+    nu = state_dict_from_flax(jax.tree.map(np.asarray, moments.nu))
+
+    def port_state(name):
+        model = get_model_spec("rdot_nll").build(config_overrides=TINY,
+                                                 seed=3)
+        return trainer.init_train_state(model, trainer.make_optimizer(
+            model, "lamb" if name == "lamb_rewarmup" else "adamw", 1e-3,
+            weight_decay=0.01 if name == "adamw" else 0.0,
+            rewarmup=(2, 10) if name == "lamb_rewarmup" else None))
+
+    state, step = ckpt.resume_train_state(str(run), port_state(opt))
+    assert step == state.step == 5 and state.optimizer.count == 1
     want = state_dict_from_flax(params)
-    for key, value in model.state_dict().items():
+    for key, value in state.model.state_dict().items():
         assert torch.equal(value, want[key]), key
-    assert "optimizer state is not read" in capsys.readouterr().err
+    for name, p in state.model.named_parameters():
+        restored = state.optimizer.inner.state[p]
+        assert torch.equal(restored["exp_avg"], mu[name]), name
+        assert torch.equal(restored["exp_avg_sq"], nu[name]), name
+        if opt == "adamw":
+            assert float(restored["step"]) == 1.0
+    note = "count 1"
+    if opt == "lamb_rewarmup":
+        sched = state.optimizer.schedule
+        assert (sched.anchor, sched.horizon) == (1, 7.0)
+        note += ", anchor 1, horizon 7.0"
+    assert f"optimizer state ({note}) are restored" in \
+        capsys.readouterr().err
+    other = "adamw" if opt == "lamb_rewarmup" else "lamb_rewarmup"
+    with pytest.raises(ckpt.UnreadableCheckpoint,
+                       match="opt_state.*the port's optimizer is"):
+        ckpt.resume_train_state(str(run), port_state(other))
+
+
+def _orbax_checkpoint(directory, params):
+    writer = jax_ckpt.AsyncCheckpointer(str(directory))
+    writer.save(2, jax.tree.map(jnp.asarray, params))
+    writer.wait()
+    return os.path.join(str(directory), "checkpoint-2", "state")
 
 
 def test_unreadable_checkpoints_exit_naming_the_file(jax_run, tmp_path):
-    """An orbax layout, an empty, a truncated and a non-RobertaDot
-    ``params.msgpack``: each exits with a message naming the file."""
+    """An empty orbax ``state/`` (no ``manifest.ocdbt``), an orbax one with
+    a crc32c mismatch in its manifest, a truncated B-tree node, zarr v3
+    arrays or a chunk compressor other than zstd, and an empty, a
+    truncated and a non-RobertaDot ``params.msgpack``: each exits with a
+    message naming the file."""
+    import tensorstore as ts
     from ance_tpu_torch.cli import main
     root, data, run, _, params = jax_run
     base = ["serve", "--device", "cpu", "--encoder_overrides",
@@ -242,7 +318,38 @@ def test_unreadable_checkpoints_exit_naming_the_file(jax_run, tmp_path):
             data + "/dev-query", "--max_query_length", "8"]
     good = open(os.path.join(run, "checkpoint-5", "params.msgpack"),
                 "rb").read()
-    cases = {"orbax": None, "empty": b"", "truncated": good[:-7],
+    orbax_state = _orbax_checkpoint(tmp_path / "orbax_source", params)
+
+    def corrupt(name, state):
+        if name == "crc32c":
+            path = os.path.join(state, "manifest.ocdbt")
+            raw = bytearray(open(path, "rb").read())
+            raw[len(raw) // 2] ^= 1
+            open(path, "wb").write(bytes(raw))
+            return path
+        if name == "truncated_node":
+            node = os.path.join(state, "d", os.listdir(
+                os.path.join(state, "d"))[0])
+            raw = open(node, "rb").read()
+            open(node, "wb").write(raw[:len(raw) // 2])
+            return node
+        if name == "zarr3":
+            path = os.path.join(state, "_METADATA")
+            meta = json.load(open(path))
+            meta["use_zarr3"] = True
+            json.dump(meta, open(path, "w"))
+            return path
+        kv = ts.KvStore.open({"driver": "ocdbt",
+                              "base": f"file://{state}/"}).result()
+        key = "params.embedding_head.kernel/.zarray"
+        zarray = json.loads(kv.read(key).result().value)
+        zarray["compressor"] = {"id": "blosc", "cname": "lz4"}
+        kv.write(key, json.dumps(zarray).encode()).result()
+        return os.path.join(state, key)
+
+    cases = {"orbax": None, "crc32c": "orbax", "truncated_node": "orbax",
+             "zarr3": "orbax", "compressor": "orbax", "empty": b"",
+             "truncated": good[:-7],
              "other_tree": serialization.to_bytes({"w": np.ones(3)})}
     for name, payload in cases.items():
         d = tmp_path / name / "checkpoint-2"
@@ -250,7 +357,10 @@ def test_unreadable_checkpoints_exit_naming_the_file(jax_run, tmp_path):
         (d / "meta.json").write_text('{"step": 2}')
         if payload is None:
             os.makedirs(d / "state")
-            target = str(d / "state")
+            target = str(d / "state" / "manifest.ocdbt")
+        elif payload == "orbax":
+            shutil.copytree(orbax_state, d / "state")
+            target = corrupt(name, str(d / "state"))
         else:
             (d / "params.msgpack").write_bytes(payload)
             target = str(d / "params.msgpack")

@@ -9,7 +9,9 @@ commands (``preprocess-dpr``, ``train --num_epoch``, ``generate-dpr``,
 one-rank group through ``experiments/mesh_worker.py``), nor while the
 learning demos (``experiments/demo*.py``) or the refresh and feed
 measurements (``experiments/perf_refresh8m8.py``, ``perf_feed.py``,
-``perf_loopfeed.py``) run. Checked in a fresh
+``perf_loopfeed.py``) run, nor while it reads and resumes the JAX
+package's orbax checkpoint (``tests/data/jax_loop_orbax``, without orbax,
+tensorstore or ``zstandard`` either). Checked in a fresh
 interpreter, because
 this test process already has jax (tests/conftest.py imports it)."""
 
@@ -402,6 +404,51 @@ PERF_SCRIPTS = textwrap.dedent("""
     assert not old, f"a perf script imported the JAX package: {old}"
     print("perf scripts ok")
 """)
+
+
+ORBAX = textwrap.dedent("""
+    import json, os, sys
+    import torch
+    torch.set_num_threads(1)
+    from ance_tpu_torch.models.registry import get_model_spec
+    from ance_tpu_torch.train import checkpoint as ckpt
+    from ance_tpu_torch.train import trainer
+    fixture = os.path.join("tests", "data", "jax_loop_orbax")
+    spec = json.load(open(os.path.join(fixture, "fixture.json")))
+    path = os.path.join(fixture, f"checkpoint-{spec['step']}")
+    assert os.path.isdir(os.path.join(path, "state"))
+    assert set(ckpt.load_raw_params(path)) == {"encoder", "embedding_head",
+                                               "norm"}
+    assert set(ckpt.load_raw_opt_state(path)) == {"0", "1", "2"}
+    o = spec["optimizer"]
+    model = get_model_spec(spec["model_type"]).build(
+        config_overrides=spec["geometry"])
+    state = trainer.init_train_state(model, trainer.make_optimizer(
+        model, o["name"], o["learning_rate"], eps=o["eps"],
+        weight_decay=o["weight_decay"], max_grad_norm=o["max_grad_norm"],
+        rewarmup=(o["warmup_steps"], o["initial_horizon"])))
+    state, step = ckpt.resume_train_state(fixture, state)
+    assert step == spec["step"] == state.optimizer.count
+    assert state.optimizer.schedule.anchor == spec["anchor"]
+    for name in ("jax", "orbax", "tensorstore", "zstandard", "flax",
+                 "msgpack"):
+        assert name not in sys.modules, f"reading orbax pulled in {name}"
+    old = sorted(m for m in sys.modules
+                 if m == "ance_tpu" or m.startswith("ance_tpu."))
+    assert not old, f"reading orbax imported the JAX package: {old}"
+    print("orbax ok")
+""")
+
+
+def test_orbax_checkpoint_reads_without_jax_orbax_or_zstandard():
+    """The committed JAX orbax checkpoint reads and resumes in a fresh
+    interpreter that loads neither jax, orbax, tensorstore, ``zstandard``,
+    flax nor msgpack, nor any module of the JAX package."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", ORBAX], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.rstrip().endswith("orbax ok")
 
 
 def test_perf_scripts_never_import_jax():
