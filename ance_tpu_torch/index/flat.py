@@ -19,6 +19,7 @@ import torch
 
 from ance_tpu_torch.ops.topk import (NEG_INF, rescore, topk_blockmax,
                                      topk_lower_id_first)
+from ance_tpu_torch.utils.observability import span
 
 
 def topk_inner_product(queries: torch.Tensor, corpus: torch.Tensor, *,
@@ -380,11 +381,13 @@ class FlatIPIndex:
         Queries are cast to the index dtype first (fp32 for int8 indexes)
         and the rescore reads those cast queries, as in the JAX package;
         per-dim scales fold into the query. On a mesh each rank's [Q, k]
-        are gathered and merged, equal scores lower id first."""
+        are gathered and merged, equal scores lower id first. The whole
+        call is the span ``index.search``."""
         if self._emb is None:
             raise ValueError("index is empty; call add() first")
-        s, i = self._search_shard(queries, k)
-        if self.mesh is None:
-            return s, i
-        return merge_topk(self.mesh.all_gather(s), self.mesh.all_gather(i),
-                          k)
+        with span("index.search", self.device):
+            s, i = self._search_shard(queries, k)
+            if self.mesh is None:
+                return s, i
+            return merge_topk(self.mesh.all_gather(s),
+                              self.mesh.all_gather(i), k)

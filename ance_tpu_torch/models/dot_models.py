@@ -12,6 +12,7 @@ from torch import nn
 
 from ance_tpu_torch.models.transformer import (EncoderConfig,
                                                TransformerEncoder, pool)
+from ance_tpu_torch.utils.observability import span
 
 
 def _head_dtype(x: torch.Tensor) -> torch.dtype:
@@ -26,7 +27,8 @@ class RobertaDot(nn.Module):
     Attribute names are the reference ``RobertaDot_NLL_LN`` state-dict
     prefixes (``roberta.*``, ``embeddingHead``, ``norm``). ``base_len`` is
     the MaxP chunk length. Each method takes an optional ``generator``
-    for the encoder's dropout in ``train()`` mode."""
+    for the encoder's dropout in ``train()`` mode. The pooling and the head
+    are the span ``encoder.head``."""
 
     def __init__(self, config: EncoderConfig, use_mean: bool = False,
                  out_dim: int = 768, base_len: int = 512):
@@ -40,8 +42,10 @@ class RobertaDot(nn.Module):
 
     def _embed(self, input_ids, attention_mask, generator=None):
         hidden = self.roberta(input_ids, attention_mask, generator=generator)
-        pooled = pool(hidden, attention_mask, self.use_mean)
-        return self.norm(self.embeddingHead(pooled.to(_head_dtype(pooled))))
+        with span("encoder.head"):
+            pooled = pool(hidden, attention_mask, self.use_mean)
+            return self.norm(self.embeddingHead(
+                pooled.to(_head_dtype(pooled))))
 
     def query_emb(self, input_ids, attention_mask, generator=None):
         return self._embed(input_ids, attention_mask, generator)
@@ -62,9 +66,10 @@ class RobertaDot(nn.Module):
         ids = input_ids.reshape(B * C, self.base_len)
         mask = attention_mask.reshape(B * C, self.base_len)
         hidden = self.roberta(ids, mask, generator=generator)
-        cls = hidden[:, 0]
-        emb = self.norm(self.embeddingHead(cls.to(_head_dtype(cls))))
-        return emb.reshape(B, C, -1)
+        with span("encoder.head"):
+            cls = hidden[:, 0]
+            emb = self.norm(self.embeddingHead(cls.to(_head_dtype(cls))))
+            return emb.reshape(B, C, -1)
 
     def forward(self, input_ids, attention_mask, generator=None):
         return self._embed(input_ids, attention_mask, generator)

@@ -44,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from ance_tpu_torch.core.tp import copy_to_model, reduce_from_model
 from ance_tpu_torch.ops.attention import multi_head_attention
 from ance_tpu_torch.ops.quant_noise import quant_noise
+from ance_tpu_torch.utils.observability import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -296,7 +297,8 @@ class EncoderLayer(nn.Module):
 class TransformerEncoder(nn.Module):
     """Token ids → contextual hidden states [B, S, hidden]. In ``train()``
     mode ``generator`` (on the input's device) feeds the dropout; in
-    ``eval()`` mode it is ignored."""
+    ``eval()`` mode it is ignored. The embeddings and each layer are the
+    spans ``encoder.embeddings`` and ``encoder.layer``."""
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
@@ -311,20 +313,23 @@ class TransformerEncoder(nn.Module):
             attention_mask = torch.ones_like(input_ids)
         if not self.training:
             generator = None
-        x = self.embeddings(input_ids, token_type_ids, generator=generator)
+        with span("encoder.embeddings"):
+            x = self.embeddings(input_ids, token_type_ids,
+                                generator=generator)
         rate = self.config.layerdrop_rate
         for layer in self.encoder.layer:
-            if self.config.remat and self.training:
-                y = _remat(layer, x, attention_mask, generator)
-            else:
-                y = layer(x, attention_mask, generator)
-            if generator is not None and rate > 0.0:
-                # LayerDrop: the layer is computed and its output dropped
-                # for the whole batch, as in the JAX package (no host read
-                # of the draw, so no device synchronize)
-                x = torch.where(layer_dropped(rate, generator), x, y)
-            else:
-                x = y
+            with span("encoder.layer"):
+                if self.config.remat and self.training:
+                    y = _remat(layer, x, attention_mask, generator)
+                else:
+                    y = layer(x, attention_mask, generator)
+                if generator is not None and rate > 0.0:
+                    # LayerDrop: the layer is computed and its output
+                    # dropped for the whole batch, as in the JAX package
+                    # (no host read of the draw, so no device synchronize)
+                    x = torch.where(layer_dropped(rate, generator), x, y)
+                else:
+                    x = y
         return x
 
 

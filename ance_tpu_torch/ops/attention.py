@@ -37,6 +37,8 @@ from typing import Optional
 
 import torch
 
+from ance_tpu_torch.utils.observability import span
+
 NEG_INF = -1e9  # additive mask bias; a fully masked row softmaxes uniform
 FUSED_MIN_SEQ, FUSED_MAX_SEQ = 256, 1024  # auto: fused in [256, 1024]
 KERNEL_HEAD_DIM = 64  # every supported encoder: RoBERTa/BERT base and large
@@ -148,25 +150,27 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, impl: str = "xla", dropout_rate: float = 0.0,
                          generator: Optional[torch.Generator] = None
                          ) -> torch.Tensor:
-    """Dispatch over the implementations in the module docstring."""
-    if dropout_rate > 0.0 and impl in ("fused", "flash", "auto"):
-        impl = "xla_bf16" if q.dtype == torch.bfloat16 else "xla"
-    if impl == "auto":
-        S = q.shape[1]
-        if q.device.type != "cuda" or S < FUSED_MIN_SEQ:
+    """Dispatch over the implementations in the module docstring; the
+    call is the span ``encoder.attention``."""
+    with span("encoder.attention"):
+        if dropout_rate > 0.0 and impl in ("fused", "flash", "auto"):
             impl = "xla_bf16" if q.dtype == torch.bfloat16 else "xla"
-        else:
-            impl = "fused" if S <= FUSED_MAX_SEQ else "flash"
-    if impl == "fused":
-        from ance_tpu_torch.ops.fused_attention import fused_attention
-        return fused_attention(q, k, v, attention_mask)
-    if impl == "flash":
-        from ance_tpu_torch.ops.flash_attention import flash_attention
-        return flash_attention(q, k, v, attention_mask)
-    if impl not in ("xla", "xla_bf16"):
-        raise ValueError(f"unknown attention impl {impl!r}")
-    bias = None if attention_mask is None else mask_to_bias(attention_mask)
-    softmax_dtype = torch.bfloat16 if impl == "xla_bf16" \
-        else torch.promote_types(q.dtype, torch.float32)
-    return xla_attention(q, k, v, bias, softmax_dtype=softmax_dtype,
-                         dropout_rate=dropout_rate, generator=generator)
+        if impl == "auto":
+            S = q.shape[1]
+            if q.device.type != "cuda" or S < FUSED_MIN_SEQ:
+                impl = "xla_bf16" if q.dtype == torch.bfloat16 else "xla"
+            else:
+                impl = "fused" if S <= FUSED_MAX_SEQ else "flash"
+        if impl == "fused":
+            from ance_tpu_torch.ops.fused_attention import fused_attention
+            return fused_attention(q, k, v, attention_mask)
+        if impl == "flash":
+            from ance_tpu_torch.ops.flash_attention import flash_attention
+            return flash_attention(q, k, v, attention_mask)
+        if impl not in ("xla", "xla_bf16"):
+            raise ValueError(f"unknown attention impl {impl!r}")
+        bias = None if attention_mask is None else mask_to_bias(attention_mask)
+        softmax_dtype = torch.bfloat16 if impl == "xla_bf16" \
+            else torch.promote_types(q.dtype, torch.float32)
+        return xla_attention(q, k, v, bias, softmax_dtype=softmax_dtype,
+                             dropout_rate=dropout_rate, generator=generator)

@@ -55,6 +55,8 @@ from typing import Optional
 
 import torch
 
+from ance_tpu_torch.utils.observability import span
+
 NEG_INF = torch.finfo(torch.float32).min
 
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -352,38 +354,43 @@ def topk_blockmax(queries: torch.Tensor, corpus: torch.Tensor, *, k: int,
 def _topk_group(queries, corpus_p, scores, ids, *, k, block_size, chunk_rows,
                 q_tile, phase1_dtype, valid_rows) -> None:
     """The three phases for one group of queries over the padded corpus,
-    written into that group's rows of ``scores`` / ``ids``."""
+    written into that group's rows of ``scores`` / ``ids``; each phase is a
+    span (``topk.phase1`` / ``2`` / ``3``, ``utils/observability.py``)."""
     Q = queries.shape[0]
     padded_n = corpus_p.shape[0]
+    dev = corpus_p.device
 
-    if corpus_p.dtype == torch.int8:
-        if phase1_dtype == torch.int8:
-            qf = quantize_query_rows_int8(queries)
-        elif phase1_dtype is not None:
-            qf = queries.to(phase1_dtype)
+    with span("topk.phase1", dev):
+        if corpus_p.dtype == torch.int8:
+            if phase1_dtype == torch.int8:
+                qf = quantize_query_rows_int8(queries)
+            elif phase1_dtype is not None:
+                qf = queries.to(phase1_dtype)
+            else:
+                qf = queries
         else:
-            qf = queries
-    else:
-        qf = queries.to(corpus_p.dtype)
-    bm = blockmax_scores(qf.contiguous(), corpus_p.contiguous(),
-                         block_size=block_size, chunk_rows=chunk_rows)
-    n_blocks = padded_n // block_size
-    block_ids = torch.arange(n_blocks, device=bm.device)
-    neg = torch.iinfo(torch.int32).min if bm.dtype == torch.int32 \
-        else NEG_INF
-    bm.masked_fill_((block_ids * block_size >= valid_rows)[None, :], neg)
+            qf = queries.to(corpus_p.dtype)
+        bm = blockmax_scores(qf.contiguous(), corpus_p.contiguous(),
+                             block_size=block_size, chunk_rows=chunk_rows)
 
-    k_blocks = min(k + 1, n_blocks)  # one spare block (module docstring)
-    top_blocks = top_blocks_lower_id_first(bm, k_blocks)  # rows ascending
-    del bm
+    with span("topk.phase2", dev):
+        n_blocks = padded_n // block_size
+        block_ids = torch.arange(n_blocks, device=bm.device)
+        neg = torch.iinfo(torch.int32).min if bm.dtype == torch.int32 \
+            else NEG_INF
+        bm.masked_fill_((block_ids * block_size >= valid_rows)[None, :], neg)
+        k_blocks = min(k + 1, n_blocks)  # one spare block (module docstring)
+        top_blocks = top_blocks_lower_id_first(bm, k_blocks)  # rows ascending
+        del bm
 
-    offsets = torch.arange(block_size, device=corpus_p.device)
-    k_out = min(k, k_blocks * block_size)
-    for t in range(0, Q, q_tile):
-        rows = (top_blocks[t:t + q_tile, :, None] * block_size
-                + offsets).reshape(-1, k_blocks * block_size)  # [T, kb·BS]
-        s = rescore(queries[t:t + q_tile], corpus_p[rows])    # [T, kb·BS]
-        s.masked_fill_(rows >= valid_rows, NEG_INF)
-        top_s, pos = topk_lower_id_first(s, k_out)
-        scores[t:t + q_tile, :k_out] = top_s
-        ids[t:t + q_tile, :k_out] = torch.gather(rows, 1, pos)
+    with span("topk.phase3", dev):
+        offsets = torch.arange(block_size, device=dev)
+        k_out = min(k, k_blocks * block_size)
+        for t in range(0, Q, q_tile):
+            rows = (top_blocks[t:t + q_tile, :, None] * block_size
+                    + offsets).reshape(-1, k_blocks * block_size)
+            s = rescore(queries[t:t + q_tile], corpus_p[rows])  # [T, kb·BS]
+            s.masked_fill_(rows >= valid_rows, NEG_INF)
+            top_s, pos = topk_lower_id_first(s, k_out)
+            scores[t:t + q_tile, :k_out] = top_s
+            ids[t:t + q_tile, :k_out] = torch.gather(rows, 1, pos)

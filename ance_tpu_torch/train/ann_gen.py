@@ -32,9 +32,11 @@ from ance_tpu_torch.data.cache import TokenCache
 from ance_tpu_torch.evaluation.metrics import eval_dev_ndcg
 from ance_tpu_torch.index.flat import FlatIPIndex
 from ance_tpu_torch.train.encode import encode_cache_to_device, synced_clock
+from ance_tpu_torch.utils.observability import span
 
 ANN_DATA_PREFIX = "ann_training_data_"
 ANN_NDCG_PREFIX = "ann_ndcg_"
+MINE_BLOCK = 4096  # queries whose shuffled orders mine_negatives holds at once
 
 
 # --------------------------------------------------------------------------
@@ -95,39 +97,54 @@ def mine_negatives(query_embedding2id: np.ndarray,
     dropped and an inline MRR probe (reference run_ann_data_gen.py:339-396).
     The shuffles draw from ``rng`` as the JAX function's do, so identical
     neighbor matrices give identical negatives. Returns (qid → negative
-    pids, mrr); mrr means something only with ``select_topk``."""
+    pids, mrr); mrr means something only with ``select_topk``.
+
+    The queries go in blocks of at most ``MINE_BLOCK``, each in two
+    passes: the span ``ann_gen.shuffle`` draws the order of every query
+    with a positive, in query order (the only use of ``rng``, so the
+    draws are the one-pass loop's), then ``ann_gen.select`` takes each
+    query's negatives."""
     rng = rng or random.Random(0)
     query_negative_passage: dict[int, list[int]] = {}
     mrr = 0.0
     num_queries = 0
-    for qi in range(neighbor_ids.shape[0]):
-        qid = int(query_embedding2id[qi])
-        if qid not in training_query_positive_id:
-            continue
-        num_queries += 1
-        pos_pid = training_query_positive_id[qid]
-        row = neighbor_ids[qi]
-        if select_topk:
-            selected = row[:negative_sample + 1]
-        else:
-            idx = list(range(neighbor_ids.shape[1]))
-            rng.shuffle(idx)
-            selected = row[idx]
-        negs: list[int] = []
-        rank = 0
-        for emb_idx in selected:
-            neg_pid = int(passage_embedding2id[emb_idx])
-            rank += 1
-            if neg_pid == pos_pid:
-                if rank <= 10:
-                    mrr += 1.0 / rank
-                continue
-            if neg_pid in negs:
-                continue
-            if len(negs) >= negative_sample:
-                break
-            negs.append(neg_pid)
-        query_negative_passage[qid] = negs
+    width = neighbor_ids.shape[1]
+    with span("ann_gen.mine_negatives"):
+        for b in range(0, neighbor_ids.shape[0], MINE_BLOCK):
+            with span("ann_gen.shuffle"):
+                mined = []  # (row, qid, order or None)
+                for qi in range(b, min(b + MINE_BLOCK,
+                                       neighbor_ids.shape[0])):
+                    qid = int(query_embedding2id[qi])
+                    if qid not in training_query_positive_id:
+                        continue
+                    order = None
+                    if not select_topk:
+                        order = list(range(width))
+                        rng.shuffle(order)
+                    mined.append((qi, qid, order))
+            with span("ann_gen.select"):
+                for qi, qid, order in mined:
+                    num_queries += 1
+                    pos_pid = training_query_positive_id[qid]
+                    row = neighbor_ids[qi]
+                    selected = row[:negative_sample + 1] if order is None \
+                        else row[order]
+                    negs: list[int] = []
+                    rank = 0
+                    for emb_idx in selected:
+                        neg_pid = int(passage_embedding2id[emb_idx])
+                        rank += 1
+                        if neg_pid == pos_pid:
+                            if rank <= 10:
+                                mrr += 1.0 / rank
+                            continue
+                        if neg_pid in negs:
+                            continue
+                        if len(negs) >= negative_sample:
+                            break
+                        negs.append(neg_pid)
+                    query_negative_passage[qid] = negs
     return query_negative_passage, (mrr / num_queries if num_queries else 0.0)
 
 

@@ -13,6 +13,7 @@ in rank order, so every rank ends with all of them.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Callable, Iterator, Optional
 
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from ance_tpu_torch.data.cache import TokenCache
+from ance_tpu_torch.utils.observability import span
 
 
 def synced_clock(device: torch.device) -> Callable[[], float]:
@@ -45,22 +47,42 @@ def iter_cache_batches(cache: TokenCache, batch_size: int, start: int = 0,
     repeating the last record (the caller drops the padded rows), so every
     batch has one shape. With ``num_hosts`` ranks the offsets stay the
     global batch's and ids / mask are rank ``host_id``'s contiguous block
-    of it, [B / num_hosts, L]."""
+    of it, [B / num_hosts, L].
+
+    Forming a batch (the cache read and the mask) is the span
+    ``encode.feed``, closed before the batch is yielded. Two counters, kept
+    for the process's life from the host arrays: ``.real_tokens``, the
+    lengths of the real records in the rows this rank encodes, capped at
+    the width, and ``.token_slots``, every row it encodes (the padding
+    rows too) times the width."""
     if batch_size % num_hosts:
         raise ValueError(f"batch_size {batch_size} not divisible by "
                          f"{num_hosts} ranks")
     per_host = batch_size // num_hosts
+    width = cache.embedding_size
     stop = cache.total_number if stop is None else stop
     for s in range(start, stop, batch_size):
-        keys = np.arange(s, min(s + batch_size, stop))
-        real = len(keys)
-        if real < batch_size:
-            keys = np.concatenate(
-                [keys, np.full(batch_size - real, keys[-1])])
-        lengths, tokens = cache.batch(
-            keys[host_id * per_host:(host_id + 1) * per_host])
-        mask = mask_from_lengths(lengths, cache.embedding_size)
-        yield keys[:real], tokens.astype(np.int32), mask
+        with span("encode.feed"):
+            keys = np.arange(s, min(s + batch_size, stop))
+            real = len(keys)
+            if real < batch_size:
+                keys = np.concatenate(
+                    [keys, np.full(batch_size - real, keys[-1])])
+            lo = host_id * per_host
+            lengths, tokens = cache.batch(keys[lo:lo + per_host])
+            ids = tokens.astype(np.int32)
+            mask = mask_from_lengths(lengths, width)
+            real_tokens = int(np.minimum(lengths[:max(0, real - lo)],
+                                         width).sum())
+            with _COUNT_LOCK:
+                iter_cache_batches.real_tokens += real_tokens
+                iter_cache_batches.token_slots += per_host * width
+        yield keys[:real], ids, mask
+
+
+iter_cache_batches.real_tokens = 0
+iter_cache_batches.token_slots = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def make_encode_fn(model: torch.nn.Module, method: Callable,

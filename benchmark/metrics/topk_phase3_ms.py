@@ -1,0 +1,19 @@
+"""Device ms a search in phase 3 of the search, the exact rescore: each
+query tile's gather of the candidate rows, the fp64 ``rescore``, the top-k
+and its writes. The program's span ``topk.phase3``, timed by CUDA events on
+the search's stream and recorded only while the profiler runs (so over the
+traced slice), over the calls of ``index.search`` there."""
+
+PHASE = "topk.phase3"
+
+
+def read(obs):
+    try:
+        from ance_tpu_torch.utils.observability import span_totals
+    except ImportError:  # a port without spans
+        return None
+    totals = span_totals()
+    phase, search = totals.get(PHASE), totals.get("index.search")
+    if not phase or not search or phase["device_ms"] is None:
+        return None
+    return phase["device_ms"] / search["calls"]

@@ -6,6 +6,7 @@ weights, the ``generate`` / ``infer`` / ``eval`` / ``eval-full`` CLIs, and
 the loops (``run_generator_job`` with the trainer job, ``run_ance_cycles``
 learning a learnable task)."""
 
+import contextlib
 import json
 import os
 import pickle
@@ -67,6 +68,41 @@ def test_mine_negatives_matches_jax(select_topk):
     assert len(negs) == 35 and 0 < mrr <= 1
     for qid, pids in negs.items():
         assert positives[qid] not in pids and len(set(pids)) == len(pids)
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_mine_negatives_across_blocks_matches_jax(profiled):
+    """More queries than one block of ``MINE_BLOCK`` (a qid repeated on
+    both sides of the boundary, so a later row overwrites an earlier), with
+    a profiler recording or not: the JAX function's negatives, in the same
+    dict order, and MRR; under the profiler one shuffle and one select
+    span a block inside ``ann_gen.mine_negatives``."""
+    from torch.profiler import ProfilerActivity, profile
+    from ance_tpu_torch.utils.observability import reset_spans, span_totals
+    rs = np.random.RandomState(5)
+    n = ann_gen.MINE_BLOCK + 300
+    q2id = np.arange(n) % (n - 40)  # rows n-40.. repeat the first 40 qids
+    p2id = np.repeat(np.arange(400), 2)
+    positives = {int(q): int(rs.randint(400)) for q in q2id if q % 7}
+    neighbors = rs.randint(0, 800, (n, 30))
+    reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]) if profiled \
+            else contextlib.nullcontext():
+        got = ann_gen.mine_negatives(q2id, p2id, positives, neighbors, 6,
+                                     rng=random.Random(11))
+    want = jax_gen.mine_negatives(q2id, p2id, positives, neighbors, 6,
+                                  rng=random.Random(11))
+    assert got == want and list(got[0]) == list(want[0])
+    totals = span_totals()
+    if profiled:
+        assert {k: v["calls"] for k, v in totals.items()} == {
+            "ann_gen.mine_negatives": 1, "ann_gen.shuffle": 2,
+            "ann_gen.select": 2}
+        assert totals["ann_gen.shuffle"]["parent"] == \
+            "ann_gen.mine_negatives"
+    else:
+        assert totals == {}
+    reset_spans()
 
 
 def test_write_ann_data_is_byte_identical(tmp_path):

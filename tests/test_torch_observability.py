@@ -1,7 +1,7 @@
 """The port's copies of ``ance_tpu/utils/observability.py`` (the metrics
-log ``ance-loop`` writes as refresh.jsonl, logging set-up, the step timer,
-the profiler hook) and of ``ance_tpu/optim/lamb.py::trust_ratio_summary``
-against the JAX package's on the same calls and the same LAMB state."""
+log ``ance-loop`` writes as refresh.jsonl, logging set-up) and of
+``ance_tpu/optim/lamb.py::trust_ratio_summary`` against the JAX package's
+on the same calls and the same LAMB state."""
 
 import json
 import logging
@@ -57,20 +57,9 @@ def test_metrics_logger_lines_are_the_jax_loggers(tmp_path):
     assert not silent.enabled
 
 
-def test_step_timer_and_logging_setup_match_jax(tmp_path, monkeypatch):
-    """StepTimer: the same rate from the same clock readings, a window of
-    the newest ticks; setup_logging: INFO on rank 0, WARNING elsewhere, a
-    train.log under log_dir on rank 0."""
-    import time
-    for mod in (jax_obs, observability):
-        clock = iter([0.0, 0.5, 1.5, 2.0, 4.0])
-        monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-        timer = mod.StepTimer(window=3)
-        assert timer.steps_per_sec() == 0.0
-        for _ in range(5):
-            timer.tick()
-        assert timer.steps_per_sec() == pytest.approx(2 / 2.5)
-        monkeypatch.undo()
+def test_step_timer_and_logging_setup_match_jax(tmp_path):
+    """setup_logging: INFO on rank 0, WARNING elsewhere, a train.log under
+    log_dir on rank 0, as the JAX package's."""
     root = logging.getLogger()
     handlers, level = list(root.handlers), root.level
     try:
@@ -87,20 +76,6 @@ def test_step_timer_and_logging_setup_match_jax(tmp_path, monkeypatch):
     finally:
         root.handlers[:] = handlers
         root.setLevel(level)
-
-
-def test_profile_writes_a_trace_only_when_asked(tmp_path):
-    """``profile(None)`` traces nothing; ``profile(dir)`` leaves a
-    torch.profiler trace of the work inside it."""
-    with observability.profile(None):
-        torch.ones(4).sum()
-    with observability.profile(str(tmp_path / "trace")):
-        (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
-    files = list((tmp_path / "trace").iterdir())
-    assert files and all(f.name.endswith(".pt.trace.json") for f in files)
-    events = json.loads(files[0].read_text())["traceEvents"]
-    assert any("matmul" in e.get("name", "") or "mm" == e.get("name")
-               for e in events)
 
 
 TINY = {"num_layers": 1, "hidden_size": 16, "num_heads": 2,
