@@ -11,6 +11,11 @@ and holds a shard of the index's rows):
     the corpus embeddings where they lie, and searched through the
     block-max top-k (the CUDA kernel of ``csrc/blockmax.cu`` on the card)
     for dev NDCG@10 and for mining;
+  * the negatives are mined on the host by ``native/mining.cpp``: where
+    the generator is a plain ``random.Random`` it draws
+    ``Random.shuffle``'s own orders from the generator's MT19937 state,
+    and it selects as the JAX package's loop does, so the negatives, the
+    MRR probe and the files are those of that loop;
   * the file protocol is the JAX package's (and the reference's):
     ``ann_training_data_<n>`` (shuffled ``qid\\tpos\\tneg,...`` lines),
     then ``ann_ndcg_<n>`` written LAST as the ready signal, so either
@@ -32,6 +37,7 @@ from ance_tpu_torch.data.cache import TokenCache
 from ance_tpu_torch.evaluation.metrics import eval_dev_ndcg
 from ance_tpu_torch.index.flat import FlatIPIndex
 from ance_tpu_torch.train.encode import encode_cache_to_device, synced_clock
+from ance_tpu_torch.utils import mining_native
 from ance_tpu_torch.utils.observability import span
 
 ANN_DATA_PREFIX = "ann_training_data_"
@@ -103,8 +109,23 @@ def mine_negatives(query_embedding2id: np.ndarray,
     passes: the span ``ann_gen.shuffle`` draws the order of every query
     with a positive, in query order (the only use of ``rng``, so the
     draws are the one-pass loop's), then ``ann_gen.select`` takes each
-    query's negatives."""
+    query's negatives.
+
+    Both passes run in ``native/mining.cpp``
+    (:mod:`ance_tpu_torch.utils.mining_native`). Where ``rng`` is exactly
+    ``random.Random`` the orders come from the generator's own MT19937
+    state (``getstate``, then ``setstate``), drawn as ``Random.shuffle``
+    draws them; any other generator (a subclass may override ``random``
+    or ``getrandbits``) shuffles in Python. The selection walks each
+    row's neighbor ids as the JAX function's loop does, looking up only the
+    passage ids it reaches; an id out of range raises ``IndexError`` where
+    the walk reaches it. The ids are integers, taken as int64. The
+    negatives, the dict's order, the MRR and the generator's state after
+    the call are the JAX function's."""
     rng = rng or random.Random(0)
+    native_shuffle = type(rng) is random.Random
+    ids = (np.ascontiguousarray(neighbor_ids, dtype=np.int64),
+           np.ascontiguousarray(passage_embedding2id, dtype=np.int64))
     query_negative_passage: dict[int, list[int]] = {}
     mrr = 0.0
     num_queries = 0
@@ -112,40 +133,35 @@ def mine_negatives(query_embedding2id: np.ndarray,
     with span("ann_gen.mine_negatives"):
         for b in range(0, neighbor_ids.shape[0], MINE_BLOCK):
             with span("ann_gen.shuffle"):
-                mined = []  # (row, qid, order or None)
+                rows, qids = [], []
                 for qi in range(b, min(b + MINE_BLOCK,
                                        neighbor_ids.shape[0])):
                     qid = int(query_embedding2id[qi])
-                    if qid not in training_query_positive_id:
-                        continue
-                    order = None
-                    if not select_topk:
-                        order = list(range(width))
-                        rng.shuffle(order)
-                    mined.append((qi, qid, order))
+                    if qid in training_query_positive_id:
+                        rows.append(qi)
+                        qids.append(qid)
+                if select_topk:
+                    orders = None
+                elif native_shuffle:
+                    orders = mining_native.shuffle_orders(rng, len(rows),
+                                                          width)
+                else:
+                    orders = np.array([_shuffled(rng, width) for _ in rows],
+                                      np.int32).reshape(len(rows), width)
             with span("ann_gen.select"):
-                for qi, qid, order in mined:
-                    num_queries += 1
-                    pos_pid = training_query_positive_id[qid]
-                    row = neighbor_ids[qi]
-                    selected = row[:negative_sample + 1] if order is None \
-                        else row[order]
-                    negs: list[int] = []
-                    rank = 0
-                    for emb_idx in selected:
-                        neg_pid = int(passage_embedding2id[emb_idx])
-                        rank += 1
-                        if neg_pid == pos_pid:
-                            if rank <= 10:
-                                mrr += 1.0 / rank
-                            continue
-                        if neg_pid in negs:
-                            continue
-                        if len(negs) >= negative_sample:
-                            break
-                        negs.append(neg_pid)
-                    query_negative_passage[qid] = negs
+                num_queries += len(rows)
+                positives = [training_query_positive_id[q] for q in qids]
+                negs, mrr = mining_native.select(*ids, rows, positives,
+                                                 orders, negative_sample, mrr)
+                for qid, pids in zip(qids, negs):
+                    query_negative_passage[qid] = pids
     return query_negative_passage, (mrr / num_queries if num_queries else 0.0)
+
+
+def _shuffled(rng: random.Random, width: int) -> list[int]:
+    order = list(range(width))
+    rng.shuffle(order)
+    return order
 
 
 # --------------------------------------------------------------------------
