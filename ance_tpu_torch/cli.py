@@ -191,6 +191,16 @@ def _model_spec(model_type: str):
         raise SystemExit(str(e))
 
 
+def _training_spec(args):
+    """The model type's registry entry for a command that trains; exits
+    for one that does not train."""
+    spec = _model_spec(args.model_type)
+    if not spec.trainable:
+        raise SystemExit(f"--model_type {spec.name} encodes, searches and "
+                         f"mines only: training it is out of scope")
+    return spec
+
+
 def _body_method(model, spec):
     """The unbound method that encodes passages: MaxP's chunked encode, or
     the model's ``body_emb`` (the BiEncoder's context tower)."""
@@ -634,6 +644,7 @@ def cmd_warmup(args):
         raise SystemExit("--evaluate_during_training needs --data_dir (with "
                          "collection.tsv, queries.dev.small.tsv, top1000.dev "
                          "and qrels.dev.small.tsv)")
+    _training_spec(args)
     device, mesh = _distributed(args)
     spec, model, _, _ = _build_model(args, device, seed=args.seed,
                                      warn_random=False)
@@ -697,7 +708,7 @@ def cmd_train(args):
     from ance_tpu_torch.data.feed import expand_triples, sample_one_neg_triples
     from ance_tpu_torch.train.ance_loop import AnceCycleConfig, run_trainer_job
 
-    dpr = _model_spec(args.model_type).loss == "dpr_inbatch"
+    dpr = _training_spec(args).loss == "dpr_inbatch"
     if args.num_epoch > 0 and not dpr:
         raise SystemExit("--num_epoch is the DPR trainer's fixed-epoch mode; "
                          "use --model_type dpr")
@@ -935,6 +946,7 @@ def cmd_ance_loop(args):
         raise SystemExit("ance-loop --http is single-host only; on a "
                          "multi-host mesh run `serve` against exported "
                          "checkpoints/index instead")
+    _training_spec(args)
     device, mesh = _distributed(args)
     spec, model, _, _ = _build_model(args, device, seed=args.seed,
                                      warn_random=False)

@@ -2,7 +2,9 @@
 
 :class:`RobertaDot` serves both ``rdot_nll`` (FirstP) and
 ``rdot_nll_multi_chunk`` (MaxP, :meth:`RobertaDot.body_emb_multichunk`);
-:class:`BiEncoder` is DPR's two BERT towers (``dpr``).
+:class:`BiEncoder` is DPR's two BERT towers (``dpr``);
+:class:`DeepseekV2Dot` is ANCE's head over DeepSeek-V2's decoder, pooled at
+the last real token (``dsv2dot_nll``).
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ance_tpu_torch.models.deepseek_v2 import (DeepseekV2Config,
+                                               DeepseekV2Model)
 from ance_tpu_torch.models.transformer import (EncoderConfig,
                                                TransformerEncoder, pool)
 from ance_tpu_torch.utils.observability import span
@@ -115,3 +119,41 @@ class BiEncoder(nn.Module):
         ``BiEncoder.forward`` returns them (models.py:260-264)."""
         return (self.query_emb(query_ids, query_mask, generator),
                 self.body_emb(ctx_ids, ctx_mask, generator))
+
+
+class DeepseekV2Dot(nn.Module):
+    """Shared-tower dual encoder over DeepSeek-V2's decoder
+    (``models/deepseek_v2.py``): the final-normed hidden state at each
+    row's last real token (the EOS the tokenizer ends a record with; the
+    causal mask lets it see the whole record, as RepLLaMA and E5-Mistral
+    pool), then ``embeddingHead`` (Linear, hidden → out_dim) and ``norm``
+    (LayerNorm) in fp32, as :class:`RobertaDot`'s head. ``query_emb`` and
+    ``body_emb`` are the same tower. Keys: ``model.*`` (HF
+    ``DeepseekV2ForCausalLM``'s decoder, its experts stacked),
+    ``embeddingHead``, ``norm``. The pooling and the head are the span
+    ``encoder.head``."""
+
+    def __init__(self, config: DeepseekV2Config, out_dim: int = 768):
+        super().__init__()
+        self.config = config
+        self.model = DeepseekV2Model(config)
+        self.embeddingHead = nn.Linear(config.hidden_size, out_dim)
+        self.norm = nn.LayerNorm(out_dim, eps=1e-5)
+
+    def _embed(self, input_ids, attention_mask, generator=None):
+        hidden = self.model(input_ids, attention_mask)
+        with span("encoder.head"):
+            last = (attention_mask.sum(1) - 1).clamp_min(0)
+            pooled = hidden[torch.arange(len(last), device=last.device),
+                            last]
+            return self.norm(self.embeddingHead(
+                pooled.to(_head_dtype(pooled))))
+
+    def query_emb(self, input_ids, attention_mask, generator=None):
+        return self._embed(input_ids, attention_mask)
+
+    def body_emb(self, input_ids, attention_mask, generator=None):
+        return self._embed(input_ids, attention_mask)
+
+    def forward(self, input_ids, attention_mask, generator=None):
+        return self._embed(input_ids, attention_mask)

@@ -4,7 +4,9 @@
 RobertaDot, bodies encoded as 512-token chunks), ``dpr`` (BiEncoder,
 trained with the in-batch loss) and ``seeddot_nll`` (RobertaDot over the
 SEED encoder, CLS pooling, the ``seed-wordpiece`` tokenizer): every entry
-of the JAX registry.
+of the JAX registry. Beyond it, ``dsv2dot_nll``: DeepseekV2Dot, ANCE's head
+over DeepSeek-V2-Lite's MoE + MLA decoder pooled at the last real token,
+for encoding, search and mining; it does not train (``trainable``).
 
 ``seeddot_nll`` keeps ``seed_encoder_config``'s pad id 1, as the JAX
 registry does, while a ``vocab.txt`` that starts with ``[PAD]`` pads with
@@ -21,7 +23,9 @@ import torch
 
 from torch import nn
 
-from ance_tpu_torch.models.dot_models import BiEncoder, RobertaDot
+from ance_tpu_torch.models import deepseek_v2
+from ance_tpu_torch.models.dot_models import (BiEncoder, DeepseekV2Dot,
+                                              RobertaDot)
 from ance_tpu_torch.models.hf_export import (save_dpr_checkpoint,
                                              save_hf_checkpoint,
                                              save_seed_checkpoint)
@@ -62,6 +66,9 @@ class ModelSpec:
     # (out_dir, state dict, step, encoder overrides) → the path that
     # export-hf wrote, in the reference's checkpoint format for the family
     export: Callable[[str, dict, int, dict], str] = _export_hf
+    # False: encode, search and mine only (train, warmup and ance-loop
+    # refuse the model type)
+    trainable: bool = True
 
 
 def _rdot(dtype=torch.float32, attention_impl="auto", config_overrides=None,
@@ -95,6 +102,31 @@ def _seeddot(dtype=torch.float32, attention_impl="auto",
     return model.eval()
 
 
+def _dsv2dot(dtype=torch.float32, attention_impl="auto",
+            config_overrides=None, seed: int = 0) -> DeepseekV2Dot:
+    """``dsv2dot_nll``: DeepseekV2Dot at DeepSeek-V2-Lite's published
+    widths unless the overrides (``DeepseekV2Config`` fields) say
+    otherwise, seeded on the host as :func:`_rdot`."""
+    cfg = deepseek_v2.DeepseekV2Config(dtype=dtype,
+                                       attention_impl=attention_impl,
+                                       **(config_overrides or {}))
+    model = DeepseekV2Dot(cfg, out_dim=768)
+    deepseek_v2.init_weights(model, cfg, torch.Generator().manual_seed(seed))
+    return model.eval()
+
+
+def _dsv2_weights(sd: dict, model: nn.Module) -> dict:
+    """HF ``DeepseekV2ForCausalLM`` keys onto ``dsv2dot_nll``'s: the
+    per-expert matrices stacked, the LM head dropped."""
+    sd = {k: v for k, v in sd.items() if not k.startswith("lm_head.")}
+    return deepseek_v2.stack_experts(sd)
+
+
+def _no_export(out_dir, state_dict, step, config_overrides) -> str:
+    raise SystemExit("export-hf: dsv2dot_nll has no reference checkpoint "
+                     "format to export to")
+
+
 REGISTRY: dict[str, ModelSpec] = {
     # reference models.py:300-303
     "rdot_nll": ModelSpec(name="rdot_nll", build=_rdot,
@@ -114,6 +146,12 @@ REGISTRY: dict[str, ModelSpec] = {
                              tokenizer_name="seed-wordpiece",
                              adapt_weights=seeddot_warm_start,
                              export=_export_seed),
+    # DeepSeek-V2-Lite (arXiv:2405.04434) under ANCE's head; inference
+    # only, its tokenizer's files not in the repository
+    "dsv2dot_nll": ModelSpec(name="dsv2dot_nll", build=_dsv2dot,
+                             tokenizer_name="deepseek-ai/DeepSeek-V2-Lite",
+                             adapt_weights=_dsv2_weights, export=_no_export,
+                             trainable=False),
 }
 
 

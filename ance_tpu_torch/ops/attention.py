@@ -12,7 +12,15 @@ Counterpart of ``ance_tpu/ops/attention.py``. Implementations:
   * ``auto``     — on a CUDA tensor: the einsum path below S = 256 (bf16
                    softmax for bf16 inputs), ``fused`` for 256 ≤ S ≤ 1024,
                    ``flash`` above; on a CPU tensor always the einsum path,
-                   as the JAX package does off the TPU.
+                   as the JAX package does off the TPU. A causal call, or
+                   one whose head size is not ``KERNEL_HEAD_DIM``, takes
+                   the einsum path at any S.
+
+A decoder's attention (``models/deepseek_v2.py``'s MLA) passes
+``causal=True`` (a key is seen only by queries at or after it, on top of
+the key mask), its own softmax ``scale``, and v with another head size
+than q and k. Only the einsum path takes these; with ``causal=False`` and
+no ``scale`` every call computes what it computed before they existed.
 
 Training-time attention dropout (``dropout_rate`` > 0, inverted dropout on
 the softmax weights, drawn from a ``torch.Generator``) exists on the einsum
@@ -61,22 +69,37 @@ def mask_to_bias(attention_mask: torch.Tensor,
     return bias[:, None, None, :].to(dtype)
 
 
+def causal_bias(S: int, device) -> torch.Tensor:
+    """[S, S] fp32 additive bias: 0 where key ≤ query, NEG_INF above."""
+    keys = torch.arange(S, device=device)
+    return torch.where(keys[None, :] > keys[:, None],
+                       torch.tensor(NEG_INF, device=device),
+                       torch.tensor(0.0, device=device))
+
+
 def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: Optional[torch.Tensor] = None,
                   softmax_dtype: torch.dtype = torch.float32,
                   dropout_rate: float = 0.0,
-                  generator: Optional[torch.Generator] = None
-                  ) -> torch.Tensor:
+                  generator: Optional[torch.Generator] = None,
+                  causal: bool = False,
+                  scale: Optional[float] = None) -> torch.Tensor:
     """Scaled dot-product attention with the softmax in ``softmax_dtype``;
     probabilities are cast to the input dtype before the PV product.
     ``dropout_rate`` > 0 drops probability entries (kept ones scaled by
-    1/(1 − rate)) with uniforms from ``generator``. Returns [B, S, H, D]."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    1/(1 − rate)) with uniforms from ``generator``. ``causal`` adds
+    :func:`causal_bias`; ``scale`` replaces 1/√D. v may have another head
+    size than q and k. Returns [B, S, H, Dv]."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     # bf16 × bf16 products are exact in fp32, so upcasting the operands is
     # the bf16-in / fp32-accumulate product of the JAX einsum
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(softmax_dtype),
                           k.to(softmax_dtype))
     logits = logits * torch.tensor(scale, dtype=softmax_dtype)
+    if causal:  # one [B, 1, S, S] bias, added to the logits once
+        c = causal_bias(q.shape[1], q.device)
+        bias = c if bias is None else bias + c
     if bias is not None:
         logits = logits + bias.to(softmax_dtype)
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
@@ -148,19 +171,27 @@ def kernel_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          attention_mask: Optional[torch.Tensor] = None,
                          *, impl: str = "xla", dropout_rate: float = 0.0,
-                         generator: Optional[torch.Generator] = None
+                         generator: Optional[torch.Generator] = None,
+                         causal: bool = False, scale: Optional[float] = None
                          ) -> torch.Tensor:
     """Dispatch over the implementations in the module docstring; the
-    call is the span ``encoder.attention``."""
+    call is the span ``encoder.attention``. ``causal``, ``scale`` and a v
+    head size unlike q's exist on the einsum path only: ``auto`` sends
+    such a call there, and ``fused`` or ``flash`` refuses it."""
     with span("encoder.attention"):
         if dropout_rate > 0.0 and impl in ("fused", "flash", "auto"):
             impl = "xla_bf16" if q.dtype == torch.bfloat16 else "xla"
+        einsum_only = causal or scale is not None \
+            or q.shape[-1] != KERNEL_HEAD_DIM or v.shape[-1] != q.shape[-1]
         if impl == "auto":
             S = q.shape[1]
-            if q.device.type != "cuda" or S < FUSED_MIN_SEQ:
+            if q.device.type != "cuda" or S < FUSED_MIN_SEQ or einsum_only:
                 impl = "xla_bf16" if q.dtype == torch.bfloat16 else "xla"
             else:
                 impl = "fused" if S <= FUSED_MAX_SEQ else "flash"
+        if impl in ("fused", "flash") and (causal or scale is not None):
+            raise ValueError(f"attention impl {impl!r} has no causal mask "
+                             f"or softmax scale; use the einsum path")
         if impl == "fused":
             from ance_tpu_torch.ops.fused_attention import fused_attention
             return fused_attention(q, k, v, attention_mask)
@@ -173,4 +204,5 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         softmax_dtype = torch.bfloat16 if impl == "xla_bf16" \
             else torch.promote_types(q.dtype, torch.float32)
         return xla_attention(q, k, v, bias, softmax_dtype=softmax_dtype,
-                             dropout_rate=dropout_rate, generator=generator)
+                             dropout_rate=dropout_rate, generator=generator,
+                             causal=causal, scale=scale)

@@ -283,7 +283,7 @@ DOC_BATCH = 32  # documents per MaxP encode batch: 128 chunk rows
 N_CHECK_DOCS = 8  # documents re-encoded on the plain / fp32 paths
 REPEATS = 5  # timed requests per (batch, k) after one warm-up each
 KERNELS = ("blockmax", "fused_attention", "flash_attention",
-           "attn128")
+           "attn128", "grouped_gemm")
 # fp32 sums of 768 products (|score| up to ~150, ulp ~1.5e-5) taken in
 # another order than cuBLAS's: the drift stays well under 2e-3
 FLOAT_ATOL = 2e-3
@@ -388,6 +388,7 @@ WGMMA_KERNELS = {
                         "fused_bwd_keys_pieces"),
     "flash_attention": ("flash_fwd_bf16", "flash_fwd_pieces"),
     "attn128": ("attn128_kernel", "qkv_attend_kernel", "out_proj_kernel"),
+    "grouped_gemm": ("grouped_swiglu_kernel", "grouped_down_kernel"),
     "blockmax": ("blockmax_bf16", "blockmax_pieces_f32",
                  "blockmax_pieces_int8", "blockmax_int8",
                  "blockmax_bf16_int8"),
@@ -2853,6 +2854,227 @@ def phase_seq128():
     del q, k, v, x
     torch.cuda.empty_cache()
     return cases
+
+
+# phase_moe: the corpus encode cell dsv2lite-encode's MoE shapes
+# (DeepSeek-V2-Lite: 64 routed experts of width 1,408, 6 a token, hidden
+# 2,048; a batch of 256 passages x 128 token slots, lengths drawn as the
+# cell's traffic draws them: log-normal, median 72, sigma 0.35, 8 to 128)
+MOE_E, MOE_K, MOE_H, MOE_I = 64, 6, 2048, 1408
+MOE_BATCH, MOE_SEQ = 256, 128
+MOE_MODEL_LAYERS = 3  # the dense layer 0 and two MoE layers
+MOE_WEIGHT_STD = 0.02  # the configuration's initializer_range
+# |kernel - plain| <= MOE_TOL * (|plain| + rms(plain)) elementwise: both
+# round once to bf16 from fp32 sums taken in other orders, so they differ
+# by at most a bf16 ulp (2^-8 to 2^-7 of |plain|); the rms term (0.8% of a
+# typical value) covers sums that cancel
+MOE_TOL = 2.0 ** -7
+
+
+def _moe_lengths(g, B: int, S: int):
+    """[B] token lengths as the cell's traffic draws them."""
+    import torch
+    n = torch.randn(B, generator=g, device="cuda")
+    return (72 * torch.exp(0.35 * n)).round().clamp(8, S).long()
+
+
+def _moe_excess(got, want) -> tuple[int, float, float]:
+    """(elements beyond MOE_TOL, max |got - want|, ‖got − want‖ / ‖want‖)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    rms = want.square().mean().sqrt()
+    n_bad = int((diff > MOE_TOL * (want.abs() + rms)).sum())
+    return n_bad, diff.max().item(), (diff.norm() / want.norm()).item()
+
+
+def phase_moe():
+    """Kernel #7 (``csrc/grouped_gemm.cu``: ``grouped_swiglu``,
+    ``grouped_down``) and the Triton ``combine`` at dsv2lite-encode's MoE
+    shapes (``MOE_*``), bf16: each held elementwise to MOE_TOL against its
+    plain per-expert version (``ops/grouped_gemm.py``'s ``*_reference``)
+    on the same card inputs, the routing a random router's top-6 over the
+    batch's real tokens (pad tokens unrouted); each timed in turns with its
+    yardsticks (``torch._grouped_mm`` over the gathered rows where the
+    installed torch has it, the products only; a per-expert cuBLAS loop in
+    bf16 with the offsets on the host) and the plain version apart, beside
+    its bound. Then the launches on the model's path: DeepseekV2Dot at the
+    configuration's widths, MOE_MODEL_LAYERS layers, one bf16 batch of the
+    cell's shape, each launch count set to 0 just before it: two grouped
+    products and one combine a MoE layer."""
+    import torch
+    import torch.nn.functional as F
+    from ance_tpu_torch.ops import grouped_gemm as gg
+    from ance_tpu_torch.ops import moe
+    from ance_tpu_torch.utils.timing import (clocks_text, cuda_ms,
+                                             timed_in_turns)
+
+    bf16, dev = torch.bfloat16, torch.device("cuda")
+    E, k, H, I = MOE_E, MOE_K, MOE_H, MOE_I
+    B, S = MOE_BATCH, MOE_SEQ
+    T = B * S
+    g = torch.Generator(device="cuda").manual_seed(28)
+    lengths = _moe_lengths(g, B, S)
+    real = (torch.arange(S, device=dev)[None, :] < lengths[:, None]) \
+        .reshape(-1)
+    x = torch.randn(T, H, generator=g, device=dev).to(bf16)
+    router = torch.randn(E, H, generator=g, device=dev) * MOE_WEIGHT_STD
+    wg, wu = ((torch.randn(E, I, H, generator=g, device=dev)
+               * MOE_WEIGHT_STD).to(bf16) for _ in range(2))
+    wd = (torch.randn(E, H, I, generator=g, device=dev)
+          * MOE_WEIGHT_STD).to(bf16)
+    base = torch.randn(T, H, generator=g, device=dev)
+    shared = torch.randn(T, H, generator=g, device=dev).to(bf16)
+    weights, experts = moe.route(x, router, k)
+    pairs = moe.sort_pairs(experts, weights, real, E)
+    off = pairs.pair_off.tolist()
+    P = off[-1]  # the real pairs
+    counts = pairs.counts.tolist()
+    print(f"moe: T={T} tokens, {int(real.sum())} real, {P} real pairs, "
+          f"experts' rows {min(counts)}-{max(counts)}, "
+          f"{int(pairs.tile_off[-1])} row tiles of {pairs.slots} slots",
+          flush=True)
+
+    swiglu = lambda: gg.grouped_swiglu(  # noqa: E731
+        x, pairs.rows, wg, wu, pairs.pair_off, pairs.tile_off, pairs.slots)
+    h = swiglu()
+    down = lambda: gg.grouped_down(  # noqa: E731
+        h, wd, pairs.gate, pairs.pair_off, pairs.tile_off, pairs.slots)
+    y = down()
+    comb = lambda: gg.combine(base, shared, y, pairs.pos, real)  # noqa: E731
+    plain = {
+        "grouped_swiglu": lambda: gg.swiglu_reference(
+            x, pairs.rows, wg, wu, pairs.pair_off),
+        "grouped_down": lambda: gg.down_reference(h, wd, pairs.gate,
+                                                  pairs.pair_off),
+        "combine": lambda: gg.combine_reference(base, shared, y, pairs.pos,
+                                                real)}
+    kernels = {"grouped_swiglu": swiglu, "grouped_down": down,
+               "combine": comb}
+    # the yardsticks: the same products by a library and by a loop
+    xs = x.index_select(0, pairs.rows[:P].long())
+    ends = pairs.pair_off[1:].contiguous()
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    library = {}
+    if grouped_mm is not None:
+        library = {
+            "grouped_swiglu": lambda: (
+                grouped_mm(xs, wg.transpose(1, 2), offs=ends),
+                grouped_mm(xs, wu.transpose(1, 2), offs=ends)),
+            "grouped_down": lambda: grouped_mm(h[:P], wd.transpose(1, 2),
+                                               offs=ends)}
+
+    def loop_swiglu():
+        for e in range(E):
+            if off[e] < off[e + 1]:
+                xe = xs[off[e]:off[e + 1]]
+                F.silu(F.linear(xe, wg[e])) * F.linear(xe, wu[e])
+
+    def loop_down():
+        for e in range(E):
+            if off[e] < off[e + 1]:
+                F.linear(h[off[e]:off[e + 1]], wd[e])
+    loops = {"grouped_swiglu": loop_swiglu, "grouped_down": loop_down}
+    weight_bytes = E * I * H * 2
+    work = {  # (bytes, operations) at the bound
+        "grouped_swiglu": (2 * weight_bytes + P * H * 2 + P * I * 2,
+                           4.0 * P * H * I),
+        "grouped_down": (weight_bytes + P * I * 2 + P * H * 2,
+                         2.0 * P * H * I),
+        "combine": (T * H * (4 + 2 + 4) + P * H * 2, 0.0)}
+    cases = {}
+    for name, kernel in kernels.items():
+        got = kernel()
+        want = plain[name]()
+        torch.cuda.synchronize()
+        rows = slice(0, T) if name == "combine" else slice(0, P)
+        check(bool(torch.isfinite(got[rows]).all()), f"{name}: not finite")
+        n_bad, err, rel = _moe_excess(got[rows], want[rows])
+        check(n_bad == 0, f"{name}: {n_bad} elements beyond {MOE_TOL} x "
+              f"(|plain| + rms) (max |err| {err:.3g}, rel {rel:.3g})")
+        del got, want
+        fns = {"ms": kernel}
+        if name in library:
+            try:
+                library[name]()
+                fns["library_ms"] = library[name]
+            except RuntimeError as exc:  # a torch without the sm90 path
+                print(f"{name}: torch._grouped_mm refused ({exc})",
+                      flush=True)
+        if name in loops:
+            fns["loop_ms"] = loops[name]
+        times, sampled = timed_in_turns(fns)
+        plain_ms = cuda_ms(plain[name], reps=3)
+        b_ms, b_by = bound(*work[name], "bf16")
+        cases[name] = {"T": T, "P": P, "E": E, "k": k, "H": H, "I": I,
+                       "max_abs_err": err, "rel_err": rel,
+                       "tolerance": MOE_TOL, "ms": times["ms"],
+                       "plain_ms": plain_ms,
+                       "library_ms": times.get("library_ms"),
+                       "loop_ms": times.get("loop_ms"),
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "clocks": sampled}
+        yard = "".join(f"  {key.removesuffix('_ms')} {times[key]:.3f} ms"
+                       for key in ("library_ms", "loop_ms") if key in times)
+        print(f"{name} bf16 T={T} P={P} E={E} H={H} I={I}: max|err| "
+              f"{err:.3g} rel {rel:.3g}  kernel {times['ms']:.3f} ms"
+              f"{yard}  plain {plain_ms:.3f} ms  bound {b_ms:.3f} ms "
+              f"({b_by})  {clocks_text(sampled)}", flush=True)
+    del xs, h, y, wg, wu, wd, base, shared
+    torch.cuda.empty_cache()
+    cases["model_path"] = _moe_model_launches(lengths)
+    return cases
+
+
+def _moe_model_launches(lengths) -> dict:
+    """Kernel #7's and the combine's launches in one bf16 forward of
+    DeepseekV2Dot at the configuration's widths (MOE_MODEL_LAYERS layers,
+    weights N(0, MOE_WEIGHT_STD) made on the card) over a batch of
+    ``lengths`` [B], each count set to 0 just before it."""
+    import torch
+    from ance_tpu_torch.models.deepseek_v2 import DeepseekV2Config
+    from ance_tpu_torch.models.dot_models import DeepseekV2Dot
+    from ance_tpu_torch.ops import grouped_gemm as gg
+
+    cfg = DeepseekV2Config(num_hidden_layers=MOE_MODEL_LAYERS,
+                           dtype=torch.bfloat16)
+    with torch.device("meta"):
+        model = DeepseekV2Dot(cfg, out_dim=DIM)
+    g = torch.Generator(device="cuda").manual_seed(29)
+    state = {}
+    for name, p in model.state_dict().items():
+        if p.dim() >= 2:
+            state[name] = torch.randn(p.shape, generator=g, device="cuda") \
+                * MOE_WEIGHT_STD
+        elif name.endswith("bias"):
+            state[name] = torch.zeros(p.shape, device="cuda")
+        else:
+            state[name] = torch.ones(p.shape, device="cuda")
+    model.load_state_dict(state, strict=True, assign=True)
+    model.eval()
+    B, S = lengths.numel(), MOE_SEQ
+    mask = (torch.arange(S, device="cuda")[None, :] < lengths[:, None]).long()
+    ids = torch.randint(0, 100000, (B, S), generator=g, device="cuda") * mask
+    moe_layers = MOE_MODEL_LAYERS - cfg.first_k_dense_replace
+    with torch.inference_mode():
+        model.body_emb(ids, mask)  # warm-up: the builds
+        torch.cuda.synchronize()
+        for fn in (gg.grouped_swiglu, gg.grouped_down, gg.combine):
+            fn.launches = 0
+        emb = model.body_emb(ids, mask)
+        torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in (
+        gg.grouped_swiglu, gg.grouped_down, gg.combine)}
+    check(bool(torch.isfinite(emb).all()), "DeepseekV2Dot: not finite")
+    check(launches == dict.fromkeys(launches, moe_layers),
+          f"DeepseekV2Dot: launches {launches}, want {moe_layers} each "
+          f"({moe_layers} MoE layers)")
+    print(f"moe model path: {MOE_MODEL_LAYERS} layers ({moe_layers} MoE) at "
+          f"hidden {cfg.hidden_size}, B={B} S={S}: launches {launches}",
+          flush=True)
+    del model, state
+    torch.cuda.empty_cache()
+    return {"layers": MOE_MODEL_LAYERS, "moe_layers": moe_layers, "B": B,
+            "S": S, "launches": launches}
 
 
 def phase_mirror():
@@ -7205,6 +7427,7 @@ def main() -> int:
     attn_cases, crossover = timed(phase_attention)
     bwd_cases, functions = timed(phase_attention_backward)
     seq128 = timed(phase_seq128)
+    moe = timed(phase_moe)
     mirror = timed(phase_mirror)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -7499,13 +7722,31 @@ def main() -> int:
         "backward"]
     fused_bwd["dpr_path_operands"] = dpr["train_path"]["backward"]
     fused_bwd["seed_path_operands"] = seed["pretrain_path"]["backward"]
+
+    def moe_entry(kernel):
+        """Kernel #7's products and the Triton combine at dsv2lite-encode's
+        shapes, with their launches on the model's path (phase_moe)."""
+        head = moe[kernel]
+        e = entry(kernel, "grouped_gemm", "none (the JAX package has no "
+                  "mixture of experts)",
+                  moe["model_path"]["launches"][kernel], head,
+                  f"bf16 T={head['T']} P={head['P']} E={head['E']} "
+                  f"k={head['k']} H={head['H']} I={head['I']}",
+                  "grouped_gemm", [head])
+        e["loop_ms"] = head["loop_ms"]
+        if kernel == "combine":  # built by Triton at its first launch
+            e.update(route="triton", build_s=None,
+                     source="ance_tpu_torch/ops/grouped_gemm.py")
+        return e
     print(json.dumps({"kernels": [
         blockmax, *fp32_entries, *int8_entries, fused_fwd,
         attention_entry("flash_attention", "ance_tpu/ops/flash_attention.py:34",
                         8, 2048, maxp["flash_launches"]),
         fused_bwd, *fp32_attention,
         seq128_entry("fused128", "docs/perf_attn128_r3.py:44", "fused128"),
-        seq128_entry("fused_block", "docs/perf_attn128_r3.py:88", "block")],
+        seq128_entry("fused_block", "docs/perf_attn128_r3.py:88", "block"),
+        *(moe_entry(k) for k in ("grouped_swiglu", "grouped_down",
+                                 "combine"))],
         "fused_function": functions, "machine_code": machine_code,
         "index_search": searches, "ties": ties,
         "crossover": crossover, "serve": serve, "maxp": maxp,

@@ -99,7 +99,7 @@ def test_package_data_ships_every_source_the_build_reads():
     package = root / "ance_tpu_torch"
     kernels = sorted(p.stem for p in (package / "csrc").glob("*.cu"))
     assert kernels == ["attn128", "blockmax", "flash_attention",
-                       "fused_attention"]
+                       "fused_attention", "grouped_gemm"]
     followed = {p for name in kernels for p in _build.sources(name)}
     assert {p.suffix for p in followed} == {".cu", ".cuh"}
     for path in followed:

@@ -154,13 +154,15 @@ def test_seed_mlm_forward_and_bottleneck(mlm):
 
 def test_registry_covers_reference_model_zoo():
     """The port's registry holds every JAX entry, each with the JAX
-    tokenizer, and each builds."""
+    tokenizer, and each builds; beyond them only the port's own
+    ``dsv2dot_nll``."""
     from ance_tpu.models.registry import REGISTRY as JAX_REGISTRY
     from ance_tpu_torch.models.registry import REGISTRY, get_model_spec
-    assert set(REGISTRY) == set(JAX_REGISTRY)
-    for name, spec in REGISTRY.items():
-        assert spec.tokenizer_name == JAX_REGISTRY[name].tokenizer_name
-        assert spec.multichunk == JAX_REGISTRY[name].multichunk
+    assert set(REGISTRY) - set(JAX_REGISTRY) == {"dsv2dot_nll"}
+    assert set(JAX_REGISTRY) <= set(REGISTRY)
+    for name, jax_spec in JAX_REGISTRY.items():
+        assert REGISTRY[name].tokenizer_name == jax_spec.tokenizer_name
+        assert REGISTRY[name].multichunk == jax_spec.multichunk
     model = get_model_spec("seeddot_nll").build(config_overrides=GEOM)
     cfg = model.config
     assert (cfg.pad_token_id, cfg.use_type_embeddings, cfg.embed_zero_pad,
